@@ -1,0 +1,6 @@
+from rsoderh_raytracing_tpu_torch.env.environment import (  # noqa: F401
+    DeviceEnvironment,
+    Environment,
+    device_environment,
+    device_environment_from_arrays,
+)

@@ -1,0 +1,135 @@
+"""Environment map: host HDRI + alias table, and its device tensors.
+
+Port of rsoderh_raytracing_tpu/env/environment.py, RGBE ``quad`` layout
+only (the layout the wavefront main path reads).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from rsoderh_raytracing_tpu_torch.env import hdr_io
+from rsoderh_raytracing_tpu_torch.env.alias_table import (
+    AliasTable,
+    build_alias_table,
+    build_weights_by_luminance,
+)
+
+
+@dataclasses.dataclass
+class Environment:
+    """One HDRI + its importance-sampling table (host side). The texture
+    is RGBE-quantized at construction, as in the reference."""
+
+    name: str
+    texture: np.ndarray  # (H, W, 3) float32, lat-long (RGBE-quantized)
+    alias: AliasTable
+    weight_sum: float = 0.0  # f32(sum of luminance*sin(theta) weights)
+
+    @property
+    def width(self) -> int:
+        return self.texture.shape[1]
+
+    @property
+    def height(self) -> int:
+        return self.texture.shape[0]
+
+    @staticmethod
+    def from_texture(name: str, texture: np.ndarray) -> "Environment":
+        texture = hdr_io.rgbe_quantize(np.asarray(texture, np.float32))
+        weights = build_weights_by_luminance(texture)
+        return Environment(
+            name=name,
+            texture=texture,
+            alias=build_alias_table(weights),
+            weight_sum=float(np.float32(weights.sum(dtype=np.float64))),
+        )
+
+
+@dataclasses.dataclass
+class DeviceEnvironment:
+    """The active environment on the device.
+
+    - ``quad``: (H*W, 4) int32 holding u32 RGBE words of the neighbour
+      texels [c00 c10 c01 c11]: one 16-byte row serves a bilinear fetch
+      and the in-register pmf of its texel.
+    - ``alias_pair``: (H*W, 4) float32 [probability, alias_index_bits,
+      pmf_self, pmf_alias]. Column 1 holds int32 BITS; ``alias_index`` is
+      that column read back with ``.view(torch.int32)`` (a value cast
+      would round indices above 2^24).
+    - ``pmf_norm``: (2,) float32 [table length, weight sum].
+    """
+
+    texture_shape: tuple  # (H, W)
+    quad: torch.Tensor
+    alias_pair: torch.Tensor
+    pmf_norm: torch.Tensor
+    alias_index: torch.Tensor = dataclasses.field(init=False)
+
+    def __post_init__(self):
+        self.alias_index = self.alias_pair[:, 1].contiguous().view(torch.int32)
+
+    @property
+    def device(self) -> torch.device:
+        return self.quad.device
+
+
+def _quad_words(tex: np.ndarray) -> np.ndarray:
+    height, width = tex.shape[:2]
+    xp = np.minimum(np.arange(width) + 1, width - 1)
+    yp = np.minimum(np.arange(height) + 1, height - 1)
+    rgbe = hdr_io.float_to_rgbe(tex).astype(np.uint32)
+    word = rgbe[..., 0] | (rgbe[..., 1] << 8) | (rgbe[..., 2] << 16) | (rgbe[..., 3] << 24)
+    return np.stack(
+        [word, word[:, xp], word[yp], word[yp][:, xp]], axis=-1
+    ).reshape(height * width, 4)
+
+
+def device_environment(env: Environment, device="cpu") -> DeviceEnvironment:
+    """Upload an environment (RGBE quad layout)."""
+    tex = np.asarray(env.texture, np.float32)
+    height, width = tex.shape[:2]
+    alias_pair = np.stack(
+        [
+            env.alias.probability,
+            env.alias.alias_index.astype(np.int32).view(np.float32),
+            env.alias.pmf,
+            env.alias.pmf[env.alias.alias_index],
+        ],
+        axis=-1,
+    ).astype(np.float32)
+    weight_sum = env.weight_sum
+    if weight_sum <= 0.0:
+        weight_sum = float(
+            np.float32(build_weights_by_luminance(tex).sum(dtype=np.float64))
+        )
+    return device_environment_from_arrays(
+        (height, width),
+        _quad_words(tex),
+        alias_pair,
+        np.array([height * width, weight_sum], np.float32),
+        device,
+    )
+
+
+def device_environment_from_arrays(
+    texture_shape, quad, alias_pair, pmf_norm, device="cpu"
+) -> DeviceEnvironment:
+    """Build the port's environment from numpy arrays, for example the
+    fields of the JAX package's DeviceEnvironment. ``quad`` is (L, 4)
+    uint32 (or its int32 bits); ``alias_pair`` (L, 4) float32 with int32
+    bits in column 1."""
+    quad = np.ascontiguousarray(quad).view(np.int32)
+    return DeviceEnvironment(
+        texture_shape=(int(texture_shape[0]), int(texture_shape[1])),
+        quad=torch.from_numpy(quad.copy()).to(device),
+        alias_pair=torch.from_numpy(
+            np.ascontiguousarray(alias_pair, np.float32).copy()
+        ).to(device),
+        pmf_norm=torch.from_numpy(
+            np.asarray(pmf_norm, np.float32).copy()
+        ).to(device),
+    )

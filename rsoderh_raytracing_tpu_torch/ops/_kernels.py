@@ -1,0 +1,130 @@
+"""Build and bind the CUDA kernels in ``csrc/``.
+
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` into one shared
+library with a plain C interface, written under ``build/kernels/`` at
+the root of the checkout (named by a hash of the sources, so an edit
+rebuilds). It is loaded with ctypes; every pointer and the stream are
+``c_void_p``. Each C launcher returns ``cudaGetLastError()`` and the
+wrappers raise when it is not 0.
+
+Flags: ``-gencode arch=compute_90a,code=sm_90a -O3 -fmad=false``, no
+``--use_fast_math``: division, sqrt and the transcendentals stay IEEE /
+libdevice-accurate, and no multiply-add is contracted, so the kernels
+round like their unfused plain PyTorch twins. Measured on an H100 (700 W)
+at 4.2M lanes: with contraction TRACE takes 1.63 ms instead of 1.81, but
+its bounce sample then leaves the plain version's rtol 1e-4 on 0.56% of
+the lanes (near-specular GGX amplifies the rounding), so the flag stays
+(``python -m rsoderh_raytracing_tpu_torch.profiling`` repeats the test).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build", "kernels")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_lock = threading.Lock()
+_lib = None
+BUILD_INFO: dict = {}
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")) + glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def build(flags=NVCC_FLAGS) -> str:
+    """Compile the kernels with ``flags`` if needed; returns the library
+    path. Fills BUILD_INFO with the seconds taken and the ptxas report."""
+    digest = hashlib.sha256()
+    for src in _sources():
+        with open(src, "rb") as f:
+            digest.update(os.path.basename(src).encode() + f.read())
+    digest.update(" ".join(flags).encode())
+    lib_path = os.path.join(BUILD_DIR, f"libwavefront_{digest.hexdigest()[:16]}.so")
+    if os.path.exists(lib_path):
+        BUILD_INFO.update(seconds=0.0, cached=True, path=lib_path)
+        return lib_path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    cu = [s for s in _sources() if s.endswith(".cu")]
+    tmp = lib_path + f".tmp{os.getpid()}"
+    start = time.perf_counter()
+    proc = subprocess.run(
+        [_nvcc(), *flags, "-o", tmp, *cu],
+        capture_output=True, text=True,
+    )
+    seconds = time.perf_counter() - start
+    with open(os.path.join(BUILD_DIR, "nvcc.log"), "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    os.replace(tmp, lib_path)
+    BUILD_INFO.update(
+        seconds=seconds, cached=False, path=lib_path,
+        ptxas=[ln for ln in proc.stderr.splitlines() if "registers" in ln or "spill" in ln],
+    )
+    return lib_path
+
+
+def load(flags=NVCC_FLAGS):
+    """Build (if needed) and bind a library compiled with ``flags``."""
+    lib = ctypes.CDLL(build(flags))
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    u = ctypes.c_uint32
+    lib.rt_trace_launch.restype = i
+    lib.rt_trace_launch.argtypes = [vp, vp, i, i, i, i, i, i, i, i, vp]
+    lib.rt_shade_launch.restype = i
+    lib.rt_shade_launch.argtypes = [
+        vp, i, i, i, i, i, i, u, u, u, u, u, vp,
+    ]
+    lib.rt_error_string.restype = ctypes.c_char_p
+    lib.rt_error_string.argtypes = [i]
+    return lib
+
+
+def library():
+    """The loaded kernel library (built at first use)."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    with _lock:
+        if _lib is None:
+            _lib = load()
+    return _lib
+
+
+@contextlib.contextmanager
+def using(lib):
+    """Route the wrappers through another loaded library (from ``load``
+    with other flags) inside the block; for measurements."""
+    global _lib
+    saved = library()
+    _lib = lib
+    try:
+        yield
+    finally:
+        _lib = saved
+
+
+def error_string(code: int) -> str:
+    return f"{code} ({library().rt_error_string(code).decode()})"

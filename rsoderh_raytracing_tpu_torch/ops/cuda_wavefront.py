@@ -1,0 +1,441 @@
+"""TRACE and SHADE: the two kernels of one wavefront iteration.
+
+Counterpart of rsoderh_raytracing_tpu/ops/pallas_wavefront.py. One
+iteration of the main path is
+
+  [glue, plain PyTorch: alias draw, NEE uv/direction, miss uv]
+  [TRACE kernel: closest sweep + winner attributes + materials + shadow
+        sweep + NEE BSDF eval/pdf + bounce sample + quad-row index]
+  [glue: ONE quad-row gather]
+  [SHADE kernel: RGBE bilinear + pmf + MIS + film + termination +
+        regeneration]
+
+``trace_call`` and ``shade_call`` keep the Pallas twins' inputs and
+outputs (the 26 TRACE_OUT_NAMES and 22 SHADE_OUT_NAMES), as flat (n,)
+tensors per component. u32 values (RNG state, sample counts, pixel ids)
+travel as int32 bit patterns. For CPU tensors the wrappers run the plain
+versions ``trace_plain`` / ``shade_plain``; for CUDA tensors they launch
+the kernels in ``csrc/wavefront.cu`` or raise. ``LAUNCHES`` counts the
+kernel launches of each wrapper.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from rsoderh_raytracing_tpu_torch.ops import bsdf, envmap, intersect, rng
+from rsoderh_raytracing_tpu_torch.render.integrator import THROUGHPUT_CUTOFF
+from rsoderh_raytracing_tpu_torch.scene.device import MAX_UNROLL_PRIMS
+
+TRACE_OUT_NAMES = (
+    "hit", "occ", "px", "py", "pz", "er", "eg", "eb",
+    "ct", "ns0", "ns1", "ns2", "npdf",
+    "bd0", "bd1", "bd2", "bpdf", "bs0", "bs1", "bs2", "bz", "cb",
+    "state", "qidx", "fu", "fv",
+)
+TRACE_INT_NAMES = ("hit", "occ", "bz", "state", "qidx")
+
+SHADE_OUT_NAMES = (
+    "state", "ro0", "ro1", "ro2", "rd0", "rd1", "rd2",
+    "tp0", "tp1", "tp2", "inc0", "inc1", "inc2",
+    "last_pdf", "bounce", "sample", "in_path",
+    "film0", "film1", "film2", "active", "hitmask",
+)
+SHADE_INT_NAMES = ("state", "bounce", "sample", "in_path", "active", "hitmask")
+CARRY_NAMES = SHADE_OUT_NAMES[:-2]
+
+# Kernel launches of each wrapper (CUDA tensors only).
+LAUNCHES = {"trace": 0, "shade": 0}
+
+# Row widths of the packed scene table (csrc/wavefront_common.cuh).
+SPH_COLS, PLN_COLS, TRI_COLS, MAT_COLS = 8, 16, 36, 8
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# -- plain versions -------------------------------------------------------------
+
+
+def trace_epilogue(rd, nee_dir, normal, color, rough, metal, state):
+    """Material parameters, the NEE BSDF eval/pdf and the bounce sample
+    (pallas_wavefront.trace_epilogue). ``state`` is int64. Returns
+    (cos_theta, nee_scatter, nee_pdf_b, state, bdir, bscat, bpdf, bzero,
+    cos_bounce)."""
+    alpha = torch.clamp_min(rough * rough, 0.001)
+    msat = bsdf.saturate(metal)
+    f0 = tuple(
+        bsdf.DIELECTRIC_F0 + (color[i] - bsdf.DIELECTRIC_F0) * msat
+        for i in range(3)
+    )
+    cos_theta = torch.clamp_min(bsdf.vdot(normal, nee_dir), 0.0)
+    frame = bsdf.make_frame(normal)
+    wo = bsdf.to_local(frame, (-rd[0], -rd[1], -rd[2]))
+    wi = bsdf.to_local(frame, nee_dir)
+    nee_scatter = bsdf.bsdf_eval(wo, wi, color, metal, alpha, f0)
+    nee_pdf_b = bsdf.bsdf_pdf(wo, wi, f0, alpha)
+    state, bdir, bscat, bpdf, bzero = bsdf.bsdf_sample(
+        state, rd, normal, color, metal, alpha, f0
+    )
+    cos_bounce = torch.clamp_min(bsdf.vdot(normal, bdir), 0.0)
+    return (
+        cos_theta, nee_scatter, nee_pdf_b, state, bdir, bscat, bpdf,
+        bzero, cos_bounce,
+    )
+
+
+def trace_plain(scene, env_w, env_h, ro, rd, nee_dir, nee_uv, miss_uv, state):
+    """Plain PyTorch TRACE. ro/rd/nee_dir: 3-tuples of (n,) f32;
+    nee_uv/miss_uv: 2-tuples; state: (n,) int32 u32 bits. Returns the 26
+    outputs by name."""
+    a = intersect.trace_attrs(scene, *ro, *rd, *nee_dir)
+    did_hit = a["did_hit"]
+    (
+        cos_theta, nee_scatter, nee_pdf_b, st, bdir, bscat, bpdf, bzero,
+        cos_bounce,
+    ) = trace_epilogue(
+        rd, nee_dir, (a["nx"], a["ny"], a["nz"]), (a["cr"], a["cg"], a["cb"]),
+        a["rough"], a["metal"], rng.from_bits(state),
+    )
+    fu = torch.where(did_hit, nee_uv[0], miss_uv[0])
+    fv = torch.where(did_hit, nee_uv[1], miss_uv[1])
+    out = dict(
+        hit=did_hit.to(torch.int32), occ=a["occ"].to(torch.int32),
+        px=a["px"], py=a["py"], pz=a["pz"],
+        er=a["er"], eg=a["eg"], eb=a["eb"],
+        ct=cos_theta, ns0=nee_scatter[0], ns1=nee_scatter[1],
+        ns2=nee_scatter[2], npdf=nee_pdf_b,
+        bd0=bdir[0], bd1=bdir[1], bd2=bdir[2], bpdf=bpdf,
+        bs0=bscat[0], bs1=bscat[1], bs2=bscat[2],
+        bz=bzero.to(torch.int32), cb=cos_bounce,
+        state=rng.to_bits(st),
+        qidx=envmap.quad_index(fu, fv, env_w, env_h).to(torch.int32),
+        fu=fu, fv=fv,
+    )
+    return {k: v.contiguous() for k, v in out.items()}
+
+
+def shade_plain(
+    env_w, env_h, width, height, max_bounces,
+    qwords, tr, nee_pmf, carry, pixel_index, pixel_x, pixel_y, base_sample,
+    scal, iscal,
+):
+    """Plain PyTorch SHADE (pallas_wavefront._shade_core).
+
+    qwords: (n, 4) int32 RGBE words of the quad row at tr["qidx"];
+    tr: trace outputs; carry: the loop state by CARRY_NAMES; pixel_index
+    and base_sample: int32 u32 bits; scal: (16,) f32 tensor [max_y,
+    aspect, cam pos (3), cam rot rows (9), L, Z]; iscal: 5 ints
+    (it_next, spp, budget, stride, offset) as unsigned values.
+    Returns (new_carry, active, hitmask)."""
+    active = carry["in_path"] != 0
+    did_hit = tr["hit"] != 0
+    is_hit = active & did_hit
+    is_miss = active & ~did_hit
+    throughput = (carry["tp0"], carry["tp1"], carry["tp2"])
+    incoming = (carry["inc0"], carry["inc1"], carry["inc2"])
+    fu, fv = tr["fu"], tr["fv"]
+
+    radiance, quad_pmf = envmap.radiance_and_pmf_from_quad(
+        qwords, fu, fv, env_w, env_h, scal[14:16]
+    )
+    pmf = torch.where(is_hit, nee_pmf, quad_pmf)
+    pdf_env = pmf / envmap.pixel_solid_angle(fv, env_w, env_h)
+
+    # miss: environment light with MIS
+    miss_weight = bsdf.power_heuristic(carry["last_pdf"], pdf_env)
+    incoming = tuple(
+        incoming[i]
+        + torch.where(is_miss, throughput[i] * radiance[i] * miss_weight, 0.0)
+        for i in range(3)
+    )
+    # hit: emission + NEE
+    emis = (tr["er"], tr["eg"], tr["eb"])
+    incoming = tuple(
+        incoming[i] + torch.where(is_hit, throughput[i] * emis[i], 0.0)
+        for i in range(3)
+    )
+    cos_theta = tr["ct"]
+    nee_weight = bsdf.power_heuristic(pdf_env, tr["npdf"])
+    nee_ok = is_hit & (cos_theta > 0.0) & (pdf_env > 0.0) & (tr["occ"] == 0)
+    cos_over_pdf = cos_theta / torch.clamp_min(pdf_env, 1.0e-30)
+    ns = (tr["ns0"], tr["ns1"], tr["ns2"])
+    incoming = tuple(
+        incoming[i]
+        + torch.where(
+            nee_ok,
+            throughput[i] * nee_weight * radiance[i] * ns[i] * cos_over_pdf,
+            0.0,
+        )
+        for i in range(3)
+    )
+
+    # bounce / termination
+    bzero = tr["bz"] != 0
+    bscat = (tr["bs0"], tr["bs1"], tr["bs2"])
+    incoming = bsdf.vwhere(is_hit & bzero, bscat, incoming)
+    bpdf = tr["bpdf"]
+    tp_scale = tr["cb"] / torch.clamp_min(bpdf, 1.0e-30)
+    new_tp = tuple(throughput[i] * bscat[i] * tp_scale for i in range(3))
+    tp_norm = torch.sqrt(
+        new_tp[0] * new_tp[0] + new_tp[1] * new_tp[1] + new_tp[2] * new_tp[2]
+    )
+    bounce = carry["bounce"] + 1
+    continues = (
+        is_hit & ~bzero & (bpdf > 0.0)
+        & (tp_norm >= THROUGHPUT_CUTOFF) & (bounce < max_bounces)
+    )
+    path_done = active & ~continues
+    film = tuple(
+        carry["film" + str(i)] + torch.where(path_done, incoming[i], 0.0)
+        for i in range(3)
+    )
+    sample = rng.from_bits(carry["sample"])
+    next_sample = torch.where(path_done, (sample + 1) & rng.MASK, sample)
+
+    # regenerate: reseed from (pixel, global sample), jittered pinhole ray
+    it_next, spp, budget, stride, offset = (int(x) & rng.MASK for x in iscal)
+    regen = path_done & (next_sample < spp) & (it_next < budget)
+    global_sample = (
+        (rng.from_bits(base_sample) + next_sample) * stride + offset
+    ) & rng.MASK
+    fstate = rng.seed(rng.from_bits(pixel_index), global_sample)
+    fstate, jx, jy = rng.next_in_circle(fstate)
+    jpx = pixel_x.to(torch.float32) + jx
+    jpy = pixel_y.to(torch.float32) + jy
+    sxn = jpx / width * 2.0 - 1.0
+    syn = -(jpy / height * 2.0 - 1.0)
+    rc0 = sxn * scal[0] * scal[1]
+    rc1 = syn * scal[0]
+    fd0 = rc0 * scal[5] + rc1 * scal[6] - scal[7]
+    fd1 = rc0 * scal[8] + rc1 * scal[9] - scal[10]
+    fd2 = rc0 * scal[11] + rc1 * scal[12] - scal[13]
+    fnorm = torch.sqrt(fd0 * fd0 + fd1 * fd1 + fd2 * fd2)
+    fd = (fd0 / fnorm, fd1 / fnorm, fd2 / fnorm)
+
+    in_path = (active & continues) | regen
+    state = torch.where(regen, fstate, rng.from_bits(tr["state"]))
+    zero = torch.zeros_like(fd0)
+    one = torch.ones_like(fd0)
+    cam = tuple(scal[2 + i] + zero for i in range(3))
+    point = (tr["px"], tr["py"], tr["pz"])
+    ro = bsdf.vwhere(
+        regen, cam,
+        bsdf.vwhere(continues, point, (carry["ro0"], carry["ro1"], carry["ro2"])),
+    )
+    rd = bsdf.vwhere(
+        regen, fd,
+        bsdf.vwhere(
+            continues, (tr["bd0"], tr["bd1"], tr["bd2"]),
+            (carry["rd0"], carry["rd1"], carry["rd2"]),
+        ),
+    )
+    throughput = bsdf.vwhere(
+        regen, (one, one, one), bsdf.vwhere(continues, new_tp, throughput)
+    )
+    incoming = bsdf.vwhere(regen | path_done, (zero, zero, zero), incoming)
+    last_pdf = torch.where(
+        regen, 1.0, torch.where(continues, bpdf, carry["last_pdf"])
+    )
+    bounce = torch.where(regen, 0, bounce).to(torch.int32)
+
+    new_carry = dict(
+        state=rng.to_bits(state),
+        ro0=ro[0], ro1=ro[1], ro2=ro[2], rd0=rd[0], rd1=rd[1], rd2=rd[2],
+        tp0=throughput[0], tp1=throughput[1], tp2=throughput[2],
+        inc0=incoming[0], inc1=incoming[1], inc2=incoming[2],
+        last_pdf=last_pdf, bounce=bounce, sample=rng.to_bits(next_sample),
+        in_path=in_path.to(torch.int32),
+        film0=film[0], film1=film[1], film2=film[2],
+    )
+    return new_carry, active.to(torch.int32), is_hit.to(torch.int32)
+
+
+# -- CUDA wrappers ----------------------------------------------------------------
+
+
+def scene_table(scene) -> torch.Tensor:
+    """The scene packed into one f32 table the TRACE kernel stages in
+    shared memory: sphere rows, then plane, triangle and material rows
+    (layout in csrc/wavefront_common.cuh). Cached on the scene."""
+    if scene.kernel_table is not None:
+        return scene.kernel_table
+
+    def cols(*parts):
+        return torch.cat(
+            [p.to(torch.float32).reshape(p.shape[0], -1) for p in parts], dim=1
+        )
+
+    def pad(t, width):
+        return torch.nn.functional.pad(t, (0, width - t.shape[1]))
+
+    sph = pad(cols(scene.sph_pos, scene.sph_c2, scene.sph_radius,
+                   scene.sph_material, scene.sph_valid), SPH_COLS)
+    pln = pad(cols(scene.pln_normal, scene.pln_ndotp, scene.pln_r0,
+                   scene.pln_r2, scene.pln_r0dotp, scene.pln_r2dotp,
+                   scene.pln_material, scene.pln_valid), PLN_COLS)
+    tri = pad(cols(scene.tri_cdet, scene.tri_edge0, scene.tri_edge1,
+                   scene.tri_cu, scene.tri_cv, scene.tri_n, scene.tri_adotn,
+                   scene.tri_valid, scene.tri_a, scene.tri_n0, scene.tri_n1,
+                   scene.tri_n2, scene.tri_material), TRI_COLS)
+    mat = pad(cols(scene.mat_color, scene.mat_roughness, scene.mat_metallic,
+                   scene.mat_emission), MAT_COLS)
+    table = torch.cat([sph.reshape(-1), pln.reshape(-1), tri.reshape(-1),
+                       mat.reshape(-1)]).contiguous()
+    scene.kernel_table = table
+    return table
+
+
+def _check(name, t, n, dtype, device):
+    if t.device != device or t.dtype != dtype or t.shape != (n,) or not t.is_contiguous():
+        raise ValueError(
+            f"{name}: expected contiguous ({n},) {dtype} on {device}, got "
+            f"{tuple(t.shape)} {t.dtype} on {t.device}"
+        )
+
+
+def _ptrs(tensors):
+    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+
+
+def _raise_on(rc, what):
+    if rc != 0:
+        from rsoderh_raytracing_tpu_torch.ops import _kernels
+
+        raise RuntimeError(f"{what} launch failed: {_kernels.error_string(rc)}")
+
+
+def trace_call(scene, env_w, env_h, ro, rd, nee_dir, nee_uv, miss_uv, state):
+    """TRACE over flat (n,) component tensors; returns the 26 outputs by
+    name. CPU tensors: trace_plain. CUDA tensors: the kernel."""
+    if state.device.type == "cpu":
+        return trace_plain(scene, env_w, env_h, ro, rd, nee_dir, nee_uv, miss_uv, state)
+    if state.device.type != "cuda":
+        raise ValueError(f"trace_call: unsupported device {state.device}")
+    if scene.num_lanes > MAX_UNROLL_PRIMS:
+        raise NotImplementedError("big-scene route not yet ported")
+    from rsoderh_raytracing_tpu_torch.ops import _kernels
+
+    n = state.shape[0]
+    dev = state.device
+    ins = (*ro, *rd, *nee_dir, *nee_uv, *miss_uv)
+    for i, t in enumerate(ins):
+        _check(f"trace input {i}", t, n, torch.float32, dev)
+    _check("state", state, n, torch.int32, dev)
+    outs = {
+        k: torch.empty(n, device=dev, dtype=torch.int32 if k in TRACE_INT_NAMES else torch.float32)
+        for k in TRACE_OUT_NAMES
+    }
+    table = scene_table(scene)
+    rc = _kernels.library().rt_trace_launch(
+        _ptrs((*ins, state) + tuple(outs[k] for k in TRACE_OUT_NAMES)),
+        table.data_ptr(), table.numel(), n,
+        scene.sph_radius.shape[0], scene.pln_valid.shape[0],
+        scene.tri_valid.shape[0], scene.mat_roughness.shape[0],
+        env_w, env_h, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(rc, "TRACE")
+    LAUNCHES["trace"] += 1
+    return outs
+
+
+_SHADE_TRACE_IN = (
+    "hit", "occ", "px", "py", "pz", "er", "eg", "eb",
+    "ct", "ns0", "ns1", "ns2", "npdf",
+    "bd0", "bd1", "bd2", "bpdf", "bs0", "bs1", "bs2", "bz", "cb",
+    "state", "fu", "fv",
+)
+_SHADE_CARRY_IN = (
+    "tp0", "tp1", "tp2", "inc0", "inc1", "inc2",
+    "last_pdf", "bounce", "sample", "in_path",
+    "film0", "film1", "film2", "ro0", "ro1", "ro2", "rd0", "rd1", "rd2",
+)
+_SHADE_INT_IN = {
+    "hit", "occ", "bz", "state", "bounce", "sample", "in_path",
+    "pixel_index", "pixel_x", "pixel_y", "base_sample",
+}
+
+
+def shade_call(
+    env_w, env_h, width, height, max_bounces,
+    qwords, tr, nee_pmf, carry, pixel_index, pixel_x, pixel_y, base_sample,
+    scal, iscal,
+):
+    """SHADE; returns (new_carry, active, hitmask). Arguments as in
+    shade_plain. CPU tensors: shade_plain. CUDA tensors: the kernel."""
+    if nee_pmf.device.type == "cpu":
+        return shade_plain(
+            env_w, env_h, width, height, max_bounces, qwords, tr, nee_pmf,
+            carry, pixel_index, pixel_x, pixel_y, base_sample, scal, iscal,
+        )
+    if nee_pmf.device.type != "cuda":
+        raise ValueError(f"shade_call: unsupported device {nee_pmf.device}")
+    from rsoderh_raytracing_tpu_torch.ops import _kernels
+
+    n = nee_pmf.shape[0]
+    dev = nee_pmf.device
+    if qwords.shape != (n, 4) or qwords.dtype != torch.int32 or not qwords.is_contiguous() or qwords.device != dev:
+        raise ValueError("qwords: expected contiguous (n, 4) int32 on the device")
+    if scal.shape != (16,) or scal.dtype != torch.float32 or scal.device != dev:
+        raise ValueError("scal: expected (16,) float32 on the device")
+    named = (
+        [(k, tr[k]) for k in _SHADE_TRACE_IN] + [("nee_pmf", nee_pmf)]
+        + [(k, carry[k]) for k in _SHADE_CARRY_IN]
+        + [("pixel_index", pixel_index), ("pixel_x", pixel_x),
+           ("pixel_y", pixel_y), ("base_sample", base_sample)]
+    )
+    for name, t in named:
+        _check(name, t, n, torch.int32 if name in _SHADE_INT_IN else torch.float32, dev)
+    ins = [t for _, t in named]
+    outs = {
+        k: torch.empty(n, device=dev, dtype=torch.int32 if k in SHADE_INT_NAMES else torch.float32)
+        for k in SHADE_OUT_NAMES
+    }
+    it_next, spp, budget, stride, offset = (int(x) & 0xFFFFFFFF for x in iscal)
+    rc = _kernels.library().rt_shade_launch(
+        _ptrs([qwords] + ins + [scal] + [outs[k] for k in SHADE_OUT_NAMES]),
+        n, env_w, env_h, width, height, max_bounces,
+        it_next, spp, budget, stride, offset,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(rc, "SHADE")
+    LAUNCHES["shade"] += 1
+    new_carry = {k: outs[k] for k in CARRY_NAMES}
+    return new_carry, outs["active"], outs["hitmask"]
+
+
+def tiles_to_flat(tiles: dict) -> dict:
+    """(rows, 128) numpy/JAX tiles of the Pallas twins -> flat torch
+    tensors; u32 tiles become int32 bit patterns."""
+    out = {}
+    for k, v in tiles.items():
+        a = np.asarray(v).reshape(-1)
+        if a.dtype == np.uint32:
+            a = a.view(np.int32)
+        out[k] = torch.from_numpy(a.copy())
+    return out
+
+
+def parity(got: dict, ref: dict, int_names, rtol: float, atol: float):
+    """Agreement of two output dicts, output by output. Returns ({name:
+    share of lanes equal (integer outputs) or isclose(rtol, atol) with
+    NaN equal to NaN (floats)}, largest absolute and largest relative
+    float difference over lanes where both values are finite)."""
+    shares, max_abs, max_rel = {}, 0.0, 0.0
+    for name, a in got.items():
+        b = ref[name]
+        if name in int_names:
+            shares[name] = float((a == b).double().mean())
+            continue
+        shares[name] = float(torch.isclose(a, b, rtol=rtol, atol=atol, equal_nan=True).double().mean())
+        fin = torch.isfinite(a) & torch.isfinite(b)
+        diff = (a - b).abs()[fin]
+        if diff.numel():
+            max_abs = max(max_abs, float(diff.max()))
+            max_rel = max(max_rel, float((diff / b.abs()[fin].clamp_min(atol)).max()))
+    return shares, max_abs, max_rel

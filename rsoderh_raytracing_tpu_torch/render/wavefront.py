@@ -1,0 +1,234 @@
+"""Ray-regeneration wavefront integrator (port of
+rsoderh_raytracing_tpu/render/wavefront.py, small-scene kernel loop).
+
+Lane == pixel; when a path terminates its radiance is added to the
+lane's film slot and the lane reseeds the next progressive sample of the
+same pixel. One iteration is the glue (alias draw, NEE and miss uv), the
+TRACE kernel, one quad-row gather and the SHADE kernel
+(ops/cuda_wavefront.py). Differences from the reference's loop:
+
+- No host sync per iteration. Free-run stops regenerating once
+  ``it_next >= budget``, so every path has ended after
+  max(budget, 1) + max_bounces - 1 iterations: that many run blind, then
+  one check asserts that no lane is still in a path. Exact-spp mode
+  checks ``in_path.any()`` every 16 iterations. An iteration in which no
+  lane is active changes nothing that is returned.
+- Ray counters are int64 on the device: closest rays are the active
+  lanes, shadow rays the hit lanes. ``iterations`` counts the iterations
+  in which some lane was active.
+- Lanes are row-major. Every lane's result depends only on its pixel, so
+  the reference's 64x128 block remap (a TPU tiling) is skipped.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from rsoderh_raytracing_tpu_torch.ops import cuda_wavefront as cw
+from rsoderh_raytracing_tpu_torch.ops import envmap, rng
+from rsoderh_raytracing_tpu_torch.render.integrator import MAX_BOUNCES
+from rsoderh_raytracing_tpu_torch.scene.device import MAX_UNROLL_PRIMS
+
+NO_LIMIT = 0xFFFFFFFF
+EXACT_CHECK_EVERY = 16
+
+
+def _camera_rays(state, pixel_x, pixel_y, camera, resolution):
+    """Jittered pinhole rays (shader.wgsl:1340-62). ``state`` is int64.
+    Returns (state, (ox, oy, oz), (dx, dy, dz))."""
+    width, height = resolution
+    state, jx, jy = rng.next_in_circle(state)
+    sx = (pixel_x.to(torch.float32) + jx) / width * 2.0 - 1.0
+    sy = -((pixel_y.to(torch.float32) + jy) / height * 2.0 - 1.0)
+    max_y = torch.sin(camera["fov_y"] / 2.0)
+    c0 = sx * max_y * (width / height)
+    c1 = sy * max_y
+    rot = camera["rot"]
+    # ray_cam @ rot.T with ray_cam = (c0, c1, -1)
+    d = [c0 * rot[i, 0] + c1 * rot[i, 1] - rot[i, 2] for i in range(3)]
+    norm = torch.sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
+    d = tuple(x / norm for x in d)
+    o = tuple(camera["pos"][i].expand_as(d[0]).contiguous() for i in range(3))
+    return state, o, d
+
+
+def _base_lanes(base, n, device):
+    """Per-lane u32 starting sample (int64) from an (H, W), (H*W,) or
+    scalar input (numpy, int or tensor)."""
+    if isinstance(base, torch.Tensor):
+        t = base.to(device=device, dtype=torch.int64) & rng.MASK
+    else:
+        t = torch.from_numpy(
+            np.asarray(base).astype(np.uint32).astype(np.int64)
+        ).to(device)
+    if t.numel() == n:
+        return t.reshape(n).contiguous()
+    return t.reshape(-1)[:1].expand(n).contiguous()
+
+
+class Wavefront:
+    """The loop state of one render call: the carry (CARRY_NAMES), the
+    loop-invariant lanes, the camera scalars and the device counters."""
+
+    def __init__(self, scene, env, camera, base_sample, resolution, spp, budget, max_bounces):
+        if scene.num_lanes > MAX_UNROLL_PRIMS:
+            raise NotImplementedError("big-scene route not yet ported")
+        device = scene.device
+        self.scene, self.env = scene, env
+        self.width, self.height = resolution
+        self.max_bounces = max_bounces
+        self.spp = int(spp) & rng.MASK
+        self.budget = int(budget) & rng.MASK
+        n = self.width * self.height
+
+        lane = torch.arange(n, device=device, dtype=torch.int64)
+        self.pixel_x = (lane % self.width).to(torch.int32)
+        self.pixel_y = (lane // self.width).to(torch.int32)
+        pixel_index = lane & rng.MASK  # y * W + x
+        base = _base_lanes(base_sample, n, device)
+        self.pixel_bits = rng.to_bits(pixel_index)
+        self.base_bits = rng.to_bits(base)
+
+        state0 = rng.seed(pixel_index, base)
+        state0, o0, d0 = _camera_rays(
+            state0, self.pixel_x, self.pixel_y, camera, resolution
+        )
+        self.scal = torch.cat(
+            [
+                torch.sin(camera["fov_y"] / 2.0).reshape(1),
+                torch.tensor(
+                    [self.width / self.height], dtype=torch.float32, device=device
+                ),
+                camera["pos"].to(torch.float32),
+                camera["rot"].to(torch.float32).reshape(9),
+                env.pmf_norm.to(torch.float32),
+            ]
+        ).contiguous()
+
+        def full(value, dtype=torch.float32):
+            return torch.full((n,), value, device=device, dtype=dtype)
+
+        self.carry = dict(
+            state=rng.to_bits(state0),
+            ro0=o0[0], ro1=o0[1], ro2=o0[2], rd0=d0[0], rd1=d0[1], rd2=d0[2],
+            tp0=full(1.0), tp1=full(1.0), tp2=full(1.0),
+            inc0=full(0.0), inc1=full(0.0), inc2=full(0.0),
+            last_pdf=full(1.0),
+            bounce=full(0, torch.int32),
+            sample=full(0, torch.int32),
+            in_path=full(1, torch.int32),
+            film0=full(0.0), film1=full(0.0), film2=full(0.0),
+        )
+        zero = torch.zeros((), device=device, dtype=torch.int64)
+        self.closest, self.shadow, self.iterations = zero, zero, zero
+
+    def step(self, it, trace=cw.trace_call, shade=cw.shade_call, profile=None):
+        """One iteration (number `it`, from 0). `trace`/`shade` default to
+        the wrappers; `profile`, if a dict, collects CUDA events that
+        bracket glue, TRACE, the gather and SHADE."""
+        marks = [] if profile is not None else None
+
+        def mark():
+            if marks is not None:
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                marks.append(ev)
+
+        c = self.carry
+        env_h, env_w = self.env.texture_shape
+        mark()
+        state, _, nee_u, nee_v, nee_pmf = envmap.sample_alias_index(
+            rng.from_bits(c["state"]), self.env
+        )
+        nd = envmap.equirect_uv_to_direction(nee_u, nee_v)
+        mu, mv = envmap.direction_to_equirect_uv(c["rd0"], c["rd1"], c["rd2"])
+        mark()
+        tr = trace(
+            self.scene, env_w, env_h,
+            (c["ro0"], c["ro1"], c["ro2"]), (c["rd0"], c["rd1"], c["rd2"]),
+            nd, (nee_u, nee_v), (mu, mv), rng.to_bits(state),
+        )
+        mark()
+        qw = self.env.quad.index_select(0, tr["qidx"])
+        mark()
+        self.carry, act, hitm = shade(
+            env_w, env_h, self.width, self.height, self.max_bounces,
+            qw, tr, nee_pmf, c, self.pixel_bits, self.pixel_x, self.pixel_y,
+            self.base_bits, self.scal, (it + 1, self.spp, self.budget, 1, 0),
+        )
+        mark()
+        if marks is not None:
+            profile.setdefault("marks", []).append(marks)
+        n_act = act.sum(dtype=torch.int64)
+        self.closest = self.closest + n_act
+        self.shadow = self.shadow + hitm.sum(dtype=torch.int64)
+        self.iterations = self.iterations + (n_act > 0).to(torch.int64)
+
+    def run(self, profile=None):
+        if self.budget != NO_LIMIT:
+            # Free-run: regeneration stops at it_next >= budget, so the
+            # last path ends within this many iterations.
+            for it in range(max(self.budget, 1) + self.max_bounces - 1):
+                self.step(it, profile=profile)
+            if bool(self.carry["in_path"].any()):
+                raise RuntimeError("wavefront: lanes still in a path after the drain")
+        else:
+            it = 0
+            while True:
+                for _ in range(EXACT_CHECK_EVERY):
+                    self.step(it, profile=profile)
+                    it += 1
+                if not bool(self.carry["in_path"].any()):
+                    break
+
+    def results(self):
+        """(film (n, 3), counts (n,) int64, stats)."""
+        c = self.carry
+        film = torch.stack([c["film0"], c["film1"], c["film2"]], dim=-1)
+        stats = {
+            "closest_rays": self.closest,
+            "shadow_rays": self.shadow,
+            "iterations": self.iterations,
+        }
+        return film, rng.from_bits(c["sample"]), stats
+
+
+def _loop(scene, env, camera, base_sample, resolution, spp, budget, max_bounces, profile=None):
+    wave = Wavefront(scene, env, camera, base_sample, resolution, spp, budget, max_bounces)
+    wave.run(profile=profile)
+    return wave.results()
+
+
+def render_wavefront(
+    scene, env, camera, base_sample, resolution, spp,
+    max_bounces: int = MAX_BOUNCES, with_stats: bool = False,
+):
+    """Render `spp` progressive samples (base_sample .. +spp-1) for every
+    pixel. Returns the (H, W, 3) SUM of sample radiances (and stats)."""
+    width, height = resolution
+    film, _, stats = _loop(
+        scene, env, camera, base_sample, resolution, spp, NO_LIMIT, max_bounces
+    )
+    image = film.reshape(height, width, 3)
+    return (image, stats) if with_stats else image
+
+
+def render_freerun(
+    scene, env, camera, base_counts, resolution, iterations,
+    max_bounces: int = MAX_BOUNCES, with_stats: bool = False, profile=None,
+):
+    """Iteration-budget rendering: every lane stays busy for `iterations`
+    path segments, completing a variable number of samples per pixel,
+    then in-flight paths drain. base_counts: per-pixel starting sample
+    index, (H, W) or scalar. Returns (sum image (H, W, 3), counts (H, W)
+    int64[, stats]); resuming from the accumulated counts continues the
+    same deterministic streams."""
+    width, height = resolution
+    film, counts, stats = _loop(
+        scene, env, camera, base_counts, resolution, NO_LIMIT, iterations,
+        max_bounces, profile=profile,
+    )
+    image = film.reshape(height, width, 3)
+    counts = counts.reshape(height, width)
+    return (image, counts, stats) if with_stats else (image, counts)

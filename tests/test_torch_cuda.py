@@ -1,0 +1,122 @@
+"""CUDA kernels against their plain PyTorch twins, on an NVIDIA GPU.
+
+Marked `cuda`: every test skips without a card (the kernels have no CPU
+mode). On a machine with one, which need not have jax:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+This file imports nothing of jax (tests/conftest.py does, hence
+--noconftest) and defines its own scene fixtures.
+
+The bounds are chip_smoke.py's: each integer output equal, and each
+float output isclose(1e-4, 1e-5), on at least 99.99% of the lanes.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from rsoderh_raytracing_tpu_torch import load_scene
+from rsoderh_raytracing_tpu_torch.env.environment import Environment, device_environment
+from rsoderh_raytracing_tpu_torch.env.hdr_io import procedural_sky
+from rsoderh_raytracing_tpu_torch.ops import cuda_wavefront as cw
+from rsoderh_raytracing_tpu_torch.render.integrator import camera_pytree
+from rsoderh_raytracing_tpu_torch.render.wavefront import NO_LIMIT, Wavefront, render_freerun
+from rsoderh_raytracing_tpu_torch.scene.device import build_device_scene
+
+torch.set_num_threads(2)
+
+pytestmark = pytest.mark.cuda
+
+PARITY_MIN = 0.9999
+RTOL, ATOL = 1e-4, 1e-5
+SCENES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "assets", "scenes")
+
+
+@pytest.fixture(scope="module")
+def house_scene():
+    return load_scene(os.path.join(SCENES, "house.toml"))
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+@pytest.fixture(scope="module")
+def house_state(dev, house_scene):
+    """TRACE and SHADE inputs of a real loop iteration at 128x128."""
+    ds = build_device_scene(house_scene, dev)
+    env = device_environment(Environment.from_texture("s", procedural_sky(256, 128)), dev)
+    wave = Wavefront(ds, env, camera_pytree(house_scene.camera, dev), 0, (128, 128),
+                     NO_LIMIT, 32, 8)
+    for it in range(3):
+        wave.step(it)
+    captured = {}
+
+    def capture(key, fn):
+        def wrapped(*args):
+            captured[key] = args
+            return fn(*args)
+        return wrapped
+
+    wave.step(3, trace=capture("trace", cw.trace_call), shade=capture("shade", cw.shade_call))
+    return captured
+
+
+def _compare(got, ref, int_names):
+    shares, _, _ = cw.parity(got, ref, int_names, RTOL, ATOL)
+    assert shares.keys() == ref.keys()
+    assert {k: v for k, v in shares.items() if v < PARITY_MIN} == {}
+
+
+def test_trace_kernel_matches_plain(house_state):
+    args = house_state["trace"]
+    before = cw.LAUNCHES["trace"]
+    got = cw.trace_call(*args)
+    assert cw.LAUNCHES["trace"] == before + 1
+    _compare(got, cw.trace_plain(*args), cw.TRACE_INT_NAMES)
+
+
+def test_shade_kernel_matches_plain(house_state):
+    args = house_state["shade"]
+    before = cw.LAUNCHES["shade"]
+    carry, act, hitm = cw.shade_call(*args)
+    assert cw.LAUNCHES["shade"] == before + 1
+    ref_carry, ref_act, ref_hitm = cw.shade_plain(*args)
+    _compare(dict(carry, active=act, hitmask=hitm), dict(ref_carry, active=ref_act, hitmask=ref_hitm),
+             cw.SHADE_INT_NAMES)
+
+
+def test_wrapper_rejects_wrong_dtype(house_state):
+    args = list(house_state["trace"])
+    args[-1] = args[-1].to(torch.int64)
+    with pytest.raises(ValueError):
+        cw.trace_call(*args)
+
+
+def test_card_render_matches_cpu_render(dev, house_scene):
+    env_args = Environment.from_texture("s", procedural_sky(128, 64))
+    out = {}
+    for device in ("cpu", dev):
+        img, counts = render_freerun(
+            build_device_scene(house_scene, device), device_environment(env_args, device),
+            camera_pytree(house_scene.camera, device), 0, (32, 32), 16, 8,
+        )
+        out[str(device)] = (img.cpu().numpy(), counts.cpu().numpy())
+    (ci, cc), (gi, gc) = out["cpu"], out[str(dev)]
+    assert (cc == gc).mean() >= 0.99
+    np.testing.assert_allclose(gi.mean(), ci.mean(), rtol=1e-3)
+
+
+def test_big_scene_raises_on_the_card(dev):
+    scene = load_scene(os.path.join(SCENES, "suzanne.toml"))
+    ds = build_device_scene(scene, dev)
+    assert ds.num_lanes > 192
+    env = device_environment(Environment.from_texture("s", procedural_sky(32, 16)), dev)
+    with pytest.raises(NotImplementedError):
+        render_freerun(ds, env, camera_pytree(scene.camera, dev), 0, (8, 8), 4, 4)
