@@ -2,26 +2,41 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path (rsoderh_raytracing_tpu_torch) on the card
-and exits non-zero at the first failure. Phases, one line each:
+Drives the port's paths (rsoderh_raytracing_tpu_torch) on the card and
+exits non-zero at the first failure. Phases, one line each or more:
 
 1. device: requires CUDA (no CPU fallback); prints the card's name and
    power limit as nvidia-smi reports them;
-2. build: compiles the CUDA kernels from csrc/ with nvcc;
-3. parity: house at 256x256 lanes, loop state after a few plain
-   iterations; TRACE against trace_plain and SHADE against shade_plain
-   on identical inputs, output by output;
-4. main path: house, 2048x2048, 8 bounces, procedural_sky(2048, 1024),
-   render_freerun with base counts carried between calls; Mrays/s in all
-   and per call, launch counts, peak device memory, the glue/TRACE/SHADE
-   time split; parity again on a 2048x2048 loop state, then each
-   kernel's time beside its plain version's; writes a PNG under build/;
-5. goldens: render_wavefront at 64x64, 8 spp, 4 bounces through the
-   kernels against tests/goldens/{default,house}_64_8spp.npy.
+2. build: compiles the CUDA kernels from csrc/ with nvcc, one process a
+   source, in parallel;
+3. house (small-scene route: TRACE, SHADE): parity of each kernel with its
+   plain version, output by output, at 256x256 lanes after 3 plain
+   iterations; the main path at 2048x2048, 8 bounces,
+   procedural_sky(2048, 1024), render_freerun with base counts carried
+   between calls (Mrays/s in all and per call, launch counts, peak device
+   memory, the glue/TRACE/gather/SHADE split); parity again on a 2048^2
+   loop state, then each kernel's time beside its plain version's;
+4. big-mesh parity (CHUNKED_CLOSEST, CHUNKED_ANY, BIG_SHADE): suzanne_hi
+   and spheres at 256x256 lanes after 3 plain iterations, spheres and
+   suzanne at 2048x2048 lanes; the closest hit compared on live lanes,
+   occlusion on masked lanes, BIG_SHADE output by output;
+5. big-mesh main path: suzanne_hi (15,488 triangles, 242 chunks) at
+   2048x2048, 8 bounces, a warm-up call then timed calls carrying counts,
+   as the reference's bench runs it with BENCH_SCENE=suzanne_hi; the three
+   new kernels must have launched and TRACE/SHADE not; the
+   glue/closest/occlusion/gather/BIG_SHADE split; then a short spheres run
+   at 2048x2048;
+6. timing: each big-mesh kernel against its plain version on a
+   suzanne_hi 2048^2 loop state, with its bound from the inputs' cull
+   counts (profiling.chunked_bound); the plain version's outputs of that
+   one timed call are the parity reference of suzanne_hi at 2048^2;
+7. goldens: render_wavefront through the kernels against
+   tests/goldens/{default,house}_64_8spp.npy and the oracle anchors
+   suzanne_hi_anchor_24_2spp.npy and spheres_anchor_32_4spp.npy.
 
-Then a JSON line with each kernel's launches, error and times, the card
-line again, and last {"ok": true, "device": {...}}. Imports nothing of
-JAX.
+Then a JSON line with each kernel's launches, error, times and bound, the
+card line again, and last {"ok": true, "device": {...}}. Imports nothing
+of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -38,15 +53,19 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 from rsoderh_raytracing_tpu_torch import load_scene, write_png  # noqa: E402
-from rsoderh_raytracing_tpu_torch.env.environment import Environment, device_environment  # noqa: E402
+from rsoderh_raytracing_tpu_torch.env.environment import (  # noqa: E402
+    Environment, device_environment, load_default_environments,
+)
 from rsoderh_raytracing_tpu_torch.env.hdr_io import procedural_sky  # noqa: E402
 from rsoderh_raytracing_tpu_torch.ops import _kernels  # noqa: E402
+from rsoderh_raytracing_tpu_torch.ops import cuda_intersect as ci  # noqa: E402
 from rsoderh_raytracing_tpu_torch.ops import cuda_wavefront as cw  # noqa: E402
 from rsoderh_raytracing_tpu_torch.ops.tonemap import aces_tonemap, linear_to_srgb  # noqa: E402
 from rsoderh_raytracing_tpu_torch.profiling import (  # noqa: E402
-    capture_step, card_line, house_setup, shade_outputs, time_ms,
+    KERNELS, OPS_PLANE, OPS_SPHERE, OPS_TRIANGLE, bound_ms, capture_step, card_line,
+    chunked_bound, scene_setup, shade_outputs, time_ms,
 )
-from rsoderh_raytracing_tpu_torch.render.integrator import camera_pytree  # noqa: E402
+from rsoderh_raytracing_tpu_torch.render.integrator import MAX_BOUNCES, camera_pytree  # noqa: E402
 from rsoderh_raytracing_tpu_torch.render.wavefront import (  # noqa: E402
     NO_LIMIT, Wavefront, render_freerun, render_wavefront,
 )
@@ -54,9 +73,10 @@ from rsoderh_raytracing_tpu_torch.scene.device import build_device_scene  # noqa
 
 # Kernel against plain version on the same card, output by output: an
 # integer output must be equal, and a float output isclose(RTOL, ATOL),
-# on at least PARITY_MIN of the lanes. Measured on an H100 (700 W): every
-# output agrees on every lane (SHADE bitwise, TRACE within 6e-8), so this
-# fails a kernel that is wrong in one output on 0.01% of the lanes.
+# on at least PARITY_MIN of the compared lanes. Measured on an H100
+# (700 W): TRACE and SHADE agree on every lane (SHADE bitwise, TRACE
+# within 6e-8), so this fails a kernel that is wrong in one output on
+# 0.01% of the lanes.
 PARITY_MIN = 0.9999
 RTOL, ATOL = 1e-4, 1e-5
 # Relative RMSE against the CPU-made goldens. The CPU test holds the plain
@@ -67,27 +87,193 @@ GOLDEN_REL_RMSE_MAX = 1e-3
 
 SIZE = 2048
 BOUNCES = 8
-TIMED_CALLS = 3
-CALL_SECONDS = 15.0  # target device time of one timed call
+TIMED_CALLS = 2
+CALL_SECONDS = 8.0  # target time of one timed call
+SRC_WAVEFRONT = "rsoderh_raytracing_tpu_torch/csrc/wavefront.cu"
+SRC_CHUNKED = "rsoderh_raytracing_tpu_torch/csrc/chunked.cu"
+# The big-mesh kernels by Wavefront.step keyword.
+BIG_KERNELS = {"closest": "chunked_closest", "occlusion": "chunked_any", "big_shade": "big_shade"}
 
 
 def log(phase, **fields):
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
 
 
-def check_parity(kernel, lanes, got, ref, int_names):
-    """Log and assert the kernel's agreement with its plain version;
-    returns the largest absolute float difference."""
+def check_parity(kernel, lanes, got, ref, int_names, where=None):
+    """Log and assert the kernel's agreement with its plain version on
+    the lanes `where` (all by default); returns the largest absolute
+    float difference."""
+    if where is not None:
+        got = {k: v[where] for k, v in got.items()}
+        ref = {k: v[where] for k, v in ref.items()}
     shares, max_abs, max_rel = cw.parity(got, ref, int_names, RTOL, ATOL)
-    worst = min(shares, key=shares.get)
+    ints = [shares[k] for k in shares if k in int_names]
+    floats = [shares[k] for k in shares if k not in int_names]
     log("parity", kernel=kernel, lanes=lanes,
-        int_equal_min=f"{min(shares[k] for k in shares if k in int_names):.6f}",
-        float_close_min=f"{min(shares[k] for k in shares if k not in int_names):.6f}",
-        worst=worst, max_rel_diff=f"{max_rel:.3e}", max_abs_diff=f"{max_abs:.3e}")
+        compared=int(next(iter(got.values())).shape[0]),
+        int_equal_min=f"{min(ints):.6f}" if ints else "none",
+        float_close_min=f"{min(floats):.6f}" if floats else "none",
+        worst=min(shares, key=shares.get), max_rel_diff=f"{max_rel:.3e}",
+        max_abs_diff=f"{max_abs:.3e}")
     bad = sorted(k for k, v in shares.items() if v < PARITY_MIN)
     if bad:
         raise AssertionError(f"{kernel} kernel disagrees with its plain version in {bad}")
     return max_abs
+
+
+def kernel_parity(key, label, args, lanes, max_err, ref=None):
+    """The big-mesh kernel of Wavefront.step keyword `key` on `args`
+    against its plain version's outputs on them (`ref`, computed here
+    when not given): CHUNKED_CLOSEST on live lanes, CHUNKED_ANY on masked
+    lanes, BIG_SHADE output by output on every lane."""
+    kfn, pfn = KERNELS[key]
+    got = kfn(*args)
+    ref = pfn(*args) if ref is None else ref
+    if key == "closest":
+        names = ("t", "type", "index")
+        got, ref, ints, where = dict(zip(names, got)), dict(zip(names, ref)), {"type", "index"}, args[3] != 0
+    elif key == "occlusion":
+        got, ref, ints, where = {"occ": got}, {"occ": ref}, {"occ"}, args[3] != 0
+    else:
+        got, ref, ints, where = shade_outputs(got), shade_outputs(ref), cw.SHADE_INT_NAMES, None
+    name = BIG_KERNELS[key]
+    err = check_parity(f"{name}:{label}", lanes, got, ref, ints, where)
+    max_err[name] = max(max_err.get(name, 0.0), err)
+
+
+def big_parity(label, state, lanes, max_err):
+    for key in BIG_KERNELS:
+        kernel_parity(key, label, state[key], lanes, max_err)
+
+
+def reset_launches():
+    cw.reset_launches()
+    ci.reset_launches()
+
+
+def launches():
+    return {**cw.LAUNCHES, **ci.LAUNCHES}
+
+
+def timed_main(label, ds, env, cam, card, calls, dev, budget=None):
+    """A warm-up call, then `calls` timed free-run calls at SIZE^2 with
+    base counts carried; returns (per-call fields, launches, image,
+    counts, warm-up counts)."""
+    res = (SIZE, SIZE)
+    n_pixels = SIZE * SIZE
+    warm_budget = 16 if budget is None else min(budget, 16)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    _, counts, _ = render_freerun(ds, env, cam, np.zeros(res, np.uint32), res, warm_budget,
+                                  BOUNCES, with_stats=True)
+    torch.cuda.synchronize()
+    per_iter = (time.perf_counter() - start) / (warm_budget + BOUNCES - 1)
+    warm_counts = counts
+    if budget is None:
+        budget = int(min(1024, max(8, CALL_SECONDS / per_iter)))
+    total_rays, total_spp, image, call_rates = 0, 0.0, None, []
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(calls):
+        call_start = time.perf_counter()
+        out, counts_dev, stats = render_freerun(ds, env, cam, counts, res, budget, BOUNCES,
+                                                with_stats=True)
+        counts = counts + counts_dev
+        rays = int(stats["closest_rays"] + stats["shadow_rays"])  # synchronizes
+        call_rates.append(rays / (time.perf_counter() - call_start) / 1e6)
+        total_rays += rays
+        total_spp += float(counts_dev.float().mean())
+        image = out if image is None else image + out
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - start
+    counted = launches()
+    log("main", scene=label, size=SIZE, bounces=BOUNCES, budget=budget, calls=calls,
+        seconds=f"{elapsed:.3f}", mrays_per_s=f"{total_rays / elapsed / 1e6:.2f}",
+        per_call_mrays_per_s=",".join(f"{r:.2f}" for r in call_rates),
+        rays_per_px_spp=f"{total_rays / (n_pixels * max(total_spp, 1e-9)):.3f}",
+        spp=f"{total_spp:.2f}", **{f"{k}_launches": v for k, v in counted.items()},
+        peak_allocated_mib=f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f}",
+        warmup_ms_per_iter=f"{per_iter * 1e3:.2f}", card=repr(card))
+    if not bool(torch.isfinite(image).all()):
+        raise AssertionError(f"{label}: non-finite pixels in the main-path image")
+    if int(counts.min()) <= 0 or total_rays <= 0:
+        raise AssertionError(f"{label}: pixels without samples or no rays traced")
+    return counted, image, counts, warm_counts
+
+
+def split(label, ds, env, cam, counts, card):
+    """Device ms per iteration of each part of a short profiled call."""
+    profile = {}
+    render_freerun(ds, env, cam, counts, (SIZE, SIZE), 8, BOUNCES, profile=profile)
+    torch.cuda.synchronize()
+    parts = {}
+    for marks in profile["marks"]:
+        for (part, ev), (_, nxt) in zip(marks, marks[1:]):
+            parts[part] = parts.get(part, 0.0) + ev.elapsed_time(nxt)
+    n = len(profile["marks"])
+    log("split", scene=label, iterations=n,
+        **{f"{k}_ms": f"{v / n:.4f}" for k, v in parts.items()}, card=repr(card))
+
+
+def save_png(name, image, counts, warm_counts):
+    png_dir = os.path.join(ROOT, "build")
+    os.makedirs(png_dir, exist_ok=True)
+    # image sums the timed calls; their samples are counts - warm_counts
+    mean_img = image / (counts - warm_counts).clamp_min(1).unsqueeze(-1).to(image.dtype)
+    write_png(os.path.join(png_dir, f"{name}_2048.png"),
+              linear_to_srgb(aces_tonemap(mean_img)).cpu().numpy())
+
+
+def loop_state(ds, env, cam, size, base, plain_iterations, kernel_iterations=0):
+    """The kernels' arguments at one iteration of a free-run loop state at
+    size^2 lanes after some plain (or kernel) iterations."""
+    wave = Wavefront(ds, env, cam, base, (size, size), NO_LIMIT, 64, BOUNCES)
+    for it in range(plain_iterations):
+        capture_step(wave, it, plain=True)
+    for it in range(plain_iterations, plain_iterations + kernel_iterations):
+        wave.step(it)
+    it = plain_iterations + kernel_iterations
+    return capture_step(wave, it, plain=plain_iterations > 0)
+
+
+def time_kernel(kfn, pfn, args):
+    """((kernel ms, plain ms), the plain version's outputs): the kernel
+    timed twice, the plain version once (about 11 s for CHUNKED_CLOSEST
+    on suzanne_hi at 2048^2 on an H100)."""
+    k1 = time_ms(lambda: kfn(*args), 5)
+    k2 = time_ms(lambda: kfn(*args), 5)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    ref = pfn(*args)
+    torch.cuda.synchronize()
+    return ((k1 + k2) / 2, (time.perf_counter() - start) * 1e3), ref
+
+
+def anchor(name, size, spp, env, dev):
+    """The oracle anchor golden through the kernels, with the reference's
+    flip-aware criteria (tests/test_reference_estimator.py)."""
+    scene = load_scene(os.path.join(ROOT, "assets", "scenes", f"{name}.toml"))
+    img = render_wavefront(build_device_scene(scene, dev), env, camera_pytree(scene.camera, dev),
+                           0, (size, size), spp, MAX_BOUNCES)
+    ours = img.cpu().numpy() / spp
+    ref = np.load(os.path.join(ROOT, "tests", "goldens", f"{name}_anchor_{size}_{spp}spp.npy"))
+    diff = ours - ref
+    ad = np.abs(diff).max(-1)
+    flipped = ad > 1e-2
+    keep = ~flipped
+    rel = float(np.sqrt((diff[keep] ** 2).mean()) / np.sqrt((ref[keep] ** 2).mean()))
+    mrel = abs(float(ours.mean()) - float(ref.mean())) / float(ref.mean())
+    within = float((ad < 1e-4).mean())
+    log("golden", scene=f"{name}_anchor", flipped=f"{flipped.mean():.4f}", within_1e4=f"{within:.4f}",
+        rel_rmse_unflipped=f"{rel:.3e}", image_mean_rel=f"{mrel:.3e}")
+    if name == "suzanne_hi":
+        ok = flipped.mean() < 0.03 and within > 0.95 and rel < 0.005
+    else:
+        ok = within > 0.45 and rel < 0.005 and mrel < 0.05
+    if not ok:
+        raise AssertionError(f"{name}: the anchor golden's criteria fail")
 
 
 def main() -> int:
@@ -107,110 +293,101 @@ def main() -> int:
         flags=repr(" ".join(_kernels.NVCC_FLAGS)),
         ptxas=json.dumps(_kernels.BUILD_INFO.get("ptxas", [])))
 
-    start = time.perf_counter()
-    ds, env, cam = house_setup(dev)
-    setup_seconds = time.perf_counter() - start
-
-    # 3. parity on a real loop state (256x256 lanes, after 3 plain iterations)
-    wave = Wavefront(ds, env, cam, 0, (256, 256), NO_LIMIT, 64, BOUNCES)
-    for it in range(3):
-        wave.step(it, trace=cw.trace_plain, shade=cw.shade_plain)
-    small = capture_step(wave, 3, trace=cw.trace_plain, shade=cw.shade_plain)
-    max_err = {
-        "trace": check_parity("trace", 256 * 256, cw.trace_call(*small["trace"]),
-                              cw.trace_plain(*small["trace"]), cw.TRACE_INT_NAMES),
-        "shade": check_parity("shade", 256 * 256, shade_outputs(cw.shade_call(*small["shade"])),
-                              shade_outputs(cw.shade_plain(*small["shade"])), cw.SHADE_INT_NAMES),
-    }
-
-    # 4. main path at 2048^2
-    res = (SIZE, SIZE)
+    sky = device_environment(Environment.from_texture("sky", procedural_sky(2048, 1024)), dev)
     n_pixels = SIZE * SIZE
-    start = time.perf_counter()
-    _, counts, _ = render_freerun(ds, env, cam, np.zeros(res, np.uint32), res, 16,
-                                  BOUNCES, with_stats=True)
-    torch.cuda.synchronize()
-    per_iter = (time.perf_counter() - start) / (16 + BOUNCES - 1)
-    warm_counts = counts
-    budget = int(min(1024, max(16, CALL_SECONDS / per_iter)))
-    total_rays, total_spp, image, call_rates = 0, 0.0, None, []
-    torch.cuda.reset_peak_memory_stats(dev)
-    cw.reset_launches()
-    torch.cuda.synchronize()
-    start = time.perf_counter()
-    for _ in range(TIMED_CALLS):
-        call_start = time.perf_counter()
-        out, counts_dev, stats = render_freerun(ds, env, cam, counts, res, budget, BOUNCES,
-                                                with_stats=True)
-        counts = counts + counts_dev
-        rays = int(stats["closest_rays"] + stats["shadow_rays"])  # synchronizes
-        call_rates.append(rays / (time.perf_counter() - call_start) / 1e6)
-        total_rays += rays
-        total_spp += float(counts_dev.float().mean())
-        image = out if image is None else image + out
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - start
-    launches = dict(cw.LAUNCHES)
-    mrays = total_rays / elapsed / 1e6
-    log("main", scene="house", size=SIZE, bounces=BOUNCES, budget=budget, calls=TIMED_CALLS,
-        seconds=f"{elapsed:.3f}", mrays_per_s=f"{mrays:.2f}",
-        per_call_mrays_per_s=",".join(f"{r:.2f}" for r in call_rates),
-        rays_per_px_spp=f"{total_rays / (n_pixels * max(total_spp, 1e-9)):.3f}",
-        spp=f"{total_spp:.2f}", trace_launches=launches["trace"],
-        shade_launches=launches["shade"],
-        peak_allocated_mib=f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f}",
-        setup_s=f"{setup_seconds:.1f}", card=repr(card))
-    if launches["trace"] <= 0 or launches["shade"] <= 0:
-        raise AssertionError("the main path did not launch both kernels")
-    if not bool(torch.isfinite(image).all()):
-        raise AssertionError("non-finite pixels in the main-path image")
-    if int(counts.min()) <= 0 or total_rays <= 0:
-        raise AssertionError("pixels without samples or no rays traced")
+    max_err, times, bounds = {}, {}, {}
 
-    # time split on a short profiled call
-    profile = {}
-    render_freerun(ds, env, cam, counts, res, 8, BOUNCES, profile=profile)
-    torch.cuda.synchronize()
-    split = np.zeros(3)
-    for m in profile["marks"]:
-        split += [m[0].elapsed_time(m[1]) + m[2].elapsed_time(m[3]),
-                  m[1].elapsed_time(m[2]), m[3].elapsed_time(m[4])]
-    split /= len(profile["marks"])
-    log("split", iterations=len(profile["marks"]), glue_ms=f"{split[0]:.4f}",
-        trace_ms=f"{split[1]:.4f}", shade_ms=f"{split[2]:.4f}", card=repr(card))
-
-    # kernel against plain version at the main path's shapes (2048^2 lanes):
-    # parity, then time
-    wave = Wavefront(ds, env, cam, counts, res, NO_LIMIT, 64, BOUNCES)
-    for it in range(2):
-        wave.step(it)
-    main = capture_step(wave, 2)
+    # 3. house: the small-scene route
+    ds, env, cam = scene_setup("house", dev, sky)
+    small = loop_state(ds, env, cam, 256, 0, 3)
+    max_err["trace"] = check_parity("trace", 256 * 256, cw.trace_call(*small["trace"]),
+                                    cw.trace_plain(*small["trace"]), cw.TRACE_INT_NAMES)
+    max_err["shade"] = check_parity("shade", 256 * 256, shade_outputs(cw.shade_call(*small["shade"])),
+                                    shade_outputs(cw.shade_plain(*small["shade"])), cw.SHADE_INT_NAMES)
+    counted, image, counts, warm = timed_main("house", ds, env, cam, card, TIMED_CALLS, dev)
+    house_launches = counted
+    if counted["trace"] <= 0 or counted["shade"] <= 0:
+        raise AssertionError("the house main path did not launch TRACE and SHADE")
+    save_png("house", image, counts, warm)
+    split("house", ds, env, cam, counts, card)
+    main_args = loop_state(ds, env, cam, SIZE, 0, 0, kernel_iterations=2)
     max_err["trace"] = max(max_err["trace"], check_parity(
-        "trace", n_pixels, cw.trace_call(*main["trace"]), cw.trace_plain(*main["trace"]),
+        "trace", n_pixels, cw.trace_call(*main_args["trace"]), cw.trace_plain(*main_args["trace"]),
         cw.TRACE_INT_NAMES))
     max_err["shade"] = max(max_err["shade"], check_parity(
-        "shade", n_pixels, shade_outputs(cw.shade_call(*main["shade"])),
-        shade_outputs(cw.shade_plain(*main["shade"])), cw.SHADE_INT_NAMES))
-    times = {}
-    for name, kfn, pfn in (("trace", cw.trace_call, cw.trace_plain),
-                           ("shade", cw.shade_call, cw.shade_plain)):
-        args = main[name]
+        "shade", n_pixels, shade_outputs(cw.shade_call(*main_args["shade"])),
+        shade_outputs(cw.shade_plain(*main_args["shade"])), cw.SHADE_INT_NAMES))
+    prims = (ds.sph_radius.shape[0] * OPS_SPHERE + ds.pln_valid.shape[0] * OPS_PLANE
+             + ds.tri_valid.shape[0] * OPS_TRIANGLE)
+    for name, kfn, pfn, n_bytes, n_ops in (
+        # TRACE: 14 inputs and 26 outputs of 4 bytes; the operations of the
+        # closest sweep over every primitive (the shadow sweep, which stops
+        # at its first hit, and the BSDF are left out: the bound stays a
+        # lower bound)
+        ("trace", cw.trace_call, cw.trace_plain, n_pixels * 40 * 4, n_pixels * prims),
+        # SHADE: its per-lane inputs, the 4-word quad row and 22 outputs
+        ("shade", cw.shade_call, cw.shade_plain,
+         n_pixels * 4 * (len(cw.SHADE_IN) + 4 + len(cw.SHADE_OUT_NAMES)), 0),
+    ):
+        args = main_args[name]
         p1 = time_ms(lambda: pfn(*args), 2)
         k1 = time_ms(lambda: kfn(*args), 10)
         k2 = time_ms(lambda: kfn(*args), 10)
         p2 = time_ms(lambda: pfn(*args), 2)
         times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        bounds[name] = bound_ms(n_bytes, n_ops)
         log("timing", kernel=name, lanes=n_pixels, ms=f"{times[name][0]:.4f}",
-            plain_ms=f"{times[name][1]:.4f}", card=repr(card))
+            plain_ms=f"{times[name][1]:.4f}", bound_ms=f"{bounds[name][0]:.4f}",
+            bound_by=bounds[name][1], card=repr(card))
 
-    png_dir = os.path.join(ROOT, "build")
-    os.makedirs(png_dir, exist_ok=True)
-    # image sums the timed calls; their samples are counts - warm_counts
-    mean_img = image / (counts - warm_counts).clamp_min(1).unsqueeze(-1).to(image.dtype)
-    png = linear_to_srgb(aces_tonemap(mean_img)).cpu().numpy()
-    write_png(os.path.join(png_dir, "house_2048.png"), png)
+    # 4. big-mesh parity
+    hi_ds, _, hi_cam = scene_setup("suzanne_hi", dev, sky)
+    sph_ds, _, sph_cam = scene_setup("spheres", dev, sky)
+    big_parity("suzanne_hi", loop_state(hi_ds, sky, hi_cam, 256, 0, 3), 256 * 256, max_err)
+    big_parity("spheres", loop_state(sph_ds, sky, sph_cam, 256, 0, 3), 256 * 256, max_err)
+    big_parity("spheres", loop_state(sph_ds, sky, sph_cam, SIZE, 0, 0, kernel_iterations=2),
+               n_pixels, max_err)
+    suz_ds, _, suz_cam = scene_setup("suzanne", dev, sky)
+    big_parity("suzanne", loop_state(suz_ds, sky, suz_cam, SIZE, 0, 0, kernel_iterations=2),
+               n_pixels, max_err)
+    del suz_ds
 
-    # 5. goldens
+    # 5. big-mesh main path: suzanne_hi, then a short spheres run
+    big_launches, image, counts, warm = timed_main("suzanne_hi", hi_ds, sky, hi_cam, card,
+                                                   TIMED_CALLS, dev)
+    for k in ("chunked_closest", "chunked_any", "big_shade"):
+        if big_launches[k] <= 0:
+            raise AssertionError(f"the suzanne_hi main path did not launch {k}")
+    if big_launches["trace"] or big_launches["shade"]:
+        raise AssertionError("the suzanne_hi main path launched TRACE or SHADE")
+    save_png("suzanne_hi", image, counts, warm)
+    split("suzanne_hi", hi_ds, sky, hi_cam, counts, card)
+    sph_counted, image, counts, warm = timed_main("spheres", sph_ds, sky, sph_cam, card, 1, dev,
+                                                  budget=32)
+    save_png("spheres", image, counts, warm)
+    del sph_ds
+
+    # 6. each big-mesh kernel against its plain version on suzanne_hi 2048^2
+    state = loop_state(hi_ds, sky, hi_cam, SIZE, 0, 0, kernel_iterations=2)
+    for key, name in BIG_KERNELS.items():
+        kfn, pfn = KERNELS[key]
+        times[name], ref = time_kernel(kfn, pfn, state[key])
+        kernel_parity(key, "suzanne_hi", state[key], n_pixels, max_err, ref)
+        if key == "big_shade":
+            # its per-lane inputs, the 4-word quad row and 22 outputs; the
+            # winner and material tables once
+            ch = hi_ds.chunks
+            n_bytes = (n_pixels * 4 * (len(cw.BIG_SHADE_IN) + 4 + len(cw.SHADE_OUT_NAMES))
+                       + 4 * (ch.winner.numel() + ch.materials.numel()))
+            bounds[name] = bound_ms(n_bytes, 0) + ({},)
+        else:
+            bounds[name] = chunked_bound(hi_ds, state[key], key == "closest")
+        log("timing", kernel=name, lanes=n_pixels, ms=f"{times[name][0]:.4f}",
+            plain_ms=f"{times[name][1]:.4f}", bound_ms=f"{bounds[name][0]:.4f}",
+            bound_by=bounds[name][1], **bounds[name][2], card=repr(card))
+    del hi_ds
+
+    # 7. goldens
     golden_env = device_environment(
         Environment.from_texture("golden_sky", procedural_sky(256, 128, sun_radius=0.05)), dev)
     for name in ("default", "house"):
@@ -223,17 +400,26 @@ def main() -> int:
         log("golden", scene=name, rel_rmse=f"{rel:.3e}", bound=GOLDEN_REL_RMSE_MAX)
         if not rel < GOLDEN_REL_RMSE_MAX:
             raise AssertionError(f"{name}: relative RMSE {rel:.3e} against the golden")
+    env0 = device_environment(load_default_environments()[0], dev)
+    anchor("suzanne_hi", 24, 2, env0, dev)
+    anchor("spheres", 32, 4, env0, dev)
 
-    src = "rsoderh_raytracing_tpu_torch/csrc/wavefront.cu"
+    replaces = {
+        "trace": "rsoderh_raytracing_tpu/ops/pallas_wavefront.py:775",
+        "shade": "rsoderh_raytracing_tpu/ops/pallas_wavefront.py:840",
+        "chunked_closest": "rsoderh_raytracing_tpu/ops/pallas_intersect.py:1524",
+        "chunked_any": "rsoderh_raytracing_tpu/ops/pallas_intersect.py:1524",
+        "big_shade": "rsoderh_raytracing_tpu/ops/pallas_wavefront.py:1042",
+    }
+    counted = {**{k: house_launches[k] for k in ("trace", "shade")},
+               **{k: big_launches[k] for k in ("chunked_closest", "chunked_any", "big_shade")}}
     kernels = [
-        {"name": "trace", "route": "cuda", "source": src,
-         "replaces": "rsoderh_raytracing_tpu/ops/pallas_wavefront.py:775",
-         "launches": launches["trace"], "max_abs_err": max_err["trace"],
-         "ms": times["trace"][0], "plain_ms": times["trace"][1]},
-        {"name": "shade", "route": "cuda", "source": src,
-         "replaces": "rsoderh_raytracing_tpu/ops/pallas_wavefront.py:840",
-         "launches": launches["shade"], "max_abs_err": max_err["shade"],
-         "ms": times["shade"][0], "plain_ms": times["shade"][1]},
+        {"name": name, "route": "cuda",
+         "source": SRC_WAVEFRONT if name in ("trace", "shade", "big_shade") else SRC_CHUNKED,
+         "replaces": replaces[name], "launches": counted[name], "max_abs_err": max_err[name],
+         "ms": times[name][0], "plain_ms": times[name][1],
+         "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None}
+        for name in ("trace", "shade", "chunked_closest", "chunked_any", "big_shade")
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

@@ -1,4 +1,5 @@
-// Device functions shared by the TRACE and SHADE kernels (wavefront.cu).
+// Device functions shared by the kernels: TRACE, SHADE and BIG_SHADE
+// (wavefront.cu), CHUNKED_CLOSEST and CHUNKED_ANY (chunked.cu).
 //
 // Every formula follows rsoderh_raytracing_tpu/ops/pallas_wavefront.py
 // and ops/pallas_intersect.py operand for operand. Constants that the
@@ -27,11 +28,15 @@ constexpr float TRI_T_EPS = (float)1.0e-5;
 constexpr float DIELECTRIC_F0 = (float)0.04;
 constexpr float THROUGHPUT_CUTOFF = (float)0.001;
 
-// Packed scene table rows (ops/cuda_wavefront.py:scene_table).
+// Packed scene table rows (scene/device.py:pack_rows).
 constexpr int SPH_COLS = 8;   // pos[3] c2 radius material valid -
 constexpr int PLN_COLS = 16;  // n[3] ndotp r0[3] r2[3] r0dotp r2dotp material valid - -
 constexpr int TRI_COLS = 36;  // cdet[3] e0[3] e1[3] cu[3] cv[3] n[3] adotn valid a[3] n0[3] n1[3] n2[3] material - - -
 constexpr int MAT_COLS = 8;   // color[3] roughness metallic emission[3]
+// Big-mesh union rows (scene/device.py:winner_rows): sphere pos[3]
+// radius; plane normal[3]; triangle a[3] e0[3] e1[3] n0[3] n1[3] n2[3];
+// slot 18 the material id as an exact small-int float; slot 19 padding.
+constexpr int WINNER_SLOTS = 20;
 
 struct V3 {
   float x, y, z;
@@ -255,6 +260,422 @@ __device__ __forceinline__ BsdfSample bsdf_sample(uint32_t& state, V3 rd, V3 n, 
 // like XLA's f32 -> i32 conversion.
 __device__ __forceinline__ int quad_x0(float u, int w) {
   return clampi(__float2int_rz(floorf(u * (float)w - 0.5f)), 0, w - 1);
+}
+
+// -- primitive tests (pallas_intersect._sweep_body, one lane) ---------------
+// sphere_hit, tri_hit and tri_occluded serve the chunked kernels' windows;
+// sweep() below writes the same tests out for the packed table.
+
+struct Ray {
+  float ox, oy, oz, dx, dy, dz;
+};
+
+// The per-ray terms every primitive test shares.
+struct RayTerms {
+  float ox, oy, oz, dx, dy, dz;
+  float a_q, d_dot_o, o_dot_o, mx, my, mz;
+};
+
+__device__ __forceinline__ RayTerms ray_terms(const Ray& r) {
+  RayTerms k;
+  k.ox = r.ox; k.oy = r.oy; k.oz = r.oz; k.dx = r.dx; k.dy = r.dy; k.dz = r.dz;
+  k.a_q = r.dx * r.dx + r.dy * r.dy + r.dz * r.dz;
+  k.d_dot_o = r.dx * r.ox + r.dy * r.oy + r.dz * r.oz;
+  k.o_dot_o = r.ox * r.ox + r.oy * r.oy + r.oz * r.oz;
+  k.mx = r.oy * r.dz - r.oz * r.dy;
+  k.my = r.oz * r.dx - r.ox * r.dz;
+  k.mz = r.ox * r.dy - r.oy * r.dx;
+  return k;
+}
+
+// Sphere at (cx, cy, cz) with c2 = |c|^2 - r^2: the robust q-form.
+__device__ __forceinline__ bool sphere_hit(const RayTerms& k, float cx, float cy, float cz,
+                                           float c2, bool valid, float& t) {
+  float b = 2.0f * (k.d_dot_o - (k.dx * cx + k.dy * cy + k.dz * cz));
+  float c = k.o_dot_o - 2.0f * (k.ox * cx + k.oy * cy + k.oz * cz) + c2;
+  float disc = b * b - 4.0f * k.a_q * c;
+  float sq = sqrtf(maxn(disc, 0.0f));
+  float q = b > 0.0f ? -0.5f * (b + sq) : -0.5f * (b - sq);
+  float t0 = q / k.a_q;
+  float t1 = c / (q == 0.0f ? 1.0f : q);
+  t = t0 < SPHERE_EPS ? t1 : (t1 < SPHERE_EPS ? t0 : minn(t0, t1));
+  if (disc == 0.0f) t = -0.5f * b / k.a_q;
+  return (disc >= 0.0f) && (t >= SPHERE_EPS) && valid;
+}
+
+// Column c of a row: a plain load, or (kLdg) a read-only __ldg for rows
+// in global memory.
+template <bool kLdg>
+__device__ __forceinline__ float col(const float* p, int c) {
+  return kLdg ? __ldg(p + c) : p[c];
+}
+
+// Triangle: the first 20 columns of a packed triangle row and of a chunk
+// window row share one layout: cdet[3] e0[3] e1[3] cu[3] cv[3] n[3]
+// adotn valid.
+template <bool kLdg = false>
+__device__ __forceinline__ bool tri_hit(const RayTerms& k, const float* p, float& t) {
+  float det = k.dx * col<kLdg>(p, 0) + k.dy * col<kLdg>(p, 1) + k.dz * col<kLdg>(p, 2);
+  bool ok = fabsf(det) >= TRI_DET_EPS;
+  float inv = 1.0f / (ok ? det : 1.0f);
+  float u = ((k.mx * col<kLdg>(p, 6) + k.my * col<kLdg>(p, 7) + k.mz * col<kLdg>(p, 8)) +
+             (k.dx * col<kLdg>(p, 9) + k.dy * col<kLdg>(p, 10) + k.dz * col<kLdg>(p, 11))) * inv;
+  float v = -((k.mx * col<kLdg>(p, 3) + k.my * col<kLdg>(p, 4) + k.mz * col<kLdg>(p, 5)) +
+              (k.dx * col<kLdg>(p, 12) + k.dy * col<kLdg>(p, 13) + k.dz * col<kLdg>(p, 14))) * inv;
+  t = ((k.ox * col<kLdg>(p, 15) + k.oy * col<kLdg>(p, 16) + k.oz * col<kLdg>(p, 17)) - col<kLdg>(p, 18)) * inv;
+  return ok && (u >= 0.0f) && (u <= 1.0f) && (v >= 0.0f) && (u + v <= 1.0f) &&
+         (t >= TRI_T_EPS) && (col<kLdg>(p, 19) > 0.0f);
+}
+
+// pallas_intersect.tri_chunk_occluded: tri_hit without the division,
+// every quotient test in its sign-scaled numerator form.
+template <bool kLdg = false>
+__device__ __forceinline__ bool tri_occluded(const RayTerms& k, const float* p) {
+  float det = k.dx * col<kLdg>(p, 0) + k.dy * col<kLdg>(p, 1) + k.dz * col<kLdg>(p, 2);
+  float adet = fabsf(det);
+  bool neg = det < 0.0f;
+  float un = (k.mx * col<kLdg>(p, 6) + k.my * col<kLdg>(p, 7) + k.mz * col<kLdg>(p, 8)) +
+             (k.dx * col<kLdg>(p, 9) + k.dy * col<kLdg>(p, 10) + k.dz * col<kLdg>(p, 11));
+  un = neg ? -un : un;
+  float vn = -((k.mx * col<kLdg>(p, 3) + k.my * col<kLdg>(p, 4) + k.mz * col<kLdg>(p, 5)) +
+               (k.dx * col<kLdg>(p, 12) + k.dy * col<kLdg>(p, 13) + k.dz * col<kLdg>(p, 14)));
+  vn = neg ? -vn : vn;
+  float tn = (k.ox * col<kLdg>(p, 15) + k.oy * col<kLdg>(p, 16) + k.oz * col<kLdg>(p, 17)) - col<kLdg>(p, 18);
+  tn = neg ? -tn : tn;
+  return (adet >= TRI_DET_EPS) && (un >= 0.0f) && (un <= adet) && (vn >= 0.0f) &&
+         (un + vn <= adet) && (tn >= TRI_T_EPS * adet) && (col<kLdg>(p, 19) > 0.0f);
+}
+
+// The packed scene table (scene/device.py:pack_rows), here in shared
+// memory: sphere, plane, triangle and material rows.
+struct SceneView {
+  const float* sph;
+  const float* pln;
+  const float* tri;
+  const float* mat;
+  int n_sph, n_pln, n_tri, n_mat;
+};
+
+// pallas_intersect._sweep_body, one lane: strict <, sphere -> plane ->
+// triangle, index order. With any_only, returns at the first hit closer
+// than INF (the occlusion test needs no winner). The primitive tests are
+// written out here rather than through sphere_hit/tri_hit above (the same
+// arithmetic): built on those helpers, TRACE ran 4.5% slower on the H100
+// at equal registers (PERF.md).
+__device__ __forceinline__ void sweep(const SceneView& s, const Ray& r, bool any_only,
+                                      float& best_t, int& best_type, int& best_idx) {
+  const float ox = r.ox, oy = r.oy, oz = r.oz, dx = r.dx, dy = r.dy, dz = r.dz;
+  const float a_q = dx * dx + dy * dy + dz * dz;
+  const float d_dot_o = dx * ox + dy * oy + dz * oz;
+  const float o_dot_o = ox * ox + oy * oy + oz * oz;
+  const float mx = oy * dz - oz * dy;
+  const float my = oz * dx - ox * dz;
+  const float mz = ox * dy - oy * dx;
+  best_t = INF;
+  best_type = -1;
+  best_idx = 0;
+
+  for (int i = 0; i < s.n_sph; ++i) {
+    const float* p = s.sph + i * SPH_COLS;
+    const float cx = p[0], cy = p[1], cz = p[2];
+    float b = 2.0f * (d_dot_o - (dx * cx + dy * cy + dz * cz));
+    float c = o_dot_o - 2.0f * (ox * cx + oy * cy + oz * cz) + p[3];
+    float disc = b * b - 4.0f * a_q * c;
+    float sq = sqrtf(maxn(disc, 0.0f));
+    float q = b > 0.0f ? -0.5f * (b + sq) : -0.5f * (b - sq);
+    float t0 = q / a_q;
+    float t1 = c / (q == 0.0f ? 1.0f : q);
+    float t = t0 < SPHERE_EPS ? t1 : (t1 < SPHERE_EPS ? t0 : minn(t0, t1));
+    if (disc == 0.0f) t = -0.5f * b / a_q;
+    bool hit = (disc >= 0.0f) && (t >= SPHERE_EPS) && (p[6] > 0.0f);
+    if (hit && t < best_t) {
+      best_t = t;
+      best_type = 0;
+      best_idx = i;
+      if (any_only) return;
+    }
+  }
+  for (int i = 0; i < s.n_pln; ++i) {
+    const float* p = s.pln + i * PLN_COLS;
+    const float nx = p[0], ny = p[1], nz = p[2];
+    float denom = dx * nx + dy * ny + dz * nz;
+    bool ok = fabsf(denom) >= PLANE_DENOM_EPS;
+    float t = (p[3] - (ox * nx + oy * ny + oz * nz)) / (ok ? denom : 1.0f);
+    float px = (ox * p[4] + oy * p[5] + oz * p[6]) + t * (dx * p[4] + dy * p[5] + dz * p[6]) - p[10];
+    float pz = (ox * p[7] + oy * p[8] + oz * p[9]) + t * (dx * p[7] + dy * p[8] + dz * p[9]) - p[11];
+    bool hit = ok && (t >= PLANE_T_EPS) && (px >= 0.0f) && (px <= 1.0f) && (pz >= 0.0f) &&
+               (pz <= 1.0f) && (p[13] > 0.0f);
+    if (hit && t < best_t) {
+      best_t = t;
+      best_type = 1;
+      best_idx = i;
+      if (any_only) return;
+    }
+  }
+  for (int i = 0; i < s.n_tri; ++i) {
+    const float* p = s.tri + i * TRI_COLS;
+    float det = dx * p[0] + dy * p[1] + dz * p[2];
+    bool ok = fabsf(det) >= TRI_DET_EPS;
+    float inv = 1.0f / (ok ? det : 1.0f);
+    float u = ((mx * p[6] + my * p[7] + mz * p[8]) + (dx * p[9] + dy * p[10] + dz * p[11])) * inv;
+    float v = -((mx * p[3] + my * p[4] + mz * p[5]) + (dx * p[12] + dy * p[13] + dz * p[14])) * inv;
+    float t = ((ox * p[15] + oy * p[16] + oz * p[17]) - p[18]) * inv;
+    bool hit = ok && (u >= 0.0f) && (u <= 1.0f) && (v >= 0.0f) && (u + v <= 1.0f) &&
+               (t >= TRI_T_EPS) && (p[19] > 0.0f);
+    if (hit && t < best_t) {
+      best_t = t;
+      best_type = 2;
+      best_idx = i;
+      if (any_only) return;
+    }
+  }
+}
+
+// -- winner normals (pallas_intersect.small_winner_normals, tri_normal_recompute)
+
+// Unit (p - c), flipped when the ray starts inside the sphere.
+__device__ __forceinline__ V3 sphere_normal(float cx, float cy, float cz, float radius,
+                                            const Ray& r, float px, float py, float pz) {
+  float snx = px - cx, sny = py - cy, snz = pz - cz;
+  float inv_len = 1.0f / sqrtf(snx * snx + sny * sny + snz * snz);
+  snx = snx * inv_len;
+  sny = sny * inv_len;
+  snz = snz * inv_len;
+  float lx = cx - r.ox, ly = cy - r.oy, lz = cz - r.oz;
+  bool inside = (lx * lx + ly * ly + lz * lz) - radius * radius < (float)1.0e-6;
+  return inside ? V3{-snx, -sny, -snz} : V3{snx, sny, snz};
+}
+
+// Plane normal flipped toward the side of the ray origin.
+__device__ __forceinline__ V3 plane_normal(float nx, float ny, float nz, const Ray& r) {
+  bool flip = r.ox * nx + r.oy * ny + r.oz * nz < 0.0f;
+  return flip ? V3{-nx, -ny, -nz} : V3{nx, ny, nz};
+}
+
+// Naive Moller-Trumbore recompute on the winner triangle: barycentric
+// blend of the baked normals + backface flip.
+__device__ __forceinline__ V3 tri_normal(V3 ta, V3 e0, V3 e1, V3 n0, V3 n1, V3 n2, const Ray& r) {
+  float rx = r.ox - ta.x, ry = r.oy - ta.y, rz = r.oz - ta.z;
+  float p0x = ry * e0.z - rz * e0.y;
+  float p0y = rz * e0.x - rx * e0.z;
+  float p0z = rx * e0.y - ry * e0.x;
+  float p1x = r.dy * e1.z - r.dz * e1.y;
+  float p1y = r.dz * e1.x - r.dx * e1.z;
+  float p1z = r.dx * e1.y - r.dy * e1.x;
+  float det = e0.x * p1x + e0.y * p1y + e0.z * p1z;
+  float inv_det = 1.0f / (fabsf(det) < TRI_DET_EPS ? 1.0f : det);
+  float u = (rx * p1x + ry * p1y + rz * p1z) * inv_det;
+  float v = (r.dx * p0x + r.dy * p0y + r.dz * p0z) * inv_det;
+  float w0 = 1.0f - u - v;
+  float tnx = w0 * n0.x + u * n1.x + v * n2.x;
+  float tny = w0 * n0.y + u * n1.y + v * n2.y;
+  float tnz = w0 * n0.z + u * n1.z + v * n2.z;
+  float inv_tn = 1.0f / maxn(sqrtf(tnx * tnx + tny * tny + tnz * tnz), (float)1.0e-20);
+  tnx = tnx * inv_tn;
+  tny = tny * inv_tn;
+  tnz = tnz * inv_tn;
+  bool backface = tnx * r.dx + tny * r.dy + tnz * r.dz > 0.0f;
+  return backface ? V3{-tnx, -tny, -tnz} : V3{tnx, tny, tnz};
+}
+
+// Material row (MAT_COLS layout); an id outside the table reads row 0.
+__device__ __forceinline__ const float* material_row(const float* mat, int n_mat, int mat_id) {
+  return mat + ((mat_id >= 0 && mat_id < n_mat) ? mat_id : 0) * MAT_COLS;
+}
+
+// -- trace_epilogue (pallas_wavefront.trace_epilogue) ------------------------
+
+struct Epilogue {
+  float cos_theta;
+  V3 nee_scatter;
+  float nee_pdf;
+  BsdfSample bs;
+  float cos_bounce;
+};
+
+// Material parameters, the NEE BSDF eval/pdf and the bounce sample (two
+// RNG draws on `state`).
+__device__ __forceinline__ Epilogue trace_epilogue(V3 rd, V3 nee, V3 normal, V3 color,
+                                                   float rough, float metal, uint32_t& state) {
+  const float alpha = maxn(rough * rough, (float)0.001);
+  const float msat = sat(metal);
+  const V3 f0{DIELECTRIC_F0 + (color.x - DIELECTRIC_F0) * msat,
+              DIELECTRIC_F0 + (color.y - DIELECTRIC_F0) * msat,
+              DIELECTRIC_F0 + (color.z - DIELECTRIC_F0) * msat};
+  Epilogue e;
+  e.cos_theta = maxn(vdot(normal, nee), 0.0f);
+  const Frame frame = make_frame(normal);
+  const V3 wo = to_local(frame, V3{-rd.x, -rd.y, -rd.z});
+  const V3 wi = to_local(frame, nee);
+  e.nee_scatter = bsdf_eval(wo, wi, color, metal, alpha, f0);
+  e.nee_pdf = bsdf_pdf(wo, wi, f0, alpha);
+  e.bs = bsdf_sample(state, rd, normal, color, metal, alpha, f0);
+  e.cos_bounce = maxn(vdot(normal, e.bs.dir), 0.0f);
+  return e;
+}
+
+// -- SHADE core (pallas_wavefront._shade_core), one lane ---------------------
+
+// The 22 outputs (SHADE_OUT_NAMES).
+struct ShadeOut {
+  uint32_t* state;
+  float *ro0, *ro1, *ro2, *rd0, *rd1, *rd2;
+  float *tp0, *tp1, *tp2, *inc0, *inc1, *inc2, *last_pdf;
+  int32_t* bounce;
+  uint32_t* sample;
+  int32_t* in_path;
+  float *film0, *film1, *film2;
+  int32_t *active, *hitmask;
+};
+
+struct ShadeScalars {
+  int n, env_w, env_h, width, height, max_bounces;
+  uint32_t it_next, spp, budget, stride, offset;
+};
+
+// RGBE bilinear radiance from the quad row, the texel pmf, MIS, emission,
+// film, termination and regeneration; writes lane i of `o`. `in` reads
+// lane i's inputs where they are used (so a kernel that loads them from
+// device memory keeps few registers live): the trace products hit() occ()
+// px() py() pz() er() eg() eb() ct() ns(c) npdf() bd(c) bpdf() bs(c) bz()
+// cb() state() fu() fv() npmf(), the carry tp(c) inc(c) last_pdf()
+// bounce() sample() in_path() film(c) ro(c) rd(c), the pixel pixidx()
+// pixx() pixy() base() and the quad row quad(). `scal`: [max_y, aspect,
+// cam pos[3], cam rot rows[9], L, Z].
+template <class In>
+__device__ __forceinline__ void shade_core(int i, const In& in, const float* scal,
+                                           const ShadeScalars& k, const ShadeOut& o) {
+  const int W = k.env_w, H = k.env_h;
+  const bool active = in.in_path();
+  const bool did_hit = in.hit();
+  const bool is_hit = active && did_hit;
+  const bool is_miss = active && !did_hit;
+  const V3 throughput{in.tp(0), in.tp(1), in.tp(2)};
+  V3 incoming{in.inc(0), in.inc(1), in.inc(2)};
+  const float fu = in.fu(), fv = in.fv();
+
+  // quad row -> bilinear radiance + texel pmf (envmap.py RGBE path)
+  const float x = fu * (float)W - 0.5f;
+  const float y = fv * (float)H - 0.5f;
+  const float x0 = floorf(x);
+  const float y0 = floorf(y);
+  const float fx = x0 < 0.0f ? 0.0f : x - x0;
+  const float fy = y0 < 0.0f ? 0.0f : y - y0;
+  const int x0i = clampi(__float2int_rz(x0), 0, W - 1);
+  const int y0i = clampi(__float2int_rz(y0), 0, H - 1);
+  const uint4 q = in.quad();
+  const V3 c00 = decode_rgbe(q.x), c10 = decode_rgbe(q.y), c01 = decode_rgbe(q.z),
+           c11 = decode_rgbe(q.w);
+  const V3 radiance{(c00.x * (1.0f - fx) + c10.x * fx) * (1.0f - fy) + (c01.x * (1.0f - fx) + c11.x * fx) * fy,
+                    (c00.y * (1.0f - fx) + c10.y * fx) * (1.0f - fy) + (c01.y * (1.0f - fx) + c11.y * fx) * fy,
+                    (c00.z * (1.0f - fx) + c10.z * fx) * (1.0f - fy) + (c01.z * (1.0f - fx) + c11.z * fx) * fy};
+  const int pxsel = min(__float2int_rz(fu * (float)W), W - 1);
+  const int pysel = min(__float2int_rz(fv * (float)H), H - 1);
+  const bool sel_x = pxsel != x0i;
+  const bool sel_y = pysel != y0i;
+  const V3 selt = sel_y ? (sel_x ? c11 : c01) : (sel_x ? c10 : c00);
+  const float l = lum(selt);
+  const float sin_theta = sinf(((float)pysel + 0.5f) * (float)(NP_PI / H));
+  const float length = scal[14], total = scal[15];
+  const float quad_pmf = total > 0.0f ? ((l * sin_theta * length) / total) / length : 1.0f / length;
+  const float pmf = is_hit ? in.npmf() : quad_pmf;
+  const float solid = (float)((2.0 * PI_D / W) * (PI_D / H)) * maxn(sinf(PI_F * fv), (float)1.0e-6);
+  const float pdf_env = pmf / solid;
+
+  // miss: environment light with MIS
+  const float lp = in.last_pdf();
+  const float a2 = lp * lp, b2 = pdf_env * pdf_env;
+  const float miss_weight = a2 / maxn(a2 + b2, (float)1.0e-30);
+  incoming.x = incoming.x + (is_miss ? throughput.x * radiance.x * miss_weight : 0.0f);
+  incoming.y = incoming.y + (is_miss ? throughput.y * radiance.y * miss_weight : 0.0f);
+  incoming.z = incoming.z + (is_miss ? throughput.z * radiance.z * miss_weight : 0.0f);
+
+  // hit: emission + NEE
+  incoming.x = incoming.x + (is_hit ? throughput.x * in.er() : 0.0f);
+  incoming.y = incoming.y + (is_hit ? throughput.y * in.eg() : 0.0f);
+  incoming.z = incoming.z + (is_hit ? throughput.z * in.eb() : 0.0f);
+  const float cos_theta = in.ct();
+  const float npdf = in.npdf();
+  const float e2 = pdf_env * pdf_env, n2 = npdf * npdf;
+  const float nee_weight = e2 / maxn(e2 + n2, (float)1.0e-30);
+  const bool nee_ok = is_hit && (cos_theta > 0.0f) && (pdf_env > 0.0f) && !in.occ();
+  const float cos_over_pdf = cos_theta / maxn(pdf_env, (float)1.0e-30);
+  incoming.x = incoming.x + (nee_ok ? throughput.x * nee_weight * radiance.x * in.ns(0) * cos_over_pdf : 0.0f);
+  incoming.y = incoming.y + (nee_ok ? throughput.y * nee_weight * radiance.y * in.ns(1) * cos_over_pdf : 0.0f);
+  incoming.z = incoming.z + (nee_ok ? throughput.z * nee_weight * radiance.z * in.ns(2) * cos_over_pdf : 0.0f);
+
+  // bounce / termination
+  const bool bzero = in.bz();
+  const V3 bscat{in.bs(0), in.bs(1), in.bs(2)};
+  if (is_hit && bzero) incoming = bscat;
+  const float bpdf = in.bpdf();
+  const float tp_scale = in.cb() / maxn(bpdf, (float)1.0e-30);
+  const V3 new_tp{throughput.x * bscat.x * tp_scale, throughput.y * bscat.y * tp_scale,
+                  throughput.z * bscat.z * tp_scale};
+  const float tp_norm = sqrtf(new_tp.x * new_tp.x + new_tp.y * new_tp.y + new_tp.z * new_tp.z);
+  int bounce = in.bounce() + 1;
+  const bool continues = is_hit && !bzero && (bpdf > 0.0f) && (tp_norm >= THROUGHPUT_CUTOFF) &&
+                         (bounce < k.max_bounces);
+  const bool path_done = active && !continues;
+  const float film0 = in.film(0) + (path_done ? incoming.x : 0.0f);
+  const float film1 = in.film(1) + (path_done ? incoming.y : 0.0f);
+  const float film2 = in.film(2) + (path_done ? incoming.z : 0.0f);
+  const uint32_t sample = in.sample();
+  const uint32_t next_sample = path_done ? sample + 1u : sample;
+
+  // regenerate: reseed from (pixel, global sample); unsigned compares,
+  // so 0xFFFFFFFF means "no limit".
+  const bool regen = path_done && (next_sample < k.spp) && (k.it_next < k.budget);
+  const uint32_t global_sample = (in.base() + next_sample) * k.stride + k.offset;
+  uint32_t fstate = 0u ^ in.pixidx();
+  rng_next(fstate);
+  fstate = fstate ^ global_sample;
+  rng_next(fstate);
+  const float ua = rng_uniform(fstate);
+  const float angle = ua * (float)TWO_PI_CIRCLE_D;
+  const float ur = rng_uniform(fstate);
+  const float radius = sqrtf(ur);
+  const float jx = radius * cosf(angle);
+  const float jy = radius * sinf(angle);
+  const float max_y = scal[0], aspect = scal[1];
+  const float jpx = (float)in.pixx() + jx;
+  const float jpy = (float)in.pixy() + jy;
+  const float sxn = jpx / (float)k.width * 2.0f - 1.0f;
+  const float syn = -(jpy / (float)k.height * 2.0f - 1.0f);
+  const float rc0 = sxn * max_y * aspect;
+  const float rc1 = syn * max_y;
+  float fd0 = rc0 * scal[5] + rc1 * scal[6] - scal[7];
+  float fd1 = rc0 * scal[8] + rc1 * scal[9] - scal[10];
+  float fd2 = rc0 * scal[11] + rc1 * scal[12] - scal[13];
+  const float fnorm = sqrtf(fd0 * fd0 + fd1 * fd1 + fd2 * fd2);
+  fd0 = fd0 / fnorm;
+  fd1 = fd1 / fnorm;
+  fd2 = fd2 / fnorm;
+
+  const bool in_path = (active && continues) || regen;
+  o.state[i] = regen ? fstate : in.state();
+  o.ro0[i] = regen ? scal[2] + 0.0f : (continues ? in.px() : in.ro(0));
+  o.ro1[i] = regen ? scal[3] + 0.0f : (continues ? in.py() : in.ro(1));
+  o.ro2[i] = regen ? scal[4] + 0.0f : (continues ? in.pz() : in.ro(2));
+  o.rd0[i] = regen ? fd0 : (continues ? in.bd(0) : in.rd(0));
+  o.rd1[i] = regen ? fd1 : (continues ? in.bd(1) : in.rd(1));
+  o.rd2[i] = regen ? fd2 : (continues ? in.bd(2) : in.rd(2));
+  o.tp0[i] = regen ? 1.0f : (continues ? new_tp.x : throughput.x);
+  o.tp1[i] = regen ? 1.0f : (continues ? new_tp.y : throughput.y);
+  o.tp2[i] = regen ? 1.0f : (continues ? new_tp.z : throughput.z);
+  const bool clear = regen || path_done;
+  o.inc0[i] = clear ? 0.0f : incoming.x;
+  o.inc1[i] = clear ? 0.0f : incoming.y;
+  o.inc2[i] = clear ? 0.0f : incoming.z;
+  o.last_pdf[i] = regen ? 1.0f : (continues ? bpdf : lp);
+  o.bounce[i] = regen ? 0 : bounce;
+  o.sample[i] = next_sample;
+  o.in_path[i] = in_path ? 1 : 0;
+  o.film0[i] = film0;
+  o.film1[i] = film1;
+  o.film2[i] = film2;
+  o.active[i] = active ? 1 : 0;
+  o.hitmask[i] = is_hit ? 1 : 0;
 }
 
 }  // namespace rt

@@ -1,8 +1,10 @@
 """Vose alias-table construction for O(1) HDRI importance sampling.
 
-A verbatim copy of ``rsoderh_raytracing_tpu.env.alias_table`` (pure
-numpy; the original's package imports jax). The native fast path it
-calls, ``rsoderh_raytracing_tpu.accel.native``, imports without jax.
+A copy of ``rsoderh_raytracing_tpu.env.alias_table`` (pure numpy; the
+original's package imports jax), with its own native fast path: the C++
+pairing loop in ``csrc/alias_table.cpp`` (a copy of the reference
+package's), built at first use with the reference's g++ flags into
+``build/native/`` at the root of the checkout.
 
 Same construction as the reference (src/environments.rs:96-187):
 per-pixel weight = luminance(color) * sin(theta_row) (lat-long solid-angle
@@ -13,15 +15,34 @@ The table is consumed on-device by ops/envmap.py: three arrays
 (probability, alias_index, pmf) instead of the reference's interleaved
 16-byte struct — SoA suits TPU gathers.
 
-A C++ native fast path (native/) accelerates the pairing loop for
-multi-megapixel HDRIs; the numpy/Python fallback below is identical.
+The C++ fast path accelerates the pairing loop for multi-megapixel
+HDRIs. It is tried first, as in the reference, because the two builders
+are not bitwise equal: the numpy/Python fallback below differs from it
+at the 1e-6 level (tests/test_native.py).
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import hashlib
+import logging
+import os
+import subprocess
+import threading
 
 import numpy as np
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+NATIVE_SRC = os.path.join(_PKG, "csrc", "alias_table.cpp")
+NATIVE_DIR = os.path.join(os.path.dirname(_PKG), "build", "native")
+# The reference's flags (rsoderh_raytracing_tpu/accel/native.py), so the
+# tables stay bitwise equal to the reference's.
+GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
+
+_native_lock = threading.Lock()
+_native_lib = None
+_native_failed = False
 
 
 @dataclasses.dataclass
@@ -66,19 +87,60 @@ def build_alias_table(weights: np.ndarray) -> AliasTable:
             weights * np.float32(length) / np.float32(weight_sum)
         ).astype(np.float32)
 
-    try:
-        from rsoderh_raytracing_tpu.accel.native import (
-            build_alias_table_native,
-        )
-
-        result = build_alias_table_native(probabilities)
-        if result is not None:
-            prob, alias, pmf, leftover = result
-            return AliasTable(probability=prob, alias_index=alias, pmf=pmf)
-    except ImportError:
-        pass
-
+    result = build_alias_table_native(probabilities)
+    if result is not None:
+        prob, alias, pmf = result
+        return AliasTable(probability=prob, alias_index=alias, pmf=pmf)
     return _build_python(probabilities)
+
+
+def _load_native():
+    """The compiled C++ builder, built on first use; None (logged) where
+    g++ is missing or fails, so callers fall back to numpy."""
+    global _native_lib, _native_failed
+    with _native_lock:
+        if _native_lib is not None or _native_failed:
+            return _native_lib
+        with open(NATIVE_SRC, "rb") as f:
+            digest = hashlib.sha256(f.read() + " ".join(GXX_FLAGS).encode())
+        lib_path = os.path.join(NATIVE_DIR, f"libalias_table_{digest.hexdigest()[:16]}.so")
+        try:
+            if not os.path.exists(lib_path):
+                os.makedirs(NATIVE_DIR, exist_ok=True)
+                tmp = f"{lib_path}.tmp{os.getpid()}"
+                subprocess.run(["g++", *GXX_FLAGS, NATIVE_SRC, "-o", tmp],
+                               check=True, capture_output=True)
+                os.replace(tmp, lib_path)
+            lib = ctypes.CDLL(lib_path)
+        except (OSError, subprocess.CalledProcessError) as err:
+            logging.getLogger(__name__).warning(
+                "native alias-table builder unavailable (%s); using numpy", err)
+            _native_failed = True
+            return None
+        f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+        i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+        lib.build_alias_table.restype = ctypes.c_int64
+        lib.build_alias_table.argtypes = [f32p, ctypes.c_int64, f32p, i32p, f32p]
+        _native_lib = lib
+        return lib
+
+
+def build_alias_table_native(probabilities: np.ndarray):
+    """probabilities: f32 normalized to mean 1. Returns (probability,
+    alias_index, pmf) from the C++ builder, or None without it."""
+    lib = _load_native()
+    if lib is None:
+        return None
+    probabilities = np.ascontiguousarray(probabilities, np.float32)
+    length = len(probabilities)
+    out_prob = np.empty(length, np.float32)
+    out_alias = np.empty(length, np.int32)
+    out_pmf = np.empty(length, np.float32)
+    leftover = lib.build_alias_table(probabilities, length, out_prob, out_alias, out_pmf)
+    if leftover > 0:
+        logging.getLogger(__name__).info(
+            "AliasTable: %d left over pixels out of %d", leftover, length)
+    return out_prob, out_alias, out_pmf
 
 
 def _build_python(probabilities: np.ndarray) -> AliasTable:
@@ -124,8 +186,6 @@ def _build_python(probabilities: np.ndarray) -> AliasTable:
 
     # Unassigned entries keep the identity defaults (probability 1,
     # alias=self) with their true pmf — see the out_pmf comment above.
-    import logging
-
     logging.getLogger(__name__).info(
         "AliasTable: %d left over pixels out of %d",
         int(length - assigned.sum()),

@@ -1,22 +1,31 @@
 """Environment map: host HDRI + alias table, and its device tensors.
 
 Port of rsoderh_raytracing_tpu/env/environment.py, RGBE ``quad`` layout
-only (the layout the wavefront main path reads).
+only (the layout the wavefront main path reads), with the environment set
+(``EnvironmentMaps``, ``load_default_environments``) copied as it is.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import glob
+import logging
+import os
+from typing import List
 
 import numpy as np
 import torch
 
+from rsoderh_raytracing_tpu_torch import _device
 from rsoderh_raytracing_tpu_torch.env import hdr_io
 from rsoderh_raytracing_tpu_torch.env.alias_table import (
     AliasTable,
     build_alias_table,
     build_weights_by_luminance,
 )
+
+# Names of the two HDRIs the reference embeds (src/state.rs:119-122).
+DEFAULT_ENVIRONMENT_NAMES = ("winter_lake_01_2k", "passendorf_snow_2k")
 
 
 @dataclasses.dataclass
@@ -88,8 +97,8 @@ def _quad_words(tex: np.ndarray) -> np.ndarray:
     ).reshape(height * width, 4)
 
 
-def device_environment(env: Environment, device="cpu") -> DeviceEnvironment:
-    """Upload an environment (RGBE quad layout)."""
+def device_environment(env: Environment, device=_device.DEFAULT) -> DeviceEnvironment:
+    """Upload an environment (RGBE quad layout) to `device`."""
     tex = np.asarray(env.texture, np.float32)
     height, width = tex.shape[:2]
     alias_pair = np.stack(
@@ -116,12 +125,13 @@ def device_environment(env: Environment, device="cpu") -> DeviceEnvironment:
 
 
 def device_environment_from_arrays(
-    texture_shape, quad, alias_pair, pmf_norm, device="cpu"
+    texture_shape, quad, alias_pair, pmf_norm, device=_device.DEFAULT
 ) -> DeviceEnvironment:
     """Build the port's environment from numpy arrays, for example the
     fields of the JAX package's DeviceEnvironment. ``quad`` is (L, 4)
     uint32 (or its int32 bits); ``alias_pair`` (L, 4) float32 with int32
     bits in column 1."""
+    device = _device.resolve(device)
     quad = np.ascontiguousarray(quad).view(np.int32)
     return DeviceEnvironment(
         texture_shape=(int(texture_shape[0]), int(texture_shape[1])),
@@ -133,3 +143,94 @@ def device_environment_from_arrays(
             np.asarray(pmf_norm, np.float32).copy()
         ).to(device),
     )
+
+
+class EnvironmentMaps:
+    """Ordered set of environments; index cycling matches the reference's
+    'e' key behavior (src/camera.rs:271-278)."""
+
+    def __init__(self, environments: List[Environment]):
+        if not environments:
+            raise ValueError("need at least one environment")
+        self.environments = environments
+
+    def __len__(self) -> int:
+        return len(self.environments)
+
+    def __getitem__(self, index: int) -> Environment:
+        return self.environments[index]
+
+    def next_index(self, index: int) -> int:
+        index += 1
+        return 0 if index >= len(self.environments) else index
+
+
+def load_default_environments(
+    hdri_dir: str | None = None, resolution: int = 1024
+) -> EnvironmentMaps:
+    """Load HDRIs from `hdri_dir` (any .hdr/.npy files; default
+    assets/hdri of the checkout), or synthesize the two default procedural
+    skies if the directory has none."""
+    if hdri_dir is None:
+        hdri_dir = os.path.join(
+            os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+            "assets",
+            "hdri",
+        )
+
+    def _order(path: str):
+        # The reference loads winter_lake first, passendorf second
+        # (src/state.rs:119-122); keep that order for the known names,
+        # extras after, alphabetically.
+        name = os.path.splitext(os.path.basename(path))[0]
+        try:
+            return (DEFAULT_ENVIRONMENT_NAMES.index(name), name)
+        except ValueError:
+            return (len(DEFAULT_ENVIRONMENT_NAMES), name)
+
+    paths = sorted(
+        glob.glob(os.path.join(hdri_dir, "*.hdr"))
+        + glob.glob(os.path.join(hdri_dir, "*.npy")),
+        key=_order,
+    )
+    environments = []
+    for path in paths:
+        name = os.path.splitext(os.path.basename(path))[0]
+        try:
+            texture = hdr_io.load_image(path)
+        except (ValueError, OSError) as err:
+            logging.getLogger(__name__).warning("Skipping HDRI %s: %s", path, err)
+            continue
+        environments.append(Environment.from_texture(name, texture))
+
+    if not environments:
+        width, height = resolution, resolution // 2
+        # Stand-in for winter_lake_01_2k: bright cold sky, high sun.
+        environments.append(
+            Environment.from_texture(
+                DEFAULT_ENVIRONMENT_NAMES[0],
+                hdr_io.procedural_sky(
+                    width,
+                    height,
+                    sun_direction=(0.35, 0.45, -0.82),
+                    sun_intensity=220.0,
+                    zenith_color=(0.22, 0.45, 0.95),
+                ),
+            )
+        )
+        # Stand-in for passendorf_snow_2k: overcast warm low sun.
+        environments.append(
+            Environment.from_texture(
+                DEFAULT_ENVIRONMENT_NAMES[1],
+                hdr_io.procedural_sky(
+                    width,
+                    height,
+                    sun_direction=(-0.6, 0.18, 0.78),
+                    sun_intensity=90.0,
+                    sun_radius=0.035,
+                    zenith_color=(0.45, 0.52, 0.62),
+                    horizon_color=(0.8, 0.78, 0.75),
+                ),
+            )
+        )
+    return EnvironmentMaps(environments)

@@ -1,9 +1,11 @@
 """Build and bind the CUDA kernels in ``csrc/``.
 
-At first use, ``nvcc`` compiles every ``csrc/*.cu`` into one shared
-library with a plain C interface, written under ``build/kernels/`` at
-the root of the checkout (named by a hash of the sources, so an edit
-rebuilds). It is loaded with ctypes; every pointer and the stream are
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` (``wavefront.cu``:
+TRACE, SHADE, BIG_SHADE; ``chunked.cu``: CHUNKED_CLOSEST, CHUNKED_ANY),
+one process a source, all started together, and links them into one
+shared library with a plain C interface, written under
+``build/kernels/`` at the root of the checkout (named by a hash of the
+sources, so an edit rebuilds). It is loaded with ctypes; every pointer and the stream are
 ``c_void_p``. Each C launcher returns ``cudaGetLastError()`` and the
 wrappers raise when it is not 0.
 
@@ -54,34 +56,54 @@ def _nvcc() -> str:
 
 
 def build(flags=NVCC_FLAGS) -> str:
-    """Compile the kernels with ``flags`` if needed; returns the library
-    path. Fills BUILD_INFO with the seconds taken and the ptxas report."""
+    """Compile the kernels with ``flags`` if needed; returns
+    the library path. Fills BUILD_INFO with the seconds taken and the
+    ptxas report."""
     digest = hashlib.sha256()
     for src in _sources():
         with open(src, "rb") as f:
             digest.update(os.path.basename(src).encode() + f.read())
     digest.update(" ".join(flags).encode())
-    lib_path = os.path.join(BUILD_DIR, f"libwavefront_{digest.hexdigest()[:16]}.so")
+    tag = digest.hexdigest()[:16]
+    lib_path = os.path.join(BUILD_DIR, f"libwavefront_{tag}.so")
     if os.path.exists(lib_path):
         BUILD_INFO.update(seconds=0.0, cached=True, path=lib_path)
         return lib_path
     os.makedirs(BUILD_DIR, exist_ok=True)
     cu = [s for s in _sources() if s.endswith(".cu")]
-    tmp = lib_path + f".tmp{os.getpid()}"
+    compile_flags = [f for f in flags if f != "-shared"]
+    link_flags = [f for f in flags if f not in ("-Xptxas", "-v")]
+    suffix = f"{tag}.{os.getpid()}"
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{suffix}.o") for src in cu]
     start = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *flags, "-o", tmp, *cu],
-        capture_output=True, text=True,
-    )
+    procs = [
+        subprocess.Popen([_nvcc(), *compile_flags, "-c", "-o", obj, src],
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for src, obj in zip(cu, objs)
+    ]
+    outs = [proc.communicate() for proc in procs]
+    log = "".join(out + err for out, err in outs)
+    failed = [src for src, proc in zip(cu, procs) if proc.returncode != 0]
+    tmp = lib_path + f".tmp{os.getpid()}"
+    if not failed:
+        link = subprocess.run([_nvcc(), *link_flags, "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            failed = ["link"]
     seconds = time.perf_counter() - start
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
     with open(os.path.join(BUILD_DIR, "nvcc.log"), "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        f.write(log)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n{log[-4000:]}")
     os.replace(tmp, lib_path)
     BUILD_INFO.update(
         seconds=seconds, cached=False, path=lib_path,
-        ptxas=[ln for ln in proc.stderr.splitlines() if "registers" in ln or "spill" in ln],
+        ptxas=[ln for ln in log.splitlines() if "registers" in ln or "spill" in ln
+               or "Compiling entry function" in ln],
     )
     return lib_path
 
@@ -91,12 +113,17 @@ def load(flags=NVCC_FLAGS):
     lib = ctypes.CDLL(build(flags))
     vp, i = ctypes.c_void_p, ctypes.c_int
     u = ctypes.c_uint32
-    lib.rt_trace_launch.restype = i
-    lib.rt_trace_launch.argtypes = [vp, vp, i, i, i, i, i, i, i, i, vp]
-    lib.rt_shade_launch.restype = i
-    lib.rt_shade_launch.argtypes = [
-        vp, i, i, i, i, i, i, u, u, u, u, u, vp,
-    ]
+    signatures = {
+        "rt_trace_launch": [vp, vp, i, i, i, i, i, i, i, i, vp],
+        "rt_shade_launch": [vp, i, i, i, i, i, i, u, u, u, u, u, vp],
+        "rt_big_shade_launch": [vp, vp, vp, i, i, i, i, i, i, i, i, i, u, u, u, u, u, vp],
+        "rt_chunked_closest_launch": [vp, vp, i, i, i, vp, vp, i, i, vp, vp, vp, i, vp],
+        "rt_chunked_any_launch": [vp, vp, i, i, i, vp, vp, i, i, vp, i, vp],
+    }
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.restype = i
+        fn.argtypes = argtypes
     lib.rt_error_string.restype = ctypes.c_char_p
     lib.rt_error_string.argtypes = [i]
     return lib

@@ -1,0 +1,90 @@
+"""CHUNKED_CLOSEST and CHUNKED_ANY: the big-mesh route's sweeps.
+
+Counterpart of the chunked half of rsoderh_raytracing_tpu/ops/
+pallas_intersect.py (``chunked_closest_tiles``, ``chunked_any_tiles``).
+The wrappers take flat (n,) tensors: ray components as 3-tuples and an
+int32 lane mask. For CPU tensors they run the plain versions
+(``intersect.chunked_closest_plain`` / ``chunked_any_plain``); for CUDA
+tensors they launch the kernels in ``csrc/chunked.cu`` or raise.
+``LAUNCHES`` counts the kernel launches of each wrapper.
+
+The scene data are the DeviceScene's chunk tables (scene/device.py:
+bounds, 20-float window rows, and the unrolled primitives, planes and
+spheres unless they are chunked, packed like the TRACE kernel's table).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from rsoderh_raytracing_tpu_torch.ops import cuda_wavefront as cw
+from rsoderh_raytracing_tpu_torch.ops import intersect
+from rsoderh_raytracing_tpu_torch.scene.device import CHUNKED, route
+
+# Kernel launches of each wrapper (CUDA tensors only).
+LAUNCHES = {"chunked_closest": 0, "chunked_any": 0}
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _launch_args(scene, rays, mask, what):
+    """Checked pointers and scene arguments common to both launchers."""
+    if route(scene) != CHUNKED:
+        raise ValueError(f"{what}: the scene does not take the chunked route")
+    n = mask.shape[0]
+    dev = mask.device
+    for i, t in enumerate(rays):
+        cw._check(f"{what} ray input {i}", t, n, torch.float32, dev)
+    cw._check(f"{what} lane mask", mask, n, torch.int32, dev)
+    ch = scene.chunks
+    n_sph = 0 if ch.n_sph_chunks else scene.sph_radius.shape[0]
+    scene_args = (
+        ch.small.data_ptr(), ch.small.numel(), n_sph, scene.pln_valid.shape[0],
+        ch.bounds.data_ptr(), ch.windows.data_ptr(), ch.n_tri_chunks, ch.count,
+    )
+    return n, dev, cw._ptrs((*rays, mask)), scene_args
+
+
+def chunked_closest_call(scene, ro, rd, live):
+    """Closest hit of rays (ro, rd) over the whole scene for lanes with
+    live != 0, over the unrolled primitives only for the others.
+    Returns (t f32, type i32, index i32); type -1 is a miss."""
+    if live.device.type == "cpu":
+        return intersect.chunked_closest_plain(scene, ro, rd, live)
+    if live.device.type != "cuda":
+        raise ValueError(f"chunked_closest_call: unsupported device {live.device}")
+    from rsoderh_raytracing_tpu_torch.ops import _kernels
+
+    n, dev, ptrs, scene_args = _launch_args(scene, (*ro, *rd), live, "chunked_closest_call")
+    t = torch.empty(n, device=dev, dtype=torch.float32)
+    ptype = torch.empty(n, device=dev, dtype=torch.int32)
+    pidx = torch.empty(n, device=dev, dtype=torch.int32)
+    rc = _kernels.library().rt_chunked_closest_launch(
+        ptrs, *scene_args, t.data_ptr(), ptype.data_ptr(), pidx.data_ptr(), n,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    cw._raise_on(rc, "CHUNKED_CLOSEST")
+    LAUNCHES["chunked_closest"] += 1
+    return t, ptype, pidx
+
+
+def chunked_any_call(scene, p, d, mask):
+    """Occlusion (i32 0/1) of rays from p along d by any primitive, the
+    chunked ones only for lanes with mask != 0."""
+    if mask.device.type == "cpu":
+        return intersect.chunked_any_plain(scene, p, d, mask)
+    if mask.device.type != "cuda":
+        raise ValueError(f"chunked_any_call: unsupported device {mask.device}")
+    from rsoderh_raytracing_tpu_torch.ops import _kernels
+
+    n, dev, ptrs, scene_args = _launch_args(scene, (*p, *d), mask, "chunked_any_call")
+    occ = torch.empty(n, device=dev, dtype=torch.int32)
+    rc = _kernels.library().rt_chunked_any_launch(
+        ptrs, *scene_args, occ.data_ptr(), n, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    cw._raise_on(rc, "CHUNKED_ANY")
+    LAUNCHES["chunked_any"] += 1
+    return occ

@@ -1,7 +1,8 @@
-"""TRACE and SHADE: the two kernels of one wavefront iteration.
+"""TRACE, SHADE and BIG_SHADE: the per-lane kernels of one wavefront
+iteration.
 
 Counterpart of rsoderh_raytracing_tpu/ops/pallas_wavefront.py. One
-iteration of the main path is
+iteration of the small-scene path is
 
   [glue, plain PyTorch: alias draw, NEE uv/direction, miss uv]
   [TRACE kernel: closest sweep + winner attributes + materials + shadow
@@ -10,13 +11,22 @@ iteration of the main path is
   [SHADE kernel: RGBE bilinear + pmf + MIS + film + termination +
         regeneration]
 
-``trace_call`` and ``shade_call`` keep the Pallas twins' inputs and
-outputs (the 26 TRACE_OUT_NAMES and 22 SHADE_OUT_NAMES), as flat (n,)
-tensors per component. u32 values (RNG state, sample counts, pixel ids)
-travel as int32 bit patterns. For CPU tensors the wrappers run the plain
-versions ``trace_plain`` / ``shade_plain``; for CUDA tensors they launch
-the kernels in ``csrc/wavefront.cu`` or raise. ``LAUNCHES`` counts the
-kernel launches of each wrapper.
+and of the big-mesh path (render/wavefront.py)
+
+  [glue] [CHUNKED_CLOSEST] [glue: hit point] [CHUNKED_ANY]
+  [glue: fused uv, ONE quad-row gather]
+  [BIG_SHADE kernel: the winner's union row (scene.chunks.winner), its normal
+        and material, trace_epilogue, the SHADE core]
+
+``trace_call``, ``shade_call`` and ``big_shade_call`` keep the Pallas
+twins' inputs and outputs (the 26 TRACE_OUT_NAMES, 22 SHADE_OUT_NAMES),
+as flat (n,) tensors per component; BIG_SHADE takes the winner's (type,
+index) and reads its row itself instead of the Pallas call's 19 slot
+arrays. u32 values (RNG state, sample counts, pixel ids) travel as int32
+bit patterns. For CPU tensors the wrappers run the plain versions
+``trace_plain`` / ``shade_plain`` / ``big_shade_plain``; for CUDA tensors
+they launch the kernels in ``csrc/wavefront.cu`` or raise. ``LAUNCHES``
+counts the kernel launches of each wrapper.
 """
 
 from __future__ import annotations
@@ -28,7 +38,7 @@ import torch
 
 from rsoderh_raytracing_tpu_torch.ops import bsdf, envmap, intersect, rng
 from rsoderh_raytracing_tpu_torch.render.integrator import THROUGHPUT_CUTOFF
-from rsoderh_raytracing_tpu_torch.scene.device import MAX_UNROLL_PRIMS
+from rsoderh_raytracing_tpu_torch.scene.device import MAX_UNROLL_PRIMS, WINNER_SLOTS
 
 TRACE_OUT_NAMES = (
     "hit", "occ", "px", "py", "pz", "er", "eg", "eb",
@@ -48,10 +58,7 @@ SHADE_INT_NAMES = ("state", "bounce", "sample", "in_path", "active", "hitmask")
 CARRY_NAMES = SHADE_OUT_NAMES[:-2]
 
 # Kernel launches of each wrapper (CUDA tensors only).
-LAUNCHES = {"trace": 0, "shade": 0}
-
-# Row widths of the packed scene table (csrc/wavefront_common.cuh).
-SPH_COLS, PLN_COLS, TRI_COLS, MAT_COLS = 8, 16, 36, 8
+LAUNCHES = {"trace": 0, "shade": 0, "big_shade": 0}
 
 
 def reset_launches():
@@ -259,36 +266,16 @@ def shade_plain(
 # -- CUDA wrappers ----------------------------------------------------------------
 
 
-def scene_table(scene) -> torch.Tensor:
-    """The scene packed into one f32 table the TRACE kernel stages in
-    shared memory: sphere rows, then plane, triangle and material rows
-    (layout in csrc/wavefront_common.cuh). Cached on the scene."""
-    if scene.kernel_table is not None:
-        return scene.kernel_table
-
-    def cols(*parts):
-        return torch.cat(
-            [p.to(torch.float32).reshape(p.shape[0], -1) for p in parts], dim=1
-        )
-
-    def pad(t, width):
-        return torch.nn.functional.pad(t, (0, width - t.shape[1]))
-
-    sph = pad(cols(scene.sph_pos, scene.sph_c2, scene.sph_radius,
-                   scene.sph_material, scene.sph_valid), SPH_COLS)
-    pln = pad(cols(scene.pln_normal, scene.pln_ndotp, scene.pln_r0,
-                   scene.pln_r2, scene.pln_r0dotp, scene.pln_r2dotp,
-                   scene.pln_material, scene.pln_valid), PLN_COLS)
-    tri = pad(cols(scene.tri_cdet, scene.tri_edge0, scene.tri_edge1,
-                   scene.tri_cu, scene.tri_cv, scene.tri_n, scene.tri_adotn,
-                   scene.tri_valid, scene.tri_a, scene.tri_n0, scene.tri_n1,
-                   scene.tri_n2, scene.tri_material), TRI_COLS)
-    mat = pad(cols(scene.mat_color, scene.mat_roughness, scene.mat_metallic,
-                   scene.mat_emission), MAT_COLS)
-    table = torch.cat([sph.reshape(-1), pln.reshape(-1), tri.reshape(-1),
-                       mat.reshape(-1)]).contiguous()
-    scene.kernel_table = table
-    return table
+def winner_index(scene, btype, bidx):
+    """Row of scene.chunks.winner for each lane's (type, index); a miss reads
+    row 0 (render/wavefront.py:1003-1009 of the reference)."""
+    n_sph = scene.sph_radius.shape[0]
+    n_pln = scene.pln_valid.shape[0]
+    return torch.where(
+        btype == 0, bidx,
+        torch.where(btype == 1, n_sph + bidx,
+                    torch.where(btype == 2, n_sph + n_pln + bidx, 0)),
+    ).to(torch.int32)
 
 
 def _check(name, t, n, dtype, device):
@@ -318,7 +305,10 @@ def trace_call(scene, env_w, env_h, ro, rd, nee_dir, nee_uv, miss_uv, state):
     if state.device.type != "cuda":
         raise ValueError(f"trace_call: unsupported device {state.device}")
     if scene.num_lanes > MAX_UNROLL_PRIMS:
-        raise NotImplementedError("big-scene route not yet ported")
+        raise ValueError(
+            f"trace_call: {scene.num_lanes} primitive lanes is past the unroll budget "
+            f"({MAX_UNROLL_PRIMS}); such scenes take the chunked route"
+        )
     from rsoderh_raytracing_tpu_torch.ops import _kernels
 
     n = state.shape[0]
@@ -331,7 +321,7 @@ def trace_call(scene, env_w, env_h, ro, rd, nee_dir, nee_uv, miss_uv, state):
         k: torch.empty(n, device=dev, dtype=torch.int32 if k in TRACE_INT_NAMES else torch.float32)
         for k in TRACE_OUT_NAMES
     }
-    table = scene_table(scene)
+    table = scene.trace_table
     rc = _kernels.library().rt_trace_launch(
         _ptrs((*ins, state) + tuple(outs[k] for k in TRACE_OUT_NAMES)),
         table.data_ptr(), table.numel(), n,
@@ -355,6 +345,10 @@ _SHADE_CARRY_IN = (
     "last_pdf", "bounce", "sample", "in_path",
     "film0", "film1", "film2", "ro0", "ro1", "ro2", "rd0", "rd1", "rd2",
 )
+_PIXEL_IN = ("pixel_index", "pixel_x", "pixel_y", "base_sample")
+# The per-lane inputs of the SHADE kernel, in launch order, 4 bytes each
+# (besides the 4-word quad row).
+SHADE_IN = (*_SHADE_TRACE_IN, "nee_pmf", *_SHADE_CARRY_IN, *_PIXEL_IN)
 _SHADE_INT_IN = {
     "hit", "occ", "bz", "state", "bounce", "sample", "in_path",
     "pixel_index", "pixel_x", "pixel_y", "base_sample",
@@ -379,16 +373,11 @@ def shade_call(
 
     n = nee_pmf.shape[0]
     dev = nee_pmf.device
-    if qwords.shape != (n, 4) or qwords.dtype != torch.int32 or not qwords.is_contiguous() or qwords.device != dev:
-        raise ValueError("qwords: expected contiguous (n, 4) int32 on the device")
-    if scal.shape != (16,) or scal.dtype != torch.float32 or scal.device != dev:
-        raise ValueError("scal: expected (16,) float32 on the device")
-    named = (
-        [(k, tr[k]) for k in _SHADE_TRACE_IN] + [("nee_pmf", nee_pmf)]
-        + [(k, carry[k]) for k in _SHADE_CARRY_IN]
-        + [("pixel_index", pixel_index), ("pixel_x", pixel_x),
-           ("pixel_y", pixel_y), ("base_sample", base_sample)]
-    )
+    _shade_lane_checks(n, dev, qwords, scal)
+    named = list(zip(SHADE_IN, (
+        *(tr[k] for k in _SHADE_TRACE_IN), nee_pmf, *(carry[k] for k in _SHADE_CARRY_IN),
+        pixel_index, pixel_x, pixel_y, base_sample,
+    )))
     for name, t in named:
         _check(name, t, n, torch.int32 if name in _SHADE_INT_IN else torch.float32, dev)
     ins = [t for _, t in named]
@@ -405,6 +394,112 @@ def shade_call(
     )
     _raise_on(rc, "SHADE")
     LAUNCHES["shade"] += 1
+    new_carry = {k: outs[k] for k in CARRY_NAMES}
+    return new_carry, outs["active"], outs["hitmask"]
+
+
+def _shade_lane_checks(n, dev, qwords, scal):
+    if qwords.shape != (n, 4) or qwords.dtype != torch.int32 or not qwords.is_contiguous() or qwords.device != dev:
+        raise ValueError("qwords: expected contiguous (n, 4) int32 on the device")
+    if scal.shape != (16,) or scal.dtype != torch.float32 or scal.device != dev:
+        raise ValueError("scal: expected (16,) float32 on the device")
+
+
+BIG_TRACE_IN = ("hit", "occ", "btype", "bidx", "px", "py", "pz")
+# The per-lane inputs of the BIG_SHADE kernel, in launch order, 4 bytes
+# each (besides the 4-word quad row).
+BIG_SHADE_IN = (
+    *BIG_TRACE_IN, "sx", "sy", "sz", "state", "fu", "fv", "nee_pmf", *_SHADE_CARRY_IN, *_PIXEL_IN,
+)
+
+
+def big_shade_plain(
+    scene, env_w, env_h, width, height, max_bounces,
+    qwords, tr, nee_dir, state, fu, fv, nee_pmf, carry,
+    pixel_index, pixel_x, pixel_y, base_sample, scal, iscal,
+):
+    """Plain PyTorch BIG_SHADE (pallas_wavefront._big_shade_kernel).
+
+    tr: hit/occ/btype/bidx (int32) and px/py/pz of the chunked sweeps;
+    nee_dir: 3-tuple; state: int32 u32 bits after the alias draw; the
+    other arguments as in shade_plain. Returns (new_carry, active,
+    hitmask)."""
+    ro = (carry["ro0"], carry["ro1"], carry["ro2"])
+    rd = (carry["rd0"], carry["rd1"], carry["rd2"])
+    px, py, pz = tr["px"], tr["py"], tr["pz"]
+    row = scene.chunks.winner.index_select(0, winner_index(scene, tr["btype"], tr["bidx"]))
+    s = [row[:, k] for k in range(WINNER_SLOTS - 1)]
+    sn = intersect.sphere_normal_values(s[0], s[1], s[2], s[3], *ro, px, py, pz)
+    pn = intersect.plane_normal_values(s[0], s[1], s[2], *ro)
+    tn = intersect.tri_normal_recompute(
+        (s[0], s[1], s[2]), (s[3], s[4], s[5]), (s[6], s[7], s[8]),
+        (s[9], s[10], s[11]), (s[12], s[13], s[14]), (s[15], s[16], s[17]), *ro, *rd,
+    )
+    is_s = tr["btype"] == 0
+    is_p = tr["btype"] == 1
+    normal = tuple(torch.where(is_s, sn[k], torch.where(is_p, pn[k], tn[k])) for k in range(3))
+    cr, cg, cb, rough, metal, er, eg, eb = intersect.material_values(scene, s[18].to(torch.int32))
+    (
+        cos_theta, nee_scatter, nee_pdf_b, st, bdir, bscat, bpdf, bzero,
+        cos_bounce,
+    ) = trace_epilogue(rd, nee_dir, normal, (cr, cg, cb), rough, metal, rng.from_bits(state))
+    v = dict(
+        hit=tr["hit"], occ=tr["occ"], px=px, py=py, pz=pz, er=er, eg=eg, eb=eb,
+        ct=cos_theta, ns0=nee_scatter[0], ns1=nee_scatter[1], ns2=nee_scatter[2],
+        npdf=nee_pdf_b, bd0=bdir[0], bd1=bdir[1], bd2=bdir[2], bpdf=bpdf,
+        bs0=bscat[0], bs1=bscat[1], bs2=bscat[2], bz=bzero.to(torch.int32),
+        cb=cos_bounce, state=rng.to_bits(st), fu=fu, fv=fv,
+    )
+    return shade_plain(
+        env_w, env_h, width, height, max_bounces, qwords, v, nee_pmf, carry,
+        pixel_index, pixel_x, pixel_y, base_sample, scal, iscal,
+    )
+
+
+def big_shade_call(
+    scene, env_w, env_h, width, height, max_bounces,
+    qwords, tr, nee_dir, state, fu, fv, nee_pmf, carry,
+    pixel_index, pixel_x, pixel_y, base_sample, scal, iscal,
+):
+    """BIG_SHADE; returns (new_carry, active, hitmask). Arguments as in
+    big_shade_plain. CPU tensors: big_shade_plain. CUDA tensors: the
+    kernel, which reads the winner's row of scene.chunks.winner itself."""
+    args = (
+        scene, env_w, env_h, width, height, max_bounces, qwords, tr, nee_dir, state,
+        fu, fv, nee_pmf, carry, pixel_index, pixel_x, pixel_y, base_sample, scal, iscal,
+    )
+    if nee_pmf.device.type == "cpu":
+        return big_shade_plain(*args)
+    if nee_pmf.device.type != "cuda":
+        raise ValueError(f"big_shade_call: unsupported device {nee_pmf.device}")
+    from rsoderh_raytracing_tpu_torch.ops import _kernels
+
+    n = nee_pmf.shape[0]
+    dev = nee_pmf.device
+    _shade_lane_checks(n, dev, qwords, scal)
+    named = list(zip(BIG_SHADE_IN, (
+        *(tr[k] for k in BIG_TRACE_IN), *nee_dir, state, fu, fv, nee_pmf,
+        *(carry[k] for k in _SHADE_CARRY_IN), pixel_index, pixel_x, pixel_y, base_sample,
+    )))
+    ints = _SHADE_INT_IN | {"btype", "bidx"}
+    for name, t in named:
+        _check(name, t, n, torch.int32 if name in ints else torch.float32, dev)
+    outs = {
+        k: torch.empty(n, device=dev, dtype=torch.int32 if k in SHADE_INT_NAMES else torch.float32)
+        for k in SHADE_OUT_NAMES
+    }
+    table, mat = scene.chunks.winner, scene.chunks.materials
+    it_next, spp, budget, stride, offset = (int(x) & 0xFFFFFFFF for x in iscal)
+    rc = _kernels.library().rt_big_shade_launch(
+        _ptrs([qwords] + [t for _, t in named] + [scal] + [outs[k] for k in SHADE_OUT_NAMES]),
+        table.data_ptr(), mat.data_ptr(), mat.shape[0],
+        scene.sph_radius.shape[0], scene.pln_valid.shape[0],
+        n, env_w, env_h, width, height, max_bounces,
+        it_next, spp, budget, stride, offset,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(rc, "BIG_SHADE")
+    LAUNCHES["big_shade"] += 1
     new_carry = {k: outs[k] for k in CARRY_NAMES}
     return new_carry, outs["active"], outs["hitmask"]
 

@@ -4,16 +4,29 @@ constants, plus the winner attributes.
 The semantics are those of the reference's unrolled sweep
 (rsoderh_raytracing_tpu/ops/pallas_intersect.py:_sweep_body): the same
 expanded triple-product tests and epsilons, and a strict-< winner in
-sphere -> plane -> triangle, index order. Here the sweep is one
-broadcast over lanes x primitives: non-hits are set to INF before one
-argmin over [spheres | planes | triangles], whose first minimal index is
-exactly that winner (torch's argmin would otherwise prefer NaN). A lane
-whose minimum is INF is a miss: type -1, index 0.
+sphere -> plane -> triangle, index order. Here a sweep broadcasts a block
+of lanes against a block of primitives at a time (at most _PAIRS pairs,
+so a 15k-triangle mesh never makes a lanes x primitives temporary):
+non-hits are set to INF, one argmin per block finds its first minimal
+primitive, and a running (t, type, index) takes a block's winner only
+when it is strictly closer, which keeps the first minimal primitive over
+[spheres | planes | triangles] (torch's argmin would otherwise prefer
+NaN). A lane whose minimum is INF is a miss: type -1, index 0.
+
+The chunked route's sweeps (pallas_intersect._chunked_closest_kernel and
+_chunked_any_kernel) have plain versions here too: ``chunked_closest_plain``
+and ``chunked_any_plain``. Both sweep the unrolled primitives (planes,
+and spheres when they are not chunked) on every lane, and the chunked
+primitives densely on the lanes the kernels consume (live, or masked and
+not yet occluded); their winner order is the dense one, which the
+kernels reach with sphere windows last and an equal-t sphere override.
 """
 
 from __future__ import annotations
 
 import torch
+
+from rsoderh_raytracing_tpu_torch.scene.device import chunk_spheres
 
 INF = 3.0e38
 SPHERE_EPS = 1.0e-4
@@ -22,117 +35,213 @@ PLANE_T_EPS = 1.0e-3
 TRI_DET_EPS = 1.0e-8
 TRI_T_EPS = 1.0e-5
 
-# Lanes per broadcast block: bounds the (lanes, primitives) temporaries.
-_BLOCK = 1 << 16
+SPHERE, PLANE, TRIANGLE = 0, 1, 2
+# Lane x primitive pairs per broadcast block: bounds the temporaries
+# (4 bytes a pair each): 4 MiB on the CPU, 64 MiB on the card.
+_PAIRS = {"cpu": 1 << 20, "cuda": 1 << 24}
+_LANE_BLOCK = 1 << 16
 
 
-def _distances(scene, ox, oy, oz, dx, dy, dz):
-    """(n, S+P+T) hit distances, INF where a primitive is not hit."""
-    o = [c[:, None] for c in (ox, oy, oz)]
-    d = [c[:, None] for c in (dx, dy, dz)]
-    ox, oy, oz = o
-    dx, dy, dz = d
+def _n_prims(scene, kind):
+    return (scene.sph_radius, scene.pln_valid, scene.tri_valid)[kind].shape[0]
 
-    # spheres
-    a_q = dx * dx + dy * dy + dz * dz
-    d_dot_o = dx * ox + dy * oy + dz * oz
-    o_dot_o = ox * ox + oy * oy + oz * oz
-    cx, cy, cz = (scene.sph_pos[:, k][None, :] for k in range(3))
-    b = 2.0 * (d_dot_o - (dx * cx + dy * cy + dz * cz))
-    c = o_dot_o - 2.0 * (ox * cx + oy * cy + oz * cz) + scene.sph_c2[None, :]
-    disc = b * b - 4.0 * a_q * c
-    sq = torch.sqrt(torch.clamp_min(disc, 0.0))
-    q = torch.where(b > 0, -0.5 * (b + sq), -0.5 * (b - sq))
-    t0 = q / a_q
-    t1 = c / torch.where(q == 0.0, 1.0, q)
-    t = torch.where(
-        t0 < SPHERE_EPS,
-        t1,
-        torch.where(t1 < SPHERE_EPS, t0, torch.minimum(t0, t1)),
-    )
-    t = torch.where(disc == 0.0, -0.5 * b / a_q, t)
-    hit = (disc >= 0.0) & (t >= SPHERE_EPS) & scene.sph_valid[None, :]
-    t_sph = torch.where(hit, t, INF)
 
-    # planes
-    nx, ny, nz = (scene.pln_normal[:, k][None, :] for k in range(3))
-    r0 = [scene.pln_r0[:, k][None, :] for k in range(3)]
-    r2 = [scene.pln_r2[:, k][None, :] for k in range(3)]
-    denom = dx * nx + dy * ny + dz * nz
-    ok = torch.abs(denom) >= PLANE_DENOM_EPS
-    t = (scene.pln_ndotp[None, :] - (ox * nx + oy * ny + oz * nz)) / torch.where(
-        ok, denom, 1.0
-    )
-    px = (
-        (ox * r0[0] + oy * r0[1] + oz * r0[2])
-        + t * (dx * r0[0] + dy * r0[1] + dz * r0[2])
-        - scene.pln_r0dotp[None, :]
-    )
-    pz = (
-        (ox * r2[0] + oy * r2[1] + oz * r2[2])
-        + t * (dx * r2[0] + dy * r2[1] + dz * r2[2])
-        - scene.pln_r2dotp[None, :]
-    )
-    hit = (
-        ok & (t >= PLANE_T_EPS) & (px >= 0.0) & (px <= 1.0)
-        & (pz >= 0.0) & (pz <= 1.0) & scene.pln_valid[None, :]
-    )
-    t_pln = torch.where(hit, t, INF)
+def _cols(field, lo, hi):
+    """Rows lo:hi of an (n, 3) scene field as three (1, k) columns."""
+    return tuple(field[lo:hi, c][None, :] for c in range(3))
 
-    # triangles
-    mx = oy * dz - oz * dy
-    my = oz * dx - ox * dz
-    mz = ox * dy - oy * dx
-    cd = [scene.tri_cdet[:, k][None, :] for k in range(3)]
-    e0 = [scene.tri_edge0[:, k][None, :] for k in range(3)]
-    e1 = [scene.tri_edge1[:, k][None, :] for k in range(3)]
-    cu = [scene.tri_cu[:, k][None, :] for k in range(3)]
-    cv = [scene.tri_cv[:, k][None, :] for k in range(3)]
-    tn = [scene.tri_n[:, k][None, :] for k in range(3)]
-    det = dx * cd[0] + dy * cd[1] + dz * cd[2]
+
+def _hits(scene, kind, lo, hi, r):
+    """(t, hit) of lanes r (a dict of (nb, 1) ray terms) against
+    primitives lo:hi of one kind, each (nb, k)."""
+    ox, oy, oz, dx, dy, dz = r["o"] + r["d"]
+    if kind == SPHERE:
+        cx, cy, cz = _cols(scene.sph_pos, lo, hi)
+        b = 2.0 * (r["d_dot_o"] - (dx * cx + dy * cy + dz * cz))
+        c = r["o_dot_o"] - 2.0 * (ox * cx + oy * cy + oz * cz) + scene.sph_c2[None, lo:hi]
+        disc = b * b - 4.0 * r["a_q"] * c
+        sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+        q = torch.where(b > 0, -0.5 * (b + sq), -0.5 * (b - sq))
+        t0 = q / r["a_q"]
+        t1 = c / torch.where(q == 0.0, 1.0, q)
+        t = torch.where(
+            t0 < SPHERE_EPS,
+            t1,
+            torch.where(t1 < SPHERE_EPS, t0, torch.minimum(t0, t1)),
+        )
+        t = torch.where(disc == 0.0, -0.5 * b / r["a_q"], t)
+        return t, (disc >= 0.0) & (t >= SPHERE_EPS) & scene.sph_valid[None, lo:hi]
+    if kind == PLANE:
+        nx, ny, nz = _cols(scene.pln_normal, lo, hi)
+        r0 = _cols(scene.pln_r0, lo, hi)
+        r2 = _cols(scene.pln_r2, lo, hi)
+        denom = dx * nx + dy * ny + dz * nz
+        ok = torch.abs(denom) >= PLANE_DENOM_EPS
+        t = (scene.pln_ndotp[None, lo:hi] - (ox * nx + oy * ny + oz * nz)) / torch.where(
+            ok, denom, 1.0
+        )
+        px = (
+            (ox * r0[0] + oy * r0[1] + oz * r0[2])
+            + t * (dx * r0[0] + dy * r0[1] + dz * r0[2])
+            - scene.pln_r0dotp[None, lo:hi]
+        )
+        pz = (
+            (ox * r2[0] + oy * r2[1] + oz * r2[2])
+            + t * (dx * r2[0] + dy * r2[1] + dz * r2[2])
+            - scene.pln_r2dotp[None, lo:hi]
+        )
+        hit = (
+            ok & (t >= PLANE_T_EPS) & (px >= 0.0) & (px <= 1.0)
+            & (pz >= 0.0) & (pz <= 1.0) & scene.pln_valid[None, lo:hi]
+        )
+        return t, hit
+    det, un, vn, tn = _tri_numerators(scene, lo, hi, r)
     ok = torch.abs(det) >= TRI_DET_EPS
     inv = 1.0 / torch.where(ok, det, 1.0)
-    u = (
-        (mx * e1[0] + my * e1[1] + mz * e1[2]) + (dx * cu[0] + dy * cu[1] + dz * cu[2])
-    ) * inv
-    v = -(
-        (mx * e0[0] + my * e0[1] + mz * e0[2]) + (dx * cv[0] + dy * cv[1] + dz * cv[2])
-    ) * inv
-    t = ((ox * tn[0] + oy * tn[1] + oz * tn[2]) - scene.tri_adotn[None, :]) * inv
+    u = un * inv
+    v = vn * inv
+    t = tn * inv
     hit = (
         ok & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0)
-        & (t >= TRI_T_EPS) & scene.tri_valid[None, :]
+        & (t >= TRI_T_EPS) & scene.tri_valid[None, lo:hi]
     )
-    t_tri = torch.where(hit, t, INF)
-    return torch.cat([t_sph, t_pln, t_tri], dim=1)
+    return t, hit
+
+
+def _tri_numerators(scene, lo, hi, r):
+    """The triangle test's determinant and the u, v, t numerators."""
+    ox, oy, oz, dx, dy, dz = r["o"] + r["d"]
+    mx, my, mz = r["m"]
+    cd = _cols(scene.tri_cdet, lo, hi)
+    e0 = _cols(scene.tri_edge0, lo, hi)
+    e1 = _cols(scene.tri_edge1, lo, hi)
+    cu = _cols(scene.tri_cu, lo, hi)
+    cv = _cols(scene.tri_cv, lo, hi)
+    tn = _cols(scene.tri_n, lo, hi)
+    det = dx * cd[0] + dy * cd[1] + dz * cd[2]
+    un = (mx * e1[0] + my * e1[1] + mz * e1[2]) + (dx * cu[0] + dy * cu[1] + dz * cu[2])
+    vn = -((mx * e0[0] + my * e0[1] + mz * e0[2]) + (dx * cv[0] + dy * cv[1] + dz * cv[2]))
+    tnum = (ox * tn[0] + oy * tn[1] + oz * tn[2]) - scene.tri_adotn[None, lo:hi]
+    return det, un, vn, tnum
+
+
+def _tri_occluded(scene, lo, hi, r):
+    """Division-free triangle hit mask (pallas_intersect.tri_chunk_occluded):
+    every quotient test in its sign-scaled numerator form. Equal to the
+    divided test except where a rounded quotient lands on a boundary."""
+    det, un, vn, tn = _tri_numerators(scene, lo, hi, r)
+    adet = torch.abs(det)
+    neg = det < 0.0
+    un = torch.where(neg, -un, un)
+    vn = torch.where(neg, -vn, vn)
+    tn = torch.where(neg, -tn, tn)
+    return (
+        (adet >= TRI_DET_EPS) & (un >= 0.0) & (un <= adet) & (vn >= 0.0)
+        & (un + vn <= adet) & (tn >= TRI_T_EPS * adet) & scene.tri_valid[None, lo:hi]
+    )
+
+
+def _ray_terms(ox, oy, oz, dx, dy, dz):
+    o = tuple(c[:, None] for c in (ox, oy, oz))
+    d = tuple(c[:, None] for c in (dx, dy, dz))
+    (ox, oy, oz), (dx, dy, dz) = o, d
+    return dict(
+        o=o, d=d,
+        a_q=dx * dx + dy * dy + dz * dz,
+        d_dot_o=dx * ox + dy * oy + dz * oz,
+        o_dot_o=ox * ox + oy * oy + oz * oz,
+        m=(oy * dz - oz * dy, oz * dx - ox * dz, ox * dy - oy * dx),
+    )
+
+
+def _blocks(scene, rays, kinds):
+    """Yield (lane slice, ray terms, kind, lo, hi) over lane blocks and,
+    within each, primitive blocks of `kinds` in order."""
+    n = rays[0].shape[0]
+    pairs = _PAIRS.get(rays[0].device.type, _PAIRS["cpu"])
+    for s in range(0, n, _LANE_BLOCK):
+        sl = slice(s, min(n, s + _LANE_BLOCK))
+        r = _ray_terms(*(c[sl] for c in rays))
+        step = max(1, pairs // (sl.stop - sl.start))
+        for kind in kinds:
+            for lo in range(0, _n_prims(scene, kind), step):
+                yield sl, r, kind, lo, min(_n_prims(scene, kind), lo + step)
+
+
+def _sweep(scene, rays, kinds=(SPHERE, PLANE, TRIANGLE)):
+    """(best_t, best_type, best_idx) over the primitives of `kinds`."""
+    n = rays[0].shape[0]
+    dev = rays[0].device
+    best_t = torch.full((n,), INF, device=dev)
+    best_type = torch.full((n,), -1, device=dev, dtype=torch.int32)
+    best_idx = torch.zeros((n,), device=dev, dtype=torch.int32)
+    for sl, r, kind, lo, hi in _blocks(scene, rays, kinds):
+        t, hit = _hits(scene, kind, lo, hi, r)
+        t, k = torch.min(torch.where(hit, t, INF), dim=1)
+        better = t < best_t[sl]
+        best_t[sl] = torch.where(better, t, best_t[sl])
+        best_type[sl] = torch.where(better, kind, best_type[sl])
+        best_idx[sl] = torch.where(better, (k + lo).to(torch.int32), best_idx[sl])
+    miss = ~(best_t < INF)
+    return (
+        torch.where(miss, INF, best_t),
+        torch.where(miss, -1, best_type).to(torch.int32),
+        torch.where(miss, 0, best_idx).to(torch.int32),
+    )
 
 
 def closest_sweep(scene, ox, oy, oz, dx, dy, dz):
     """(best_t, best_type, best_idx): type 0 sphere / 1 plane / 2 triangle
     / -1 miss (t INF, index 0)."""
-    n_sph = scene.sph_radius.shape[0]
-    n_pln = scene.pln_valid.shape[0]
-    ts, ks = [], []
-    for s in range(0, ox.shape[0], _BLOCK):
-        sl = slice(s, s + _BLOCK)
-        dist = _distances(scene, ox[sl], oy[sl], oz[sl], dx[sl], dy[sl], dz[sl])
-        t, k = torch.min(dist, dim=1)
-        ts.append(t)
-        ks.append(k)
-    t = torch.cat(ts)
-    k = torch.cat(ks).to(torch.int32)
-    miss = ~(t < INF)
-    ptype = torch.where(k < n_sph, 0, torch.where(k < n_sph + n_pln, 1, 2))
-    pidx = torch.where(k < n_sph, k, torch.where(k < n_sph + n_pln, k - n_sph, k - n_sph - n_pln))
-    best_t = torch.where(miss, INF, t)
-    best_type = torch.where(miss, -1, ptype).to(torch.int32)
-    best_idx = torch.where(miss, 0, pidx).to(torch.int32)
-    return best_t, best_type, best_idx
+    return _sweep(scene, (ox, oy, oz, dx, dy, dz))
 
 
 def any_sweep(scene, ox, oy, oz, dx, dy, dz):
     """(n,) bool: some primitive is hit at t < INF."""
     return closest_sweep(scene, ox, oy, oz, dx, dy, dz)[0] < INF
+
+
+def _unrolled_kinds(scene):
+    """The primitive kinds the chunked kernels sweep before any window."""
+    return (PLANE,) if chunk_spheres(scene) else (SPHERE, PLANE)
+
+
+def chunked_closest_plain(scene, ro, rd, live):
+    """Plain chunked closest sweep (pallas_intersect._chunked_closest_kernel)
+    of rays (ro, rd), 3-tuples of (n,) f32. Every lane gets the unrolled
+    primitives; lanes with live != 0 get the whole scene, in dense winner
+    order. Returns (t f32, type i32, index i32)."""
+    rays = (*ro, *rd)
+    t, ptype, pidx = _sweep(scene, rays, _unrolled_kinds(scene))
+    sel = torch.nonzero(live != 0).squeeze(1)
+    if sel.numel():
+        sub = _sweep(scene, tuple(c.index_select(0, sel) for c in rays))
+        for full, part in zip((t, ptype, pidx), sub):
+            full.index_copy_(0, sel, part)
+    return t, ptype, pidx
+
+
+def chunked_any_plain(scene, p, d, mask):
+    """Plain chunked occlusion (pallas_intersect._chunked_any_kernel) of
+    rays from p along d: the unrolled primitives as best_t < INF on every
+    lane; then, on lanes with mask != 0 that are not yet occluded,
+    triangles division-free and chunked spheres by their hit test, OR-ed.
+    Returns occ i32."""
+    rays = (*p, *d)
+    occ = _sweep(scene, rays, _unrolled_kinds(scene))[0] < INF
+    sel = torch.nonzero((mask != 0) & ~occ).squeeze(1)
+    if sel.numel():
+        sub_rays = tuple(c.index_select(0, sel) for c in rays)
+        sub = torch.zeros(sel.shape[0], dtype=torch.bool, device=occ.device)
+        kinds = (TRIANGLE, SPHERE) if chunk_spheres(scene) else (TRIANGLE,)
+        for sl, r, kind, lo, hi in _blocks(scene, sub_rays, kinds):
+            if kind == TRIANGLE:
+                hit = _tri_occluded(scene, lo, hi, r)
+            else:
+                hit = _hits(scene, kind, lo, hi, r)[1]
+            sub[sl] |= hit.any(dim=1)
+        occ.index_copy_(0, sel, sub)
+    return occ.to(torch.int32)
 
 
 def sphere_normal_values(cx, cy, cz, s_r, ox, oy, oz, px, py, pz):

@@ -1,22 +1,29 @@
 """Where the main path's device time goes, on a GPU.
 
-    python -m rsoderh_raytracing_tpu_torch.profiling [--out DIR]
+    python -m rsoderh_raytracing_tpu_torch.profiling [--scene NAME] [--out DIR]
 
-Runs house.toml at 2048x2048, 8 bounces, procedural_sky(2048, 1024), as
-chip_smoke.py does, and prints one line per measurement:
+Runs assets/scenes/NAME.toml (default house) at 2048x2048, 8 bounces,
+procedural_sky(2048, 1024), as chip_smoke.py does, and prints one line
+per measurement:
 
 - ``card``: name and power limit as nvidia-smi reports them;
 - ``kernel``: one free-run call of budget 16 under torch.profiler; device
   ms per iteration for each kernel name (the 12 largest), then a
-  ``group`` line for TRACE, SHADE, the row gathers (index_select) and the
-  other glue, kernel launches per iteration, and the device busy share:
-  the union of device intervals over the window from the first one's
-  start to the last one's end (the window holds the call's set-up and
-  its final host check too);
-- ``fmad``: TRACE and SHADE ms at 2048^2 lanes for the library built with
-  the default nvcc flags and for one built with ``-fmad=false`` toggled,
-  in the order default, other, other, default; each one's parity with
-  the plain versions; and Mrays/s of a budget-64 free-run call with each.
+  ``group`` line for the kernels (TRACE and SHADE, or CHUNKED_CLOSEST,
+  CHUNKED_ANY and BIG_SHADE on the big-mesh route), the row gathers
+  (index_select) and the other glue, kernel launches per iteration, and
+  the device busy share: the union of device intervals over the window
+  from the first one's start to the last one's end (the window holds the
+  call's set-up and its final host check too);
+- ``cull`` (big-mesh route): on the loop state of the third iteration,
+  the slab tests and the (lane, chunk) pairs that pass the cull of each
+  chunked kernel, from a plain pass (``cull_counts``), and the bound
+  they give;
+- ``fmad`` (small route): TRACE and SHADE ms at 2048^2 lanes for the
+  library built with the default nvcc flags and for one built with
+  ``-fmad=false`` toggled, in the order default, other, other, default;
+  each one's parity with the plain versions; and Mrays/s of a budget-64
+  free-run call with each.
 
 The Chrome trace is written under DIR (default ``build/profile``).
 Needs one CUDA device; imports nothing of jax.
@@ -38,16 +45,32 @@ from rsoderh_raytracing_tpu_torch import load_scene
 from rsoderh_raytracing_tpu_torch.env.environment import Environment, device_environment
 from rsoderh_raytracing_tpu_torch.env.hdr_io import procedural_sky
 from rsoderh_raytracing_tpu_torch.ops import _kernels
+from rsoderh_raytracing_tpu_torch.ops import cuda_intersect as ci
 from rsoderh_raytracing_tpu_torch.ops import cuda_wavefront as cw
+from rsoderh_raytracing_tpu_torch.ops import intersect
 from rsoderh_raytracing_tpu_torch.render.integrator import camera_pytree
 from rsoderh_raytracing_tpu_torch.render.wavefront import NO_LIMIT, Wavefront, render_freerun
-from rsoderh_raytracing_tpu_torch.scene.device import build_device_scene
+from rsoderh_raytracing_tpu_torch.scene.device import CHUNKED, TRI_CHUNK, build_device_scene, route
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIZE = 2048
 BOUNCES = 8
 FMAD_OFF = "-fmad=false"
 RTOL, ATOL = 1e-4, 1e-5
+
+# Published H100 SXM peaks (NVIDIA's data sheet, at the full 700 W): HBM3
+# bandwidth and f32 outside the tensor cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
+# Operations of one test, counted by hand from csrc/wavefront_common.cuh
+# and csrc/chunked.cu: every add, multiply, divide, square root, compare,
+# min/max and select is one (a divide or square root costs the card
+# more, so a bound built on these counts stays a lower bound).
+OPS_SPHERE = 38
+OPS_PLANE = 33
+OPS_TRIANGLE = 47
+OPS_TRI_OCCLUDED = 45
+OPS_SLAB = 33
 
 
 def card_line() -> str:
@@ -58,16 +81,30 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def house_setup(device):
-    """(device scene, environment, camera) of the main path's house run."""
-    house = load_scene(os.path.join(ROOT, "assets", "scenes", "house.toml"))
-    env = device_environment(Environment.from_texture("sky", procedural_sky(2048, 1024)), device)
-    return build_device_scene(house, device), env, camera_pytree(house.camera, device)
+def scene_setup(name, device, env=None):
+    """(device scene, environment, camera) of assets/scenes/NAME.toml
+    under `env` (default procedural_sky(2048, 1024), the bench's sky)."""
+    scene = load_scene(os.path.join(ROOT, "assets", "scenes", f"{name}.toml"))
+    if env is None:
+        env = device_environment(Environment.from_texture("sky", procedural_sky(2048, 1024)), device)
+    return build_device_scene(scene, device), env, camera_pytree(scene.camera, device)
 
 
-def capture_step(wave, it, trace=cw.trace_call, shade=cw.shade_call):
-    """Run iteration `it` of `wave` through `trace`/`shade`; returns the
-    arguments each was called with, {"trace": ..., "shade": ...}."""
+# The kernels of each route: Wavefront.step's keyword, the wrapper and
+# its plain version.
+KERNELS = {
+    "trace": (cw.trace_call, cw.trace_plain),
+    "shade": (cw.shade_call, cw.shade_plain),
+    "closest": (ci.chunked_closest_call, intersect.chunked_closest_plain),
+    "occlusion": (ci.chunked_any_call, intersect.chunked_any_plain),
+    "big_shade": (cw.big_shade_call, cw.big_shade_plain),
+}
+
+
+def capture_step(wave, it, plain=False):
+    """Run iteration `it` of `wave` through the wrappers (or, with
+    `plain`, the plain versions); returns the arguments each kernel of
+    the route was called with, by Wavefront.step keyword."""
     captured = {}
 
     def capture(key, fn):
@@ -76,8 +113,85 @@ def capture_step(wave, it, trace=cw.trace_call, shade=cw.shade_call):
             return fn(*args)
         return wrapped
 
-    wave.step(it, trace=capture("trace", trace), shade=capture("shade", shade))
+    wave.step(it, **{k: capture(k, fns[1] if plain else fns[0]) for k, fns in KERNELS.items()})
     return captured
+
+
+def cull_counts(scene, ro, rd, mask, closest):
+    """What a chunked kernel's cull lets through on these inputs, from a
+    plain pass that repeats its per-lane loop: (slab tests, (lane, chunk)
+    pairs that pass, of them on triangle chunks). CHUNKED_CLOSEST
+    (`closest`) bounds each slab by the running best t of live lanes;
+    CHUNKED_ANY skips lanes once occluded."""
+    rays = (*ro, *rd)
+    small = intersect._sweep(scene, rays, intersect._unrolled_kinds(scene))[0]
+    lanes = torch.nonzero((mask != 0) if closest else (mask != 0) & ~(small < intersect.INF)).squeeze(1)
+    sub = [c.index_select(0, lanes) for c in rays]
+    best = small.index_select(0, lanes)
+    inv = [1.0 / d for d in sub[3:]]
+    ch = scene.chunks
+    tests = pairs = tri_pairs = 0
+    for c in range(ch.count):
+        tests += lanes.shape[0]
+        b = ch.bounds[c]
+        lo, hi = [], []
+        for a in range(3):
+            near = (b[a] - sub[a]) * inv[a]
+            far = (b[3 + a] - sub[a]) * inv[a]
+            t_lo, t_hi = torch.minimum(near, far), torch.maximum(near, far)
+            lo.append(torch.where(torch.isnan(t_lo), -intersect.INF, t_lo))
+            hi.append(torch.where(torch.isnan(t_hi), intersect.INF, t_hi))
+        t0 = torch.maximum(torch.maximum(lo[0], lo[1]), torch.clamp_min(lo[2], 0.0))
+        t1 = torch.minimum(torch.minimum(hi[0], hi[1]), hi[2])
+        passing = t0 <= t1
+        if closest:
+            passing &= t0 <= best * (1.0 + 1e-3) + 1e-4
+        k = torch.nonzero(passing).squeeze(1)
+        pairs += k.shape[0]
+        is_tri = c < ch.n_tri_chunks
+        tri_pairs += k.shape[0] if is_tri else 0
+        if k.numel() == 0:
+            continue
+        kind = intersect.TRIANGLE if is_tri else intersect.SPHERE
+        first = (c if is_tri else c - ch.n_tri_chunks) * TRI_CHUNK
+        terms = intersect._ray_terms(*(x.index_select(0, k) for x in sub))
+        t, hit = intersect._hits(scene, kind, first, first + TRI_CHUNK, terms)
+        if closest:
+            best[k] = torch.minimum(best[k], torch.where(hit, t, intersect.INF).min(dim=1).values)
+        else:
+            if is_tri:
+                hit = intersect._tri_occluded(scene, first, first + TRI_CHUNK, terms)
+            keep = torch.ones(lanes.shape[0], dtype=torch.bool, device=lanes.device)
+            keep[k] = ~hit.any(dim=1)
+            lanes, best = lanes[keep], best[keep]
+            sub, inv = [x[keep] for x in sub], [x[keep] for x in inv]
+    return tests, pairs, tri_pairs
+
+
+def bound_ms(n_bytes, n_ops):
+    """(least ms, "bytes" or "operations"): the larger of the bytes over
+    the card's memory rate and the operations over its f32 rate."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_F32_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def chunked_bound(scene, args, closest):
+    """bound_ms of one CHUNKED_CLOSEST (`closest`) or CHUNKED_ANY launch
+    on `args` (the wrapper's arguments): 7 four-byte inputs a lane and 3
+    (or 1) outputs, the tables once; the unrolled step on every lane,
+    then the slab tests and 64 primitive tests a passing pair."""
+    _, ro, rd, mask = args
+    n = mask.shape[0]
+    tests, pairs, tri_pairs = cull_counts(scene, ro, rd, mask, closest)
+    ch = scene.chunks
+    n_bytes = n * 4 * (7 + (3 if closest else 1)) + 4 * (ch.bounds.numel() + ch.windows.numel())
+    n_small_sph = 0 if ch.n_sph_chunks else scene.sph_radius.shape[0]
+    small_ops = n * (n_small_sph * OPS_SPHERE + scene.pln_valid.shape[0] * OPS_PLANE)
+    tri_op = OPS_TRIANGLE if closest else OPS_TRI_OCCLUDED
+    n_ops = (small_ops + tests * OPS_SLAB
+             + TRI_CHUNK * (tri_pairs * tri_op + (pairs - tri_pairs) * OPS_SPHERE))
+    return bound_ms(n_bytes, n_ops) + (dict(slab_tests=tests, pairs=pairs),)
 
 
 def shade_outputs(result):
@@ -102,10 +216,10 @@ def time_ms(fn, reps):
 
 
 def _group(name):
-    if "trace_kernel" in name:
-        return "trace"
-    if "shade_kernel" in name:
-        return "shade"
+    for kernel in ("trace_kernel", "big_shade_kernel", "chunked_closest_kernel",
+                   "chunked_any_kernel", "shade_kernel"):
+        if kernel in name:
+            return kernel[: -len("_kernel")]
     if "gather" in name or "index" in name.lower():
         return "gather"
     return "other_glue"
@@ -142,6 +256,7 @@ def kernel_breakdown(trace_path, iterations):
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--scene", default="house", help="a scene of assets/scenes")
     parser.add_argument("--out", default=os.path.join(ROOT, "build", "profile"))
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -150,7 +265,7 @@ def main(argv=None) -> int:
     card = card_line()
     print(f"[card] {card}", flush=True)
     os.makedirs(args.out, exist_ok=True)
-    ds, env, cam = house_setup(dev)
+    ds, env, cam = scene_setup(args.scene, dev)
     res = (SIZE, SIZE)
     zeros = np.zeros(res, np.uint32)
 
@@ -163,26 +278,36 @@ def main(argv=None) -> int:
     ) as prof:
         render_freerun(ds, env, cam, zeros, res, budget, BOUNCES)
         torch.cuda.synchronize()
-    trace_path = os.path.join(args.out, "main_path_trace.json")
+    trace_path = os.path.join(args.out, f"{args.scene}_trace.json")
     prof.export_chrome_trace(trace_path)
     per_iter, groups, launches, busy = kernel_breakdown(trace_path, iterations)
     total = sum(per_iter.values())
     for name, ms in sorted(per_iter.items(), key=lambda kv: -kv[1])[:12]:
         print(f"[kernel] ms_per_iter={ms:.4f} share={ms / total:.4f} name={name[:110]}", flush=True)
-    print("[group] iterations=%d total_ms_per_iter=%.4f %s launches_per_iter=%.1f "
+    print("[group] scene=%s iterations=%d total_ms_per_iter=%.4f %s launches_per_iter=%.1f "
           "busy_share=%.4f card=%r" % (
-              iterations, total, " ".join(f"{k}_ms={v:.4f}" for k, v in sorted(groups.items())),
+              args.scene, iterations, total,
+              " ".join(f"{k}_ms={v:.4f}" for k, v in sorted(groups.items())),
               launches, busy, card), flush=True)
+
+    wave = Wavefront(ds, env, cam, zeros, res, NO_LIMIT, 64, BOUNCES)
+    for it in range(2):
+        wave.step(it)
+    captured = capture_step(wave, 2)
+    if route(ds) == CHUNKED:
+        for key, closest in (("closest", True), ("occlusion", False)):
+            ms, by, counts = chunked_bound(ds, captured[key], closest)
+            print(f"[cull] scene={args.scene} kernel={key} lanes={SIZE * SIZE} "
+                  f"slab_tests={counts['slab_tests']} pairs={counts['pairs']} "
+                  f"pairs_per_lane={counts['pairs'] / (SIZE * SIZE):.3f} "
+                  f"bound_ms={ms:.4f} bound_by={by} card={card!r}", flush=True)
+        return 0
 
     # -fmad=false against FMA contraction, one library each, A B B A.
     flags = list(_kernels.NVCC_FLAGS)
     other = [f for f in flags if f != FMAD_OFF] if FMAD_OFF in flags else flags + [FMAD_OFF]
     libs = {"default": _kernels.library(), "other": _kernels.load(other)}
     labels = {"default": " ".join(flags), "other": " ".join(other)}
-    wave = Wavefront(ds, env, cam, zeros, res, NO_LIMIT, 64, BOUNCES)
-    for it in range(2):
-        wave.step(it)
-    captured = capture_step(wave, 2)
     tr_args, sh_args = captured["trace"], captured["shade"]
     tr_ref = cw.trace_plain(*tr_args)
     sh_ref = shade_outputs(cw.shade_plain(*sh_args))

@@ -1,11 +1,19 @@
 """Ray-regeneration wavefront integrator (port of
-rsoderh_raytracing_tpu/render/wavefront.py, small-scene kernel loop).
+rsoderh_raytracing_tpu/render/wavefront.py, its kernel loop).
 
 Lane == pixel; when a path terminates its radiance is added to the
 lane's film slot and the lane reseeds the next progressive sample of the
-same pixel. One iteration is the glue (alias draw, NEE and miss uv), the
-TRACE kernel, one quad-row gather and the SHADE kernel
-(ops/cuda_wavefront.py). Differences from the reference's loop:
+same pixel. The scene's route (scene/device.route) picks the iteration
+once per call:
+
+- small scenes: the glue (alias draw, NEE and miss uv), the TRACE
+  kernel, one quad-row gather and the SHADE kernel (ops/cuda_wavefront.py);
+- the big-mesh route: the glue, CHUNKED_CLOSEST over live lanes, the hit
+  point, CHUNKED_ANY over live hit lanes (ops/cuda_intersect.py), the
+  fused uv and one quad-row gather, and BIG_SHADE, which reads the
+  winner's union row itself.
+
+Differences from the reference's loop:
 
 - No host sync per iteration. Free-run stops regenerating once
   ``it_next >= budget``, so every path has ended after
@@ -17,7 +25,9 @@ TRACE kernel, one quad-row gather and the SHADE kernel
   lanes, shadow rays the hit lanes. ``iterations`` counts the iterations
   in which some lane was active.
 - Lanes are row-major. Every lane's result depends only on its pixel, so
-  the reference's 64x128 block remap (a TPU tiling) is skipped.
+  the reference's 64x128 block remap (a TPU tiling) is skipped, and so is
+  its lane compaction on the big-mesh route (bit-transparent by the
+  reference's tests; candidates for the H100's queue of measurements).
 """
 
 from __future__ import annotations
@@ -25,10 +35,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from rsoderh_raytracing_tpu_torch.ops import cuda_intersect as ci
 from rsoderh_raytracing_tpu_torch.ops import cuda_wavefront as cw
 from rsoderh_raytracing_tpu_torch.ops import envmap, rng
 from rsoderh_raytracing_tpu_torch.render.integrator import MAX_BOUNCES
-from rsoderh_raytracing_tpu_torch.scene.device import MAX_UNROLL_PRIMS
+from rsoderh_raytracing_tpu_torch.scene.device import CHUNKED, route
 
 NO_LIMIT = 0xFFFFFFFF
 EXACT_CHECK_EVERY = 16
@@ -72,8 +83,7 @@ class Wavefront:
     loop-invariant lanes, the camera scalars and the device counters."""
 
     def __init__(self, scene, env, camera, base_sample, resolution, spp, budget, max_bounces):
-        if scene.num_lanes > MAX_UNROLL_PRIMS:
-            raise NotImplementedError("big-scene route not yet ported")
+        self.route = route(scene)
         device = scene.device
         self.scene, self.env = scene, env
         self.width, self.height = resolution
@@ -123,41 +133,69 @@ class Wavefront:
         zero = torch.zeros((), device=device, dtype=torch.int64)
         self.closest, self.shadow, self.iterations = zero, zero, zero
 
-    def step(self, it, trace=cw.trace_call, shade=cw.shade_call, profile=None):
-        """One iteration (number `it`, from 0). `trace`/`shade` default to
-        the wrappers; `profile`, if a dict, collects CUDA events that
-        bracket glue, TRACE, the gather and SHADE."""
+    def step(
+        self, it, trace=cw.trace_call, shade=cw.shade_call,
+        closest=ci.chunked_closest_call, occlusion=ci.chunked_any_call,
+        big_shade=cw.big_shade_call, profile=None,
+    ):
+        """One iteration (number `it`, from 0). The kernel arguments
+        default to the wrappers; `profile`, if a dict, collects in
+        profile["marks"] one list per iteration of (part, CUDA event)
+        pairs, each event starting the named part and the last one (part
+        None) ending the iteration."""
         marks = [] if profile is not None else None
 
-        def mark():
+        def mark(part):
             if marks is not None:
                 ev = torch.cuda.Event(enable_timing=True)
                 ev.record()
-                marks.append(ev)
+                marks.append((part, ev))
 
         c = self.carry
         env_h, env_w = self.env.texture_shape
-        mark()
+        mark("glue")
         state, _, nee_u, nee_v, nee_pmf = envmap.sample_alias_index(
             rng.from_bits(c["state"]), self.env
         )
         nd = envmap.equirect_uv_to_direction(nee_u, nee_v)
         mu, mv = envmap.direction_to_equirect_uv(c["rd0"], c["rd1"], c["rd2"])
-        mark()
-        tr = trace(
-            self.scene, env_w, env_h,
-            (c["ro0"], c["ro1"], c["ro2"]), (c["rd0"], c["rd1"], c["rd2"]),
-            nd, (nee_u, nee_v), (mu, mv), rng.to_bits(state),
-        )
-        mark()
-        qw = self.env.quad.index_select(0, tr["qidx"])
-        mark()
-        self.carry, act, hitm = shade(
-            env_w, env_h, self.width, self.height, self.max_bounces,
-            qw, tr, nee_pmf, c, self.pixel_bits, self.pixel_x, self.pixel_y,
-            self.base_bits, self.scal, (it + 1, self.spp, self.budget, 1, 0),
-        )
-        mark()
+        ro = (c["ro0"], c["ro1"], c["ro2"])
+        rd = (c["rd0"], c["rd1"], c["rd2"])
+        lanes = (self.pixel_bits, self.pixel_x, self.pixel_y, self.base_bits, self.scal,
+                 (it + 1, self.spp, self.budget, 1, 0))
+        if self.route == CHUNKED:
+            mark("closest")
+            t, btype, bidx = closest(self.scene, ro, rd, c["in_path"])
+            mark("glue")
+            did_hit = btype >= 0
+            t_safe = torch.where(did_hit, t, 0.0)
+            p = tuple(ro[k] + rd[k] * t_safe for k in range(3))
+            hit_mask = (did_hit & (c["in_path"] != 0)).to(torch.int32)
+            mark("occlusion")
+            occ = occlusion(self.scene, p, nd, hit_mask)
+            mark("gather")
+            fu = torch.where(did_hit, nee_u, mu)
+            fv = torch.where(did_hit, nee_v, mv)
+            qw = self.env.quad.index_select(0, envmap.quad_index(fu, fv, env_w, env_h))
+            mark("big_shade")
+            tr = dict(hit=did_hit.to(torch.int32), occ=occ, btype=btype, bidx=bidx,
+                      px=p[0], py=p[1], pz=p[2])
+            self.carry, act, hitm = big_shade(
+                self.scene, env_w, env_h, self.width, self.height, self.max_bounces,
+                qw, tr, nd, rng.to_bits(state), fu, fv, nee_pmf, c, *lanes,
+            )
+        else:
+            mark("trace")
+            tr = trace(self.scene, env_w, env_h, ro, rd, nd, (nee_u, nee_v), (mu, mv),
+                       rng.to_bits(state))
+            mark("gather")
+            qw = self.env.quad.index_select(0, tr["qidx"])
+            mark("shade")
+            self.carry, act, hitm = shade(
+                env_w, env_h, self.width, self.height, self.max_bounces,
+                qw, tr, nee_pmf, c, *lanes,
+            )
+        mark(None)
         if marks is not None:
             profile.setdefault("marks", []).append(marks)
         n_act = act.sum(dtype=torch.int64)

@@ -3,7 +3,15 @@
 Port of rsoderh_raytracing_tpu/scene/device.py. The numpy body, the
 padding rules and the precomputed intersection constants are the same,
 so every field equals the reference's lane for lane; only the final
-upload differs (torch tensors on an explicit device).
+upload differs (torch tensors on the card unless another device is
+asked for).
+
+Scenes past the unroll budget take the chunked route: the chunk
+predicates, ceilings, bounds and window rows below are those of
+rsoderh_raytracing_tpu/ops/pallas_intersect.py (which imports jax).
+``device_scene_from_arrays`` also packs, once per scene, the flat tables
+the CUDA kernels read (row layouts in csrc/wavefront_common.cuh): the
+small route's ``trace_table``, or the chunked route's ``chunks``.
 """
 
 from __future__ import annotations
@@ -14,13 +22,27 @@ from typing import Optional
 import numpy as np
 import torch
 
-from rsoderh_raytracing_tpu.scene.types import Scene
+from rsoderh_raytracing_tpu_torch import _device
+from rsoderh_raytracing_tpu_torch.scene.types import Scene
 
-# Copied from rsoderh_raytracing_tpu/ops/pallas_intersect.py (that module
-# imports jax): the unrolled-sweep budget and the chunk height that
-# decide the triangle padding.
+# From rsoderh_raytracing_tpu/ops/pallas_intersect.py: the unrolled-sweep
+# budget, the chunk height that decides the triangle padding, and the
+# chunked route's ceilings (the reference's defaults, without its
+# environment overrides).
 MAX_UNROLL_PRIMS = 192
 TRI_CHUNK = 64
+MAX_CHUNKED_TRIS = 262144
+MAX_CHUNKED_SPHERES = 262144
+
+# Window rows of the chunked kernels (pallas_intersect.tri_const_table /
+# sphere_const_table): one 20-float row a primitive.
+WIN_COLS = 20
+# Row widths of the packed scene table and of the big-mesh union rows
+# (csrc/wavefront_common.cuh).
+SPH_COLS, PLN_COLS, TRI_COLS, MAT_COLS = 8, 16, 36, 8
+WINNER_SLOTS = 20
+
+SMALL, CHUNKED = "small", "chunked"
 
 FIELDS = (
     "mat_color", "mat_roughness", "mat_metallic", "mat_emission",
@@ -96,11 +118,12 @@ class DeviceScene:
     tri_cv: torch.Tensor  # (T,3) a x e0
     tri_n: torch.Tensor  # (T,3) e0 x e1
     tri_adotn: torch.Tensor  # (T,)
-    # The packed table the TRACE kernel stages in shared memory; built
-    # on first use by ops/cuda_wavefront.scene_table.
-    kernel_table: Optional[torch.Tensor] = dataclasses.field(
-        default=None, repr=False
-    )
+    # The TRACE kernel's table (pack_rows: every primitive and material
+    # row), built with the scene when its route is SMALL.
+    trace_table: Optional[torch.Tensor] = dataclasses.field(default=None, repr=False)
+    # The chunked route's tables (ChunkTables), built with the scene
+    # when its route is CHUNKED.
+    chunks: Optional["ChunkTables"] = dataclasses.field(default=None, repr=False)
 
     @property
     def device(self) -> torch.device:
@@ -115,11 +138,216 @@ class DeviceScene:
         )
 
 
+@dataclasses.dataclass
+class ChunkTables:
+    """The big-mesh route's scene data: chunks [0, n_tri_chunks) are
+    triangle windows, the rest sphere windows (spheres join the chunks
+    only when they no longer fit the unrolled step)."""
+
+    bounds: torch.Tensor  # (C, 6) f32 [min xyz, max xyz], inflated
+    windows: torch.Tensor  # (C * TRI_CHUNK, WIN_COLS) f32
+    n_tri_chunks: int
+    n_sph_chunks: int
+    # The unrolled primitives the chunked kernels sweep before any
+    # window (pack_rows: sphere rows unless spheres are chunked, then
+    # plane rows).
+    small: torch.Tensor
+    winner: torch.Tensor  # (S + P + T, WINNER_SLOTS) f32 union rows (winner_rows)
+    materials: torch.Tensor  # (n_mat, MAT_COLS) f32 (material_rows)
+
+    @property
+    def count(self) -> int:
+        return self.n_tri_chunks + self.n_sph_chunks
+
+
+def counts_chunk_spheres(n_sph: int, n_pln: int) -> bool:
+    """Sphere lanes stream as chunk windows when the sphere+plane unroll
+    no longer fits the per-step budget (pallas_intersect._counts_chunk_spheres)."""
+    return (
+        n_sph + n_pln + TRI_CHUNK > MAX_UNROLL_PRIMS
+        and n_sph > 0
+        and n_sph % TRI_CHUNK == 0
+        and n_sph <= MAX_CHUNKED_SPHERES
+        and n_pln + TRI_CHUNK <= MAX_UNROLL_PRIMS
+    )
+
+
+def counts_chunked_applicable(n_sph: int, n_pln: int, n_tri: int) -> bool:
+    """Whether the chunked route covers padded lane counts
+    (pallas_intersect._counts_chunked_applicable)."""
+    if n_tri % TRI_CHUNK != 0 or n_tri > MAX_CHUNKED_TRIS:
+        return False
+    if n_sph + n_pln + TRI_CHUNK <= MAX_UNROLL_PRIMS:
+        return n_tri > 0
+    return counts_chunk_spheres(n_sph, n_pln)
+
+
+def _counts(scene):
+    return scene.sph_radius.shape[0], scene.pln_valid.shape[0], scene.tri_valid.shape[0]
+
+
+def chunk_spheres(scene) -> bool:
+    return counts_chunk_spheres(*_counts(scene)[:2])
+
+
+def scene_chunk_count(scene) -> int:
+    """Triangle windows plus (when chunk_spheres) sphere windows
+    (pallas_intersect.scene_chunk_count)."""
+    n_sph, _, n_tri = _counts(scene)
+    c = -(-n_tri // TRI_CHUNK) if n_tri else 0
+    if chunk_spheres(scene):
+        c += -(-n_sph // TRI_CHUNK)
+    return c
+
+
+def route(scene) -> str:
+    """SMALL (every primitive in the unrolled sweep) or CHUNKED; raises
+    NotImplementedError for a scene that is neither."""
+    n_sph, n_pln, n_tri = _counts(scene)
+    if n_sph + n_pln + n_tri <= MAX_UNROLL_PRIMS:
+        return SMALL
+    if counts_chunked_applicable(n_sph, n_pln, n_tri):
+        return CHUNKED
+    raise NotImplementedError(
+        f"scene with {n_sph} sphere, {n_pln} plane and {n_tri} triangle lanes "
+        f"is past the unroll budget ({MAX_UNROLL_PRIMS}) and outside the chunked "
+        "route's limits: it needs the BVH route, which is not ported yet"
+    )
+
+
+def chunk_bounds(tri_a, tri_edge0, tri_edge1):
+    """(n_chunks, 6) f32 AABBs of each TRI_CHUNK-triangle chunk over its
+    vertices a, a+e0, a+e1, inflated by (hi-lo)*1e-5 + 1e-5
+    (pallas_intersect.chunk_bounds). Padded triangles collapse to the
+    origin, which only enlarges a chunk."""
+    n_chunks = tri_a.shape[0] // TRI_CHUNK
+    pts = np.stack([tri_a, tri_a + tri_edge0, tri_a + tri_edge1], axis=1)
+    pts = pts.reshape(n_chunks, TRI_CHUNK * 3, 3)
+    return _inflate(pts.min(axis=1), pts.max(axis=1))
+
+
+def sphere_chunk_bounds(sph_pos, sph_radius):
+    """(n_sph_chunks, 6) f32 AABBs over centre +- radius, inflated like
+    chunk_bounds (pallas_intersect.sphere_chunk_bounds)."""
+    n_chunks = sph_radius.shape[0] // TRI_CHUNK
+    r = sph_radius[:, None]
+    lo = (sph_pos - r).reshape(n_chunks, TRI_CHUNK, 3).min(axis=1)
+    hi = (sph_pos + r).reshape(n_chunks, TRI_CHUNK, 3).max(axis=1)
+    return _inflate(lo, hi)
+
+
+def _inflate(lo, hi):
+    eps = (hi - lo) * np.float32(1.0e-5) + np.float32(1.0e-5)
+    return np.concatenate([lo - eps, hi + eps], axis=-1).astype(np.float32)
+
+
+def tri_const_table(a: dict):
+    """(n_tri, WIN_COLS) f32 triangle window rows: cdet, e0, e1, cu, cv,
+    n, adotn, valid (pallas_intersect.tri_const_table)."""
+    return np.concatenate(
+        [a["tri_cdet"], a["tri_edge0"], a["tri_edge1"], a["tri_cu"], a["tri_cv"],
+         a["tri_n"], a["tri_adotn"][:, None], a["tri_valid"].astype(np.float32)[:, None]],
+        axis=1,
+    ).astype(np.float32)
+
+
+def sphere_const_table(a: dict):
+    """(n_sph, WIN_COLS) f32 sphere window rows: pos, c2, valid, zeros
+    (pallas_intersect.sphere_const_table)."""
+    n = a["sph_radius"].shape[0]
+    return np.concatenate(
+        [a["sph_pos"], a["sph_c2"][:, None], a["sph_valid"].astype(np.float32)[:, None],
+         np.zeros((n, WIN_COLS - 5), np.float32)],
+        axis=1,
+    ).astype(np.float32)
+
+
+def pack_rows(scene, spheres=True, triangles=True, materials=True) -> torch.Tensor:
+    """Sphere, plane, triangle and material rows packed into one flat f32
+    table, in that order; the sphere, triangle and material rows only
+    where asked for."""
+
+    def cols(*parts):
+        return torch.cat(
+            [p.to(torch.float32).reshape(p.shape[0], -1) for p in parts], dim=1
+        )
+
+    def pad(t, width):
+        return torch.nn.functional.pad(t, (0, width - t.shape[1]))
+
+    rows = []
+    if spheres:
+        rows.append(pad(cols(scene.sph_pos, scene.sph_c2, scene.sph_radius,
+                             scene.sph_material, scene.sph_valid), SPH_COLS))
+    rows.append(pad(cols(scene.pln_normal, scene.pln_ndotp, scene.pln_r0,
+                         scene.pln_r2, scene.pln_r0dotp, scene.pln_r2dotp,
+                         scene.pln_material, scene.pln_valid), PLN_COLS))
+    if triangles:
+        rows.append(pad(cols(scene.tri_cdet, scene.tri_edge0, scene.tri_edge1,
+                             scene.tri_cu, scene.tri_cv, scene.tri_n, scene.tri_adotn,
+                             scene.tri_valid, scene.tri_a, scene.tri_n0, scene.tri_n1,
+                             scene.tri_n2, scene.tri_material), TRI_COLS))
+    if materials:
+        rows.append(material_rows(scene))
+    return torch.cat([r.reshape(-1) for r in rows]).contiguous()
+
+
+def material_rows(scene) -> torch.Tensor:
+    """(n_mat, MAT_COLS) f32: color[3] roughness metallic emission[3]."""
+    return torch.cat(
+        [scene.mat_color, scene.mat_roughness[:, None], scene.mat_metallic[:, None],
+         scene.mat_emission], dim=1,
+    ).to(torch.float32).contiguous()
+
+
+def winner_rows(scene) -> torch.Tensor:
+    """(n_sph + n_pln + n_tri, WINNER_SLOTS) f32 union rows of every
+    primitive (pallas_wavefront.winner_table): sphere pos[3] radius;
+    plane normal[3]; triangle a[3] e0[3] e1[3] n0[3] n1[3] n2[3]; slot 18
+    the material id as an exact small-int float."""
+
+    def rows(parts, material):
+        n = material.shape[0]
+        body = torch.cat([p.reshape(n, -1).to(torch.float32) for p in parts], dim=1)
+        out = torch.zeros((n, WINNER_SLOTS), dtype=torch.float32, device=material.device)
+        out[:, : body.shape[1]] = body
+        out[:, 18] = material.to(torch.float32)
+        return out
+
+    return torch.cat([
+        rows((scene.sph_pos, scene.sph_radius), scene.sph_material),
+        rows((scene.pln_normal,), scene.pln_material),
+        rows((scene.tri_a, scene.tri_edge0, scene.tri_edge1, scene.tri_n0,
+              scene.tri_n1, scene.tri_n2), scene.tri_material),
+    ]).contiguous()
+
+
+def _chunk_tables(a: dict, scene: DeviceScene) -> ChunkTables:
+    n_sph, n_pln, n_tri = a["sph_radius"].shape[0], a["pln_valid"].shape[0], a["tri_valid"].shape[0]
+    bounds = [chunk_bounds(a["tri_a"], a["tri_edge0"], a["tri_edge1"])] if n_tri else []
+    windows = [tri_const_table(a)] if n_tri else []
+    n_sph_chunks = 0
+    if counts_chunk_spheres(n_sph, n_pln):
+        n_sph_chunks = n_sph // TRI_CHUNK
+        bounds.append(sphere_chunk_bounds(a["sph_pos"], a["sph_radius"]))
+        windows.append(sphere_const_table(a))
+
+    def up(x):
+        return torch.from_numpy(np.ascontiguousarray(np.concatenate(x))).to(scene.device)
+
+    return ChunkTables(
+        up(bounds), up(windows), n_tri // TRI_CHUNK, n_sph_chunks,
+        small=pack_rows(scene, spheres=not n_sph_chunks, triangles=False, materials=False),
+        winner=winner_rows(scene), materials=material_rows(scene),
+    )
+
+
 def build_device_scene(
-    scene: Scene, device="cpu", pad_to: int = 8
+    scene: Scene, device=_device.DEFAULT, pad_to: int = 8
 ) -> DeviceScene:
-    """Flatten + pad a host Scene into a DeviceScene (no BVH: the BVH
-    route is not ported yet)."""
+    """Flatten + pad a host Scene into a DeviceScene on `device` (no BVH:
+    the BVH route is not ported yet)."""
+    device = _device.resolve(device)
     materials = scene.materials or []
     m = max(1, len(materials))
     mat_color = np.zeros((m, 3), np.float32)
@@ -170,8 +398,7 @@ def build_device_scene(
 
     # Triangles pad to TRI_CHUNK whenever the total padded lane count
     # exceeds the unroll budget; such scenes are stored in Morton order,
-    # the reference's default, so the fields still match it lane for lane
-    # (rendering them raises: the big-scene route is not ported).
+    # the reference's default, so the fields match it lane for lane.
     tris = scene.meshes.triangles
     total_small = s_n + p_n + _round_up(len(tris), pad_to)
     if total_small > MAX_UNROLL_PRIMS and len(tris) > 0:
@@ -236,11 +463,15 @@ def build_device_scene(
     return device_scene_from_arrays(arrays, device)
 
 
-def device_scene_from_arrays(arrays: dict, device="cpu") -> DeviceScene:
-    """Build a DeviceScene from a dict of numpy arrays keyed by field name
-    (for example the fields of the JAX package's DeviceScene). Float
-    fields become float32, material ids int32, valid masks bool."""
-    out = {}
+def device_scene_from_arrays(arrays: dict, device=_device.DEFAULT) -> DeviceScene:
+    """Build a DeviceScene on `device` from a dict of numpy arrays keyed
+    by field name (for example the fields of the JAX package's
+    DeviceScene). Float fields become float32, material ids int32, valid
+    masks bool. A scene within the unroll budget gets the TRACE kernel's
+    table; one past it that the chunked route covers gets its chunk
+    tables."""
+    device = _device.resolve(device)
+    host = {}
     for name in FIELDS:
         arr = np.asarray(arrays[name])
         if name.endswith("_valid"):
@@ -249,5 +480,11 @@ def device_scene_from_arrays(arrays: dict, device="cpu") -> DeviceScene:
             arr = arr.astype(np.int32)
         else:
             arr = arr.astype(np.float32)
-        out[name] = torch.from_numpy(np.ascontiguousarray(arr).copy()).to(device)
-    return DeviceScene(**out)
+        host[name] = np.ascontiguousarray(arr)
+    scene = DeviceScene(**{k: torch.from_numpy(v.copy()).to(device) for k, v in host.items()})
+    n_sph, n_pln, n_tri = _counts(scene)
+    if n_sph + n_pln + n_tri <= MAX_UNROLL_PRIMS:
+        scene.trace_table = pack_rows(scene)
+    elif counts_chunked_applicable(n_sph, n_pln, n_tri):
+        scene.chunks = _chunk_tables(host, scene)
+    return scene

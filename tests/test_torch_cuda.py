@@ -21,10 +21,14 @@ import torch
 from rsoderh_raytracing_tpu_torch import load_scene
 from rsoderh_raytracing_tpu_torch.env.environment import Environment, device_environment
 from rsoderh_raytracing_tpu_torch.env.hdr_io import procedural_sky
+from rsoderh_raytracing_tpu_torch.ops import cuda_intersect as ci
 from rsoderh_raytracing_tpu_torch.ops import cuda_wavefront as cw
+from rsoderh_raytracing_tpu_torch.ops import intersect
+from rsoderh_raytracing_tpu_torch.profiling import capture_step
 from rsoderh_raytracing_tpu_torch.render.integrator import camera_pytree
 from rsoderh_raytracing_tpu_torch.render.wavefront import NO_LIMIT, Wavefront, render_freerun
 from rsoderh_raytracing_tpu_torch.scene.device import build_device_scene
+from rsoderh_raytracing_tpu_torch.scene.types import PackedMeshes, Plane, Scene
 
 torch.set_num_threads(2)
 
@@ -113,10 +117,75 @@ def test_card_render_matches_cpu_render(dev, house_scene):
     np.testing.assert_allclose(gi.mean(), ci.mean(), rtol=1e-3)
 
 
-def test_big_scene_raises_on_the_card(dev):
+@pytest.fixture(scope="module")
+def suzanne_state(dev):
+    """The big-mesh kernels' inputs of a real loop iteration at 128x128."""
     scene = load_scene(os.path.join(SCENES, "suzanne.toml"))
+    ds = build_device_scene(scene, dev)
+    env = device_environment(Environment.from_texture("s", procedural_sky(256, 128)), dev)
+    wave = Wavefront(ds, env, camera_pytree(scene.camera, dev), 0, (128, 128), NO_LIMIT, 32, 8)
+    for it in range(3):
+        wave.step(it)
+    return capture_step(wave, 3)
+
+
+def test_chunked_kernels_match_plain(suzanne_state):
+    args = suzanne_state["closest"]
+    before = dict(ci.LAUNCHES)
+    got = ci.chunked_closest_call(*args)
+    live = args[3] != 0
+    names = ("t", "type", "index")
+    _compare({k: v[live] for k, v in zip(names, got)},
+             {k: v[live] for k, v in zip(names, intersect.chunked_closest_plain(*args))},
+             {"type", "index"})
+    args = suzanne_state["occlusion"]
+    masked = args[3] != 0
+    _compare({"occ": ci.chunked_any_call(*args)[masked]},
+             {"occ": intersect.chunked_any_plain(*args)[masked]}, {"occ"})
+    assert ci.LAUNCHES["chunked_closest"] == before["chunked_closest"] + 1
+    assert ci.LAUNCHES["chunked_any"] == before["chunked_any"] + 1
+
+
+def test_big_shade_kernel_matches_plain(suzanne_state):
+    args = suzanne_state["big_shade"]
+    before = cw.LAUNCHES["big_shade"]
+    carry, act, hitm = cw.big_shade_call(*args)
+    assert cw.LAUNCHES["big_shade"] == before + 1
+    ref_carry, ref_act, ref_hitm = cw.big_shade_plain(*args)
+    _compare(dict(carry, active=act, hitmask=hitm), dict(ref_carry, active=ref_act, hitmask=ref_hitm),
+             cw.SHADE_INT_NAMES)
+
+
+def test_card_big_mesh_render_matches_cpu_render(dev):
+    scene = load_scene(os.path.join(SCENES, "suzanne.toml"))
+    env_args = Environment.from_texture("s", procedural_sky(128, 64))
+    out = {}
+    for device in ("cpu", dev):
+        img, counts = render_freerun(
+            build_device_scene(scene, device), device_environment(env_args, device),
+            camera_pytree(scene.camera, device), 0, (32, 32), 16, 8,
+        )
+        out[str(device)] = (img.cpu().numpy(), counts.cpu().numpy())
+    (ci_, cc), (gi, gc) = out["cpu"], out[str(dev)]
+    assert (cc == gc).mean() >= 0.99
+    np.testing.assert_allclose(gi.mean(), ci_.mean(), rtol=2e-3)
+
+
+def test_big_scene_raises_on_the_card(dev):
+    """A scene past the unroll budget outside the chunked route's limits
+    (200 plane lanes) raises on the card too."""
+    scene = load_scene(os.path.join(SCENES, "suzanne.toml"))
+    scene = Scene(
+        materials=scene.materials, spheres=[],
+        planes=[Plane(pos=(float(i), -1.0, -4.0), right=(0.5, 0.0, 0.0), forward=(0.0, 0.0, 0.5),
+                      material_id=0) for i in range(200)],
+        meshes=PackedMeshes(vertices=np.zeros((0, 3), np.float32),
+                            normals=np.zeros((0, 3), np.float32),
+                            triangles=np.zeros((0, 7), np.int32)),
+        camera=scene.camera,
+    )
     ds = build_device_scene(scene, dev)
     assert ds.num_lanes > 192
     env = device_environment(Environment.from_texture("s", procedural_sky(32, 16)), dev)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="BVH route"):
         render_freerun(ds, env, camera_pytree(scene.camera, dev), 0, (8, 8), 4, 4)

@@ -13,16 +13,21 @@ import torch
 
 import jax.numpy as jnp
 
+from rsoderh_raytracing_tpu.accel import native as j_native
 from rsoderh_raytracing_tpu.env import alias_table as j_alias
 from rsoderh_raytracing_tpu.env import hdr_io as j_hdr
 from rsoderh_raytracing_tpu.env.environment import Environment as JEnvironment
 from rsoderh_raytracing_tpu.env.environment import device_environment as j_device_environment
+from rsoderh_raytracing_tpu.env.environment import (
+    load_default_environments as j_load_default_environments,
+)
 from rsoderh_raytracing_tpu.ops import envmap as jenv
 from rsoderh_raytracing_tpu_torch.env import alias_table, hdr_io
 from rsoderh_raytracing_tpu_torch.env.environment import (
     Environment,
     device_environment,
     device_environment_from_arrays,
+    load_default_environments,
 )
 from rsoderh_raytracing_tpu_torch.ops import envmap, rng
 
@@ -51,7 +56,7 @@ def _bits(a):
 def envs():
     sky = j_hdr.procedural_sky(128, 64, sun_radius=0.1)
     jd = j_device_environment(JEnvironment.from_texture("s", sky))
-    td = device_environment(Environment.from_texture("s", sky))
+    td = device_environment(Environment.from_texture("s", sky), device="cpu")
     return jd, td
 
 
@@ -74,6 +79,33 @@ def test_rgbe_and_alias_table_bitwise():
     np.testing.assert_array_equal(_bits(a.pmf), _bits(b.pmf))
 
 
+def test_native_alias_builder_matches_reference_native():
+    """The port's own C++ builder, built into build/native/, against the
+    reference package's native builder: bitwise."""
+    w = np.random.default_rng(4).exponential(1.0, 300_000).astype(np.float32)
+    p = (w * np.float32(w.size) / np.float32(w.sum(dtype=np.float64))).astype(np.float32)
+    got = alias_table.build_alias_table_native(p)
+    ref = j_native.build_alias_table_native(p)
+    assert got is not None and ref is not None
+    assert alias_table._native_lib._name.startswith(alias_table.NATIVE_DIR)
+    for a, b in zip(got, ref[:3]):
+        np.testing.assert_array_equal(_bits(a), _bits(b))
+
+
+def test_default_environments_bitwise():
+    """load_default_environments (the anchor goldens' environments): the
+    same HDRIs in the same order, textures and alias tables bitwise."""
+    got, ref = load_default_environments(), j_load_default_environments()
+    assert [e.name for e in got.environments] == [e.name for e in ref.environments]
+    assert got.next_index(len(got) - 1) == 0
+    for a, b in zip(got.environments, ref.environments):
+        np.testing.assert_array_equal(_bits(a.texture), _bits(b.texture))
+        np.testing.assert_array_equal(_bits(a.alias.probability), _bits(b.alias.probability))
+        np.testing.assert_array_equal(a.alias.alias_index, b.alias.alias_index)
+        np.testing.assert_array_equal(_bits(a.alias.pmf), _bits(b.alias.pmf))
+        assert a.weight_sum == b.weight_sum
+
+
 def test_device_environment_bitwise(envs):
     jd, td = envs
     assert td.texture_shape == tuple(jd.texture_shape)
@@ -89,7 +121,7 @@ def test_device_environment_from_arrays_round_trip(envs):
     jd, td = envs
     rt = device_environment_from_arrays(
         jd.texture_shape, np.asarray(jd.quad), np.asarray(jd.alias_pair),
-        np.asarray(jd.pmf_norm),
+        np.asarray(jd.pmf_norm), device="cpu",
     )
     for name in ("quad", "alias_pair", "pmf_norm", "alias_index"):
         np.testing.assert_array_equal(

@@ -73,7 +73,7 @@ def tiny_scene():
 
 
 def port_scene(jscene):
-    return device_scene_from_arrays({f: np.asarray(getattr(jscene, f)) for f in FIELDS})
+    return device_scene_from_arrays({f: np.asarray(getattr(jscene, f)) for f in FIELDS}, device="cpu")
 
 
 def seeded_inputs(seed):
@@ -178,7 +178,7 @@ def test_wrappers_on_cpu_run_plain_and_count_nothing(trace_pair):
         port_scene(jscene), ENV_W, ENV_H, flat(ro), flat(rd), flat(nd), flat(nee_uv),
         flat(miss_uv), torch.from_numpy(state.view(np.int32)),
     )
-    assert cw.LAUNCHES == {"trace": 0, "shade": 0}
+    assert cw.LAUNCHES == {"trace": 0, "shade": 0, "big_shade": 0}
     assert (out["hit"].numpy() == ref["hit"].numpy()).mean() >= INT_EQUAL_MIN
 
 

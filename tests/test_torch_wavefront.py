@@ -15,6 +15,25 @@ mean within 1e-3 relative, >= 99% of values close.
 Goldens (tests/goldens/*_64_8spp.npy, 64x64, 8 spp, 4 bounces): the
 port's relative RMSE measured 5.0e-5 (default) and 8.6e-5 (house); the
 bound is the reference's own, 5e-4.
+
+The big-mesh route (plain chunked sweeps and big_shade_plain on the CPU)
+against JAX's composed render_freerun, on the 200-triangle wall of
+conftest's big_tri_scene and on suzanne (968 triangles), 16x16, budget
+8, 8 bounces, one call each. Dense triangle sweeps flip a path more
+often than house (measured: suzanne closest rays 2204 vs 2198, shadow
+rays 1003 vs 996, counts equal on every pixel, image mean within 4.1e-4
+relative). Bounds: ray counts within 1% relative, counts equal on >= 99%
+of pixels, image mean within 2e-3 relative, >= 98% of values close.
+
+The anchor goldens of the independent numpy oracle
+(tests/goldens/suzanne_hi_anchor_24_2spp.npy, spheres_anchor_32_4spp.npy)
+through render_wavefront with environment 0 of load_default_environments
+and MAX_BOUNCES, as the reference's Renderer.step_batch renders them,
+with the reference's flip-aware criteria
+(tests/test_reference_estimator.py). Measured here: suzanne_hi 0.52%
+flipped pixels, 99.5% within 1e-4, non-flipped relative RMSE 2.7e-6;
+spheres 53.7% within 1e-4, non-flipped relative RMSE 8.2e-4, image mean
+3.2% from the oracle's.
 """
 
 import os
@@ -30,10 +49,21 @@ from rsoderh_raytracing_tpu.env.hdr_io import procedural_sky
 from rsoderh_raytracing_tpu.render.integrator import camera_pytree as j_camera
 from rsoderh_raytracing_tpu.render.wavefront import render_freerun as j_render_freerun
 from rsoderh_raytracing_tpu.scene.device import build_device_scene as j_build
-from rsoderh_raytracing_tpu_torch.env.environment import Environment, device_environment
-from rsoderh_raytracing_tpu_torch.render.integrator import camera_pytree
+from rsoderh_raytracing_tpu_torch import load_scene as t_load_scene
+from rsoderh_raytracing_tpu_torch.env.environment import (
+    Environment,
+    device_environment,
+    load_default_environments,
+)
+from rsoderh_raytracing_tpu_torch.render.integrator import MAX_BOUNCES, camera_pytree
 from rsoderh_raytracing_tpu_torch.render.wavefront import render_freerun, render_wavefront
-from rsoderh_raytracing_tpu_torch.scene.device import build_device_scene
+from rsoderh_raytracing_tpu_torch.scene.device import (
+    CHUNKED,
+    FIELDS,
+    build_device_scene,
+    device_scene_from_arrays,
+    route,
+)
 
 torch.set_num_threads(2)
 
@@ -55,8 +85,9 @@ def house_runs(house_scene):
     sky = procedural_sky(256, 128)
     jargs = (j_build(house_scene), j_device_environment(JEnvironment.from_texture("s", sky)),
              j_camera(house_scene.camera))
-    targs = (build_device_scene(house_scene), device_environment(Environment.from_texture("s", sky)),
-             camera_pytree(house_scene.camera))
+    targs = (build_device_scene(house_scene, device="cpu"),
+             device_environment(Environment.from_texture("s", sky), device="cpu"),
+             camera_pytree(house_scene.camera, device="cpu"))
     runs = {"jax": [], "port": []}
     jbase = np.zeros(RES[::-1], np.uint32)
     tbase = np.zeros(RES[::-1], np.uint32)
@@ -103,10 +134,12 @@ def test_freerun_image_matches_jax(house_runs, call):
 def test_render_wavefront_matches_golden(assets_dir, name):
     scene = load_scene(os.path.join(assets_dir, "scenes", f"{name}.toml"))
     env = device_environment(
-        Environment.from_texture("golden_sky", procedural_sky(256, 128, sun_radius=0.05))
+        Environment.from_texture("golden_sky", procedural_sky(256, 128, sun_radius=0.05)),
+        device="cpu",
     )
     img, stats = render_wavefront(
-        build_device_scene(scene), env, camera_pytree(scene.camera), 0, (64, 64), 8, 4,
+        build_device_scene(scene, device="cpu"), env, camera_pytree(scene.camera, device="cpu"),
+        0, (64, 64), 8, 4,
         with_stats=True,
     )
     img = img.numpy() / 8
@@ -114,3 +147,95 @@ def test_render_wavefront_matches_golden(assets_dir, name):
     rel = np.sqrt(np.mean((img - golden) ** 2)) / np.sqrt(np.mean(golden ** 2))
     assert rel < GOLDEN_REL_RMSE_MAX, f"relative RMSE {rel:.2e}"
     assert int(stats["closest_rays"]) >= 64 * 64 * 8
+
+
+BIG_RES = (16, 16)
+BIG_BUDGET = 8
+BIG_RAYS_RTOL = 1e-2
+BIG_MEAN_RTOL = 2e-3
+BIG_IMAGE_CLOSE_MIN = 0.98
+
+
+@pytest.fixture(scope="module", params=["wall", "suzanne"])
+def big_runs(request, assets_dir, big_tri_scene):
+    """One free-run call on each side over a scene of the big-mesh route."""
+    if request.param == "wall":
+        scene = big_tri_scene
+    else:
+        scene = load_scene(os.path.join(assets_dir, "scenes", "suzanne.toml"))
+    sky = procedural_sky(128, 64)
+    js = j_build(scene)
+    ts = device_scene_from_arrays({f: np.asarray(getattr(js, f)) for f in FIELDS}, device="cpu")
+    assert route(ts) == CHUNKED
+    base = np.zeros(BIG_RES[::-1], np.uint32)
+    ji, jc, jst = j_render_freerun(js, j_device_environment(JEnvironment.from_texture("s", sky)),
+                                   j_camera(scene.camera), base, BIG_RES, np.uint32(BIG_BUDGET),
+                                   BOUNCES, with_stats=True)
+    ti, tc, tst = render_freerun(ts, device_environment(Environment.from_texture("s", sky), device="cpu"),
+                                 camera_pytree(scene.camera, device="cpu"), base, BIG_RES, BIG_BUDGET,
+                                 BOUNCES, with_stats=True)
+    return dict(
+        jax=(np.asarray(ji), np.asarray(jc).astype(np.int64), {k: float(v) for k, v in jst.items()}),
+        port=(ti.numpy(), tc.numpy(), {k: float(v) for k, v in tst.items()}),
+    )
+
+
+def test_big_route_ray_counts_match_jax(big_runs):
+    js, ts = big_runs["jax"][2], big_runs["port"][2]
+    for key in ("closest_rays", "shadow_rays"):
+        assert abs(ts[key] - js[key]) <= BIG_RAYS_RTOL * js[key], key
+    # on the wall every path may end before the drain's last iteration
+    assert ts["iterations"] == js["iterations"] <= BIG_BUDGET + BOUNCES - 1
+
+
+def test_big_route_counts_match_jax(big_runs):
+    jc, tc = big_runs["jax"][1], big_runs["port"][1]
+    assert tc.shape == jc.shape == BIG_RES[::-1]
+    assert tc.min() > 0
+    assert (tc == jc).mean() >= COUNTS_EQUAL_MIN
+
+
+def test_big_route_image_matches_jax(big_runs):
+    ji, ti = big_runs["jax"][0], big_runs["port"][0]
+    assert ti.shape == ji.shape == (*BIG_RES[::-1], 3)
+    assert np.isfinite(ti).all()
+    np.testing.assert_allclose(ti.mean(), ji.mean(), rtol=BIG_MEAN_RTOL)
+    assert np.isclose(ti, ji, rtol=1e-4, atol=1e-5).mean() >= BIG_IMAGE_CLOSE_MIN
+
+
+@pytest.fixture(scope="module")
+def default_env0():
+    return device_environment(load_default_environments()[0], device="cpu")
+
+
+def _anchor(assets_dir, env, name, size, spp):
+    scene = t_load_scene(os.path.join(assets_dir, "scenes", f"{name}.toml"))
+    ds = build_device_scene(scene, device="cpu")
+    assert route(ds) == CHUNKED
+    img = render_wavefront(ds, env, camera_pytree(scene.camera, device="cpu"), 0, (size, size),
+                           spp, MAX_BOUNCES)
+    ref = np.load(os.path.join(GOLDEN_DIR, f"{name}_anchor_{size}_{spp}spp.npy"))
+    return img.numpy() / spp, ref
+
+
+def test_suzanne_hi_anchor_golden(assets_dir, default_env0):
+    ours, ref = _anchor(assets_dir, default_env0, "suzanne_hi", 24, 2)
+    diff = np.abs(ours - ref).max(-1)
+    flipped = diff > 1e-2
+    assert flipped.mean() < 0.03, f"{flipped.sum()} flipped pixels"
+    assert (diff < 1e-4).mean() > 0.95
+    keep = ~flipped
+    rel = float(np.sqrt(((ours - ref)[keep] ** 2).mean())) / float(np.sqrt((ref[keep] ** 2).mean()))
+    assert rel < 0.005, f"non-flipped relative RMSE {rel:.4%}"
+
+
+def test_spheres_anchor_golden(assets_dir, default_env0):
+    ours, ref = _anchor(assets_dir, default_env0, "spheres", 32, 4)
+    diff = ours - ref
+    ad = np.abs(diff).max(-1)
+    assert (ad < 1e-4).mean() > 0.45, "bit-matched pixel share collapsed"
+    keep = ~(ad > 1e-2)
+    rel = float(np.sqrt((diff[keep] ** 2).mean()) / np.sqrt((ref[keep] ** 2).mean()))
+    assert rel < 0.005, f"non-flipped relative RMSE {rel:.4%}"
+    mrel = abs(float(ours.mean()) - float(ref.mean())) / float(ref.mean())
+    assert mrel < 0.05, f"image-mean divergence {mrel:.4%}"
