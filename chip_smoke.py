@@ -32,7 +32,21 @@ exits non-zero at the first failure. Phases, one line each or more:
    one timed call are the parity reference of suzanne_hi at 2048^2;
 7. goldens: render_wavefront through the kernels against
    tests/goldens/{default,house}_64_8spp.npy and the oracle anchors
-   suzanne_hi_anchor_24_2spp.npy and spheres_anchor_32_4spp.npy.
+   suzanne_hi_anchor_24_2spp.npy and spheres_anchor_32_4spp.npy;
+8. the sweep kernels (CLOSEST, ANY, FUSED; within phase 3, on the house
+   loop states at 256x256 and 2048x2048): parity with their plain
+   versions, then each one's time beside its plain version's and its
+   bound;
+9. scan path: Renderer on house at 2048x2048, 8 bounces, a few step()
+   calls through the scan integrator (CLOSEST and ANY once a bounce, no
+   TRACE or SHADE), seconds a sample and Mrays/s;
+10. composed body: render_freerun at 2048x2048 with the float32 legacy
+   quad (FUSED once an iteration, no TRACE or SHADE), Mrays/s and the ms
+   split; then the RGBE quad under RT_DISABLE_WFKERNELS=1 against the
+   kernel loop at 128x128;
+11. command line: cli.main on house at 256x256, 8 spp, exact and freerun
+   to PNG, .hdr with --save-checkpoint, and --checkpoint resume; the files
+   are read back (under build/chip_smoke/).
 
 Then a JSON line with each kernel's launches, error, times and bound, the
 card line again, and last {"ok": true, "device": {...}}. Imports nothing
@@ -52,24 +66,30 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-from rsoderh_raytracing_tpu_torch import load_scene, write_png  # noqa: E402
+from rsoderh_raytracing_tpu_torch import cli, load_scene, write_png  # noqa: E402
 from rsoderh_raytracing_tpu_torch.env.environment import (  # noqa: E402
-    Environment, device_environment, load_default_environments,
+    Environment, EnvironmentMaps, device_environment, load_default_environments,
 )
+from rsoderh_raytracing_tpu_torch.env.hdr_io import read_hdr  # noqa: E402
 from rsoderh_raytracing_tpu_torch.env.hdr_io import procedural_sky  # noqa: E402
 from rsoderh_raytracing_tpu_torch.ops import _kernels  # noqa: E402
 from rsoderh_raytracing_tpu_torch.ops import cuda_intersect as ci  # noqa: E402
 from rsoderh_raytracing_tpu_torch.ops import cuda_wavefront as cw  # noqa: E402
+from rsoderh_raytracing_tpu_torch.ops import intersect  # noqa: E402
 from rsoderh_raytracing_tpu_torch.ops.tonemap import aces_tonemap, linear_to_srgb  # noqa: E402
 from rsoderh_raytracing_tpu_torch.profiling import (  # noqa: E402
-    KERNELS, OPS_PLANE, OPS_SPHERE, OPS_TRIANGLE, bound_ms, capture_step, card_line,
-    chunked_bound, scene_setup, shade_outputs, time_ms,
+    KERNELS, bound_ms, capture_step, card_line, chunked_bound, first_hit_ops, scene_setup,
+    shade_outputs, sweep_ops, time_ms,
 )
-from rsoderh_raytracing_tpu_torch.render.integrator import MAX_BOUNCES, camera_pytree  # noqa: E402
+from rsoderh_raytracing_tpu_torch.render.integrator import (  # noqa: E402
+    MAX_BOUNCES, camera_pytree, render_sample,
+)
+from rsoderh_raytracing_tpu_torch.render.renderer import Renderer  # noqa: E402
 from rsoderh_raytracing_tpu_torch.render.wavefront import (  # noqa: E402
     NO_LIMIT, Wavefront, render_freerun, render_wavefront,
 )
 from rsoderh_raytracing_tpu_torch.scene.device import build_device_scene  # noqa: E402
+from rsoderh_raytracing_tpu_torch.utils.png import read_png  # noqa: E402
 
 # Kernel against plain version on the same card, output by output: an
 # integer output must be equal, and a float output isclose(RTOL, ATOL),
@@ -91,6 +111,9 @@ TIMED_CALLS = 2
 CALL_SECONDS = 8.0  # target time of one timed call
 SRC_WAVEFRONT = "rsoderh_raytracing_tpu_torch/csrc/wavefront.cu"
 SRC_CHUNKED = "rsoderh_raytracing_tpu_torch/csrc/chunked.cu"
+SRC_SWEEP = "rsoderh_raytracing_tpu_torch/csrc/sweep.cu"
+SCAN_STEPS = 3
+OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
 # The big-mesh kernels by Wavefront.step keyword.
 BIG_KERNELS = {"closest": "chunked_closest", "occlusion": "chunked_any", "big_shade": "big_shade"}
 
@@ -157,8 +180,8 @@ def launches():
 
 def timed_main(label, ds, env, cam, card, calls, dev, budget=None):
     """A warm-up call, then `calls` timed free-run calls at SIZE^2 with
-    base counts carried; returns (per-call fields, launches, image,
-    counts, warm-up counts)."""
+    base counts carried; returns (launches of the timed calls, with their
+    loop iterations under "iterations", image, counts, warm-up counts)."""
     res = (SIZE, SIZE)
     n_pixels = SIZE * SIZE
     warm_budget = 16 if budget is None else min(budget, 16)
@@ -200,6 +223,7 @@ def timed_main(label, ds, env, cam, card, calls, dev, budget=None):
         raise AssertionError(f"{label}: non-finite pixels in the main-path image")
     if int(counts.min()) <= 0 or total_rays <= 0:
         raise AssertionError(f"{label}: pixels without samples or no rays traced")
+    counted["iterations"] = calls * (budget + BOUNCES - 1)
     return counted, image, counts, warm_counts
 
 
@@ -276,6 +300,170 @@ def anchor(name, size, spp, env, dev):
         raise AssertionError(f"{name}: the anchor golden's criteria fail")
 
 
+def _as_int(outputs):
+    return {k: v.to(torch.int32) if v.dtype == torch.bool else v for k, v in outputs.items()}
+
+
+def sweep_calls(trace_args):
+    """(kernel call, plain call, integer outputs) of CLOSEST, ANY and
+    FUSED on the rays of TRACE's arguments; ANY's rays start at the hit
+    points, as the integrators call it. Each call returns its outputs by
+    name."""
+    scene, _, _, ro, rd, nd = trace_args[:6]
+    names = ("t", "type", "index")
+    hit = intersect.closest_sweep(scene, *ro, *rd)
+    t_safe = torch.where(hit[1] >= 0, hit[0], 0.0)
+    p = tuple((ro[k] + rd[k] * t_safe).contiguous() for k in range(3))
+    return {
+        "closest": (lambda: dict(zip(names, ci.closest_call(scene, ro, rd))),
+                    lambda: dict(zip(names, intersect.closest_sweep(scene, *ro, *rd))),
+                    {"type", "index"}),
+        "any": (lambda: {"occ": ci.any_call(scene, p, nd).to(torch.int32)},
+                lambda: {"occ": intersect.any_sweep(scene, *p, *nd).to(torch.int32)}, {"occ"}),
+        "fused": (lambda: _as_int(ci.fused_call(scene, ro, rd, nd)),
+                  lambda: _as_int(intersect.trace_attrs(scene, *ro, *rd, *nd)), {"did_hit", "occ"}),
+    }, (*p, *nd)
+
+
+def sweep_parity(trace_args, lanes, max_err):
+    for name, (kfn, pfn, ints) in sweep_calls(trace_args)[0].items():
+        err = check_parity(name, lanes, kfn(), pfn(), ints)
+        max_err[name] = max(max_err.get(name, 0.0), err)
+
+
+def scan_path(scene, sky_host, sky, card, dev):
+    """Renderer.step() on house at SIZE^2: the scan integrator, CLOSEST
+    and ANY once a bounce; `sky` is the device copy of `sky_host`.
+    Returns the launch counts of the timed steps and the stats sample."""
+    n_pixels = SIZE * SIZE
+    renderer = Renderer(scene, SIZE, SIZE, environments=EnvironmentMaps([sky_host]),
+                        max_bounces=BOUNCES, device=dev)
+    renderer.step()  # warm-up: uploads the environment
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    start = time.perf_counter()
+    for _ in range(SCAN_STEPS):
+        renderer.step()
+    torch.cuda.synchronize()
+    per_sample = (time.perf_counter() - start) / SCAN_STEPS
+    _, stats = render_sample(renderer.device_scene, sky, camera_pytree(scene.camera, dev),
+                             renderer.film.sample_count, (SIZE, SIZE), BOUNCES, with_stats=True)
+    rays = int(stats["closest_rays"] + stats["shadow_rays"])
+    counted = launches()
+    log("scan", scene="house", size=SIZE, bounces=BOUNCES, steps=SCAN_STEPS,
+        s_per_sample=f"{per_sample:.4f}", rays_per_sample=rays,
+        mrays_per_s=f"{rays / per_sample / 1e6:.2f}", rays_per_px_spp=f"{rays / n_pixels:.3f}",
+        **{f"{k}_launches": v for k, v in counted.items()},
+        peak_allocated_mib=f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f}", card=repr(card))
+    expected = (SCAN_STEPS + 1) * BOUNCES
+    if counted["closest"] != expected or counted["any"] != expected:
+        raise AssertionError(f"the scan path launched CLOSEST {counted['closest']} and ANY "
+                             f"{counted['any']} times, expected {expected}")
+    if any(counted[k] for k in ("trace", "shade", "fused", "big_shade")):
+        raise AssertionError("the scan path launched a wavefront kernel")
+    image = renderer.film.mean_radiance()
+    if renderer.film.sample_count != SCAN_STEPS + 1 or not np.isfinite(image).all():
+        raise AssertionError("the scan path's film is wrong")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    renderer.save_png(os.path.join(OUT_DIR, "house_scan_2048.png"))
+    return counted
+
+
+def composed_path(scene_name, ds, sky_host, sky, cam, card, dev):
+    """The composed body at SIZE^2 with the float32 legacy quad, then the
+    RGBE quad through both bodies at 128^2. Returns the launch counts of
+    the timed call."""
+    env_f32 = device_environment(sky_host, dev, "float32")
+    log("composed", quad_dtype=str(env_f32.quad.dtype), quad_shape=tuple(env_f32.quad.shape),
+        quad_mib=f"{env_f32.quad.numel() * 4 / 2**20:.0f}")
+    counted, image, counts, warm = timed_main(f"{scene_name}_composed_f32", ds, env_f32, cam, card,
+                                              1, dev)
+    if counted["fused"] != counted["iterations"] or any(
+            counted[k] for k in ("trace", "shade", "closest", "any")):
+        raise AssertionError(f"the composed body did not launch FUSED once an iteration: {counted}")
+    save_png(f"{scene_name}_composed", image, counts, warm)
+    split(f"{scene_name}_composed_f32", ds, env_f32, cam, counts, card)
+    del env_f32
+
+    res, budget = (128, 128), 16
+    reset_launches()
+    k_img, k_cnt, k_st = render_freerun(ds, sky, cam, 0, res, budget, BOUNCES, with_stats=True)
+    if launches()["trace"] != budget + BOUNCES - 1:
+        raise AssertionError("the kernel loop did not run TRACE once an iteration")
+    os.environ["RT_DISABLE_WFKERNELS"] = "1"
+    try:
+        reset_launches()
+        c_img, c_cnt, c_st = render_freerun(ds, sky, cam, 0, res, budget, BOUNCES, with_stats=True)
+        fused = launches()
+    finally:
+        del os.environ["RT_DISABLE_WFKERNELS"]
+    if fused["fused"] != budget + BOUNCES - 1 or fused["trace"] or fused["shade"]:
+        raise AssertionError(f"RT_DISABLE_WFKERNELS=1 did not take the composed body: {fused}")
+    k_mean = (k_img / k_cnt.unsqueeze(-1)).cpu().numpy()
+    c_mean = (c_img / c_cnt.unsqueeze(-1)).cpu().numpy()
+    rel = float(np.sqrt(np.mean((c_mean - k_mean) ** 2)) / np.sqrt(np.mean(k_mean ** 2)))
+    same = float((c_cnt == k_cnt).double().mean())
+    log("composed", compare="rgbe_composed_vs_kernel_loop", size=res[0], budget=budget,
+        counts_equal=f"{same:.6f}", iterations=(int(c_st["iterations"]), int(k_st["iterations"])),
+        closest_rays=(int(c_st["closest_rays"]), int(k_st["closest_rays"])),
+        rel_rmse=f"{rel:.3e}", bound=GOLDEN_REL_RMSE_MAX)
+    if same < PARITY_MIN or int(c_st["iterations"]) != int(k_st["iterations"]):
+        raise AssertionError("composed body and kernel loop disagree in counts or iterations")
+    if not rel < GOLDEN_REL_RMSE_MAX:
+        raise AssertionError(f"composed body against kernel loop: relative RMSE {rel:.3e}")
+    return counted
+
+
+def cli_phase(dev):
+    """cli.main end to end on the card: PNG in both modes, .hdr with a
+    checkpoint, and resume; every file is read back."""
+    os.makedirs(OUT_DIR, exist_ok=True)
+    scene_path = os.path.join(ROOT, "assets", "scenes", "house.toml")
+    base = ["--scene", scene_path, "--resolution", "256x256", "--quiet"]
+
+    def run(*args):
+        rc = cli.main(base + list(args))
+        if rc != 0:
+            raise AssertionError(f"cli.main {args} returned {rc}")
+
+    def out(name):
+        return os.path.join(OUT_DIR, name)
+
+    start = time.perf_counter()
+    run("--spp", "8", "--output", out("cli_exact.png"))
+    renderer = Renderer(load_scene(scene_path), 256, 256, device=dev)
+    renderer.render(spp=8)
+    if not np.array_equal(read_png(out("cli_exact.png")), renderer.film.srgb8()):
+        raise AssertionError("the exact-mode PNG is not the film's srgb8")
+    run("--spp", "8", "--mode", "freerun", "--output", out("cli_freerun.png"))
+    renderer = Renderer(load_scene(scene_path), 256, 256, device=dev)
+    renderer.render(spp=8, mode="freerun")
+    if not np.array_equal(read_png(out("cli_freerun.png")), renderer.film.srgb8()):
+        raise AssertionError("the freerun-mode PNG is not the film's srgb8")
+    freerun_spp = renderer.film.sample_count
+
+    run("--spp", "8", "--output", out("cli.hdr"), "--save-checkpoint", out("cli_8.npz"))
+    hdr = read_hdr(out("cli.hdr"))
+    if hdr.shape != (256, 256, 3) or not np.isfinite(hdr).all() or not hdr.mean() > 0:
+        raise AssertionError("the .hdr output is wrong")
+    run("--spp", "8", "--checkpoint", out("cli_8.npz"), "--output", out("cli_same.png"),
+        "--save-checkpoint", out("cli_8b.npz"))
+    run("--spp", "12", "--checkpoint", out("cli_8.npz"), "--output", out("cli_12.png"),
+        "--save-checkpoint", out("cli_12.npz"))
+    with np.load(out("cli_8.npz")) as a, np.load(out("cli_8b.npz")) as b, np.load(out("cli_12.npz")) as c:
+        saved = int(a["sample_count"])
+        if saved != 8 or a["counts"].dtype != np.uint32 or "state_stamp" not in a.files:
+            raise AssertionError("the checkpoint's fields are wrong")
+        if int(b["sample_count"]) != saved or not np.array_equal(a["cumulative"], b["cumulative"]):
+            raise AssertionError("resuming at the saved count rendered more samples")
+        if int(c["sample_count"]) != 12 or not (c["counts"] == 12).all():
+            raise AssertionError("resuming to 12 spp did not reach 12 everywhere")
+    log("cli", runs=5, seconds=f"{time.perf_counter() - start:.2f}", exact_spp=8,
+        freerun_min_spp=freerun_spp, resumed_from=saved, resumed_to=12,
+        files=",".join(sorted(os.listdir(OUT_DIR))))
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -293,7 +481,8 @@ def main() -> int:
         flags=repr(" ".join(_kernels.NVCC_FLAGS)),
         ptxas=json.dumps(_kernels.BUILD_INFO.get("ptxas", [])))
 
-    sky = device_environment(Environment.from_texture("sky", procedural_sky(2048, 1024)), dev)
+    sky_host = Environment.from_texture("sky", procedural_sky(2048, 1024))
+    sky = device_environment(sky_host, dev)
     n_pixels = SIZE * SIZE
     max_err, times, bounds = {}, {}, {}
 
@@ -304,10 +493,11 @@ def main() -> int:
                                     cw.trace_plain(*small["trace"]), cw.TRACE_INT_NAMES)
     max_err["shade"] = check_parity("shade", 256 * 256, shade_outputs(cw.shade_call(*small["shade"])),
                                     shade_outputs(cw.shade_plain(*small["shade"])), cw.SHADE_INT_NAMES)
+    sweep_parity(small["trace"], 256 * 256, max_err)
     counted, image, counts, warm = timed_main("house", ds, env, cam, card, TIMED_CALLS, dev)
     house_launches = counted
-    if counted["trace"] <= 0 or counted["shade"] <= 0:
-        raise AssertionError("the house main path did not launch TRACE and SHADE")
+    if not counted["trace"] == counted["shade"] == counted["iterations"]:
+        raise AssertionError("the house main path did not launch TRACE and SHADE once an iteration")
     save_png("house", image, counts, warm)
     split("house", ds, env, cam, counts, card)
     main_args = loop_state(ds, env, cam, SIZE, 0, 0, kernel_iterations=2)
@@ -317,8 +507,7 @@ def main() -> int:
     max_err["shade"] = max(max_err["shade"], check_parity(
         "shade", n_pixels, shade_outputs(cw.shade_call(*main_args["shade"])),
         shade_outputs(cw.shade_plain(*main_args["shade"])), cw.SHADE_INT_NAMES))
-    prims = (ds.sph_radius.shape[0] * OPS_SPHERE + ds.pln_valid.shape[0] * OPS_PLANE
-             + ds.tri_valid.shape[0] * OPS_TRIANGLE)
+    prims = sweep_ops(ds)
     for name, kfn, pfn, n_bytes, n_ops in (
         # TRACE: 14 inputs and 26 outputs of 4 bytes; the operations of the
         # closest sweep over every primitive (the shadow sweep, which stops
@@ -339,6 +528,35 @@ def main() -> int:
         log("timing", kernel=name, lanes=n_pixels, ms=f"{times[name][0]:.4f}",
             plain_ms=f"{times[name][1]:.4f}", bound_ms=f"{bounds[name][0]:.4f}",
             bound_by=bounds[name][1], card=repr(card))
+
+    # 8. the sweep kernels' times and bounds: 6 (or 9) inputs and 3, 1 or
+    # 16 outputs of 4 bytes a lane; the closest sweep's operations over
+    # every primitive, the occlusion sweep's up to each lane's first hit
+    sweep_parity(main_args["trace"], n_pixels, max_err)
+    calls, shadow_rays = sweep_calls(main_args["trace"])
+    shadow_ops = first_hit_ops(ds, shadow_rays)
+    for name, n_bytes, n_ops in (
+        ("closest", n_pixels * 9 * 4, n_pixels * prims),
+        ("any", n_pixels * 7 * 4, shadow_ops),
+        ("fused", n_pixels * 25 * 4, n_pixels * prims + shadow_ops),
+    ):
+        kfn, pfn, _ = calls[name]
+        p1 = time_ms(pfn, 2)
+        k1 = time_ms(kfn, 10)
+        k2 = time_ms(kfn, 10)
+        p2 = time_ms(pfn, 2)
+        times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        bounds[name] = bound_ms(n_bytes, n_ops)
+        log("timing", kernel=name, lanes=n_pixels, ms=f"{times[name][0]:.4f}",
+            plain_ms=f"{times[name][1]:.4f}", bound_ms=f"{bounds[name][0]:.4f}",
+            bound_by=bounds[name][1], ops_per_lane=f"{n_ops / n_pixels:.1f}", card=repr(card))
+    del calls, shadow_rays, main_args, small
+
+    # 9. scan path, 10. composed body, 11. command line
+    house = load_scene(os.path.join(ROOT, "assets", "scenes", "house.toml"))
+    scan_launches = scan_path(house, sky_host, sky, card, dev)
+    composed_launches = composed_path("house", ds, sky_host, sky, cam, card, dev)
+    cli_phase(dev)
 
     # 4. big-mesh parity
     hi_ds, _, hi_cam = scene_setup("suzanne_hi", dev, sky)
@@ -410,16 +628,24 @@ def main() -> int:
         "chunked_closest": "rsoderh_raytracing_tpu/ops/pallas_intersect.py:1524",
         "chunked_any": "rsoderh_raytracing_tpu/ops/pallas_intersect.py:1524",
         "big_shade": "rsoderh_raytracing_tpu/ops/pallas_wavefront.py:1042",
+        "fused": "rsoderh_raytracing_tpu/ops/pallas_intersect.py:1964",
+        "closest": "rsoderh_raytracing_tpu/ops/pallas_intersect.py:1624",
+        "any": "rsoderh_raytracing_tpu/ops/pallas_intersect.py:1624",
     }
+    sources = {"trace": SRC_WAVEFRONT, "shade": SRC_WAVEFRONT, "chunked_closest": SRC_CHUNKED,
+               "chunked_any": SRC_CHUNKED, "big_shade": SRC_WAVEFRONT, "fused": SRC_SWEEP,
+               "closest": SRC_SWEEP, "any": SRC_SWEEP}
     counted = {**{k: house_launches[k] for k in ("trace", "shade")},
-               **{k: big_launches[k] for k in ("chunked_closest", "chunked_any", "big_shade")}}
+               **{k: big_launches[k] for k in ("chunked_closest", "chunked_any", "big_shade")},
+               "fused": composed_launches["fused"],
+               **{k: scan_launches[k] for k in ("closest", "any")}}
     kernels = [
         {"name": name, "route": "cuda",
-         "source": SRC_WAVEFRONT if name in ("trace", "shade", "big_shade") else SRC_CHUNKED,
+         "source": sources[name],
          "replaces": replaces[name], "launches": counted[name], "max_abs_err": max_err[name],
          "ms": times[name][0], "plain_ms": times[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None}
-        for name in ("trace", "shade", "chunked_closest", "chunked_any", "big_shade")
+        for name in sources
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

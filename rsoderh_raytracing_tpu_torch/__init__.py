@@ -1,13 +1,16 @@
 """rsoderh_raytracing_tpu_torch — the path tracer in PyTorch and CUDA.
 
 A port of ``rsoderh_raytracing_tpu`` (JAX/Pallas, the reference) to
-PyTorch on an NVIDIA H100. It covers the free-run wavefront main path:
-scene and environment upload, the wavefront loop
-(``render.wavefront.render_freerun`` / ``render_wavefront``) and its
-kernels, written in CUDA C++ (``csrc/``) with a plain PyTorch twin each:
-TRACE and SHADE for small scenes (``ops/cuda_wavefront.py``), and for
-meshes past the unroll budget the chunked closest and occlusion sweeps
-(``ops/cuda_intersect.py``) and BIG_SHADE.
+PyTorch on an NVIDIA H100. It covers the renderer and its command line
+(``render.renderer.Renderer``, ``python -m rsoderh_raytracing_tpu_torch``:
+film, tonemap, PNG and .hdr output, checkpoints), the scan integrator
+(``render.integrator.render_sample``) and the wavefront loop
+(``render.wavefront.render_freerun`` / ``render_wavefront``) with its
+kernel loop and its composed body. The kernels are written in CUDA C++
+(``csrc/``) with a plain PyTorch twin each: TRACE and SHADE for small
+scenes, BIG_SHADE for meshes past the unroll budget
+(``ops/cuda_wavefront.py``), and the sweeps CLOSEST, ANY, FUSED,
+CHUNKED_CLOSEST and CHUNKED_ANY (``ops/cuda_intersect.py``).
 
 This package imports ``torch`` and never ``jax``, nor anything of the
 reference package: the host modules it needs (scene model, OBJ/TOML
@@ -16,8 +19,25 @@ Entry points put their tensors on the card (``device="cuda"``) unless
 the caller asks for another device.
 """
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"
 
 from rsoderh_raytracing_tpu_torch.scene.camera import Camera  # noqa: F401
 from rsoderh_raytracing_tpu_torch.scene.toml_loader import load_scene  # noqa: F401
 from rsoderh_raytracing_tpu_torch.utils.png import write_png  # noqa: F401
+
+# The `render` subpackage shares its name with the function below. Import
+# it now, so that Python binds the package attribute first and the `def`
+# wins for good: otherwise the first deep import (which render() itself
+# performs) rebinds the attribute to the module, and a second
+# `render(...)` call fails with "'module' object is not callable".
+import rsoderh_raytracing_tpu_torch.render  # noqa: E402,F401
+
+
+def render(scene, width=512, height=512, spp=16, **kwargs):
+    """One-shot render: the tonemapped (H, W, 3) image in linear [0, 1].
+    Extra keywords go to render/renderer.py:Renderer (``device="cpu"``
+    for the plain PyTorch path)."""
+    from rsoderh_raytracing_tpu_torch.render.renderer import Renderer
+
+    renderer = Renderer(scene, width=width, height=height, **kwargs)
+    return renderer.render(spp=spp)

@@ -63,71 +63,28 @@ struct TraceArgs {
 __global__ void trace_kernel(TraceArgs a, const float* __restrict__ table, int table_len, int n,
                              int n_sph, int n_pln, int n_tri, int n_mat, int env_w, int env_h) {
   extern __shared__ float smem[];
-  for (int k = threadIdx.x; k < table_len; k += blockDim.x) smem[k] = table[k];
-  __syncthreads();
+  const SceneView s = stage_scene(smem, table, table_len, n_sph, n_pln, n_tri, n_mat);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
 
-  SceneView s;
-  s.sph = smem;
-  s.pln = s.sph + n_sph * SPH_COLS;
-  s.tri = s.pln + n_pln * PLN_COLS;
-  s.mat = s.tri + n_tri * TRI_COLS;
-  s.n_sph = n_sph;
-  s.n_pln = n_pln;
-  s.n_tri = n_tri;
-  s.n_mat = n_mat;
-
-  Ray r{a.ox[i], a.oy[i], a.oz[i], a.dx[i], a.dy[i], a.dz[i]};
+  const Ray r{a.ox[i], a.oy[i], a.oz[i], a.dx[i], a.dy[i], a.dz[i]};
   const V3 rd{r.dx, r.dy, r.dz};
   const V3 nee{a.sx[i], a.sy[i], a.sz[i]};
-
-  float best_t;
-  int best_type, best_idx;
-  sweep(s, r, false, best_t, best_type, best_idx);
-  const bool did_hit = best_type >= 0;
-  const float t_safe = did_hit ? best_t : 0.0f;
-  const float px = r.ox + r.dx * t_safe;
-  const float py = r.oy + r.dy * t_safe;
-  const float pz = r.oz + r.dz * t_safe;
-
-  // Winner attributes; a lane whose winner is another type reads row 0
-  // (pallas_intersect.small_winner_normals / winner_rows).
-  const float* sp = s.sph + (best_type == 0 ? best_idx : 0) * SPH_COLS;
-  const float* pp = s.pln + (best_type == 1 ? best_idx : 0) * PLN_COLS;
-  const float* tp = s.tri + (best_type == 2 ? best_idx : 0) * TRI_COLS;
-  V3 normal;
-  float mat_f;
-  if (best_type == 0) {
-    normal = sphere_normal(sp[0], sp[1], sp[2], sp[4], r, px, py, pz);
-    mat_f = sp[5];
-  } else if (best_type == 1) {
-    normal = plane_normal(pp[0], pp[1], pp[2], r);
-    mat_f = pp[12];
-  } else {
-    // misses take triangle row 0
-    normal = tri_normal(V3{tp[20], tp[21], tp[22]}, V3{tp[3], tp[4], tp[5]}, V3{tp[6], tp[7], tp[8]},
-                        V3{tp[23], tp[24], tp[25]}, V3{tp[26], tp[27], tp[28]},
-                        V3{tp[29], tp[30], tp[31]}, r);
-    mat_f = tp[32];
-  }
-  const float* mp = material_row(s.mat, n_mat, (int)mat_f);
+  const TraceAttrs t = trace_attrs(s, r, nee);
+  const bool did_hit = t.did_hit;
+  const float px = t.px, py = t.py, pz = t.pz;
+  const float* mp = t.mat;
   const V3 color{mp[0], mp[1], mp[2]};
 
-  // NEE occlusion: shadow sweep from the hit point.
-  float occ_t;
-  int occ_type, occ_idx;
-  sweep(s, Ray{px, py, pz, nee.x, nee.y, nee.z}, true, occ_t, occ_type, occ_idx);
-
   uint32_t state = a.state[i];
-  const Epilogue e = trace_epilogue(rd, nee, normal, color, mp[3], mp[4], state);
+  const Epilogue e = trace_epilogue(rd, nee, t.normal, color, mp[3], mp[4], state);
 
   // quad fetch index at the fused uv
   const float fu = did_hit ? a.nu[i] : a.mu[i];
   const float fv = did_hit ? a.nv[i] : a.mv[i];
 
   a.hit[i] = did_hit ? 1 : 0;
-  a.occ[i] = occ_t < INF ? 1 : 0;
+  a.occ[i] = t.occ ? 1 : 0;
   a.px[i] = px;
   a.py[i] = py;
   a.pz[i] = pz;

@@ -1,5 +1,6 @@
 // Device functions shared by the kernels: TRACE, SHADE and BIG_SHADE
-// (wavefront.cu), CHUNKED_CLOSEST and CHUNKED_ANY (chunked.cu).
+// (wavefront.cu), CHUNKED_CLOSEST and CHUNKED_ANY (chunked.cu), CLOSEST,
+// ANY and FUSED (sweep.cu).
 //
 // Every formula follows rsoderh_raytracing_tpu/ops/pallas_wavefront.py
 // and ops/pallas_intersect.py operand for operand. Constants that the
@@ -481,6 +482,75 @@ __device__ __forceinline__ V3 tri_normal(V3 ta, V3 e0, V3 e1, V3 n0, V3 n1, V3 n
 // Material row (MAT_COLS layout); an id outside the table reads row 0.
 __device__ __forceinline__ const float* material_row(const float* mat, int n_mat, int mat_id) {
   return mat + ((mat_id >= 0 && mat_id < n_mat) ? mat_id : 0) * MAT_COLS;
+}
+
+// Stage the packed scene table in shared memory (every thread of the block
+// takes part, then a barrier) and return its rows' view.
+__device__ __forceinline__ SceneView stage_scene(float* smem, const float* __restrict__ table,
+                                                 int table_len, int n_sph, int n_pln, int n_tri,
+                                                 int n_mat) {
+  for (int k = threadIdx.x; k < table_len; k += blockDim.x) smem[k] = table[k];
+  __syncthreads();
+  SceneView s;
+  s.sph = smem;
+  s.pln = s.sph + n_sph * SPH_COLS;
+  s.tri = s.pln + n_pln * PLN_COLS;
+  s.mat = s.tri + n_tri * TRI_COLS;
+  s.n_sph = n_sph;
+  s.n_pln = n_pln;
+  s.n_tri = n_tri;
+  s.n_mat = n_mat;
+  return s;
+}
+
+// -- trace_attrs (pallas_intersect.trace_attrs_body), one lane ---------------
+
+struct TraceAttrs {
+  bool did_hit, occ;
+  float px, py, pz;
+  V3 normal;
+  const float* mat;  // the winner's material row (MAT_COLS layout)
+};
+
+// Closest sweep, the hit point (the ray origin on a miss: t_safe = 0),
+// the winner's normal and material row, and the NEE shadow sweep from the
+// hit point along `nee`. A lane whose winner is another type, or a miss,
+// reads row 0 of a table like the reference's selects; a miss takes the
+// triangle branch (pallas_intersect.small_winner_normals / winner_rows).
+__device__ __forceinline__ TraceAttrs trace_attrs(const SceneView& s, const Ray& r, V3 nee) {
+  float best_t;
+  int best_type, best_idx;
+  sweep(s, r, false, best_t, best_type, best_idx);
+  TraceAttrs a;
+  a.did_hit = best_type >= 0;
+  const float t_safe = a.did_hit ? best_t : 0.0f;
+  a.px = r.ox + r.dx * t_safe;
+  a.py = r.oy + r.dy * t_safe;
+  a.pz = r.oz + r.dz * t_safe;
+
+  float mat_f;
+  if (best_type == 0) {
+    const float* sp = s.sph + best_idx * SPH_COLS;
+    a.normal = sphere_normal(sp[0], sp[1], sp[2], sp[4], r, a.px, a.py, a.pz);
+    mat_f = sp[5];
+  } else if (best_type == 1) {
+    const float* pp = s.pln + best_idx * PLN_COLS;
+    a.normal = plane_normal(pp[0], pp[1], pp[2], r);
+    mat_f = pp[12];
+  } else {
+    const float* tp = s.tri + (best_type == 2 ? best_idx : 0) * TRI_COLS;
+    a.normal = tri_normal(V3{tp[20], tp[21], tp[22]}, V3{tp[3], tp[4], tp[5]}, V3{tp[6], tp[7], tp[8]},
+                          V3{tp[23], tp[24], tp[25]}, V3{tp[26], tp[27], tp[28]},
+                          V3{tp[29], tp[30], tp[31]}, r);
+    mat_f = tp[32];
+  }
+  a.mat = material_row(s.mat, s.n_mat, (int)mat_f);
+
+  float occ_t;
+  int occ_type, occ_idx;
+  sweep(s, Ray{a.px, a.py, a.pz, nee.x, nee.y, nee.z}, true, occ_t, occ_type, occ_idx);
+  a.occ = occ_t < INF;
+  return a;
 }
 
 // -- trace_epilogue (pallas_wavefront.trace_epilogue) ------------------------

@@ -1,7 +1,8 @@
 """Environment map: host HDRI + alias table, and its device tensors.
 
-Port of rsoderh_raytracing_tpu/env/environment.py, RGBE ``quad`` layout
-only (the layout the wavefront main path reads), with the environment set
+Port of rsoderh_raytracing_tpu/env/environment.py: the RGBE ``quad``
+layout that the kernel loop reads and the legacy float32 / bfloat16
+layouts with stored pmf columns, with the environment set
 (``EnvironmentMaps``, ``load_default_environments``) copied as it is.
 """
 
@@ -64,7 +65,9 @@ class DeviceEnvironment:
 
     - ``quad``: (H*W, 4) int32 holding u32 RGBE words of the neighbour
       texels [c00 c10 c01 c11]: one 16-byte row serves a bilinear fetch
-      and the in-register pmf of its texel.
+      and the in-register pmf of its texel. The legacy layouts are
+      (H*W, 16) float32 or bfloat16 rows: the four texels' radiance (12
+      columns) and their stored pmf (columns 12-15).
     - ``alias_pair``: (H*W, 4) float32 [probability, alias_index_bits,
       pmf_self, pmf_alias]. Column 1 holds int32 BITS; ``alias_index`` is
       that column read back with ``.view(torch.int32)`` (a value cast
@@ -86,10 +89,13 @@ class DeviceEnvironment:
         return self.quad.device
 
 
+def _neighbours(width: int, height: int):
+    return np.minimum(np.arange(width) + 1, width - 1), np.minimum(np.arange(height) + 1, height - 1)
+
+
 def _quad_words(tex: np.ndarray) -> np.ndarray:
     height, width = tex.shape[:2]
-    xp = np.minimum(np.arange(width) + 1, width - 1)
-    yp = np.minimum(np.arange(height) + 1, height - 1)
+    xp, yp = _neighbours(width, height)
     rgbe = hdr_io.float_to_rgbe(tex).astype(np.uint32)
     word = rgbe[..., 0] | (rgbe[..., 1] << 8) | (rgbe[..., 2] << 16) | (rgbe[..., 3] << 24)
     return np.stack(
@@ -97,10 +103,46 @@ def _quad_words(tex: np.ndarray) -> np.ndarray:
     ).reshape(height * width, 4)
 
 
-def device_environment(env: Environment, device=_device.DEFAULT) -> DeviceEnvironment:
-    """Upload an environment (RGBE quad layout) to `device`."""
+def _quad_legacy(tex: np.ndarray, pmf: np.ndarray) -> np.ndarray:
+    """(H*W, 16) float32 rows: radiance of [c00 c10 c01 c11], then their
+    alias-table pmf."""
+    height, width = tex.shape[:2]
+    xp, yp = _neighbours(width, height)
+    pmf = np.asarray(pmf, np.float32).reshape(height, width)[..., None]
+    return np.concatenate(
+        [tex, tex[:, xp], tex[yp], tex[yp][:, xp], pmf, pmf[:, xp], pmf[yp], pmf[yp][:, xp]],
+        axis=-1,
+    ).reshape(height * width, 16)
+
+
+def bfloat16_bits(x: np.ndarray) -> np.ndarray:
+    """float32 -> the uint16 bit patterns of its bfloat16 rounding (to
+    nearest, ties to even), as XLA converts."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + 0x7FFF + ((bits >> 16) & 1)) >> 16).astype(np.uint16)
+
+
+def device_environment(
+    env: Environment, device=_device.DEFAULT, radiance_dtype: str = "rgbe"
+) -> DeviceEnvironment:
+    """Upload an environment to `device`. `radiance_dtype` sets the quad
+    storage: "rgbe" (16-byte u32 rows, the pmf recomputed from the texel:
+    the layout the kernel loop reads), or the legacy "float32" /
+    "bfloat16" rows with stored pmf columns, which the composed wavefront
+    body and the scan integrator read. RGBE-quantized radiance is exact
+    in both legacy types; bfloat16 rounds the pmf columns by about 0.4%,
+    so there the BSDF-hit MIS pdf differs slightly from the f32 NEE pdf,
+    as in the reference."""
     tex = np.asarray(env.texture, np.float32)
     height, width = tex.shape[:2]
+    if radiance_dtype == "rgbe":
+        quad = _quad_words(tex)
+    elif radiance_dtype == "float32":
+        quad = _quad_legacy(tex, env.alias.pmf)
+    elif radiance_dtype == "bfloat16":
+        quad = bfloat16_bits(_quad_legacy(tex, env.alias.pmf))
+    else:
+        raise ValueError(f"unknown radiance_dtype '{radiance_dtype}'")
     alias_pair = np.stack(
         [
             env.alias.probability,
@@ -117,7 +159,7 @@ def device_environment(env: Environment, device=_device.DEFAULT) -> DeviceEnviro
         )
     return device_environment_from_arrays(
         (height, width),
-        _quad_words(tex),
+        quad,
         alias_pair,
         np.array([height * width, weight_sum], np.float32),
         device,
@@ -129,13 +171,21 @@ def device_environment_from_arrays(
 ) -> DeviceEnvironment:
     """Build the port's environment from numpy arrays, for example the
     fields of the JAX package's DeviceEnvironment. ``quad`` is (L, 4)
-    uint32 (or its int32 bits); ``alias_pair`` (L, 4) float32 with int32
-    bits in column 1."""
+    uint32 (or its int32 bits) for the RGBE layout, (L, 16) float32 for
+    the legacy float layout, or (L, 16) two-byte values (bfloat16, or its
+    uint16 bits) for the legacy bfloat16 layout; ``alias_pair`` (L, 4)
+    float32 with int32 bits in column 1."""
     device = _device.resolve(device)
-    quad = np.ascontiguousarray(quad).view(np.int32)
+    quad = np.ascontiguousarray(quad)
+    if quad.shape[1] == 4:
+        quad_t = torch.from_numpy(quad.view(np.int32).copy())
+    elif quad.dtype.itemsize == 2:
+        quad_t = torch.from_numpy(quad.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        quad_t = torch.from_numpy(quad.astype(np.float32))
     return DeviceEnvironment(
         texture_shape=(int(texture_shape[0]), int(texture_shape[1])),
-        quad=torch.from_numpy(quad.copy()).to(device),
+        quad=quad_t.to(device),
         alias_pair=torch.from_numpy(
             np.ascontiguousarray(alias_pair, np.float32).copy()
         ).to(device),

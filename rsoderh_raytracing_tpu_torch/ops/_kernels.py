@@ -1,8 +1,9 @@
 """Build and bind the CUDA kernels in ``csrc/``.
 
 At first use, ``nvcc`` compiles every ``csrc/*.cu`` (``wavefront.cu``:
-TRACE, SHADE, BIG_SHADE; ``chunked.cu``: CHUNKED_CLOSEST, CHUNKED_ANY),
-one process a source, all started together, and links them into one
+TRACE, SHADE, BIG_SHADE; ``chunked.cu``: CHUNKED_CLOSEST, CHUNKED_ANY;
+``sweep.cu``: CLOSEST, ANY, FUSED), one process a source, all started
+together, and links them into one
 shared library with a plain C interface, written under
 ``build/kernels/`` at the root of the checkout (named by a hash of the
 sources, so an edit rebuilds). It is loaded with ctypes; every pointer and the stream are
@@ -119,6 +120,9 @@ def load(flags=NVCC_FLAGS):
         "rt_big_shade_launch": [vp, vp, vp, i, i, i, i, i, i, i, i, i, u, u, u, u, u, vp],
         "rt_chunked_closest_launch": [vp, vp, i, i, i, vp, vp, i, i, vp, vp, vp, i, vp],
         "rt_chunked_any_launch": [vp, vp, i, i, i, vp, vp, i, i, vp, i, vp],
+        "rt_closest_launch": [vp, vp, i, i, i, i, i, vp],
+        "rt_any_launch": [vp, vp, i, i, i, i, i, vp],
+        "rt_fused_launch": [vp, vp, i, i, i, i, i, i, vp],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

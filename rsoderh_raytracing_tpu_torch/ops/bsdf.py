@@ -1,6 +1,9 @@
 """GGX + Lambert BSDF, componentwise (port of the kernel-side BSDF in
 rsoderh_raytracing_tpu/ops/pallas_wavefront.py:87-313).
 
+``trace_epilogue`` joins the material parameters, the NEE eval/pdf and the
+bounce sample as every integrator of the port takes them after a hit.
+
 Vectors are 3-tuples of (n,) tensors. Every expression keeps the
 reference's operand order, so float results differ from it only where
 the backends round a transcendental or contract an FMA differently.
@@ -226,3 +229,30 @@ def bsdf_sample(state, rd, n, color, metallic, alpha, f0):
     pdf = torch.where(any_bail, 0.0, pdf)
     zero_direction = bail_a | bail_b | (bail_c & ~spec_fail)
     return state, direction, scattering, pdf, zero_direction
+
+
+def trace_epilogue(rd, nee_dir, normal, color, rough, metal, state):
+    """Material parameters, the NEE BSDF eval/pdf and the bounce sample
+    (pallas_wavefront.trace_epilogue). ``state`` is int64. Returns
+    (cos_theta, nee_scatter, nee_pdf_b, state, bdir, bscat, bpdf, bzero,
+    cos_bounce)."""
+    alpha = torch.clamp_min(rough * rough, 0.001)
+    msat = saturate(metal)
+    f0 = tuple(
+        DIELECTRIC_F0 + (color[i] - DIELECTRIC_F0) * msat
+        for i in range(3)
+    )
+    cos_theta = torch.clamp_min(vdot(normal, nee_dir), 0.0)
+    frame = make_frame(normal)
+    wo = to_local(frame, (-rd[0], -rd[1], -rd[2]))
+    wi = to_local(frame, nee_dir)
+    nee_scatter = bsdf_eval(wo, wi, color, metal, alpha, f0)
+    nee_pdf_b = bsdf_pdf(wo, wi, f0, alpha)
+    state, bdir, bscat, bpdf, bzero = bsdf_sample(
+        state, rd, normal, color, metal, alpha, f0
+    )
+    cos_bounce = torch.clamp_min(vdot(normal, bdir), 0.0)
+    return (
+        cos_theta, nee_scatter, nee_pdf_b, state, bdir, bscat, bpdf,
+        bzero, cos_bounce,
+    )

@@ -1,12 +1,15 @@
-"""CHUNKED_CLOSEST and CHUNKED_ANY: the big-mesh route's sweeps.
+"""The sweep kernels' wrappers: CHUNKED_CLOSEST and CHUNKED_ANY (the
+big-mesh route), CLOSEST, ANY and FUSED (scenes within the unroll budget).
 
-Counterpart of the chunked half of rsoderh_raytracing_tpu/ops/
-pallas_intersect.py (``chunked_closest_tiles``, ``chunked_any_tiles``).
-The wrappers take flat (n,) tensors: ray components as 3-tuples and an
-int32 lane mask. For CPU tensors they run the plain versions
-(``intersect.chunked_closest_plain`` / ``chunked_any_plain``); for CUDA
-tensors they launch the kernels in ``csrc/chunked.cu`` or raise.
-``LAUNCHES`` counts the kernel launches of each wrapper.
+Counterpart of rsoderh_raytracing_tpu/ops/pallas_intersect.py's entry
+points (``chunked_closest_tiles``, ``chunked_any_tiles``,
+``closest_sweep``, ``any_sweep``, ``fused_trace``). The wrappers take
+flat (n,) tensors: ray components as 3-tuples and, for the chunked
+kernels, an int32 lane mask. For CPU tensors they run the plain versions
+(``intersect.chunked_closest_plain`` / ``chunked_any_plain`` /
+``closest_sweep`` / ``any_sweep`` / ``trace_attrs``); for CUDA tensors
+they launch the kernels in ``csrc/chunked.cu`` and ``csrc/sweep.cu`` or
+raise. ``LAUNCHES`` counts the kernel launches of each wrapper.
 
 The scene data are the DeviceScene's chunk tables (scene/device.py:
 bounds, 20-float window rows, and the unrolled primitives, planes and
@@ -19,10 +22,10 @@ import torch
 
 from rsoderh_raytracing_tpu_torch.ops import cuda_wavefront as cw
 from rsoderh_raytracing_tpu_torch.ops import intersect
-from rsoderh_raytracing_tpu_torch.scene.device import CHUNKED, route
+from rsoderh_raytracing_tpu_torch.scene.device import CHUNKED, SMALL, route
 
 # Kernel launches of each wrapper (CUDA tensors only).
-LAUNCHES = {"chunked_closest": 0, "chunked_any": 0}
+LAUNCHES = {"chunked_closest": 0, "chunked_any": 0, "closest": 0, "any": 0, "fused": 0}
 
 
 def reset_launches():
@@ -88,3 +91,100 @@ def chunked_any_call(scene, p, d, mask):
     cw._raise_on(rc, "CHUNKED_ANY")
     LAUNCHES["chunked_any"] += 1
     return occ
+
+
+# FUSED's outputs in launch order (pallas_intersect._fused_kernel); hit
+# and occ are int32 in the kernel and bool for the callers.
+FUSED_OUT_NAMES = (
+    "did_hit", "px", "py", "pz", "nx", "ny", "nz", "cr", "cg", "cb",
+    "rough", "metal", "er", "eg", "eb", "occ",
+)
+
+
+def _small_args(scene, rays, what):
+    """Check the ray inputs of CLOSEST, ANY or FUSED; returns (lanes,
+    device, the packed scene table's launch arguments)."""
+    if route(scene) != SMALL:
+        raise ValueError(f"{what}: the scene is past the unroll budget; it takes the chunked route")
+    n = rays[0].shape[0]
+    dev = rays[0].device
+    for i, t in enumerate(rays):
+        cw._check(f"{what} ray input {i}", t, n, torch.float32, dev)
+    table = scene.trace_table
+    if table.device != dev:
+        raise ValueError(f"{what}: rays on {dev}, scene on {table.device}")
+    scene_args = (
+        table.data_ptr(), table.numel(), n, scene.sph_radius.shape[0],
+        scene.pln_valid.shape[0], scene.tri_valid.shape[0],
+    )
+    return n, dev, scene_args
+
+
+def closest_call(scene, ro, rd):
+    """CLOSEST: (t f32, type i32, index i32) of rays (ro, rd) over a
+    scene within the unroll budget; a miss is (3e38, -1, 0)."""
+    rays = (*ro, *rd)
+    if rays[0].device.type == "cpu":
+        return intersect.closest_sweep(scene, *rays)
+    if rays[0].device.type != "cuda":
+        raise ValueError(f"closest_call: unsupported device {rays[0].device}")
+    from rsoderh_raytracing_tpu_torch.ops import _kernels
+
+    n, dev, scene_args = _small_args(scene, rays, "closest_call")
+    t = torch.empty(n, device=dev, dtype=torch.float32)
+    ptype = torch.empty(n, device=dev, dtype=torch.int32)
+    pidx = torch.empty(n, device=dev, dtype=torch.int32)
+    rc = _kernels.library().rt_closest_launch(
+        cw._ptrs((*rays, t, ptype, pidx)), *scene_args, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    cw._raise_on(rc, "CLOSEST")
+    LAUNCHES["closest"] += 1
+    return t, ptype, pidx
+
+
+def any_call(scene, ro, rd):
+    """ANY: (n,) bool, some primitive of a scene within the unroll
+    budget is hit."""
+    rays = (*ro, *rd)
+    if rays[0].device.type == "cpu":
+        return intersect.any_sweep(scene, *rays)
+    if rays[0].device.type != "cuda":
+        raise ValueError(f"any_call: unsupported device {rays[0].device}")
+    from rsoderh_raytracing_tpu_torch.ops import _kernels
+
+    n, dev, scene_args = _small_args(scene, rays, "any_call")
+    hit = torch.empty(n, device=dev, dtype=torch.int32)
+    rc = _kernels.library().rt_any_launch(
+        cw._ptrs((*rays, hit)), *scene_args, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    cw._raise_on(rc, "ANY")
+    LAUNCHES["any"] += 1
+    return hit != 0
+
+
+def fused_call(scene, ro, rd, nee_dir):
+    """FUSED: closest hit, hit point, winner normal, material values and
+    the NEE occlusion from the hit point along nee_dir, over a scene
+    within the unroll budget. Returns a dict by FUSED_OUT_NAMES
+    (intersect.trace_attrs's)."""
+    rays = (*ro, *rd, *nee_dir)
+    if rays[0].device.type == "cpu":
+        return intersect.trace_attrs(scene, *rays)
+    if rays[0].device.type != "cuda":
+        raise ValueError(f"fused_call: unsupported device {rays[0].device}")
+    from rsoderh_raytracing_tpu_torch.ops import _kernels
+
+    n, dev, scene_args = _small_args(scene, rays, "fused_call")
+    outs = {
+        k: torch.empty(n, device=dev, dtype=torch.int32 if k in ("did_hit", "occ") else torch.float32)
+        for k in FUSED_OUT_NAMES
+    }
+    rc = _kernels.library().rt_fused_launch(
+        cw._ptrs(rays + tuple(outs[k] for k in FUSED_OUT_NAMES)), *scene_args,
+        scene.mat_roughness.shape[0], torch.cuda.current_stream(dev).cuda_stream,
+    )
+    cw._raise_on(rc, "FUSED")
+    LAUNCHES["fused"] += 1
+    outs["did_hit"] = outs["did_hit"] != 0
+    outs["occ"] = outs["occ"] != 0
+    return outs

@@ -69,33 +69,6 @@ def reset_launches():
 # -- plain versions -------------------------------------------------------------
 
 
-def trace_epilogue(rd, nee_dir, normal, color, rough, metal, state):
-    """Material parameters, the NEE BSDF eval/pdf and the bounce sample
-    (pallas_wavefront.trace_epilogue). ``state`` is int64. Returns
-    (cos_theta, nee_scatter, nee_pdf_b, state, bdir, bscat, bpdf, bzero,
-    cos_bounce)."""
-    alpha = torch.clamp_min(rough * rough, 0.001)
-    msat = bsdf.saturate(metal)
-    f0 = tuple(
-        bsdf.DIELECTRIC_F0 + (color[i] - bsdf.DIELECTRIC_F0) * msat
-        for i in range(3)
-    )
-    cos_theta = torch.clamp_min(bsdf.vdot(normal, nee_dir), 0.0)
-    frame = bsdf.make_frame(normal)
-    wo = bsdf.to_local(frame, (-rd[0], -rd[1], -rd[2]))
-    wi = bsdf.to_local(frame, nee_dir)
-    nee_scatter = bsdf.bsdf_eval(wo, wi, color, metal, alpha, f0)
-    nee_pdf_b = bsdf.bsdf_pdf(wo, wi, f0, alpha)
-    state, bdir, bscat, bpdf, bzero = bsdf.bsdf_sample(
-        state, rd, normal, color, metal, alpha, f0
-    )
-    cos_bounce = torch.clamp_min(bsdf.vdot(normal, bdir), 0.0)
-    return (
-        cos_theta, nee_scatter, nee_pdf_b, state, bdir, bscat, bpdf,
-        bzero, cos_bounce,
-    )
-
-
 def trace_plain(scene, env_w, env_h, ro, rd, nee_dir, nee_uv, miss_uv, state):
     """Plain PyTorch TRACE. ro/rd/nee_dir: 3-tuples of (n,) f32;
     nee_uv/miss_uv: 2-tuples; state: (n,) int32 u32 bits. Returns the 26
@@ -105,7 +78,7 @@ def trace_plain(scene, env_w, env_h, ro, rd, nee_dir, nee_uv, miss_uv, state):
     (
         cos_theta, nee_scatter, nee_pdf_b, st, bdir, bscat, bpdf, bzero,
         cos_bounce,
-    ) = trace_epilogue(
+    ) = bsdf.trace_epilogue(
         rd, nee_dir, (a["nx"], a["ny"], a["nz"]), (a["cr"], a["cg"], a["cb"]),
         a["rough"], a["metal"], rng.from_bits(state),
     )
@@ -134,8 +107,10 @@ def shade_plain(
 ):
     """Plain PyTorch SHADE (pallas_wavefront._shade_core).
 
-    qwords: (n, 4) int32 RGBE words of the quad row at tr["qidx"];
-    tr: trace outputs; carry: the loop state by CARRY_NAMES; pixel_index
+    qwords: (n, 4) int32 RGBE words of the quad row at tr["qidx"] (or,
+    from the composed wavefront body, (n, 16) legacy float rows);
+    tr: trace outputs (flags int32 or bool); carry: the loop state by
+    CARRY_NAMES; pixel_index
     and base_sample: int32 u32 bits; scal: (16,) f32 tensor [max_y,
     aspect, cam pos (3), cam rot rows (9), L, Z]; iscal: 5 ints
     (it_next, spp, budget, stride, offset) as unsigned values.
@@ -442,7 +417,7 @@ def big_shade_plain(
     (
         cos_theta, nee_scatter, nee_pdf_b, st, bdir, bscat, bpdf, bzero,
         cos_bounce,
-    ) = trace_epilogue(rd, nee_dir, normal, (cr, cg, cb), rough, metal, rng.from_bits(state))
+    ) = bsdf.trace_epilogue(rd, nee_dir, normal, (cr, cg, cb), rough, metal, rng.from_bits(state))
     v = dict(
         hit=tr["hit"], occ=tr["occ"], px=px, py=py, pz=pz, er=er, eg=eg, eb=eb,
         ct=cos_theta, ns0=nee_scatter[0], ns1=nee_scatter[1], ns2=nee_scatter[2],

@@ -1,8 +1,9 @@
 """Environment sampling (port of rsoderh_raytracing_tpu/ops/envmap.py).
 
 Equirect uv <-> direction, the RGBE decode, the alias-table draw and the
-quad-row bilinear fetch with its in-register pmf. Vectors travel as
-component tensors, as in the kernels.
+quad-row bilinear fetch with its pmf (recomputed from the texel for RGBE
+rows, stored in columns 12-15 of the legacy float rows). Vectors travel
+as component tensors, as in the kernels.
 """
 
 from __future__ import annotations
@@ -84,13 +85,18 @@ def sample_alias_index(state: torch.Tensor, env: DeviceEnvironment):
     return state, index, u, v, pmf
 
 
-def radiance_and_pmf_from_quad(q, u, v, width: int, height: int, pmf_norm):
-    """Bilinear radiance and texel pmf from gathered quad rows.
+def _quad_texels(q):
+    """The four texels (c00, c10, c01, c11) of gathered quad rows, each
+    an (r, g, b) tuple: decoded RGBE words, or the radiance columns of a
+    legacy float row. Also returns the float row (None for RGBE)."""
+    if q.dtype == torch.int32:
+        return tuple(decode_rgbe(q[:, k]) for k in range(4)), None
+    row = q.to(torch.float32)
+    return tuple(tuple(row[:, 3 * k + i] for i in range(3)) for k in range(4)), row
 
-    q: (n, 4) int32 RGBE words [c00 c10 c01 c11] of the row at uv's
-    (x0, y0). Returns ((r, g, b), pmf). The pmf is recomputed from the
-    selected texel: ((lum * sin(theta) * L) / Z) / L, with np.pi like the
-    alias builder."""
+
+def _bilinear(texels, u, v, width: int, height: int):
+    """Bilinear blend of a row's texels at uv; also the row's (x0, y0)."""
     x = u * width - 0.5
     y = v * height - 0.5
     x0 = torch.floor(x)
@@ -99,16 +105,37 @@ def radiance_and_pmf_from_quad(q, u, v, width: int, height: int, pmf_norm):
     fy = torch.where(y0 < 0, 0.0, y - y0)
     x0i = torch.clamp(float_to_int(x0), 0, width - 1)
     y0i = torch.clamp(float_to_int(y0), 0, height - 1)
-    c00, c10, c01, c11 = (decode_rgbe(q[:, k]) for k in range(4))
+    c00, c10, c01, c11 = texels
     radiance = tuple(
         (c00[i] * (1.0 - fx) + c10[i] * fx) * (1.0 - fy)
         + (c01[i] * (1.0 - fx) + c11[i] * fx) * fy
         for i in range(3)
     )
+    return radiance, x0i, y0i
+
+
+def radiance_and_pmf_from_quad(q, u, v, width: int, height: int, pmf_norm):
+    """Bilinear radiance and texel pmf from gathered quad rows.
+
+    q: (n, 4) int32 RGBE words [c00 c10 c01 c11] of the row at uv's
+    (x0, y0), or (n, 16) legacy float rows. Returns ((r, g, b), pmf). For
+    RGBE rows the pmf is recomputed from the selected texel:
+    ((lum * sin(theta) * L) / Z) / L, with np.pi like the alias builder;
+    legacy rows carry it in columns 12-15."""
+    texels, row = _quad_texels(q)
+    radiance, x0i, y0i = _bilinear(texels, u, v, width, height)
     pxsel = torch.clamp_max(float_to_int(u * width), width - 1)
     pysel = torch.clamp_max(float_to_int(v * height), height - 1)
     sel_x = pxsel != x0i
     sel_y = pysel != y0i
+    if row is not None:
+        pmf = torch.where(
+            sel_y,
+            torch.where(sel_x, row[:, 15], row[:, 14]),
+            torch.where(sel_x, row[:, 13], row[:, 12]),
+        )
+        return radiance, pmf
+    c00, c10, c01, c11 = texels
     selt = tuple(
         torch.where(
             sel_y,
@@ -145,3 +172,36 @@ def radiance_and_pmf(env: DeviceEnvironment, u, v):
     height, width = env.texture_shape
     q = env.quad.index_select(0, quad_index(u, v, width, height))
     return radiance_and_pmf_from_quad(q, u, v, width, height, env.pmf_norm)
+
+
+def bilinear_sample_quad(env: DeviceEnvironment, u, v):
+    """Bilinear radiance (r, g, b) at uv: one quad-row gather."""
+    height, width = env.texture_shape
+    q = env.quad.index_select(0, quad_index(u, v, width, height))
+    return _bilinear(_quad_texels(q)[0], u, v, width, height)[0]
+
+
+def sky_light(env: DeviceEnvironment, dx, dy, dz):
+    """Environment radiance along escaped rays (shader.wgsl:822-831)."""
+    return bilinear_sample_quad(env, *direction_to_equirect_uv(dx, dy, dz))
+
+
+def direction_pdf(env: DeviceEnvironment, dx, dy, dz):
+    """Pdf (per steradian) of sampling the direction from the alias
+    table, read through the quad row like the integrators' miss pdf
+    (shader.wgsl:753-769)."""
+    height, width = env.texture_shape
+    u, v = direction_to_equirect_uv(dx, dy, dz)
+    _, pmf = radiance_and_pmf(env, u, v)
+    return pmf / pixel_solid_angle(v, width, height)
+
+
+def sample_environment(state: torch.Tensor, env: DeviceEnvironment):
+    """Alias-table importance sample (shader.wgsl:782-820): four draws.
+    ``state`` is int64. Returns (state, direction (dx, dy, dz), radiance
+    (r, g, b), pdf)."""
+    height, width = env.texture_shape
+    state, _, u, v, pmf = sample_alias_index(state, env)
+    direction = equirect_uv_to_direction(u, v)
+    radiance = bilinear_sample_quad(env, u, v)
+    return state, direction, radiance, pmf / pixel_solid_angle(v, width, height)

@@ -1,5 +1,6 @@
 """Plain closest-hit and occlusion sweeps over the precomputed scene
-constants, plus the winner attributes.
+constants, the winner attributes, and the scene-level queries
+(``closest_hit``, ``any_hit``, ``trace_nee``) that route to the kernels.
 
 The semantics are those of the reference's unrolled sweep
 (rsoderh_raytracing_tpu/ops/pallas_intersect.py:_sweep_body): the same
@@ -26,7 +27,8 @@ from __future__ import annotations
 
 import torch
 
-from rsoderh_raytracing_tpu_torch.scene.device import chunk_spheres
+from rsoderh_raytracing_tpu_torch.ops.geometry import HitRecord
+from rsoderh_raytracing_tpu_torch.scene.device import CHUNKED, chunk_spheres, route
 
 INF = 3.0e38
 SPHERE_EPS = 1.0e-4
@@ -329,40 +331,96 @@ def material_values(scene, mat_id):
     return cr, cg, cb, rough, metal, er, eg, eb
 
 
-def trace_attrs(scene, ox, oy, oz, dx, dy, dz, sx, sy, sz):
-    """Closest sweep + winner attributes + material values + the NEE
-    shadow sweep from the hit point (pallas_intersect.trace_attrs_body).
-    Returns a dict of (n,) tensors."""
-    best_t, best_type, best_idx = closest_sweep(scene, ox, oy, oz, dx, dy, dz)
-    did_hit = best_type >= 0
-    t_safe = torch.where(did_hit, best_t, 0.0)
-    px = ox + dx * t_safe
-    py = oy + dy * t_safe
-    pz = oz + dz * t_safe
-
-    (snx, sny, snz), (pnx, pny, pnz), m_s, m_p = small_winner_normals(
-        scene, best_type, best_idx, ox, oy, oz, px, py, pz
-    )
-    idx_t = torch.where(best_type == 2, best_idx, 0)
-    tnx, tny, tnz = tri_normal_recompute(
+def _hit_attributes(scene, ro, rd, t, ptype, pidx) -> HitRecord:
+    """Point, normal and material id of each lane's winner (type, index).
+    A lane whose winner is another type, or a miss, reads row 0 of a
+    table, and a miss takes the triangle branch, like the reference's
+    selects (intersect._hit_attributes)."""
+    did_hit = ptype >= 0
+    t_safe = torch.where(did_hit, t, 0.0)
+    point = tuple(ro[k] + rd[k] * t_safe for k in range(3))
+    sn, pn, m_s, m_p = small_winner_normals(scene, ptype, pidx, *ro, *point)
+    idx_t = torch.where(ptype == 2, pidx, 0)
+    tn = tri_normal_recompute(
         _rows(scene.tri_a, idx_t), _rows(scene.tri_edge0, idx_t),
         _rows(scene.tri_edge1, idx_t), _rows(scene.tri_n0, idx_t),
-        _rows(scene.tri_n1, idx_t), _rows(scene.tri_n2, idx_t),
-        ox, oy, oz, dx, dy, dz,
+        _rows(scene.tri_n1, idx_t), _rows(scene.tri_n2, idx_t), *ro, *rd,
     )
-    is_s = best_type == 0
-    is_p = best_type == 1
-    nx = torch.where(is_s, snx, torch.where(is_p, pnx, tnx))
-    ny = torch.where(is_s, sny, torch.where(is_p, pny, tny))
-    nz = torch.where(is_s, snz, torch.where(is_p, pnz, tnz))
-
+    is_s = ptype == 0
+    is_p = ptype == 1
+    normal = tuple(torch.where(is_s, sn[k], torch.where(is_p, pn[k], tn[k])) for k in range(3))
     m_t = scene.tri_material.index_select(0, idx_t)
     mat_id = torch.where(is_s, m_s, torch.where(is_p, m_p, m_t))
-    cr, cg, cb, rough, metal, er, eg, eb = material_values(scene, mat_id)
+    return HitRecord(did_hit=did_hit, distance=t_safe, point=point, normal=normal,
+                     material_id=mat_id)
 
+
+def trace_attrs(scene, ox, oy, oz, dx, dy, dz, sx, sy, sz):
+    """Closest sweep + winner attributes + material values + the NEE
+    shadow sweep from the hit point (pallas_intersect.trace_attrs_body),
+    in plain PyTorch. Returns a dict of (n,) tensors."""
+    ro, rd = (ox, oy, oz), (dx, dy, dz)
+    hit = _hit_attributes(scene, ro, rd, *closest_sweep(scene, *ro, *rd))
+    cr, cg, cb, rough, metal, er, eg, eb = material_values(scene, hit.material_id)
+    (px, py, pz), (nx, ny, nz) = hit.point, hit.normal
     occ = any_sweep(scene, px, py, pz, sx, sy, sz)
     return dict(
-        did_hit=did_hit, px=px, py=py, pz=pz, nx=nx, ny=ny, nz=nz,
+        did_hit=hit.did_hit, px=px, py=py, pz=pz, nx=nx, ny=ny, nz=nz,
         cr=cr, cg=cg, cb=cb, rough=rough, metal=metal,
         er=er, eg=eg, eb=eb, occ=occ,
+    )
+
+
+# -- scene-level queries (rsoderh_raytracing_tpu/ops/intersect.py) ------------
+# Routed by scene/device.route: a scene within the unroll budget takes the
+# CLOSEST, ANY and FUSED kernels (ops/cuda_intersect.py; their plain
+# versions above for CPU tensors), one past it the chunked kernels with an
+# all-ones lane mask, and any other scene raises NotImplementedError (the
+# BVH route is not ported).
+
+
+def _all_lanes(t):
+    return torch.ones(t.shape[0], dtype=torch.int32, device=t.device)
+
+
+def _closest(scene, ro, rd):
+    from rsoderh_raytracing_tpu_torch.ops import cuda_intersect as ci
+
+    if route(scene) == CHUNKED:
+        return ci.chunked_closest_call(scene, ro, rd, _all_lanes(ro[0]))
+    return ci.closest_call(scene, ro, rd)
+
+
+def closest_hit(scene, ro, rd) -> HitRecord:
+    """Closest intersection along each ray. ro, rd: 3-tuples of (n,) f32."""
+    return _hit_attributes(scene, ro, rd, *_closest(scene, ro, rd))
+
+
+def any_hit(scene, ro, rd):
+    """(n,) bool: some primitive blocks the ray."""
+    from rsoderh_raytracing_tpu_torch.ops import cuda_intersect as ci
+
+    if route(scene) == CHUNKED:
+        return ci.chunked_any_call(scene, ro, rd, _all_lanes(ro[0])) != 0
+    return ci.any_call(scene, ro, rd)
+
+
+def trace_nee(scene, ro, rd, nee_dir):
+    """One path segment for the composed wavefront body: closest hit,
+    shading attributes, material values and the NEE occlusion from the
+    hit point along nee_dir; the FUSED kernel on a small scene, composed
+    from closest_hit, the material rows and any_hit on a chunked one.
+    Returns (did_hit, point, normal, color, roughness, metallic,
+    emission, occluded): 3-tuples of (n,) tensors, (n,) f32 and bool."""
+    if route(scene) == CHUNKED:
+        hit = closest_hit(scene, ro, rd)
+        cr, cg, cb, rough, metal, er, eg, eb = material_values(scene, hit.material_id)
+        occ = any_hit(scene, hit.point, nee_dir)
+        return hit.did_hit, hit.point, hit.normal, (cr, cg, cb), rough, metal, (er, eg, eb), occ
+    from rsoderh_raytracing_tpu_torch.ops import cuda_intersect as ci
+
+    a = ci.fused_call(scene, ro, rd, nee_dir)
+    return (
+        a["did_hit"], (a["px"], a["py"], a["pz"]), (a["nx"], a["ny"], a["nz"]),
+        (a["cr"], a["cg"], a["cb"]), a["rough"], a["metal"], (a["er"], a["eg"], a["eb"]), a["occ"],
     )

@@ -176,6 +176,31 @@ def bound_ms(n_bytes, n_ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def sweep_ops(scene):
+    """Operations of one closest sweep of a lane over every primitive of
+    a scene within the unroll budget."""
+    return (scene.sph_radius.shape[0] * OPS_SPHERE + scene.pln_valid.shape[0] * OPS_PLANE
+            + scene.tri_valid.shape[0] * OPS_TRIANGLE)
+
+
+def first_hit_ops(scene, rays):
+    """Operations an occlusion sweep of `rays` (6 (n,) components) needs
+    on a scene within the unroll budget: each lane's primitive tests in
+    sweep order up to and including its first hit, all of them when it
+    hits nothing. From a plain pass over the same inputs."""
+    ops = {intersect.SPHERE: OPS_SPHERE, intersect.PLANE: OPS_PLANE, intersect.TRIANGLE: OPS_TRIANGLE}
+    done = torch.zeros(rays[0].shape[0], dtype=torch.bool, device=rays[0].device)
+    total = torch.zeros((), dtype=torch.int64, device=rays[0].device)
+    for sl, r, kind, lo, hi in intersect._blocks(scene, rays, tuple(ops)):
+        t, hit = intersect._hits(scene, kind, lo, hi, r)
+        hit = hit & (t < intersect.INF)
+        some = hit.any(dim=1)
+        tests = torch.where(some, hit.to(torch.int8).argmax(dim=1) + 1, hi - lo)
+        total = total + torch.where(done[sl], 0, tests).sum() * ops[kind]
+        done[sl] |= some
+    return int(total)
+
+
 def chunked_bound(scene, args, closest):
     """bound_ms of one CHUNKED_CLOSEST (`closest`) or CHUNKED_ANY launch
     on `args` (the wrapper's arguments): 7 four-byte inputs a lane and 3

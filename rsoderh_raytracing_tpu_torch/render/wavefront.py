@@ -1,10 +1,12 @@
 """Ray-regeneration wavefront integrator (port of
-rsoderh_raytracing_tpu/render/wavefront.py, its kernel loop).
+rsoderh_raytracing_tpu/render/wavefront.py: its kernel loop and its
+composed body).
 
 Lane == pixel; when a path terminates its radiance is added to the
 lane's film slot and the lane reseeds the next progressive sample of the
-same pixel. The scene's route (scene/device.route) picks the iteration
-once per call:
+same pixel. The iteration is picked once per call, as the reference picks
+it. With an RGBE environment (and RT_DISABLE_WFKERNELS unset) the kernel
+loop runs, by the scene's route (scene/device.route):
 
 - small scenes: the glue (alias draw, NEE and miss uv), the TRACE
   kernel, one quad-row gather and the SHADE kernel (ops/cuda_wavefront.py);
@@ -12,6 +14,15 @@ once per call:
   point, CHUNKED_ANY over live hit lanes (ops/cuda_intersect.py), the
   fused uv and one quad-row gather, and BIG_SHADE, which reads the
   winner's union row itself.
+
+With a legacy float32 / bfloat16 environment, or with
+RT_DISABLE_WFKERNELS=1, the composed body runs: the same glue,
+``intersect.trace_nee`` (the FUSED kernel on a small scene; the chunked
+kernels over every lane on a big mesh), then the bounce sample, one
+quad-row gather and the shading step as tensor code. That tensor code is
+the one the TRACE and SHADE kernels' plain versions are made of
+(``bsdf.trace_epilogue``, ``cuda_wavefront.shade_plain``), so on CPU
+tensors both bodies compute the same values.
 
 Differences from the reference's loop:
 
@@ -32,36 +43,26 @@ Differences from the reference's loop:
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
 from rsoderh_raytracing_tpu_torch.ops import cuda_intersect as ci
 from rsoderh_raytracing_tpu_torch.ops import cuda_wavefront as cw
-from rsoderh_raytracing_tpu_torch.ops import envmap, rng
-from rsoderh_raytracing_tpu_torch.render.integrator import MAX_BOUNCES
+from rsoderh_raytracing_tpu_torch.ops import bsdf, envmap, intersect, rng
+from rsoderh_raytracing_tpu_torch.render.integrator import MAX_BOUNCES, generate_camera_rays
 from rsoderh_raytracing_tpu_torch.scene.device import CHUNKED, route
 
 NO_LIMIT = 0xFFFFFFFF
 EXACT_CHECK_EVERY = 16
 
 
-def _camera_rays(state, pixel_x, pixel_y, camera, resolution):
-    """Jittered pinhole rays (shader.wgsl:1340-62). ``state`` is int64.
-    Returns (state, (ox, oy, oz), (dx, dy, dz))."""
-    width, height = resolution
-    state, jx, jy = rng.next_in_circle(state)
-    sx = (pixel_x.to(torch.float32) + jx) / width * 2.0 - 1.0
-    sy = -((pixel_y.to(torch.float32) + jy) / height * 2.0 - 1.0)
-    max_y = torch.sin(camera["fov_y"] / 2.0)
-    c0 = sx * max_y * (width / height)
-    c1 = sy * max_y
-    rot = camera["rot"]
-    # ray_cam @ rot.T with ray_cam = (c0, c1, -1)
-    d = [c0 * rot[i, 0] + c1 * rot[i, 1] - rot[i, 2] for i in range(3)]
-    norm = torch.sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
-    d = tuple(x / norm for x in d)
-    o = tuple(camera["pos"][i].expand_as(d[0]).contiguous() for i in range(3))
-    return state, o, d
+def kernel_loop_enabled(env) -> bool:
+    """The kernel loop serves RGBE environments unless
+    RT_DISABLE_WFKERNELS=1 (the reference's switch: keep the sweep
+    kernels, drop the two-kernel loop); otherwise the composed body runs."""
+    return env.quad.dtype == torch.int32 and os.environ.get("RT_DISABLE_WFKERNELS") != "1"
 
 
 def _base_lanes(base, n, device):
@@ -84,6 +85,7 @@ class Wavefront:
 
     def __init__(self, scene, env, camera, base_sample, resolution, spp, budget, max_bounces):
         self.route = route(scene)
+        self.composed = not kernel_loop_enabled(env)
         device = scene.device
         self.scene, self.env = scene, env
         self.width, self.height = resolution
@@ -101,7 +103,7 @@ class Wavefront:
         self.base_bits = rng.to_bits(base)
 
         state0 = rng.seed(pixel_index, base)
-        state0, o0, d0 = _camera_rays(
+        state0, o0, d0 = generate_camera_rays(
             state0, self.pixel_x, self.pixel_y, camera, resolution
         )
         self.scal = torch.cat(
@@ -139,10 +141,10 @@ class Wavefront:
         big_shade=cw.big_shade_call, profile=None,
     ):
         """One iteration (number `it`, from 0). The kernel arguments
-        default to the wrappers; `profile`, if a dict, collects in
-        profile["marks"] one list per iteration of (part, CUDA event)
-        pairs, each event starting the named part and the last one (part
-        None) ending the iteration."""
+        default to the wrappers (the composed body takes none of them);
+        `profile`, if a dict, collects in profile["marks"] one list per
+        iteration of (part, CUDA event) pairs, each event starting the
+        named part and the last one (part None) ending the iteration."""
         marks = [] if profile is not None else None
 
         def mark(part):
@@ -163,7 +165,32 @@ class Wavefront:
         rd = (c["rd0"], c["rd1"], c["rd2"])
         lanes = (self.pixel_bits, self.pixel_x, self.pixel_y, self.base_bits, self.scal,
                  (it + 1, self.spp, self.budget, 1, 0))
-        if self.route == CHUNKED:
+        if self.composed:
+            mark("trace_nee")
+            did_hit, p, normal, color, rough, metal, emission, occ = intersect.trace_nee(
+                self.scene, ro, rd, nd)
+            mark("glue")
+            (
+                cos_theta, nee_scatter, nee_pdf_b, state, bdir, bscat, bpdf, bzero, cos_bounce,
+            ) = bsdf.trace_epilogue(rd, nd, normal, color, rough, metal, state)
+            fu = torch.where(did_hit, nee_u, mu)
+            fv = torch.where(did_hit, nee_v, mv)
+            mark("gather")
+            q = self.env.quad.index_select(0, envmap.quad_index(fu, fv, env_w, env_h))
+            mark("shade")
+            tr = dict(
+                hit=did_hit, occ=occ, px=p[0], py=p[1], pz=p[2],
+                er=emission[0], eg=emission[1], eb=emission[2],
+                ct=cos_theta, ns0=nee_scatter[0], ns1=nee_scatter[1], ns2=nee_scatter[2],
+                npdf=nee_pdf_b, bd0=bdir[0], bd1=bdir[1], bd2=bdir[2], bpdf=bpdf,
+                bs0=bscat[0], bs1=bscat[1], bs2=bscat[2], bz=bzero, cb=cos_bounce,
+                state=rng.to_bits(state), fu=fu, fv=fv,
+            )
+            self.carry, act, hitm = cw.shade_plain(
+                env_w, env_h, self.width, self.height, self.max_bounces,
+                q, tr, nee_pmf, c, *lanes,
+            )
+        elif self.route == CHUNKED:
             mark("closest")
             t, btype, bidx = closest(self.scene, ro, rd, c["in_path"])
             mark("glue")

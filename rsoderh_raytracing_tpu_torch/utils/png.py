@@ -1,4 +1,5 @@
-"""Minimal dependency-free PNG writer (RGB8)."""
+"""Minimal dependency-free PNG writer (RGB8), and a reader of what it
+writes."""
 
 from __future__ import annotations
 
@@ -34,3 +35,29 @@ def write_png(path: str, image: np.ndarray) -> None:
         f.write(chunk(b"IHDR", ihdr))
         f.write(chunk(b"IDAT", zlib.compress(raw, 6)))
         f.write(chunk(b"IEND", b""))
+
+
+def read_png(path: str) -> np.ndarray:
+    """Read an RGB8 PNG as write_png writes it (8-bit RGB, no interlace,
+    every scanline with filter 0) into (H, W, 3) uint8."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path}: not a PNG file")
+    pos, idat, header = 8, b"", None
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        tag = data[pos + 4:pos + 8]
+        payload = data[pos + 8:pos + 8 + length]
+        if tag == b"IHDR":
+            header = struct.unpack(">IIBBBBB", payload)
+        elif tag == b"IDAT":
+            idat += payload
+        pos += 12 + length
+    if header is None or header[2:] != (8, 2, 0, 0, 0):
+        raise ValueError(f"{path}: not an 8-bit RGB PNG without interlace")
+    width, height = header[:2]
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(height, 1 + width * 3)
+    if rows[:, 0].any():
+        raise ValueError(f"{path}: filtered scanlines are not supported")
+    return rows[:, 1:].reshape(height, width, 3).copy()

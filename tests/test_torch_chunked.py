@@ -214,7 +214,7 @@ def test_wrappers_on_cpu_run_plain_and_count_nothing(big_tri_scene):
     ci.reset_launches()
     got = ci.chunked_closest_call(ts, _comps(o), _comps(d), mask)
     occ = ci.chunked_any_call(ts, _comps(o), _comps(d), mask)
-    assert ci.LAUNCHES == {"chunked_closest": 0, "chunked_any": 0}
+    assert set(ci.LAUNCHES.values()) == {0}
     for a, b in zip(got, intersect.chunked_closest_plain(ts, _comps(o), _comps(d), mask)):
         assert torch.equal(a, b)
     assert torch.equal(occ, intersect.chunked_any_plain(ts, _comps(o), _comps(d), mask))

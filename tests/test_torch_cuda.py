@@ -19,13 +19,18 @@ import pytest
 import torch
 
 from rsoderh_raytracing_tpu_torch import load_scene
-from rsoderh_raytracing_tpu_torch.env.environment import Environment, device_environment
+from rsoderh_raytracing_tpu_torch.env.environment import (
+    Environment,
+    EnvironmentMaps,
+    device_environment,
+)
 from rsoderh_raytracing_tpu_torch.env.hdr_io import procedural_sky
 from rsoderh_raytracing_tpu_torch.ops import cuda_intersect as ci
 from rsoderh_raytracing_tpu_torch.ops import cuda_wavefront as cw
 from rsoderh_raytracing_tpu_torch.ops import intersect
 from rsoderh_raytracing_tpu_torch.profiling import capture_step
 from rsoderh_raytracing_tpu_torch.render.integrator import camera_pytree
+from rsoderh_raytracing_tpu_torch.render.renderer import Renderer
 from rsoderh_raytracing_tpu_torch.render.wavefront import NO_LIMIT, Wavefront, render_freerun
 from rsoderh_raytracing_tpu_torch.scene.device import build_device_scene
 from rsoderh_raytracing_tpu_torch.scene.types import PackedMeshes, Plane, Scene
@@ -94,6 +99,42 @@ def test_shade_kernel_matches_plain(house_state):
     ref_carry, ref_act, ref_hitm = cw.shade_plain(*args)
     _compare(dict(carry, active=act, hitmask=hitm), dict(ref_carry, active=ref_act, hitmask=ref_hitm),
              cw.SHADE_INT_NAMES)
+
+
+def test_sweep_kernels_match_plain(house_state):
+    """CLOSEST, ANY and FUSED on the rays of a real loop iteration; ANY's
+    rays start at the hit points, as the integrators call it."""
+    scene, _, _, ro, rd, nd = house_state["trace"][:6]
+    before = dict(ci.LAUNCHES)
+    names = ("t", "type", "index")
+    _compare(dict(zip(names, ci.closest_call(scene, ro, rd))),
+             dict(zip(names, intersect.closest_sweep(scene, *ro, *rd))), {"type", "index"})
+    fused = ci.fused_call(scene, ro, rd, nd)
+    plain = intersect.trace_attrs(scene, *ro, *rd, *nd)
+    as_int = lambda d: {k: v.to(torch.int32) if v.dtype == torch.bool else v for k, v in d.items()}  # noqa: E731
+    _compare(as_int(fused), as_int(plain), {"did_hit", "occ"})
+    p = (fused["px"], fused["py"], fused["pz"])
+    _compare({"occ": ci.any_call(scene, p, nd).to(torch.int32)},
+             {"occ": intersect.any_sweep(scene, *p, *nd).to(torch.int32)}, {"occ"})
+    for name in ("closest", "any", "fused"):
+        assert ci.LAUNCHES[name] == before[name] + 1
+    with pytest.raises(ValueError):
+        ci.closest_call(scene, tuple(c.to(torch.float64) for c in ro), rd)
+
+
+def test_renderer_step_on_the_card(dev, house_scene):
+    """One scan-integrator sample through CLOSEST and ANY, held to the
+    CPU's plain path."""
+    envs = EnvironmentMaps([Environment.from_texture("s", procedural_sky(128, 64))])
+    before = dict(ci.LAUNCHES)
+    films = {}
+    for device in ("cpu", dev):
+        r = Renderer(house_scene, 32, 24, environments=envs, max_bounces=4, device=device)
+        assert r.step() == 1
+        films[str(device)] = r.film.mean_radiance()
+    assert ci.LAUNCHES["closest"] == before["closest"] + 4
+    assert ci.LAUNCHES["any"] == before["any"] + 4
+    assert np.isclose(films[str(dev)], films["cpu"], rtol=1e-4, atol=1e-5).mean() >= 0.99
 
 
 def test_wrapper_rejects_wrong_dtype(house_state):

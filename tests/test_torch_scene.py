@@ -150,15 +150,18 @@ import numpy as np
 import torch
 torch.set_num_threads(2)
 import chip_smoke  # every module the GPU smoke run imports
-from rsoderh_raytracing_tpu_torch import load_scene, write_png
-from rsoderh_raytracing_tpu_torch.env.environment import Environment, device_environment
+import rsoderh_raytracing_tpu_torch as port
+from rsoderh_raytracing_tpu_torch import cli, load_scene, write_png
+from rsoderh_raytracing_tpu_torch.env.environment import Environment, EnvironmentMaps, device_environment
 from rsoderh_raytracing_tpu_torch.env.hdr_io import procedural_sky
 from rsoderh_raytracing_tpu_torch.ops import cuda_wavefront, tonemap
 from rsoderh_raytracing_tpu_torch.render.integrator import camera_pytree
+from rsoderh_raytracing_tpu_torch.render.renderer import Renderer
 from rsoderh_raytracing_tpu_torch.render.wavefront import render_freerun
 from rsoderh_raytracing_tpu_torch.scene.device import build_device_scene
 
-env = device_environment(Environment.from_texture("s", procedural_sky(64, 32)), device="cpu")
+host_env = Environment.from_texture("s", procedural_sky(64, 32))
+env = device_environment(host_env, device="cpu")
 for name, size in (("house", 16), ("suzanne", 8)):
     scene = load_scene(f"assets/scenes/{name}.toml")
     img, counts = render_freerun(build_device_scene(scene, device="cpu"), env,
@@ -166,6 +169,16 @@ for name, size in (("house", 16), ("suzanne", 8)):
     assert img.shape == (size, size, 3) and bool(torch.isfinite(img).all())
     assert int(counts.min()) > 0
     write_png(os.devnull, tonemap.linear_to_srgb(tonemap.aces_tonemap(img / counts[..., None])).numpy())
+# the Renderer (scan integrator, wavefront, film) and the command line
+scene = load_scene("assets/scenes/house.toml")
+renderer = Renderer(scene, 12, 8, environments=EnvironmentMaps([host_env]), max_bounces=3, device="cpu")
+assert renderer.step() == 1 and renderer.step_batch(2) == 3
+assert renderer.film.srgb8().shape == (8, 12, 3)
+assert port.render(scene, 12, 8, spp=1, environments=EnvironmentMaps([host_env]), device="cpu").shape == (8, 12, 3)
+np.save(os.path.join(os.environ["PORT_TEST_TMP"], "sky.npy"), procedural_sky(32, 16))
+assert cli.main(["--scene", "assets/scenes/house.toml", "--resolution", "12x8", "--spp", "2",
+                 "--max-bounces", "3", "--device", "cpu", "--hdri-dir", os.environ["PORT_TEST_TMP"],
+                 "--output", os.path.join(os.environ["PORT_TEST_TMP"], "o.png"), "--quiet"]) == 0
 assert os.environ["RT_DEBUG_NANS"] == "1"
 assert not [m for m in sys.modules if blocked(m)]
 assert "rsoderh_raytracing_tpu_torch.ops.cuda_intersect" in sys.modules
@@ -173,11 +186,12 @@ print("ok")
 """
 
 
-def test_port_imports_and_renders_without_jax():
+def test_port_imports_and_renders_without_jax(tmp_path):
     # Neither jax nor the JAX package may be imported: chip_smoke.py and
-    # the port render house (small route) and suzanne (big-mesh route)
-    # with RT_DEBUG_NANS=1 set, the JAX package's switch that imports jax.
-    env = dict(os.environ, PYTHONPATH=REPO, RT_DEBUG_NANS="1")
+    # the port render house (small route) and suzanne (big-mesh route),
+    # and the Renderer and the command line render house, with
+    # RT_DEBUG_NANS=1 set, the JAX package's switch that imports jax.
+    env = dict(os.environ, PYTHONPATH=REPO, RT_DEBUG_NANS="1", PORT_TEST_TMP=str(tmp_path))
     proc = subprocess.run(
         [sys.executable, "-c", _NO_JAX], cwd=REPO, env=env,
         capture_output=True, text=True, timeout=240,
