@@ -28,8 +28,11 @@ exits non-zero at the first failure. Phases, one line each or more:
    at 2048x2048;
 6. timing: each big-mesh kernel against its plain version on a
    suzanne_hi 2048^2 loop state, with its bound from the inputs' cull
-   counts (profiling.chunked_bound); the plain version's outputs of that
-   one timed call are the parity reference of suzanne_hi at 2048^2;
+   counts (profiling.chunked_bound), and beside it the pairs, candidates
+   and slab tests of a walk in the chunked kernels' batches (the traversal
+   model intersect.chunked_*_model) and a block's shared memory; the plain
+   version's outputs of that one timed call are the parity reference of
+   suzanne_hi at 2048^2;
 7. goldens: render_wavefront through the kernels against
    tests/goldens/{default,house}_64_8spp.npy and the oracle anchors
    suzanne_hi_anchor_24_2spp.npy and spheres_anchor_32_4spp.npy;
@@ -598,11 +601,19 @@ def main() -> int:
             n_bytes = (n_pixels * 4 * (len(cw.BIG_SHADE_IN) + 4 + len(cw.SHADE_OUT_NAMES))
                        + 4 * (ch.winner.numel() + ch.materials.numel()))
             bounds[name] = bound_ms(n_bytes, 0) + ({},)
+            walked = {}
         else:
             bounds[name] = chunked_bound(hi_ds, state[key], key == "closest")
+            # what a walk in the kernel's batches sweeps (a batch's slabs
+            # against the best of the batch's start), from the traversal model
+            model = intersect.chunked_closest_model if key == "closest" else intersect.chunked_any_model
+            walked = {}
+            model(*state[key], ci.chunked_batch(), counts=walked)
+            walked = {f"model_{k}": v for k, v in walked.items()}
+            walked["shared_bytes"] = ci.chunked_shared_bytes(hi_ds)
         log("timing", kernel=name, lanes=n_pixels, ms=f"{times[name][0]:.4f}",
             plain_ms=f"{times[name][1]:.4f}", bound_ms=f"{bounds[name][0]:.4f}",
-            bound_by=bounds[name][1], **bounds[name][2], card=repr(card))
+            bound_by=bounds[name][1], **bounds[name][2], **walked, card=repr(card))
     del hi_ds
 
     # 7. goldens

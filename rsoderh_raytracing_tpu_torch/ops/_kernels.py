@@ -120,6 +120,8 @@ def load(flags=NVCC_FLAGS):
         "rt_big_shade_launch": [vp, vp, vp, i, i, i, i, i, i, i, i, i, u, u, u, u, u, vp],
         "rt_chunked_closest_launch": [vp, vp, i, i, i, vp, vp, i, i, vp, vp, vp, i, vp],
         "rt_chunked_any_launch": [vp, vp, i, i, i, vp, vp, i, i, vp, i, vp],
+        "rt_chunked_shared_bytes": [i, i],
+        "rt_chunked_batch": [],
         "rt_closest_launch": [vp, vp, i, i, i, i, i, vp],
         "rt_any_launch": [vp, vp, i, i, i, i, i, vp],
         "rt_fused_launch": [vp, vp, i, i, i, i, i, i, vp],

@@ -51,6 +51,24 @@ def _launch_args(scene, rays, mask, what):
     return n, dev, cw._ptrs((*rays, mask)), scene_args
 
 
+def chunked_shared_bytes(scene) -> int:
+    """Dynamic shared memory a block of the chunked kernels asks for on
+    this scene, bytes (builds the kernels)."""
+    from rsoderh_raytracing_tpu_torch.ops import _kernels
+
+    ch = scene.chunks
+    return _kernels.library().rt_chunked_shared_bytes(ch.small.numel(), ch.count)
+
+
+def chunked_batch() -> int:
+    """Chunks a batch of the chunked kernels' walk, the `batch` that
+    intersect.chunked_*_model takes to count what they sweep (builds the
+    kernels)."""
+    from rsoderh_raytracing_tpu_torch.ops import _kernels
+
+    return _kernels.library().rt_chunked_batch()
+
+
 def chunked_closest_call(scene, ro, rd, live):
     """Closest hit of rays (ro, rd) over the whole scene for lanes with
     live != 0, over the unrolled primitives only for the others.

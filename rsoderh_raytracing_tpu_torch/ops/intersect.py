@@ -20,7 +20,10 @@ and ``chunked_any_plain``. Both sweep the unrolled primitives (planes,
 and spheres when they are not chunked) on every lane, and the chunked
 primitives densely on the lanes the kernels consume (live, or masked and
 not yet occluded); their winner order is the dense one, which the
-kernels reach with sphere windows last and an equal-t sphere override.
+kernels reach through a packed (t, kind, index) winner key.
+``chunked_closest_model`` and ``chunked_any_model`` walk the chunks as the
+CUDA kernels do and count what they sweep; only tests and timing lines
+call them.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ from __future__ import annotations
 import torch
 
 from rsoderh_raytracing_tpu_torch.ops.geometry import HitRecord
-from rsoderh_raytracing_tpu_torch.scene.device import CHUNKED, chunk_spheres, route
+from rsoderh_raytracing_tpu_torch.scene.device import CHUNKED, TRI_CHUNK, chunk_spheres, route
 
 INF = 3.0e38
 SPHERE_EPS = 1.0e-4
@@ -244,6 +247,151 @@ def chunked_any_plain(scene, p, d, mask):
             sub[sl] |= hit.any(dim=1)
         occ.index_copy_(0, sel, sub)
     return occ.to(torch.int32)
+
+
+# -- a model of the CUDA kernels' traversal (csrc/chunked.cu) ----------------
+# Plain tensor code that walks the chunks as the kernels do, in batches of
+# `batch` chunks (the kernels' own: cuda_intersect.chunked_batch()); a lane
+# is a candidate of a batch when its ray passes the union of the batch's
+# boxes, a candidate's slabs are tested
+# against the lane's best of the batch's start, and the winner is taken by
+# a packed (t, kind, index) key, so that it does not depend on the order
+# of the pairs. It returns the outputs and the number of (lane, chunk)
+# pairs swept. Nothing on a render path calls it: it says what the kernels
+# compute and count, for the tests and for the timing lines.
+
+_MISS_KEY = int(torch.tensor(INF, dtype=torch.float32).view(torch.int32)) << 32
+_NO_KEY = (1 << 63) - 1
+
+
+def pack_key(t, kind, idx):
+    """float_as_uint(t) << 32 | kind << 28 | index as int64 (the CPU has
+    no uint64 minimum). Every hit has t > 0, so the integer order is the
+    order of t, then sphere < plane < triangle, then the lowest index."""
+    bits = t.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    if torch.is_tensor(kind):
+        kind = kind.to(torch.int64)
+    return (bits << 32) | (kind << 28) | idx.to(torch.int64)
+
+
+def unpack_key(key):
+    """(t f32, type i32, index i32) of packed keys; a key that is not
+    below the miss key (t = INF) is a miss: (INF, -1, 0)."""
+    hit = key < _MISS_KEY
+    t = (key >> 32).to(torch.int32).view(torch.float32)
+    low = key & 0xFFFFFFFF
+    return (
+        torch.where(hit, t, INF),
+        torch.where(hit, low >> 28, -1).to(torch.int32),
+        torch.where(hit, low & 0x0FFFFFFF, 0).to(torch.int32),
+    )
+
+
+def slab_entry(bounds, rays):
+    """chunk_slab_mask of every (lane, chunk) pair: (passes (m, k) bool,
+    entry t0 (m, k)) for rays (6 (m,) components) against bounds (k, 6).
+    A 0 * inf NaN means the axis imposes no constraint."""
+    lo, hi = [], []
+    for a in range(3):
+        o, inv = rays[a][:, None], (1.0 / rays[3 + a])[:, None]
+        near = (bounds[None, :, a] - o) * inv
+        far = (bounds[None, :, 3 + a] - o) * inv
+        t_lo, t_hi = torch.minimum(near, far), torch.maximum(near, far)
+        lo.append(torch.where(torch.isnan(t_lo), -INF, t_lo))
+        hi.append(torch.where(torch.isnan(t_hi), INF, t_hi))
+    t0 = torch.maximum(torch.maximum(lo[0], lo[1]), torch.clamp_min(lo[2], 0.0))
+    t1 = torch.minimum(torch.minimum(hi[0], hi[1]), hi[2])
+    return t0 <= t1, t0
+
+
+def _model_walk(scene, rays, lanes, batch, visit, bound):
+    """Walk the chunks for the lanes `lanes` (indices into rays) in
+    batches of `batch` chunks, the lanes in groups of at most _PAIRS (lane,
+    primitive) pairs a chunk. A lane that the slab of
+    the batch's union box and `bound(group lanes, t0)` let through at the
+    batch's start is a candidate; for each chunk of the batch,
+    visit(lanes, their ray terms, kind, first row) is called with the
+    candidates that the chunk's own slab and `bound` let through. Returns
+    the counts: pairs visited, candidates, slab tests."""
+    ch = scene.chunks
+    group = max(1, _PAIRS.get(rays[0].device.type, _PAIRS["cpu"]) // TRI_CHUNK)
+    counts = dict(pairs=0, candidates=0, slab_tests=0)
+    for s in range(0, lanes.shape[0], group):
+        sel = lanes[s:s + group]
+        sub = tuple(c.index_select(0, sel) for c in rays)
+        for c0 in range(0, ch.count, batch):
+            boxes = ch.bounds[c0:c0 + batch]
+            union = torch.cat([boxes[:, :3].min(dim=0).values, boxes[:, 3:].max(dim=0).values])
+            passes, t0 = slab_entry(union[None, :], sub)
+            cand = torch.nonzero((passes & bound(sel, t0))[:, 0]).squeeze(1)
+            counts["slab_tests"] += sel.shape[0] + cand.shape[0] * boxes.shape[0]
+            counts["candidates"] += cand.shape[0]
+            if cand.numel() == 0:
+                continue
+            cand_sel = sel[cand]
+            cand_rays = tuple(x.index_select(0, cand) for x in sub)
+            passes, t0 = slab_entry(boxes, cand_rays)
+            passes &= bound(cand_sel, t0)
+            counts["pairs"] += int(passes.sum())
+            for c in range(c0, c0 + boxes.shape[0]):
+                k = torch.nonzero(passes[:, c - c0]).squeeze(1)
+                if k.numel() == 0:
+                    continue
+                is_tri = c < ch.n_tri_chunks
+                first = (c if is_tri else c - ch.n_tri_chunks) * TRI_CHUNK
+                terms = _ray_terms(*(x.index_select(0, k) for x in cand_rays))
+                visit(cand_sel[k], terms, TRIANGLE if is_tri else SPHERE, first)
+    return counts
+
+
+def chunked_closest_model(scene, ro, rd, live, batch, counts=None):
+    """CHUNKED_CLOSEST as csrc/chunked.cu walks it. Returns (t f32, type
+    i32, index i32, pairs): the outputs of chunked_closest_plain and the
+    (lane, chunk) pairs swept; `counts`, a dict, also gets the candidates
+    and the slab tests."""
+    rays = (*ro, *rd)
+    t, ptype, pidx = _sweep(scene, rays, _unrolled_kinds(scene))
+    key = torch.where(ptype >= 0, pack_key(t, ptype, pidx), _MISS_KEY)
+    rows = torch.arange(TRI_CHUNK, device=key.device)
+
+    def bound(sel, t0):
+        best_t = unpack_key(key.index_select(0, sel))[0][:, None]
+        return t0 <= best_t * (1.0 + 1e-3) + 1e-4
+
+    def visit(sel, terms, kind, first):
+        t, hit = _hits(scene, kind, first, first + TRI_CHUNK, terms)
+        cand = torch.where(hit, pack_key(t, kind, (first + rows)[None, :].expand_as(t)), _NO_KEY)
+        key[sel] = torch.minimum(key[sel], cand.min(dim=1).values)
+
+    lanes = torch.nonzero(live != 0).squeeze(1)
+    walked = _model_walk(scene, rays, lanes, batch, visit, bound)
+    if counts is not None:
+        counts.update(walked)
+    return (*unpack_key(key), walked["pairs"])
+
+
+def chunked_any_model(scene, p, d, mask, batch, counts=None):
+    """CHUNKED_ANY as csrc/chunked.cu walks it: lanes occluded at a
+    batch's start queue no pair of it. Returns (occ i32, pairs); `counts`
+    as in chunked_closest_model."""
+    rays = (*p, *d)
+    occ = _sweep(scene, rays, _unrolled_kinds(scene))[0] < INF
+
+    def bound(sel, t0):
+        return ~occ.index_select(0, sel)[:, None].expand_as(t0)
+
+    def visit(sel, terms, kind, first):
+        if kind == TRIANGLE:
+            hit = _tri_occluded(scene, first, first + TRI_CHUNK, terms)
+        else:
+            hit = _hits(scene, kind, first, first + TRI_CHUNK, terms)[1]
+        occ[sel] |= hit.any(dim=1)
+
+    lanes = torch.nonzero((mask != 0) & ~occ).squeeze(1)
+    walked = _model_walk(scene, rays, lanes, batch, visit, bound)
+    if counts is not None:
+        counts.update(walked)
+    return occ.to(torch.int32), walked["pairs"]
 
 
 def sphere_normal_values(cx, cy, cz, s_r, ox, oy, oz, px, py, pz):

@@ -128,22 +128,11 @@ def cull_counts(scene, ro, rd, mask, closest):
     lanes = torch.nonzero((mask != 0) if closest else (mask != 0) & ~(small < intersect.INF)).squeeze(1)
     sub = [c.index_select(0, lanes) for c in rays]
     best = small.index_select(0, lanes)
-    inv = [1.0 / d for d in sub[3:]]
     ch = scene.chunks
     tests = pairs = tri_pairs = 0
     for c in range(ch.count):
         tests += lanes.shape[0]
-        b = ch.bounds[c]
-        lo, hi = [], []
-        for a in range(3):
-            near = (b[a] - sub[a]) * inv[a]
-            far = (b[3 + a] - sub[a]) * inv[a]
-            t_lo, t_hi = torch.minimum(near, far), torch.maximum(near, far)
-            lo.append(torch.where(torch.isnan(t_lo), -intersect.INF, t_lo))
-            hi.append(torch.where(torch.isnan(t_hi), intersect.INF, t_hi))
-        t0 = torch.maximum(torch.maximum(lo[0], lo[1]), torch.clamp_min(lo[2], 0.0))
-        t1 = torch.minimum(torch.minimum(hi[0], hi[1]), hi[2])
-        passing = t0 <= t1
+        passing, t0 = (x[:, 0] for x in intersect.slab_entry(ch.bounds[c:c + 1], sub))
         if closest:
             passing &= t0 <= best * (1.0 + 1e-3) + 1e-4
         k = torch.nonzero(passing).squeeze(1)
@@ -164,7 +153,7 @@ def cull_counts(scene, ro, rd, mask, closest):
             keep = torch.ones(lanes.shape[0], dtype=torch.bool, device=lanes.device)
             keep[k] = ~hit.any(dim=1)
             lanes, best = lanes[keep], best[keep]
-            sub, inv = [x[keep] for x in sub], [x[keep] for x in inv]
+            sub = [x[keep] for x in sub]
     return tests, pairs, tri_pairs
 
 

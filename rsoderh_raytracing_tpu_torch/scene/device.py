@@ -241,6 +241,16 @@ def _inflate(lo, hi):
     return np.concatenate([lo - eps, hi + eps], axis=-1).astype(np.float32)
 
 
+def pair_nan_bounds(bounds):
+    """(C, 6) bounds with a NaN on either side of an axis written to both
+    sides. A NaN vertex leaves its chunk's axis without a constraint; the
+    chunked kernels' fast slab test reads that from both sides being NaN
+    (csrc/chunked.cu: slab_pass_finite). min/max and _inflate above already
+    give pairs; this holds it for any bounds."""
+    nan = np.isnan(bounds[:, :3]) | np.isnan(bounds[:, 3:])
+    return np.where(np.concatenate([nan, nan], axis=1), np.float32(np.nan), bounds)
+
+
 def tri_const_table(a: dict):
     """(n_tri, WIN_COLS) f32 triangle window rows: cdet, e0, e1, cu, cv,
     n, adotn, valid (pallas_intersect.tri_const_table)."""
@@ -336,7 +346,7 @@ def _chunk_tables(a: dict, scene: DeviceScene) -> ChunkTables:
         return torch.from_numpy(np.ascontiguousarray(np.concatenate(x))).to(scene.device)
 
     return ChunkTables(
-        up(bounds), up(windows), n_tri // TRI_CHUNK, n_sph_chunks,
+        up([pair_nan_bounds(np.concatenate(bounds))]), up(windows), n_tri // TRI_CHUNK, n_sph_chunks,
         small=pack_rows(scene, spheres=not n_sph_chunks, triangles=False, materials=False),
         winner=winner_rows(scene), materials=material_rows(scene),
     )

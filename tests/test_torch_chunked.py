@@ -218,3 +218,226 @@ def test_wrappers_on_cpu_run_plain_and_count_nothing(big_tri_scene):
     for a, b in zip(got, intersect.chunked_closest_plain(ts, _comps(o), _comps(d), mask)):
         assert torch.equal(a, b)
     assert torch.equal(occ, intersect.chunked_any_plain(ts, _comps(o), _comps(d), mask))
+
+
+# -- the model of the CUDA kernels' traversal (intersect.chunked_*_model) ------
+# Held bit-equal to the plain versions (t by its bits) on every lane, and to
+# the Pallas kernels within the bounds above on the live (masked) lanes, for
+# batches of 1 chunk, of 8 (more than the wall's 4 chunks, so one batch) and
+# of 3 (two batches, the second ragged), with every lane live, the seeded
+# mask and no lane live.
+
+BATCHES = (1, 3, 8)
+MASKS = ("all_live", "mixed", "all_dead")
+
+
+def _wall_scenes(big_tri_scene):
+    js = j_build(big_tri_scene)
+    return js, device_scene_from_arrays({f: np.asarray(getattr(js, f)) for f in FIELDS}, device="cpu")
+
+
+def _mask(kind, seeded):
+    return {"all_live": np.ones(N, np.int32), "mixed": seeded, "all_dead": np.zeros(N, np.int32)}[kind]
+
+
+@pytest.fixture(scope="module")
+def wall_inputs(big_tri_scene, wall_pair):
+    """The wall's torch scene, the rays of wall_pair (closest rays, and
+    occlusion rays from the Pallas hit points) and its two seeded masks."""
+    _, ts = _wall_scenes(big_tri_scene)
+    o, d, _ = wall_rays()
+    ref = wall_pair["ref"]
+    t = np.where(ref[1] >= 0, ref[0], 0.0).astype(np.float32)
+    p = (o + d * t[:, None]).astype(np.float32)
+    g = np.random.default_rng(11)
+    s = g.normal(0.0, 1.0, (N, 3)).astype(np.float32)
+    s[:, 1] = np.abs(s[:, 1])
+    s /= np.linalg.norm(s, axis=-1, keepdims=True)
+    return dict(ts=ts, o=o, d=d, p=p, s=s, mask=wall_pair["mask"], hit_mask=wall_pair["hit_mask"])
+
+
+@pytest.fixture(scope="module")
+def wall_any_all_live(big_tri_scene, wall_inputs):
+    """Pallas occlusion with every lane masked in."""
+    js, _ = _wall_scenes(big_tri_scene)
+    return _pallas(pint.chunked_any_tiles, js, wall_inputs["p"], wall_inputs["s"], np.ones(N, np.int32))
+
+
+def _same_bits(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("mask_kind", MASKS)
+@pytest.mark.parametrize("batch", BATCHES)
+def test_closest_model_equals_plain(wall_inputs, batch, mask_kind):
+    w = wall_inputs
+    mask = torch.from_numpy(_mask(mask_kind, w["mask"]))
+    plain = intersect.chunked_closest_plain(w["ts"], _comps(w["o"]), _comps(w["d"]), mask)
+    *got, pairs = intersect.chunked_closest_model(w["ts"], _comps(w["o"]), _comps(w["d"]), mask, batch=batch)
+    for a, b in zip(got, plain):
+        assert _same_bits(a, b)
+    assert (pairs == 0) == (mask_kind == "all_dead")
+
+
+@pytest.mark.parametrize("mask_kind", MASKS)
+@pytest.mark.parametrize("batch", BATCHES)
+def test_any_model_equals_plain(wall_inputs, batch, mask_kind):
+    w = wall_inputs
+    mask = torch.from_numpy(_mask(mask_kind, w["hit_mask"]))
+    plain = intersect.chunked_any_plain(w["ts"], _comps(w["p"]), _comps(w["s"]), mask)
+    got, pairs = intersect.chunked_any_model(w["ts"], _comps(w["p"]), _comps(w["s"]), mask, batch=batch)
+    assert torch.equal(got, plain)
+    assert (pairs == 0) == (mask_kind == "all_dead")
+
+
+@pytest.mark.parametrize("mask_kind", MASKS[:2])
+@pytest.mark.parametrize("batch", BATCHES)
+def test_closest_model_matches_pallas(wall_inputs, wall_pair, wall_all_live, batch, mask_kind):
+    w = wall_inputs
+    mask = _mask(mask_kind, w["mask"])
+    ref = wall_all_live[0] if mask_kind == "all_live" else wall_pair["ref"]
+    got = intersect.chunked_closest_model(w["ts"], _comps(w["o"]), _comps(w["d"]),
+                                          torch.from_numpy(mask), batch=batch)
+    live = mask != 0
+    for k, out in enumerate(("t", "type", "index")):
+        _agree(out, got[k].numpy()[live], ref[k][live])
+
+
+@pytest.mark.parametrize("mask_kind", MASKS[:2])
+@pytest.mark.parametrize("batch", BATCHES)
+def test_any_model_matches_pallas(wall_inputs, wall_pair, wall_any_all_live, batch, mask_kind):
+    w = wall_inputs
+    mask = _mask(mask_kind, w["hit_mask"])
+    ref = wall_any_all_live if mask_kind == "all_live" else wall_pair["ref_occ"]
+    got, _ = intersect.chunked_any_model(w["ts"], _comps(w["p"]), _comps(w["s"]),
+                                         torch.from_numpy(mask), batch=batch)
+    masked = mask != 0
+    assert (got.numpy()[masked] == ref[masked]).mean() >= EQUAL_MIN
+
+
+@pytest.mark.parametrize("closest", [True, False])
+def test_model_pairs_by_batch(wall_inputs, closest):
+    """Batches of one chunk test each slab against the running best, the
+    per-lane chunk order that profiling.cull_counts counts; a larger batch
+    tests against an older best and can only sweep more pairs. The union
+    box never costs a pair: one batch over all chunks sweeps what a dense
+    slab test lets through."""
+    from rsoderh_raytracing_tpu_torch import profiling
+
+    w = wall_inputs
+    if closest:
+        ro, rd, mask = _comps(w["o"]), _comps(w["d"]), torch.from_numpy(w["mask"])
+        model = intersect.chunked_closest_model
+    else:
+        ro, rd, mask = _comps(w["p"]), _comps(w["s"]), torch.from_numpy(w["hit_mask"])
+        model = intersect.chunked_any_model
+    pairs = [model(w["ts"], ro, rd, mask, batch=b)[-1] for b in BATCHES]
+    assert pairs[0] == profiling.cull_counts(w["ts"], ro, rd, mask, closest)[1]
+    assert pairs[0] <= pairs[1] <= pairs[2]
+    counts = {}
+    model(w["ts"], ro, rd, mask, batch=2, counts=counts)
+    assert counts["pairs"] <= counts["candidates"] * 2 and counts["candidates"] > 0
+
+
+def test_model_on_a_ragged_lane_count(wall_inputs, wall_pair):
+    """1000 lanes, no multiple of Pallas's tile or of a chunk's rows: the
+    model against the plain version on every lane and against Pallas's
+    first 1000 on live ones."""
+    w, n = wall_inputs, 1000
+    cut = lambda a: tuple(torch.from_numpy(np.ascontiguousarray(a[:n, k])) for k in range(3))  # noqa: E731
+    mask = torch.from_numpy(w["mask"][:n].copy())
+    plain = intersect.chunked_closest_plain(w["ts"], cut(w["o"]), cut(w["d"]), mask)
+    got = intersect.chunked_closest_model(w["ts"], cut(w["o"]), cut(w["d"]), mask, batch=3)
+    for a, b in zip(got, plain):
+        assert _same_bits(a, b)
+    live = w["mask"][:n] != 0
+    for k, out in enumerate(("t", "type", "index")):
+        _agree(out, got[k].numpy()[live], wall_pair["ref"][k][:n][live])
+
+
+# -- ties: the same triangle in two chunks ------------------------------------
+
+TIE_LOW, TIE_HIGH = 5, 150  # rows of chunk 0 and chunk 2
+
+
+@pytest.fixture(scope="module")
+def tie_pair(big_tri_scene):
+    """The wall with triangle TIE_LOW copied over triangle TIE_HIGH, and
+    rays from in front of the wall through points inside that triangle: two
+    hits at the same t in two chunks, and the lower index has to win."""
+    import dataclasses
+
+    js = j_build(big_tri_scene)
+    fields = [f for f in FIELDS if f.startswith("tri_")]
+    js = dataclasses.replace(
+        js, **{f: getattr(js, f).at[TIE_HIGH].set(getattr(js, f)[TIE_LOW]) for f in fields})
+    ts = device_scene_from_arrays({f: np.asarray(getattr(js, f)) for f in FIELDS}, device="cpu")
+    a, e0, e1 = (np.asarray(getattr(js, f))[TIE_LOW] for f in ("tri_a", "tri_edge0", "tri_edge1"))
+    g = np.random.default_rng(23)
+    u = g.uniform(0.05, 0.9, N).astype(np.float32)
+    v = (g.uniform(0.05, 0.95, N) * (0.95 - u)).astype(np.float32)
+    target = a + u[:, None] * e0 + v[:, None] * e1
+    o = (np.array([0.0, 0.5, 1.0], np.float32) + g.normal(0.0, 0.3, (N, 3))).astype(np.float32)
+    d = target - o
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    mask = np.ones(N, np.int32)
+    ref = _pallas(pint.chunked_closest_tiles, js, o, d, mask)
+    plain = tuple(x.numpy() for x in intersect.chunked_closest_plain(
+        ts, _comps(o), _comps(d), torch.from_numpy(mask)))
+    model = tuple(x.numpy() for x in intersect.chunked_closest_model(
+        ts, _comps(o), _comps(d), torch.from_numpy(mask), batch=1)[:3])
+    return ref, plain, model
+
+
+def test_tie_rays_hit_the_copied_triangle(tie_pair):
+    _, plain, _ = tie_pair
+    assert ((plain[1] == 2) & (plain[2] == TIE_LOW)).mean() > 0.5
+    assert not (plain[2][plain[1] == 2] == TIE_HIGH).any()
+
+
+@pytest.mark.parametrize("out", ["type", "index"])
+def test_tie_lower_index_wins_everywhere(tie_pair, out):
+    ref, plain, model = tie_pair
+    k = ("t", "type", "index").index(out)
+    assert np.array_equal(model[k], plain[k])
+    _agree(out, plain[k], ref[k])
+
+
+# -- a NaN vertex --------------------------------------------------------------
+# Its chunk's box gets no constraint on the vertex's axis; the kernels' fast
+# slab test needs the NaN on both sides of that axis (csrc/chunked.cu).
+
+
+def test_pair_nan_bounds_writes_both_sides():
+    from rsoderh_raytracing_tpu_torch.scene.device import pair_nan_bounds
+
+    b = np.arange(12, dtype=np.float32).reshape(2, 6)
+    b[0, 1] = np.nan  # min y only
+    b[1, 5] = np.nan  # max z only
+    got = pair_nan_bounds(b)
+    assert np.isnan(got[0, [1, 4]]).all() and np.isnan(got[1, [2, 5]]).all()
+    keep = np.ones_like(b, bool)
+    keep[0, [1, 4]] = keep[1, [2, 5]] = False
+    assert np.array_equal(got[keep], b[keep]) and got.dtype == np.float32
+
+
+@pytest.mark.parametrize("batch", BATCHES)
+def test_nan_vertex_model_equals_plain(big_tri_scene, wall_inputs, batch):
+    """The wall with a NaN x on one vertex of triangle 70 (chunk 1): that
+    chunk's bounds are NaN on both sides of x and only there, and the model
+    equals the plain version bit for bit. The hit test reads the triangle's
+    precomputed columns, so triangle 70 itself is still found, through a
+    box without a constraint on x."""
+    js = j_build(big_tri_scene)
+    arrays = {f: np.asarray(getattr(js, f)).copy() for f in FIELDS}
+    arrays["tri_a"][70, 0] = np.nan
+    ts = device_scene_from_arrays(arrays, device="cpu")
+    nan = np.isnan(ts.chunks.bounds.numpy())
+    assert nan[1, [0, 3]].all() and nan.sum() == 2
+    w = wall_inputs
+    mask = torch.ones(N, dtype=torch.int32)
+    plain = intersect.chunked_closest_plain(ts, _comps(w["o"]), _comps(w["d"]), mask)
+    got = intersect.chunked_closest_model(ts, _comps(w["o"]), _comps(w["d"]), mask, batch=batch)
+    for a, b in zip(got, plain):
+        assert _same_bits(a, b)
+    assert bool(((got[1] == 2) & (got[2] == 70)).any())

@@ -230,3 +230,111 @@ def test_big_scene_raises_on_the_card(dev):
     env = device_environment(Environment.from_texture("s", procedural_sky(32, 16)), dev)
     with pytest.raises(NotImplementedError, match="BVH route"):
         render_freerun(ds, env, camera_pytree(scene.camera, dev), 0, (8, 8), 4, 4)
+
+
+# -- the chunked kernels on made-up rays ---------------------------------------
+# CHUNKED_CLOSEST and CHUNKED_ANY against their plain versions on every lane
+# (live lanes get the dense sweep from both, the others the unrolled step
+# from both): integer outputs equal, t bit for bit.
+
+TIE_LOW, TIE_HIGH = 5, 150  # primitives of chunks 0 and 2
+CHUNKED_SCENES = ("suzanne", "spheres", "suzanne_tie", "spheres_tie")
+LANE_COUNTS = (1, 31, 1000, 256 * 256 + 7)  # the last: no multiple of the kernels' tile
+
+
+@pytest.fixture(scope="module")
+def chunked_scenes(dev):
+    """suzanne (triangle windows), spheres (sphere windows), and each with
+    primitive TIE_LOW copied over primitive TIE_HIGH, two chunks on: equal
+    t in two windows, and the lower index has to win."""
+    from rsoderh_raytracing_tpu_torch.scene.device import FIELDS, device_scene_from_arrays
+
+    scenes = {}
+    for name, prefix in (("suzanne", "tri_"), ("spheres", "sph_")):
+        host = build_device_scene(load_scene(os.path.join(SCENES, f"{name}.toml")), "cpu")
+        arrays = {f: getattr(host, f).numpy().copy() for f in FIELDS}
+        scenes[name] = device_scene_from_arrays(arrays, dev)
+        for f in FIELDS:
+            if f.startswith(prefix):
+                arrays[f][TIE_HIGH] = arrays[f][TIE_LOW]
+        scenes[f"{name}_tie"] = device_scene_from_arrays(arrays, dev)
+    return scenes
+
+
+def _made_up_rays(scene, name, n, dev):
+    """Incoherent rays from around the scene; in the tie scenes half of
+    them aim at the copied primitive; every eighth has a zero direction
+    component."""
+    g = np.random.default_rng(n)
+    o = g.normal(0.0, 3.0, (n, 3)).astype(np.float32)
+    d = g.normal(0.0, 1.0, (n, 3)).astype(np.float32) - o * np.float32(0.5)
+    if name.endswith("_tie"):
+        if name.startswith("suzanne"):
+            a, e0, e1 = (getattr(scene, f)[TIE_LOW].cpu().numpy() for f in ("tri_a", "tri_edge0", "tri_edge1"))
+            target = a + 0.3 * e0 + 0.3 * e1
+        else:
+            target = scene.sph_pos[TIE_LOW].cpu().numpy()
+        d[::2] = target - o[::2]
+    d[::8, g.integers(0, 3)] = 0.0
+    d /= np.maximum(np.linalg.norm(d, axis=-1, keepdims=True), 1e-20).astype(np.float32)
+    mask = (g.random(n) < 0.8).astype(np.int32)
+    comps = lambda a: tuple(torch.from_numpy(np.ascontiguousarray(a[:, k])).to(dev) for k in range(3))  # noqa: E731
+    return comps(o), comps(d), torch.from_numpy(mask).to(dev)
+
+
+def _same(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("n", LANE_COUNTS)
+@pytest.mark.parametrize("name", CHUNKED_SCENES)
+def test_chunked_kernels_on_made_up_rays(dev, chunked_scenes, name, n):
+    scene = chunked_scenes[name]
+    ro, rd, mask = _made_up_rays(scene, name, n, dev)
+    before = dict(ci.LAUNCHES)
+    for lanes in (mask, torch.zeros_like(mask), torch.ones_like(mask)):
+        got = ci.chunked_closest_call(scene, ro, rd, lanes)
+        ref = intersect.chunked_closest_plain(scene, ro, rd, lanes)
+        assert all(_same(a, b) for a, b in zip(got, ref))
+        assert _same(ci.chunked_any_call(scene, ro, rd, lanes),
+                     intersect.chunked_any_plain(scene, ro, rd, lanes))
+    assert ci.LAUNCHES["chunked_closest"] == before["chunked_closest"] + 3
+    assert ci.LAUNCHES["chunked_any"] == before["chunked_any"] + 3
+    if name.endswith("_tie") and n >= 1000:
+        kind = 2 if name.startswith("suzanne") else 0
+        t, ptype, pidx = ci.chunked_closest_call(scene, ro, rd, torch.ones_like(mask))
+        won = (ptype == kind) & (pidx == TIE_LOW)
+        assert int(won.sum()) > n // 50
+        assert not bool(((ptype == kind) & (pidx == TIE_HIGH)).any())
+
+
+def test_chunked_model_counts_what_the_kernels_compute(dev, chunked_scenes):
+    """The traversal model on the card: the kernels' outputs, bit for bit."""
+    scene = chunked_scenes["suzanne"]
+    ro, rd, mask = _made_up_rays(scene, "suzanne", 5000, dev)
+    batch = ci.chunked_batch()
+    *model, pairs = intersect.chunked_closest_model(scene, ro, rd, mask, batch)
+    assert all(_same(a, b) for a, b in zip(ci.chunked_closest_call(scene, ro, rd, mask), model))
+    occ, any_pairs = intersect.chunked_any_model(scene, ro, rd, mask, batch)
+    assert _same(ci.chunked_any_call(scene, ro, rd, mask), occ)
+    assert pairs > 0 and any_pairs > 0
+
+
+@pytest.mark.parametrize("n", [1000, 256 * 256 + 7])
+def test_chunked_kernels_with_a_nan_vertex(dev, n):
+    """suzanne with a NaN x on one vertex of triangle 70: its chunk's box
+    has no constraint on x (NaN on both sides), and both kernels equal their
+    plain versions on every lane."""
+    from rsoderh_raytracing_tpu_torch.scene.device import FIELDS, device_scene_from_arrays
+
+    host = build_device_scene(load_scene(os.path.join(SCENES, "suzanne.toml")), "cpu")
+    arrays = {f: getattr(host, f).numpy().copy() for f in FIELDS}
+    arrays["tri_a"][70, 0] = np.nan
+    scene = device_scene_from_arrays(arrays, dev)
+    nan = torch.isnan(scene.chunks.bounds).cpu().numpy()
+    assert nan[1, [0, 3]].all() and nan.sum() == 2
+    ro, rd, mask = _made_up_rays(scene, "suzanne", n, dev)
+    got = ci.chunked_closest_call(scene, ro, rd, mask)
+    ref = intersect.chunked_closest_plain(scene, ro, rd, mask)
+    assert all(_same(a, b) for a, b in zip(got, ref))
+    assert _same(ci.chunked_any_call(scene, ro, rd, mask), intersect.chunked_any_plain(scene, ro, rd, mask))
