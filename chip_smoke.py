@@ -14,8 +14,10 @@ exits non-zero at the first failure. Phases, one line each or more:
    iterations; the main path at 2048x2048, 8 bounces,
    procedural_sky(2048, 1024), render_freerun with base counts carried
    between calls (Mrays/s in all and per call, launch counts, peak device
-   memory, the glue/TRACE/gather/SHADE split); parity again on a 2048^2
-   loop state, then each kernel's time beside its plain version's;
+   memory, the TRACE/SHADE split, and a short profiled call that must show
+   no row gather); parity again on a 2048^2 loop state (TRACE's NEE pmf,
+   quad row and NEE uv bitwise), then each kernel's time beside its plain
+   version's;
 4. big-mesh parity (CHUNKED_CLOSEST, CHUNKED_ANY, BIG_SHADE): suzanne_hi
    and spheres at 256x256 lanes after 3 plain iterations, spheres and
    suzanne at 2048x2048 lanes; the closest hit compared on live lanes,
@@ -81,8 +83,8 @@ from rsoderh_raytracing_tpu_torch.ops import cuda_wavefront as cw  # noqa: E402
 from rsoderh_raytracing_tpu_torch.ops import intersect  # noqa: E402
 from rsoderh_raytracing_tpu_torch.ops.tonemap import aces_tonemap, linear_to_srgb  # noqa: E402
 from rsoderh_raytracing_tpu_torch.profiling import (  # noqa: E402
-    KERNELS, bound_ms, capture_step, card_line, chunked_bound, first_hit_ops, scene_setup,
-    shade_outputs, sweep_ops, time_ms,
+    KERNELS, bound_ms, capture_step, card_line, chunked_bound, first_hit_ops, kernel_breakdown,
+    scene_setup, shade_outputs, sweep_calls, sweep_ops, time_ms,
 )
 from rsoderh_raytracing_tpu_torch.render.integrator import (  # noqa: E402
     MAX_BOUNCES, camera_pytree, render_sample,
@@ -99,7 +101,8 @@ from rsoderh_raytracing_tpu_torch.utils.png import read_png  # noqa: E402
 # on at least PARITY_MIN of the compared lanes. Measured on an H100
 # (700 W): TRACE and SHADE agree on every lane (SHADE bitwise, TRACE
 # within 6e-8), so this fails a kernel that is wrong in one output on
-# 0.01% of the lanes.
+# 0.01% of the lanes. TRACE's NEE pmf, quad row and NEE uv are held
+# bitwise (trace_parity).
 PARITY_MIN = 0.9999
 RTOL, ATOL = 1e-4, 1e-5
 # Relative RMSE against the CPU-made goldens. The CPU test holds the plain
@@ -145,6 +148,28 @@ def check_parity(kernel, lanes, got, ref, int_names, where=None):
     if bad:
         raise AssertionError(f"{kernel} kernel disagrees with its plain version in {bad}")
     return max_abs
+
+
+def trace_parity(label, lanes, args, max_err):
+    """TRACE against its plain version on `args`: every output by
+    check_parity, then the outputs that are exact by construction bitwise:
+    the NEE pmf and the quad row on every lane, and the fused uv (the alias
+    draw's texel and jitter) on the lanes where both hit."""
+    got, ref = cw.trace_call(*args), cw.trace_plain(*args)
+    max_err["trace"] = max(max_err.get("trace", 0.0),
+                           check_parity(f"trace:{label}", lanes, got, ref, cw.TRACE_INT_NAMES))
+    both_hit = (got["hit"] != 0) & (ref["hit"] != 0)
+    differ = {
+        "nee_pmf": int((got["nee_pmf"].view(torch.int32) != ref["nee_pmf"].view(torch.int32)).sum()),
+        "quad": int((got["quad"] != ref["quad"]).any(dim=1).sum()),
+        "quad_miss": int(((got["quad"] != ref["quad"]).any(dim=1) & ~both_hit).sum()),
+        **{f"{k}_hit": int((got[k].view(torch.int32) != ref[k].view(torch.int32))[both_hit].sum())
+           for k in ("fu", "fv")},
+    }
+    log("parity", kernel=f"trace:{label}", lanes=lanes, hit_lanes=int(both_hit.sum()),
+        **{f"{k}_lanes_differ": v for k, v in differ.items()})
+    if any(differ.values()):
+        raise AssertionError(f"TRACE's NEE pmf, quad row or NEE uv is not bitwise its plain version's: {differ}")
 
 
 def kernel_parity(key, label, args, lanes, max_err, ref=None):
@@ -244,6 +269,29 @@ def split(label, ds, env, cam, counts, card):
         **{f"{k}_ms": f"{v / n:.4f}" for k, v in parts.items()}, card=repr(card))
 
 
+def no_gather(label, ds, env, cam, counts, card):
+    """A short free-run call under torch.profiler: device ms an iteration
+    by group, launches an iteration and the busy share; the small route's
+    iteration must run TRACE and SHADE and no row gather."""
+    budget = 4
+    iterations = budget + BOUNCES - 1
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        render_freerun(ds, env, cam, counts, (SIZE, SIZE), budget, BOUNCES)
+        torch.cuda.synchronize()
+    os.makedirs(OUT_DIR, exist_ok=True)
+    path = os.path.join(OUT_DIR, f"{label}_trace.json")
+    prof.export_chrome_trace(path)
+    per_iter, groups, launches_per_iter, busy = kernel_breakdown(path, iterations)
+    os.remove(path)
+    trace_calls = sum(1 for k in per_iter if "trace_kernel" in k)
+    log("profile", scene=label, iterations=iterations,
+        **{f"{k}_ms": f"{v:.4f}" for k, v in sorted(groups.items())},
+        launches_per_iter=f"{launches_per_iter:.1f}", busy_share=f"{busy:.4f}", card=repr(card))
+    if groups["gather"] != 0.0 or not trace_calls or not groups.get("shade"):
+        raise AssertionError(f"{label}: the iteration ran a row gather or missed TRACE/SHADE: {groups}")
+
+
 def save_png(name, image, counts, warm_counts):
     png_dir = os.path.join(ROOT, "build")
     os.makedirs(png_dir, exist_ok=True)
@@ -301,31 +349,6 @@ def anchor(name, size, spp, env, dev):
         ok = within > 0.45 and rel < 0.005 and mrel < 0.05
     if not ok:
         raise AssertionError(f"{name}: the anchor golden's criteria fail")
-
-
-def _as_int(outputs):
-    return {k: v.to(torch.int32) if v.dtype == torch.bool else v for k, v in outputs.items()}
-
-
-def sweep_calls(trace_args):
-    """(kernel call, plain call, integer outputs) of CLOSEST, ANY and
-    FUSED on the rays of TRACE's arguments; ANY's rays start at the hit
-    points, as the integrators call it. Each call returns its outputs by
-    name."""
-    scene, _, _, ro, rd, nd = trace_args[:6]
-    names = ("t", "type", "index")
-    hit = intersect.closest_sweep(scene, *ro, *rd)
-    t_safe = torch.where(hit[1] >= 0, hit[0], 0.0)
-    p = tuple((ro[k] + rd[k] * t_safe).contiguous() for k in range(3))
-    return {
-        "closest": (lambda: dict(zip(names, ci.closest_call(scene, ro, rd))),
-                    lambda: dict(zip(names, intersect.closest_sweep(scene, *ro, *rd))),
-                    {"type", "index"}),
-        "any": (lambda: {"occ": ci.any_call(scene, p, nd).to(torch.int32)},
-                lambda: {"occ": intersect.any_sweep(scene, *p, *nd).to(torch.int32)}, {"occ"}),
-        "fused": (lambda: _as_int(ci.fused_call(scene, ro, rd, nd)),
-                  lambda: _as_int(intersect.trace_attrs(scene, *ro, *rd, *nd)), {"did_hit", "occ"}),
-    }, (*p, *nd)
 
 
 def sweep_parity(trace_args, lanes, max_err):
@@ -492,8 +515,7 @@ def main() -> int:
     # 3. house: the small-scene route
     ds, env, cam = scene_setup("house", dev, sky)
     small = loop_state(ds, env, cam, 256, 0, 3)
-    max_err["trace"] = check_parity("trace", 256 * 256, cw.trace_call(*small["trace"]),
-                                    cw.trace_plain(*small["trace"]), cw.TRACE_INT_NAMES)
+    trace_parity("house", 256 * 256, small["trace"], max_err)
     max_err["shade"] = check_parity("shade", 256 * 256, shade_outputs(cw.shade_call(*small["shade"])),
                                     shade_outputs(cw.shade_plain(*small["shade"])), cw.SHADE_INT_NAMES)
     sweep_parity(small["trace"], 256 * 256, max_err)
@@ -503,20 +525,24 @@ def main() -> int:
         raise AssertionError("the house main path did not launch TRACE and SHADE once an iteration")
     save_png("house", image, counts, warm)
     split("house", ds, env, cam, counts, card)
+    no_gather("house", ds, env, cam, counts, card)
     main_args = loop_state(ds, env, cam, SIZE, 0, 0, kernel_iterations=2)
-    max_err["trace"] = max(max_err["trace"], check_parity(
-        "trace", n_pixels, cw.trace_call(*main_args["trace"]), cw.trace_plain(*main_args["trace"]),
-        cw.TRACE_INT_NAMES))
+    trace_parity("house", n_pixels, main_args["trace"], max_err)
     max_err["shade"] = max(max_err["shade"], check_parity(
         "shade", n_pixels, shade_outputs(cw.shade_call(*main_args["shade"])),
         shade_outputs(cw.shade_plain(*main_args["shade"])), cw.SHADE_INT_NAMES))
     prims = sweep_ops(ds)
+    calls, shadow_rays = sweep_calls(main_args["trace"])
+    shadow_ops = first_hit_ops(ds, shadow_rays)
     for name, kfn, pfn, n_bytes, n_ops in (
-        # TRACE: 14 inputs and 26 outputs of 4 bytes; the operations of the
-        # closest sweep over every primitive (the shadow sweep, which stops
-        # at its first hit, and the BSDF are left out: the bound stays a
+        # TRACE: 7 carry inputs of 4 bytes, the alias and quad rows of 16,
+        # 26 outputs of 4 bytes and the quad row; the closest sweep over
+        # every primitive and the shadow sweep up to each lane's first hit
+        # (the alias draw, uv math and BSDF are left out: the bound stays a
         # lower bound)
-        ("trace", cw.trace_call, cw.trace_plain, n_pixels * 40 * 4, n_pixels * prims),
+        ("trace", cw.trace_call, cw.trace_plain,
+         n_pixels * (4 * len(cw.TRACE_CARRY_IN) + 16 + 16 + 4 * (len(cw.TRACE_OUT_NAMES) - 1) + 16),
+         n_pixels * prims + shadow_ops),
         # SHADE: its per-lane inputs, the 4-word quad row and 22 outputs
         ("shade", cw.shade_call, cw.shade_plain,
          n_pixels * 4 * (len(cw.SHADE_IN) + 4 + len(cw.SHADE_OUT_NAMES)), 0),
@@ -536,8 +562,6 @@ def main() -> int:
     # 16 outputs of 4 bytes a lane; the closest sweep's operations over
     # every primitive, the occlusion sweep's up to each lane's first hit
     sweep_parity(main_args["trace"], n_pixels, max_err)
-    calls, shadow_rays = sweep_calls(main_args["trace"])
-    shadow_ops = first_hit_ops(ds, shadow_rays)
     for name, n_bytes, n_ops in (
         ("closest", n_pixels * 9 * 4, n_pixels * prims),
         ("any", n_pixels * 7 * 4, shadow_ops),

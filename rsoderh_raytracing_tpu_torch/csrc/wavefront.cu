@@ -2,11 +2,17 @@
 // wavefront iteration.
 //
 // TRACE replaces the Pallas kernel rsoderh_raytracing_tpu/ops/
-// pallas_wavefront.py:_trace_kernel (trace_call, pallas_call at :775):
-// closest sweep over every sphere, plane and triangle (strict <, sphere ->
-// plane -> triangle priority), winner normal and material, the NEE shadow
-// sweep from the hit point, the NEE BSDF eval/pdf, the cosine or GGX-VNDF
-// bounce sample (2 RNG draws, error sentinels) and the quad-row index.
+// pallas_wavefront.py:_trace_kernel (trace_call, pallas_call at :775)
+// together with the XLA glue around it (render/wavefront.py:928-938 and
+// its quad-row take): the alias-table draw of the NEE texel (4 RNG draws,
+// one 16-byte alias row), the NEE direction, closest sweep over every
+// sphere, plane and triangle (strict <, sphere -> plane -> triangle
+// priority), winner normal and material, the NEE shadow sweep from the hit
+// point, the NEE BSDF eval/pdf, the cosine or GGX-VNDF bounce sample (2
+// RNG draws, error sentinels), the miss uv and the 16-byte quad row at the
+// fused uv. The TPU version left the draw, the uv math and both row reads
+// to XLA because Mosaic had no dynamic gather; here a lane reads its two
+// rows with __ldg, one 32-byte sector each.
 // SHADE replaces pallas_wavefront.py:_shade_kernel/_shade_core
 // (shade_call, pallas_call at :840): RGBE bilinear radiance, the texel
 // pmf, MIS, emission, film, termination and regeneration.
@@ -25,17 +31,20 @@
 // BIG_SHADE share shade_core (wavefront_common.cuh), so they cannot drift
 // apart.
 //
-// What bounds them on the H100. TRACE reads 14 and writes 26 four-byte
-// values a lane (160 B) and runs about 2 x 72 primitive tests a lane for
-// house; SHADE reads 53 and writes 22 (300 B) with little arithmetic, so
-// it is bound by device memory bandwidth. BIG_SHADE reads 43 four-byte
-// values, the 16-byte quad row and one 80-byte winner row (a random row
-// of a table that sits in L2) and writes 22: about 340 B a lane, also
-// bound by bandwidth. This first version trades speed for parity with the
-// plain PyTorch twins (ops/cuda_wavefront.py): it keeps the Pallas twins'
-// intermediate arrays and is built with -fmad=false so its float results
-// follow the same roundings as the unfused PyTorch ops. Fusing the glue
-// into the kernels, and dropping the intermediate arrays, is later work.
+// What bounds them on the H100. TRACE reads 7 four-byte values and two
+// 16-byte rows and writes 26 four-byte values and a 16-byte row a lane
+// (180 B) and runs the closest sweep over every primitive plus the
+// shadow sweep up to its first hit (5,009 operations a lane on house), so
+// it is bound by operations; the shared sweep rejects a primitive by a
+// division-free pre-test before its divisions (wavefront_common.cuh).
+// SHADE reads 53 and writes 22 (300 B) with little arithmetic, so it is
+// bound by device memory bandwidth. BIG_SHADE reads 43 four-byte values,
+// the 16-byte quad row and one 80-byte winner row (a random row of a table
+// that sits in L2) and writes 22: about 340 B a lane, also bound by
+// bandwidth. The kernels are built with -fmad=false so their float
+// results follow the same roundings as the unfused PyTorch ops of their
+// plain twins (ops/cuda_wavefront.py); TRACE's alias index, NEE pmf and
+// quad row are bitwise its plain version's.
 
 #include <cstdint>
 #include <cstring>
@@ -47,8 +56,11 @@ using namespace rt;
 
 namespace {
 
+constexpr int kThreads = 256;
+
+// The carry's ray and RNG state in; the 27 outputs (TRACE_OUT_NAMES) out.
 struct TraceArgs {
-  const float *ox, *oy, *oz, *dx, *dy, *dz, *sx, *sy, *sz, *nu, *nv, *mu, *mv;
+  const float *ox, *oy, *oz, *dx, *dy, *dz;
   const uint32_t* state;
   int32_t *hit, *occ;
   float *px, *py, *pz, *er, *eg, *eb, *ct, *ns0, *ns1, *ns2, *npdf;
@@ -56,32 +68,69 @@ struct TraceArgs {
   int32_t* bz;
   float* cb;
   uint32_t* state_out;
-  int32_t* qidx;
-  float *fu, *fv;
+  float *fu, *fv, *nee_pmf;
+  uint4* quad_out;
 };
 
-__global__ void trace_kernel(TraceArgs a, const float* __restrict__ table, int table_len, int n,
-                             int n_sph, int n_pln, int n_tri, int n_mat, int env_w, int env_h) {
+// The environment TRACE reads: (W*H) alias rows [probability,
+// alias_index bits, pmf_self, pmf_alias] and RGBE quad rows, 16 bytes each.
+struct EnvRows {
+  const float4* alias;
+  const uint4* quad;
+  int w, h;
+};
+
+// ops/envmap.py:direction_to_equirect_uv and equirect_uv_to_direction, with
+// the reference shader's truncated PI.
+constexpr float INV_PI_HALF = (float)((1.0 / PI_D) * 0.5);
+constexpr float INV_PI_F = (float)(1.0 / PI_D);
+
+// Six blocks of 256 a multiprocessor cap TRACE at 40 registers (69
+// unbounded): it spills some 136 bytes a thread, yet at the occupancy this
+// buys it ran 5.7% faster on an H100 (PERF.md, PR 5).
+__global__ void __launch_bounds__(kThreads, 6)
+    trace_kernel(TraceArgs a, const float* __restrict__ table, int table_len, int n, int n_sph,
+                 int n_pln, int n_tri, int n_mat, EnvRows env) {
   extern __shared__ float smem[];
   const SceneView s = stage_scene(smem, table, table_len, n_sph, n_pln, n_tri, n_mat);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
 
+  // The alias draw (envmap.sample_alias_index): index, accept, jitter x,
+  // jitter y. Column 1 of the alias row holds the alias index's bits.
+  uint32_t state = a.state[i];
+  const int length = env.w * env.h;
+  int index = min(__float2int_rz(rng_uniform(state) * (float)length), length - 1);
+  const float u_accept = rng_uniform(state);
+  const float4 pair = __ldg(env.alias + index);
+  const bool keep = u_accept < pair.x;
+  index = keep ? index : __float_as_int(pair.y);
+  const float nee_pmf = keep ? pair.z : pair.w;
+  const float jitter_x = rng_uniform(state);
+  const float jitter_y = rng_uniform(state);
+  const float nu = ((float)(index % env.w) + jitter_x) / (float)env.w;
+  const float nv = ((float)(index / env.w) + jitter_y) / (float)env.h;
+  // the NEE direction at (nu, nv)
+  const float phi = (2.0f * nu - 1.0f) * PI_F;
+  const float theta = PI_F * nv;
+  const float sin_theta = sinf(theta);
+  const V3 nee{sin_theta * cosf(phi), cosf(theta), sin_theta * sinf(phi)};
+
   const Ray r{a.ox[i], a.oy[i], a.oz[i], a.dx[i], a.dy[i], a.dz[i]};
   const V3 rd{r.dx, r.dy, r.dz};
-  const V3 nee{a.sx[i], a.sy[i], a.sz[i]};
   const TraceAttrs t = trace_attrs(s, r, nee);
   const bool did_hit = t.did_hit;
   const float px = t.px, py = t.py, pz = t.pz;
   const float* mp = t.mat;
   const V3 color{mp[0], mp[1], mp[2]};
 
-  uint32_t state = a.state[i];
   const Epilogue e = trace_epilogue(rd, nee, t.normal, color, mp[3], mp[4], state);
 
-  // quad fetch index at the fused uv
-  const float fu = did_hit ? a.nu[i] : a.mu[i];
-  const float fv = did_hit ? a.nv[i] : a.mv[i];
+  // the fused uv: the NEE sample's on a hit, the escaped ray's on a miss;
+  // then its quad row
+  const float fu = did_hit ? nu : atan2f(r.dz, r.dx) * INV_PI_HALF + 0.5f;
+  const float fv = did_hit ? nv : 0.5f - asinf(minn(maxn(r.dy, -1.0f), 1.0f)) * INV_PI_F;
+  a.quad_out[i] = __ldg(env.quad + quad_x0(fv, env.h) * env.w + quad_x0(fu, env.w));
 
   a.hit[i] = did_hit ? 1 : 0;
   a.occ[i] = t.occ ? 1 : 0;
@@ -106,9 +155,9 @@ __global__ void trace_kernel(TraceArgs a, const float* __restrict__ table, int t
   a.bz[i] = e.bs.zero_dir ? 1 : 0;
   a.cb[i] = e.cos_bounce;
   a.state_out[i] = state;
-  a.qidx[i] = quad_x0(fv, env_h) * env_w + quad_x0(fu, env_w);
   a.fu[i] = fu;
   a.fv[i] = fv;
+  a.nee_pmf[i] = nee_pmf;
 }
 
 // The carry and loop-invariant lanes SHADE and BIG_SHADE read; field
@@ -149,7 +198,7 @@ struct CarryIn {
 };
 
 struct ShadeArgs {
-  const uint4* quad;  // (n, 4) RGBE words at tr.qidx
+  const uint4* quad;  // (n, 4) RGBE words: TRACE's quad row at the fused uv
   // trace products
   const int32_t *hit, *occ;
   const float *px, *py, *pz, *er, *eg, *eb, *ct, *ns0, *ns1, *ns2, *npdf;
@@ -283,18 +332,17 @@ __global__ void big_shade_kernel(BigShadeArgs a, const float* __restrict__ wtabl
   shade_core(i, in, a.c.scal, k, a.o);
 }
 
-constexpr int kThreads = 256;
-
-
 }  // namespace
 
 extern "C" {
 
-// p: 40 device pointers, TraceArgs field order (13 f32 inputs, the u32
-// state, then the 26 outputs in TRACE_OUT_NAMES order).
+// p: 34 device pointers, TraceArgs field order (6 f32 ray inputs, the u32
+// state, then the 27 outputs in TRACE_OUT_NAMES order); alias and quad:
+// the environment's (env_w * env_h, 4) rows.
 int rt_trace_launch(void** p, const float* table, int table_len, int n, int n_sph, int n_pln,
-                    int n_tri, int n_mat, int env_w, int env_h, void* stream) {
-  static_assert(sizeof(TraceArgs) == 40 * sizeof(void*), "TraceArgs layout");
+                    int n_tri, int n_mat, const void* alias, const void* quad, int env_w,
+                    int env_h, void* stream) {
+  static_assert(sizeof(TraceArgs) == 34 * sizeof(void*), "TraceArgs layout");
   TraceArgs a;
   memcpy(&a, p, sizeof(a));
   if (n <= 0) return 0;
@@ -304,8 +352,9 @@ int rt_trace_launch(void** p, const float* table, int table_len, int n, int n_sp
         trace_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
+  const EnvRows env{(const float4*)alias, (const uint4*)quad, env_w, env_h};
   trace_kernel<<<(n + kThreads - 1) / kThreads, kThreads, smem, (cudaStream_t)stream>>>(
-      a, table, table_len, n, n_sph, n_pln, n_tri, n_mat, env_w, env_h);
+      a, table, table_len, n, n_sph, n_pln, n_tri, n_mat, env);
   return (int)cudaGetLastError();
 }
 

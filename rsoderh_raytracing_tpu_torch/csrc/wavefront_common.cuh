@@ -357,12 +357,31 @@ struct SceneView {
   int n_sph, n_pln, n_tri, n_mat;
 };
 
+// The triangle pre-test's margins (modelled, with the same constants, by
+// ops/intersect.py:prefilter_hits): a relative widening of 2^-20 of |det|
+// on the u and v bounds and a t floor of TRI_T_EPS * (1 - 2^-20), rounded
+// down. The divided test's roundings move u, v and t by a few 2^-24
+// relative, and an underflow to -0 passes u >= 0 at |un| < 2^-149 |det|,
+// so a primitive the divided test accepts always passes (PERF.md, PR 5).
+constexpr float TRI_PRE_MARGIN = 0x1p-20f;
+constexpr float TRI_PRE_ONE = 0x1.00001p+0f;      // 1 + 2^-20
+constexpr float TRI_PRE_T_EPS = 0x1.4f8b44p-17f;  // f32(1e-5 * (1 - 2^-20))
+
 // pallas_intersect._sweep_body, one lane: strict <, sphere -> plane ->
 // triangle, index order. With any_only, returns at the first hit closer
 // than INF (the occlusion test needs no winner). The primitive tests are
 // written out here rather than through sphere_hit/tri_hit above (the same
 // arithmetic): built on those helpers, TRACE ran 4.5% slower on the H100
 // at equal registers (PERF.md).
+//
+// Each test first runs a division-free pre-test that every ray the exact
+// test accepts passes (sphere: disc >= 0; plane: |denom| >= eps and the t
+// numerator's sign against the denominator's; triangle: the sign-scaled
+// u, v, t numerators of tri_occluded within the margins above; and the
+// valid flag), and only then the divisions, square root and the exact
+// test of pallas_intersect. The exact test's operands are computed as
+// before, so hits, t, type and index are bitwise what they were; a warp
+// whose rays all fail the pre-test skips the divisions.
 __device__ __forceinline__ void sweep(const SceneView& s, const Ray& r, bool any_only,
                                       float& best_t, int& best_type, int& best_idx) {
   const float ox = r.ox, oy = r.oy, oz = r.oz, dx = r.dx, dy = r.dy, dz = r.dz;
@@ -382,14 +401,14 @@ __device__ __forceinline__ void sweep(const SceneView& s, const Ray& r, bool any
     float b = 2.0f * (d_dot_o - (dx * cx + dy * cy + dz * cz));
     float c = o_dot_o - 2.0f * (ox * cx + oy * cy + oz * cz) + p[3];
     float disc = b * b - 4.0f * a_q * c;
+    if (!((disc >= 0.0f) && (p[6] > 0.0f))) continue;
     float sq = sqrtf(maxn(disc, 0.0f));
     float q = b > 0.0f ? -0.5f * (b + sq) : -0.5f * (b - sq);
     float t0 = q / a_q;
     float t1 = c / (q == 0.0f ? 1.0f : q);
     float t = t0 < SPHERE_EPS ? t1 : (t1 < SPHERE_EPS ? t0 : minn(t0, t1));
     if (disc == 0.0f) t = -0.5f * b / a_q;
-    bool hit = (disc >= 0.0f) && (t >= SPHERE_EPS) && (p[6] > 0.0f);
-    if (hit && t < best_t) {
+    if (t >= SPHERE_EPS && t < best_t) {
       best_t = t;
       best_type = 0;
       best_idx = i;
@@ -400,12 +419,15 @@ __device__ __forceinline__ void sweep(const SceneView& s, const Ray& r, bool any
     const float* p = s.pln + i * PLN_COLS;
     const float nx = p[0], ny = p[1], nz = p[2];
     float denom = dx * nx + dy * ny + dz * nz;
-    bool ok = fabsf(denom) >= PLANE_DENOM_EPS;
-    float t = (p[3] - (ox * nx + oy * ny + oz * nz)) / (ok ? denom : 1.0f);
+    float num = p[3] - (ox * nx + oy * ny + oz * nz);
+    // t >= PLANE_T_EPS > 0 needs num and denom nonzero and of one sign
+    if (!((fabsf(denom) >= PLANE_DENOM_EPS) && (denom > 0.0f ? num > 0.0f : num < 0.0f) &&
+          (p[13] > 0.0f)))
+      continue;
+    float t = num / denom;
     float px = (ox * p[4] + oy * p[5] + oz * p[6]) + t * (dx * p[4] + dy * p[5] + dz * p[6]) - p[10];
     float pz = (ox * p[7] + oy * p[8] + oz * p[9]) + t * (dx * p[7] + dy * p[8] + dz * p[9]) - p[11];
-    bool hit = ok && (t >= PLANE_T_EPS) && (px >= 0.0f) && (px <= 1.0f) && (pz >= 0.0f) &&
-               (pz <= 1.0f) && (p[13] > 0.0f);
+    bool hit = (t >= PLANE_T_EPS) && (px >= 0.0f) && (px <= 1.0f) && (pz >= 0.0f) && (pz <= 1.0f);
     if (hit && t < best_t) {
       best_t = t;
       best_type = 1;
@@ -416,13 +438,22 @@ __device__ __forceinline__ void sweep(const SceneView& s, const Ray& r, bool any
   for (int i = 0; i < s.n_tri; ++i) {
     const float* p = s.tri + i * TRI_COLS;
     float det = dx * p[0] + dy * p[1] + dz * p[2];
-    bool ok = fabsf(det) >= TRI_DET_EPS;
-    float inv = 1.0f / (ok ? det : 1.0f);
-    float u = ((mx * p[6] + my * p[7] + mz * p[8]) + (dx * p[9] + dy * p[10] + dz * p[11])) * inv;
-    float v = -((mx * p[3] + my * p[4] + mz * p[5]) + (dx * p[12] + dy * p[13] + dz * p[14])) * inv;
-    float t = ((ox * p[15] + oy * p[16] + oz * p[17]) - p[18]) * inv;
-    bool hit = ok && (u >= 0.0f) && (u <= 1.0f) && (v >= 0.0f) && (u + v <= 1.0f) &&
-               (t >= TRI_T_EPS) && (p[19] > 0.0f);
+    float un = (mx * p[6] + my * p[7] + mz * p[8]) + (dx * p[9] + dy * p[10] + dz * p[11]);
+    float vn = -((mx * p[3] + my * p[4] + mz * p[5]) + (dx * p[12] + dy * p[13] + dz * p[14]));
+    float tn = (ox * p[15] + oy * p[16] + oz * p[17]) - p[18];
+    float adet = fabsf(det);
+    float us = det < 0.0f ? -un : un;
+    float vs = det < 0.0f ? -vn : vn;
+    float ts = det < 0.0f ? -tn : tn;
+    if (!((adet >= TRI_DET_EPS) && (us >= -TRI_PRE_MARGIN * adet) && (us <= TRI_PRE_ONE * adet) &&
+          (vs >= -TRI_PRE_MARGIN * adet) && (us + vs <= TRI_PRE_ONE * adet) &&
+          (ts >= TRI_PRE_T_EPS * adet) && (p[19] > 0.0f)))
+      continue;
+    float inv = 1.0f / det;
+    float u = un * inv;
+    float v = vn * inv;
+    float t = tn * inv;
+    bool hit = (u >= 0.0f) && (u <= 1.0f) && (v >= 0.0f) && (u + v <= 1.0f) && (t >= TRI_T_EPS);
     if (hit && t < best_t) {
       best_t = t;
       best_type = 2;

@@ -115,7 +115,7 @@ def load(flags=NVCC_FLAGS):
     vp, i = ctypes.c_void_p, ctypes.c_int
     u = ctypes.c_uint32
     signatures = {
-        "rt_trace_launch": [vp, vp, i, i, i, i, i, i, i, i, vp],
+        "rt_trace_launch": [vp, vp, i, i, i, i, i, i, vp, vp, i, i, vp],
         "rt_shade_launch": [vp, i, i, i, i, i, i, u, u, u, u, u, vp],
         "rt_big_shade_launch": [vp, vp, vp, i, i, i, i, i, i, i, i, i, u, u, u, u, u, vp],
         "rt_chunked_closest_launch": [vp, vp, i, i, i, vp, vp, i, i, vp, vp, vp, i, vp],

@@ -4,29 +4,31 @@ iteration.
 Counterpart of rsoderh_raytracing_tpu/ops/pallas_wavefront.py. One
 iteration of the small-scene path is
 
-  [glue, plain PyTorch: alias draw, NEE uv/direction, miss uv]
-  [TRACE kernel: closest sweep + winner attributes + materials + shadow
-        sweep + NEE BSDF eval/pdf + bounce sample + quad-row index]
-  [glue: ONE quad-row gather]
+  [TRACE kernel: alias draw of the NEE texel (one 16-byte alias row),
+        NEE direction, closest sweep + winner attributes + materials +
+        shadow sweep + NEE BSDF eval/pdf + bounce sample, miss uv, and the
+        16-byte quad row at the fused uv]
   [SHADE kernel: RGBE bilinear + pmf + MIS + film + termination +
         regeneration]
 
 and of the big-mesh path (render/wavefront.py)
 
-  [glue] [CHUNKED_CLOSEST] [glue: hit point] [CHUNKED_ANY]
-  [glue: fused uv, ONE quad-row gather]
+  [glue: alias draw, NEE and miss uv] [CHUNKED_CLOSEST] [glue: hit point]
+  [CHUNKED_ANY] [glue: fused uv, ONE quad-row gather]
   [BIG_SHADE kernel: the winner's union row (scene.chunks.winner), its normal
         and material, trace_epilogue, the SHADE core]
 
-``trace_call``, ``shade_call`` and ``big_shade_call`` keep the Pallas
-twins' inputs and outputs (the 26 TRACE_OUT_NAMES, 22 SHADE_OUT_NAMES),
-as flat (n,) tensors per component; BIG_SHADE takes the winner's (type,
-index) and reads its row itself instead of the Pallas call's 19 slot
-arrays. u32 values (RNG state, sample counts, pixel ids) travel as int32
-bit patterns. For CPU tensors the wrappers run the plain versions
-``trace_plain`` / ``shade_plain`` / ``big_shade_plain``; for CUDA tensors
-they launch the kernels in ``csrc/wavefront.cu`` or raise. ``LAUNCHES``
-counts the kernel launches of each wrapper.
+``trace_call`` takes the carried ray and RNG state and the environment and
+returns the Pallas twin's outputs (TRACE_OUT_NAMES) without its quad-row
+index, plus the NEE pmf and the quad row itself; ``shade_call`` and
+``big_shade_call`` keep the Pallas twins' inputs and outputs (the 22
+SHADE_OUT_NAMES), as flat (n,) tensors per component; BIG_SHADE takes the
+winner's (type, index) and reads its row itself instead of the Pallas
+call's 19 slot arrays. u32 values (RNG state, sample counts, pixel ids)
+travel as int32 bit patterns. For CPU tensors the wrappers run the plain
+versions ``trace_plain`` / ``shade_plain`` / ``big_shade_plain``; for CUDA
+tensors they launch the kernels in ``csrc/wavefront.cu`` or raise.
+``LAUNCHES`` counts the kernel launches of each wrapper.
 """
 
 from __future__ import annotations
@@ -44,9 +46,11 @@ TRACE_OUT_NAMES = (
     "hit", "occ", "px", "py", "pz", "er", "eg", "eb",
     "ct", "ns0", "ns1", "ns2", "npdf",
     "bd0", "bd1", "bd2", "bpdf", "bs0", "bs1", "bs2", "bz", "cb",
-    "state", "qidx", "fu", "fv",
+    "state", "fu", "fv", "nee_pmf", "quad",
 )
-TRACE_INT_NAMES = ("hit", "occ", "bz", "state", "qidx")
+TRACE_INT_NAMES = ("hit", "occ", "bz", "state", "quad")
+# TRACE's inputs from the carry (4 bytes a lane each).
+TRACE_CARRY_IN = ("ro0", "ro1", "ro2", "rd0", "rd1", "rd2", "state")
 
 SHADE_OUT_NAMES = (
     "state", "ro0", "ro1", "ro2", "rd0", "rd1", "rd2",
@@ -69,10 +73,18 @@ def reset_launches():
 # -- plain versions -------------------------------------------------------------
 
 
-def trace_plain(scene, env_w, env_h, ro, rd, nee_dir, nee_uv, miss_uv, state):
-    """Plain PyTorch TRACE. ro/rd/nee_dir: 3-tuples of (n,) f32;
-    nee_uv/miss_uv: 2-tuples; state: (n,) int32 u32 bits. Returns the 26
-    outputs by name."""
+def trace_plain(scene, env, carry):
+    """Plain PyTorch TRACE: the glue of the Pallas version's caller
+    (envmap.trace_glue), the Pallas body and the quad-row gather, in that
+    order. carry: the loop state by CARRY_NAMES
+    (TRACE reads TRACE_CARRY_IN); env: an RGBE DeviceEnvironment. Returns
+    the outputs by TRACE_OUT_NAMES: (n,) tensors, the quad row (n, 4)
+    int32."""
+    env_h, env_w = env.texture_shape
+    ro = (carry["ro0"], carry["ro1"], carry["ro2"])
+    rd = (carry["rd0"], carry["rd1"], carry["rd2"])
+    state, nee_u, nee_v, nee_pmf, nee_dir, miss_u, miss_v = envmap.trace_glue(
+        rng.from_bits(carry["state"]), env, *rd)
     a = intersect.trace_attrs(scene, *ro, *rd, *nee_dir)
     did_hit = a["did_hit"]
     (
@@ -80,10 +92,10 @@ def trace_plain(scene, env_w, env_h, ro, rd, nee_dir, nee_uv, miss_uv, state):
         cos_bounce,
     ) = bsdf.trace_epilogue(
         rd, nee_dir, (a["nx"], a["ny"], a["nz"]), (a["cr"], a["cg"], a["cb"]),
-        a["rough"], a["metal"], rng.from_bits(state),
+        a["rough"], a["metal"], state,
     )
-    fu = torch.where(did_hit, nee_uv[0], miss_uv[0])
-    fv = torch.where(did_hit, nee_uv[1], miss_uv[1])
+    fu = torch.where(did_hit, nee_u, miss_u)
+    fv = torch.where(did_hit, nee_v, miss_v)
     out = dict(
         hit=did_hit.to(torch.int32), occ=a["occ"].to(torch.int32),
         px=a["px"], py=a["py"], pz=a["pz"],
@@ -93,9 +105,8 @@ def trace_plain(scene, env_w, env_h, ro, rd, nee_dir, nee_uv, miss_uv, state):
         bd0=bdir[0], bd1=bdir[1], bd2=bdir[2], bpdf=bpdf,
         bs0=bscat[0], bs1=bscat[1], bs2=bscat[2],
         bz=bzero.to(torch.int32), cb=cos_bounce,
-        state=rng.to_bits(st),
-        qidx=envmap.quad_index(fu, fv, env_w, env_h).to(torch.int32),
-        fu=fu, fv=fv,
+        state=rng.to_bits(st), fu=fu, fv=fv, nee_pmf=nee_pmf,
+        quad=env.quad.index_select(0, envmap.quad_index(fu, fv, env_w, env_h)),
     )
     return {k: v.contiguous() for k, v in out.items()}
 
@@ -107,7 +118,7 @@ def shade_plain(
 ):
     """Plain PyTorch SHADE (pallas_wavefront._shade_core).
 
-    qwords: (n, 4) int32 RGBE words of the quad row at tr["qidx"] (or,
+    qwords: (n, 4) int32 RGBE words of the quad row at the fused uv (or,
     from the composed wavefront body, (n, 16) legacy float rows);
     tr: trace outputs (flags int32 or bool); carry: the loop state by
     CARRY_NAMES; pixel_index
@@ -272,11 +283,22 @@ def _raise_on(rc, what):
         raise RuntimeError(f"{what} launch failed: {_kernels.error_string(rc)}")
 
 
-def trace_call(scene, env_w, env_h, ro, rd, nee_dir, nee_uv, miss_uv, state):
-    """TRACE over flat (n,) component tensors; returns the 26 outputs by
-    name. CPU tensors: trace_plain. CUDA tensors: the kernel."""
+def _check_rows(name, t, n, dtype, device):
+    if t.device != device or t.dtype != dtype or t.shape != (n, 4) or not t.is_contiguous():
+        raise ValueError(
+            f"{name}: expected contiguous ({n}, 4) {dtype} on {device}, got "
+            f"{tuple(t.shape)} {t.dtype} on {t.device}"
+        )
+
+
+def trace_call(scene, env, carry):
+    """TRACE over the carry's flat (n,) ray and state tensors and the RGBE
+    environment `env`; returns the outputs by TRACE_OUT_NAMES. CPU
+    tensors: trace_plain. CUDA tensors: the kernel, which reads the alias
+    and quad rows itself."""
+    state = carry["state"]
     if state.device.type == "cpu":
-        return trace_plain(scene, env_w, env_h, ro, rd, nee_dir, nee_uv, miss_uv, state)
+        return trace_plain(scene, env, carry)
     if state.device.type != "cuda":
         raise ValueError(f"trace_call: unsupported device {state.device}")
     if scene.num_lanes > MAX_UNROLL_PRIMS:
@@ -288,21 +310,25 @@ def trace_call(scene, env_w, env_h, ro, rd, nee_dir, nee_uv, miss_uv, state):
 
     n = state.shape[0]
     dev = state.device
-    ins = (*ro, *rd, *nee_dir, *nee_uv, *miss_uv)
-    for i, t in enumerate(ins):
-        _check(f"trace input {i}", t, n, torch.float32, dev)
-    _check("state", state, n, torch.int32, dev)
+    env_h, env_w = env.texture_shape
+    _check_rows("env.alias_pair", env.alias_pair, env_w * env_h, torch.float32, dev)
+    _check_rows("env.quad (the RGBE layout)", env.quad, env_w * env_h, torch.int32, dev)
+    ins = tuple(carry[k] for k in TRACE_CARRY_IN)
+    for name, t in zip(TRACE_CARRY_IN, ins):
+        _check(name, t, n, torch.int32 if name == "state" else torch.float32, dev)
     outs = {
         k: torch.empty(n, device=dev, dtype=torch.int32 if k in TRACE_INT_NAMES else torch.float32)
-        for k in TRACE_OUT_NAMES
+        for k in TRACE_OUT_NAMES if k != "quad"
     }
+    outs["quad"] = torch.empty((n, 4), device=dev, dtype=torch.int32)
     table = scene.trace_table
     rc = _kernels.library().rt_trace_launch(
-        _ptrs((*ins, state) + tuple(outs[k] for k in TRACE_OUT_NAMES)),
+        _ptrs(ins + tuple(outs[k] for k in TRACE_OUT_NAMES)),
         table.data_ptr(), table.numel(), n,
         scene.sph_radius.shape[0], scene.pln_valid.shape[0],
         scene.tri_valid.shape[0], scene.mat_roughness.shape[0],
-        env_w, env_h, torch.cuda.current_stream(dev).cuda_stream,
+        env.alias_pair.data_ptr(), env.quad.data_ptr(), env_w, env_h,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, "TRACE")
     LAUNCHES["trace"] += 1
@@ -374,8 +400,7 @@ def shade_call(
 
 
 def _shade_lane_checks(n, dev, qwords, scal):
-    if qwords.shape != (n, 4) or qwords.dtype != torch.int32 or not qwords.is_contiguous() or qwords.device != dev:
-        raise ValueError("qwords: expected contiguous (n, 4) int32 on the device")
+    _check_rows("qwords", qwords, n, torch.int32, dev)
     if scal.shape != (16,) or scal.dtype != torch.float32 or scal.device != dev:
         raise ValueError("scal: expected (16,) float32 on the device")
 

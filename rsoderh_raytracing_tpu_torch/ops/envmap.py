@@ -85,6 +85,18 @@ def sample_alias_index(state: torch.Tensor, env: DeviceEnvironment):
     return state, index, u, v, pmf
 
 
+def trace_glue(state: torch.Tensor, env: DeviceEnvironment, dx, dy, dz):
+    """What one wavefront iteration computes from the environment before
+    its sweeps (reference render/wavefront.py:928-938): the alias draw
+    from int64 ``state``, its NEE uv and direction, and the uv of the ray
+    (dx, dy, dz) should it escape. Returns (state, nee_u, nee_v, nee_pmf,
+    nee_dir, miss_u, miss_v)."""
+    state, _, nee_u, nee_v, nee_pmf = sample_alias_index(state, env)
+    nee_dir = equirect_uv_to_direction(nee_u, nee_v)
+    miss_u, miss_v = direction_to_equirect_uv(dx, dy, dz)
+    return state, nee_u, nee_v, nee_pmf, nee_dir, miss_u, miss_v
+
+
 def _quad_texels(q):
     """The four texels (c00, c10, c01, c11) of gathered quad rows, each
     an (r, g, b) tuple: decoded RGBE words, or the radiance columns of a

@@ -56,15 +56,29 @@ def _cols(field, lo, hi):
     return tuple(field[lo:hi, c][None, :] for c in range(3))
 
 
+def _sphere_terms(scene, lo, hi, r):
+    """b, c and the discriminant of the sphere test's q-form."""
+    ox, oy, oz, dx, dy, dz = r["o"] + r["d"]
+    cx, cy, cz = _cols(scene.sph_pos, lo, hi)
+    b = 2.0 * (r["d_dot_o"] - (dx * cx + dy * cy + dz * cz))
+    c = r["o_dot_o"] - 2.0 * (ox * cx + oy * cy + oz * cz) + scene.sph_c2[None, lo:hi]
+    return b, c, b * b - 4.0 * r["a_q"] * c
+
+
+def _plane_terms(scene, lo, hi, r):
+    """The plane test's denominator and t numerator."""
+    ox, oy, oz, dx, dy, dz = r["o"] + r["d"]
+    nx, ny, nz = _cols(scene.pln_normal, lo, hi)
+    denom = dx * nx + dy * ny + dz * nz
+    return denom, scene.pln_ndotp[None, lo:hi] - (ox * nx + oy * ny + oz * nz)
+
+
 def _hits(scene, kind, lo, hi, r):
     """(t, hit) of lanes r (a dict of (nb, 1) ray terms) against
     primitives lo:hi of one kind, each (nb, k)."""
     ox, oy, oz, dx, dy, dz = r["o"] + r["d"]
     if kind == SPHERE:
-        cx, cy, cz = _cols(scene.sph_pos, lo, hi)
-        b = 2.0 * (r["d_dot_o"] - (dx * cx + dy * cy + dz * cz))
-        c = r["o_dot_o"] - 2.0 * (ox * cx + oy * cy + oz * cz) + scene.sph_c2[None, lo:hi]
-        disc = b * b - 4.0 * r["a_q"] * c
+        b, c, disc = _sphere_terms(scene, lo, hi, r)
         sq = torch.sqrt(torch.clamp_min(disc, 0.0))
         q = torch.where(b > 0, -0.5 * (b + sq), -0.5 * (b - sq))
         t0 = q / r["a_q"]
@@ -77,14 +91,11 @@ def _hits(scene, kind, lo, hi, r):
         t = torch.where(disc == 0.0, -0.5 * b / r["a_q"], t)
         return t, (disc >= 0.0) & (t >= SPHERE_EPS) & scene.sph_valid[None, lo:hi]
     if kind == PLANE:
-        nx, ny, nz = _cols(scene.pln_normal, lo, hi)
         r0 = _cols(scene.pln_r0, lo, hi)
         r2 = _cols(scene.pln_r2, lo, hi)
-        denom = dx * nx + dy * ny + dz * nz
+        denom, num = _plane_terms(scene, lo, hi, r)
         ok = torch.abs(denom) >= PLANE_DENOM_EPS
-        t = (scene.pln_ndotp[None, lo:hi] - (ox * nx + oy * ny + oz * nz)) / torch.where(
-            ok, denom, 1.0
-        )
+        t = num / torch.where(ok, denom, 1.0)
         px = (
             (ox * r0[0] + oy * r0[1] + oz * r0[2])
             + t * (dx * r0[0] + dy * r0[1] + dz * r0[2])
@@ -111,6 +122,40 @@ def _hits(scene, kind, lo, hi, r):
         & (t >= TRI_T_EPS) & scene.tri_valid[None, lo:hi]
     )
     return t, hit
+
+
+# The CUDA sweep's division-free pre-test (csrc/wavefront_common.cuh:
+# sweep, TRI_PRE_*): a relative widening of 2^-20 of |det| on the u and v
+# bounds, and a t floor of f32(1e-5 * (1 - 2^-20)).
+TRI_PRE_MARGIN = 2.0**-20
+TRI_PRE_ONE = 1.0 + 2.0**-20
+TRI_PRE_T_EPS = float.fromhex("0x1.4f8b44p-17")
+
+
+def prefilter_hits(scene, kind, lo, hi, r):
+    """The pre-test that the CUDA sweep (csrc/wavefront_common.cuh:sweep)
+    runs before a primitive's divisions, as a (nb, k) mask in the shape of
+    _hits: sphere disc >= 0; plane |denom| >= eps and the t numerator of
+    the denominator's sign; triangle the sign-scaled u, v and t numerators
+    of _tri_occluded widened by the TRI_PRE_* margins; and the valid flag.
+    The kernel runs the exact test only where it holds, so it must hold
+    wherever _hits does (tests/test_torch_sweep_prefilter.py). Nothing on
+    a render path calls it."""
+    if kind == SPHERE:
+        return (_sphere_terms(scene, lo, hi, r)[2] >= 0.0) & scene.sph_valid[None, lo:hi]
+    if kind == PLANE:
+        denom, num = _plane_terms(scene, lo, hi, r)
+        same_sign = torch.where(denom > 0.0, num > 0.0, num < 0.0)
+        return (torch.abs(denom) >= PLANE_DENOM_EPS) & same_sign & scene.pln_valid[None, lo:hi]
+    det, un, vn, tn = _tri_numerators(scene, lo, hi, r)
+    adet = torch.abs(det)
+    neg = det < 0.0
+    us, vs, ts = (torch.where(neg, -x, x) for x in (un, vn, tn))
+    return (
+        (adet >= TRI_DET_EPS) & (us >= -TRI_PRE_MARGIN * adet) & (us <= TRI_PRE_ONE * adet)
+        & (vs >= -TRI_PRE_MARGIN * adet) & (us + vs <= TRI_PRE_ONE * adet)
+        & (ts >= TRI_PRE_T_EPS * adet) & scene.tri_valid[None, lo:hi]
+    )
 
 
 def _tri_numerators(scene, lo, hi, r):

@@ -19,6 +19,9 @@ per measurement:
   the slab tests and the (lane, chunk) pairs that pass the cull of each
   chunked kernel, from a plain pass (``cull_counts``), and the bound
   they give;
+- ``sweep`` (small route): on the loop state of the third iteration,
+  TRACE, CLOSEST, ANY and FUSED ms at 2048^2 lanes (CUDA events), the
+  sweeps on TRACE's rays as ``sweep_calls`` builds them;
 - ``fmad`` (small route): TRACE and SHADE ms at 2048^2 lanes for the
   library built with the default nvcc flags and for one built with
   ``-fmad=false`` toggled, in the order default, other, other, default;
@@ -47,7 +50,7 @@ from rsoderh_raytracing_tpu_torch.env.hdr_io import procedural_sky
 from rsoderh_raytracing_tpu_torch.ops import _kernels
 from rsoderh_raytracing_tpu_torch.ops import cuda_intersect as ci
 from rsoderh_raytracing_tpu_torch.ops import cuda_wavefront as cw
-from rsoderh_raytracing_tpu_torch.ops import intersect
+from rsoderh_raytracing_tpu_torch.ops import envmap, intersect, rng
 from rsoderh_raytracing_tpu_torch.render.integrator import camera_pytree
 from rsoderh_raytracing_tpu_torch.render.wavefront import NO_LIMIT, Wavefront, render_freerun
 from rsoderh_raytracing_tpu_torch.scene.device import CHUNKED, TRI_CHUNK, build_device_scene, route
@@ -115,6 +118,35 @@ def capture_step(wave, it, plain=False):
 
     wave.step(it, **{k: capture(k, fns[1] if plain else fns[0]) for k, fns in KERNELS.items()})
     return captured
+
+
+def _as_int(outputs):
+    return {k: v.to(torch.int32) if v.dtype == torch.bool else v for k, v in outputs.items()}
+
+
+def sweep_calls(trace_args):
+    """(kernel call, plain call, integer outputs) of CLOSEST, ANY and
+    FUSED on the rays of TRACE's arguments (scene, env, carry), with the
+    NEE direction of the carry's alias draw (the plain glue); ANY's rays
+    start at the hit points, as the integrators call it. Each call returns
+    its outputs by name. Also returns ANY's rays."""
+    scene, env, carry = trace_args
+    ro = (carry["ro0"], carry["ro1"], carry["ro2"])
+    rd = (carry["rd0"], carry["rd1"], carry["rd2"])
+    nd = tuple(c.contiguous() for c in envmap.trace_glue(rng.from_bits(carry["state"]), env, *rd)[4])
+    names = ("t", "type", "index")
+    hit = intersect.closest_sweep(scene, *ro, *rd)
+    t_safe = torch.where(hit[1] >= 0, hit[0], 0.0)
+    p = tuple((ro[k] + rd[k] * t_safe).contiguous() for k in range(3))
+    return {
+        "closest": (lambda: dict(zip(names, ci.closest_call(scene, ro, rd))),
+                    lambda: dict(zip(names, intersect.closest_sweep(scene, *ro, *rd))),
+                    {"type", "index"}),
+        "any": (lambda: {"occ": ci.any_call(scene, p, nd).to(torch.int32)},
+                lambda: {"occ": intersect.any_sweep(scene, *p, *nd).to(torch.int32)}, {"occ"}),
+        "fused": (lambda: _as_int(ci.fused_call(scene, ro, rd, nd)),
+                  lambda: _as_int(intersect.trace_attrs(scene, *ro, *rd, *nd)), {"did_hit", "occ"}),
+    }, (*p, *nd)
 
 
 def cull_counts(scene, ro, rd, mask, closest):
@@ -234,7 +266,9 @@ def _group(name):
                    "chunked_any_kernel", "shade_kernel"):
         if kernel in name:
             return kernel[: -len("_kernel")]
-    if "gather" in name or "index" in name.lower():
+    # index_select's kernel (vectorized_gather_kernel, or indexSelect* in
+    # older builds); not elementwise_kernel_with_index (arange)
+    if "gather" in name or "indexselect" in name.lower():
         return "gather"
     return "other_glue"
 
@@ -261,7 +295,7 @@ def kernel_breakdown(trace_path, iterations):
     busy += cur_end - cur_start
     window = intervals[-1][1] - intervals[0][0]
     per_iter = {k: v / 1e3 / iterations for k, v in by_name.items()}
-    groups = collections.Counter()
+    groups = collections.Counter({"gather": 0.0})
     for k, v in per_iter.items():
         groups[_group(k)] += v
     launches = sum(e.get("cat") == "kernel" for e in spans) / iterations
@@ -317,12 +351,18 @@ def main(argv=None) -> int:
                   f"bound_ms={ms:.4f} bound_by={by} card={card!r}", flush=True)
         return 0
 
+    tr_args, sh_args = captured["trace"], captured["shade"]
+    calls = {"trace": lambda: cw.trace_call(*tr_args)}
+    calls.update({k: fns[0] for k, fns in sweep_calls(tr_args)[0].items()})
+    print(f"[sweep] scene={args.scene} lanes={SIZE * SIZE} "
+          + " ".join(f"{k}_ms={time_ms(fn, 20):.4f}" for k, fn in calls.items())
+          + f" card={card!r}", flush=True)
+
     # -fmad=false against FMA contraction, one library each, A B B A.
     flags = list(_kernels.NVCC_FLAGS)
     other = [f for f in flags if f != FMAD_OFF] if FMAD_OFF in flags else flags + [FMAD_OFF]
     libs = {"default": _kernels.library(), "other": _kernels.load(other)}
     labels = {"default": " ".join(flags), "other": " ".join(other)}
-    tr_args, sh_args = captured["trace"], captured["shade"]
     tr_ref = cw.trace_plain(*tr_args)
     sh_ref = shade_outputs(cw.shade_plain(*sh_args))
     for key in ("default", "other", "other", "default"):

@@ -8,20 +8,21 @@ same pixel. The iteration is picked once per call, as the reference picks
 it. With an RGBE environment (and RT_DISABLE_WFKERNELS unset) the kernel
 loop runs, by the scene's route (scene/device.route):
 
-- small scenes: the glue (alias draw, NEE and miss uv), the TRACE
-  kernel, one quad-row gather and the SHADE kernel (ops/cuda_wavefront.py);
-- the big-mesh route: the glue, CHUNKED_CLOSEST over live lanes, the hit
-  point, CHUNKED_ANY over live hit lanes (ops/cuda_intersect.py), the
-  fused uv and one quad-row gather, and BIG_SHADE, which reads the
-  winner's union row itself.
+- small scenes: the TRACE kernel (the alias draw, NEE and miss uv and the
+  quad-row read inside it) and the SHADE kernel (ops/cuda_wavefront.py);
+- the big-mesh route: the same glue as tensor code (``envmap.trace_glue``),
+  CHUNKED_CLOSEST over live lanes, the hit point, CHUNKED_ANY over live
+  hit lanes (ops/cuda_intersect.py), the fused uv and one quad-row
+  gather, and BIG_SHADE, which reads the winner's union row itself.
 
 With a legacy float32 / bfloat16 environment, or with
-RT_DISABLE_WFKERNELS=1, the composed body runs: the same glue,
+RT_DISABLE_WFKERNELS=1, the composed body runs: the glue,
 ``intersect.trace_nee`` (the FUSED kernel on a small scene; the chunked
 kernels over every lane on a big mesh), then the bounce sample, one
 quad-row gather and the shading step as tensor code. That tensor code is
 the one the TRACE and SHADE kernels' plain versions are made of
-(``bsdf.trace_epilogue``, ``cuda_wavefront.shade_plain``), so on CPU
+(``envmap.trace_glue``, ``bsdf.trace_epilogue``,
+``cuda_wavefront.shade_plain``), so on CPU
 tensors both bodies compute the same values.
 
 Differences from the reference's loop:
@@ -155,17 +156,14 @@ class Wavefront:
 
         c = self.carry
         env_h, env_w = self.env.texture_shape
-        mark("glue")
-        state, _, nee_u, nee_v, nee_pmf = envmap.sample_alias_index(
-            rng.from_bits(c["state"]), self.env
-        )
-        nd = envmap.equirect_uv_to_direction(nee_u, nee_v)
-        mu, mv = envmap.direction_to_equirect_uv(c["rd0"], c["rd1"], c["rd2"])
         ro = (c["ro0"], c["ro1"], c["ro2"])
         rd = (c["rd0"], c["rd1"], c["rd2"])
         lanes = (self.pixel_bits, self.pixel_x, self.pixel_y, self.base_bits, self.scal,
                  (it + 1, self.spp, self.budget, 1, 0))
         if self.composed:
+            mark("glue")
+            state, nee_u, nee_v, nee_pmf, nd, mu, mv = envmap.trace_glue(
+                rng.from_bits(c["state"]), self.env, *rd)
             mark("trace_nee")
             did_hit, p, normal, color, rough, metal, emission, occ = intersect.trace_nee(
                 self.scene, ro, rd, nd)
@@ -191,6 +189,9 @@ class Wavefront:
                 q, tr, nee_pmf, c, *lanes,
             )
         elif self.route == CHUNKED:
+            mark("glue")
+            state, nee_u, nee_v, nee_pmf, nd, mu, mv = envmap.trace_glue(
+                rng.from_bits(c["state"]), self.env, *rd)
             mark("closest")
             t, btype, bidx = closest(self.scene, ro, rd, c["in_path"])
             mark("glue")
@@ -213,14 +214,11 @@ class Wavefront:
             )
         else:
             mark("trace")
-            tr = trace(self.scene, env_w, env_h, ro, rd, nd, (nee_u, nee_v), (mu, mv),
-                       rng.to_bits(state))
-            mark("gather")
-            qw = self.env.quad.index_select(0, tr["qidx"])
+            tr = trace(self.scene, self.env, c)
             mark("shade")
             self.carry, act, hitm = shade(
                 env_w, env_h, self.width, self.height, self.max_bounces,
-                qw, tr, nee_pmf, c, *lanes,
+                tr["quad"], tr, tr["nee_pmf"], c, *lanes,
             )
         mark(None)
         if marks is not None:

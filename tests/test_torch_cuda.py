@@ -10,6 +10,11 @@ This file imports nothing of jax (tests/conftest.py does, hence
 
 The bounds are chip_smoke.py's: each integer output equal, and each
 float output isclose(1e-4, 1e-5), on at least 99.99% of the lanes.
+TRACE's NEE pmf and quad row are bitwise its plain version's on every
+lane, and so is its NEE uv (the alias draw's texel and jitter) on the
+lanes where both hit. CLOSEST, ANY and FUSED keep hit, occlusion, type,
+index and t bitwise their plain versions' through the sweep's
+division-free pre-test.
 """
 
 import os
@@ -28,12 +33,13 @@ from rsoderh_raytracing_tpu_torch.env.hdr_io import procedural_sky
 from rsoderh_raytracing_tpu_torch.ops import cuda_intersect as ci
 from rsoderh_raytracing_tpu_torch.ops import cuda_wavefront as cw
 from rsoderh_raytracing_tpu_torch.ops import intersect
-from rsoderh_raytracing_tpu_torch.profiling import capture_step
+from rsoderh_raytracing_tpu_torch.profiling import capture_step, sweep_calls
 from rsoderh_raytracing_tpu_torch.render.integrator import camera_pytree
 from rsoderh_raytracing_tpu_torch.render.renderer import Renderer
 from rsoderh_raytracing_tpu_torch.render.wavefront import NO_LIMIT, Wavefront, render_freerun
 from rsoderh_raytracing_tpu_torch.scene.device import build_device_scene
-from rsoderh_raytracing_tpu_torch.scene.types import PackedMeshes, Plane, Scene
+from rsoderh_raytracing_tpu_torch.scene.camera import Camera
+from rsoderh_raytracing_tpu_torch.scene.types import Material, PackedMeshes, Plane, Scene, Sphere
 
 torch.set_num_threads(2)
 
@@ -83,12 +89,90 @@ def _compare(got, ref, int_names):
     assert {k: v for k, v in shares.items() if v < PARITY_MIN} == {}
 
 
-def test_trace_kernel_matches_plain(house_state):
-    args = house_state["trace"]
+def _bits_differ(a, b):
+    """Lanes where two (n,) or (n, k) tensors differ in any bit."""
+    a, b = (x.view(torch.int32) if x.dtype == torch.float32 else x for x in (a, b))
+    return (a != b).reshape(a.shape[0], -1).any(dim=1)
+
+
+def _compare_trace(args):
+    """TRACE on args against trace_plain: every output at the gates, the
+    NEE pmf and quad row bitwise on every lane, the NEE uv bitwise on the
+    lanes where both hit."""
     before = cw.LAUNCHES["trace"]
     got = cw.trace_call(*args)
     assert cw.LAUNCHES["trace"] == before + 1
-    _compare(got, cw.trace_plain(*args), cw.TRACE_INT_NAMES)
+    ref = cw.trace_plain(*args)
+    _compare(got, ref, cw.TRACE_INT_NAMES)
+    both = (got["hit"] != 0) & (ref["hit"] != 0)
+    differ = {k: int(_bits_differ(got[k], ref[k]).sum()) for k in ("nee_pmf", "quad")}
+    differ.update({k: int(_bits_differ(got[k], ref[k])[both].sum()) for k in ("fu", "fv")})
+    assert differ == {"nee_pmf": 0, "quad": 0, "fu": 0, "fv": 0}
+    return got
+
+
+def test_trace_kernel_matches_plain(house_state):
+    _compare_trace(house_state["trace"])
+
+
+def _tiny_scene():
+    """One sphere, one plane and one triangle (tests/test_torch_trace.py's
+    scene), an emissive triangle material."""
+    meshes = PackedMeshes(
+        vertices=np.array([[-1.5, -0.5, -2.5], [-0.5, -0.5, -2.5], [-1.0, 0.6, -2.5]], np.float32),
+        normals=np.array([[0.0, 0.0, 1.0], [0.2, 0.0, 0.98], [0.0, 0.2, 0.98]], np.float32),
+        triangles=np.array([[0, 1, 2, 0, 1, 2, 2]], np.int32),
+    )
+    return Scene(
+        materials=[Material((0.7, 0.3, 0.2), 0.5, 0.0, (0, 0, 0)),
+                   Material((0.9, 0.9, 0.9), 0.05, 1.0, (0, 0, 0)),
+                   Material((0.4, 0.8, 0.3), 0.3, 0.2, (1.5, 0.5, 0.2))],
+        spheres=[Sphere(pos=(0.6, 0.0, -3.0), radius=1.0, material_id=1)],
+        planes=[Plane(pos=(-4.0, -1.2, -8.0), right=(8.0, 0.0, 0.0), forward=(0.0, 0.0, 8.0),
+                      material_id=0)],
+        meshes=meshes, camera=Camera(pos=[0, 0, 0], yaw=0, pitch=0, fov_y=1.2),
+    )
+
+
+def _made_up_carry(n, dev, origin, seed):
+    """Seeded rays from around `origin` and u32 states as a carry; the
+    first lanes escape along -x (dz = -0 and +0) and +-y, where the miss
+    uv leaves [0, 1]."""
+    g = np.random.default_rng(seed)
+    o = (np.asarray(origin, np.float32) + g.normal(0.0, 0.5, (n, 3))).astype(np.float32)
+    d = g.normal(size=(n, 3)).astype(np.float32)
+    edge = np.array([[-1.0, 0.0, -0.0], [-1.0, 0.0, 0.0], [0.0, 1.0, 0.0], [0.0, -1.0, 0.0]], np.float32)
+    d[: min(n, 4)] = edge[: min(n, 4)]
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    carry = {f"{k}{i}": torch.from_numpy(np.ascontiguousarray(a[:, i])).to(dev)
+             for k, a in (("ro", o), ("rd", d)) for i in range(3)}
+    state = g.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+    carry["state"] = torch.from_numpy(state.view(np.int32)).to(dev)
+    return carry
+
+
+@pytest.fixture(scope="module")
+def small_scenes(dev, house_scene):
+    """(device scene, ray origin) of the tiny scene and of house."""
+    return {"tiny": (build_device_scene(_tiny_scene(), dev, pad_to=1), (0.0, 0.0, 0.0)),
+            "house": (build_device_scene(house_scene, dev), tuple(house_scene.camera.pos))}
+
+
+@pytest.fixture(scope="module")
+def seeded_env(dev):
+    g = np.random.default_rng(7)
+    texture = (g.uniform(0.0, 2.0, (32, 64, 3)) ** 4).astype(np.float32)
+    return device_environment(Environment.from_texture("s", texture), dev)
+
+
+@pytest.mark.parametrize("n", [1, 31, 1000, 256 * 256 + 7])
+@pytest.mark.parametrize("name", ["tiny", "house"])
+def test_trace_kernel_on_made_up_rays(small_scenes, seeded_env, dev, name, n):
+    scene, origin = small_scenes[name]
+    got = _compare_trace((scene, seeded_env, _made_up_carry(n, dev, origin, n)))
+    if n >= 1000:
+        hit = got["hit"].double().mean()
+        assert 0.05 < hit < 0.95
 
 
 def test_shade_kernel_matches_plain(house_state):
@@ -102,22 +186,18 @@ def test_shade_kernel_matches_plain(house_state):
 
 
 def test_sweep_kernels_match_plain(house_state):
-    """CLOSEST, ANY and FUSED on the rays of a real loop iteration; ANY's
-    rays start at the hit points, as the integrators call it."""
-    scene, _, _, ro, rd, nd = house_state["trace"][:6]
+    """CLOSEST, ANY and FUSED on the rays of a real loop iteration, with
+    the NEE direction of its alias draw; ANY's rays start at the hit
+    points, as the integrators call it."""
+    calls, _ = sweep_calls(house_state["trace"])
     before = dict(ci.LAUNCHES)
-    names = ("t", "type", "index")
-    _compare(dict(zip(names, ci.closest_call(scene, ro, rd))),
-             dict(zip(names, intersect.closest_sweep(scene, *ro, *rd))), {"type", "index"})
-    fused = ci.fused_call(scene, ro, rd, nd)
-    plain = intersect.trace_attrs(scene, *ro, *rd, *nd)
-    as_int = lambda d: {k: v.to(torch.int32) if v.dtype == torch.bool else v for k, v in d.items()}  # noqa: E731
-    _compare(as_int(fused), as_int(plain), {"did_hit", "occ"})
-    p = (fused["px"], fused["py"], fused["pz"])
-    _compare({"occ": ci.any_call(scene, p, nd).to(torch.int32)},
-             {"occ": intersect.any_sweep(scene, *p, *nd).to(torch.int32)}, {"occ"})
+    for kfn, pfn, ints in calls.values():
+        _compare(kfn(), pfn(), ints)
     for name in ("closest", "any", "fused"):
         assert ci.LAUNCHES[name] == before[name] + 1
+    scene, _, carry = house_state["trace"]
+    ro = tuple(carry[f"ro{i}"] for i in range(3))
+    rd = tuple(carry[f"rd{i}"] for i in range(3))
     with pytest.raises(ValueError):
         ci.closest_call(scene, tuple(c.to(torch.float64) for c in ro), rd)
 
@@ -137,11 +217,61 @@ def test_renderer_step_on_the_card(dev, house_scene):
     assert np.isclose(films[str(dev)], films["cpu"], rtol=1e-4, atol=1e-5).mean() >= 0.99
 
 
-def test_wrapper_rejects_wrong_dtype(house_state):
-    args = list(house_state["trace"])
-    args[-1] = args[-1].to(torch.int64)
+def test_wrapper_rejects_wrong_dtype(house_state, house_scene, dev):
+    scene, env, carry = house_state["trace"]
     with pytest.raises(ValueError):
-        cw.trace_call(*args)
+        cw.trace_call(scene, env, dict(carry, state=carry["state"].to(torch.int64)))
+    legacy = device_environment(Environment.from_texture("s", procedural_sky(64, 32)), dev, "float32")
+    with pytest.raises(ValueError):
+        cw.trace_call(scene, legacy, carry)
+
+
+def _sweeps_bitwise(scene, ro, rd, nd):
+    """CLOSEST, ANY and FUSED against their plain versions: every output
+    bit for bit on every lane."""
+    names = ("t", "type", "index")
+    for a, b, name in zip(ci.closest_call(scene, ro, rd), intersect.closest_sweep(scene, *ro, *rd), names):
+        assert int(_bits_differ(a, b).sum()) == 0, name
+    fused = ci.fused_call(scene, ro, rd, nd)
+    plain = intersect.trace_attrs(scene, *ro, *rd, *nd)
+    for k in plain:
+        a, b = (x.to(torch.int32) if x.dtype == torch.bool else x for x in (fused[k], plain[k]))
+        assert int(_bits_differ(a, b).sum()) == 0, k
+    p = (fused["px"], fused["py"], fused["pz"])
+    assert torch.equal(ci.any_call(scene, p, nd), intersect.any_sweep(scene, *p, *nd))
+    assert torch.equal(ci.any_call(scene, ro, rd), intersect.any_sweep(scene, *ro, *rd))
+
+
+@pytest.mark.parametrize("n", [31, 256 * 256 + 7])
+@pytest.mark.parametrize("name", ["tiny", "house"])
+def test_sweep_kernels_bitwise_on_made_up_rays(small_scenes, dev, name, n):
+    """Through the pre-test, the sweeps keep every hit, t, type and index
+    of their plain versions, on incoherent rays and, in the tiny scene,
+    rays grazing each primitive (tangent to the sphere, almost in the
+    plane, through the triangle's edges)."""
+    scene, origin = small_scenes[name]
+    carry = _made_up_carry(n, dev, origin, n + 1)
+    ro = tuple(carry[f"ro{i}"] for i in range(3))
+    rd = [carry[f"rd{i}"].clone() for i in range(3)]
+    if name == "tiny":
+        g = np.random.default_rng(n)
+        o = torch.stack(ro, 1).cpu().numpy().astype(np.float64)
+        centre = np.array([0.6, 0.0, -3.0])
+        side = np.cross(centre - o, g.normal(size=(n, 3)))
+        tri = np.array([[-1.5, -0.5, -2.5], [-0.5, -0.5, -2.5], [-1.0, 0.6, -2.5]])
+        edge = g.integers(0, 3, n)
+        s = g.uniform(0.0, 1.0, (n, 1))
+        targets = np.stack([
+            centre + side / np.linalg.norm(side, axis=-1, keepdims=True),  # the sphere's silhouette
+            tri[edge] + s * (tri[(edge + 1) % 3] - tri[edge]),  # an edge of the triangle
+            np.array([-4.0, -1.2, -8.0]) + g.uniform(0, 1, (n, 3)) * np.array([8.0, 0.0, 8.0]),
+        ])[g.integers(0, 3, n), np.arange(n)]
+        d = targets - o
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        d = torch.from_numpy(d.astype(np.float32)).to(dev)
+        rd = [d[:, i].contiguous() for i in range(3)]
+    nd = [carry[f"rd{(i + 1) % 3}"] for i in range(3)]
+    _sweeps_bitwise(scene, ro, tuple(rd), tuple(nd))
 
 
 def test_card_render_matches_cpu_render(dev, house_scene):

@@ -130,6 +130,59 @@ def test_freerun_image_matches_jax(house_runs, call):
     assert np.isclose(ti, ji, rtol=1e-4, atol=1e-5).mean() >= IMAGE_CLOSE_MIN
 
 
+def _house_args(house_scene):
+    sky = procedural_sky(256, 128)
+    return (build_device_scene(house_scene, device="cpu"),
+            device_environment(Environment.from_texture("s", sky), device="cpu"),
+            camera_pytree(house_scene.camera, device="cpu"))
+
+
+def test_small_route_equals_composed_body_bitwise(house_scene, house_runs, monkeypatch):
+    """The kernel loop's small route (TRACE, SHADE) and the composed body
+    (RT_DISABLE_WFKERNELS=1: the glue, FUSED and tensor code) give the
+    same image, counts and ray counts bit for bit on the CPU, and so the
+    composed body holds JAX's bounds too."""
+    ki, kc, ks = house_runs["port"][0]
+    monkeypatch.setenv("RT_DISABLE_WFKERNELS", "1")
+    img, cnt, st = render_freerun(*_house_args(house_scene), np.zeros(RES[::-1], np.uint32), RES,
+                                  BUDGET, BOUNCES, with_stats=True)
+    np.testing.assert_array_equal(img.numpy().view(np.uint32), ki.view(np.uint32))
+    np.testing.assert_array_equal(cnt.numpy(), kc)
+    assert {k: float(v) for k, v in st.items()} == ks
+    ji, _, _ = house_runs["jax"][0]
+    np.testing.assert_allclose(img.numpy().mean(), ji.mean(), rtol=MEAN_RTOL)
+
+
+def test_small_route_runs_no_glue_outside_trace(house_scene, monkeypatch):
+    """An iteration of the small route calls the alias draw only inside
+    TRACE (whose plain version is the glue, the Pallas body and the
+    gather); nothing else of the iteration computes it."""
+    from rsoderh_raytracing_tpu_torch.ops import cuda_wavefront as cw
+    from rsoderh_raytracing_tpu_torch.ops import envmap
+    from rsoderh_raytracing_tpu_torch.render.wavefront import NO_LIMIT, Wavefront
+
+    calls = {"inside": 0, "outside": 0}
+    where = ["outside"]
+    draw = envmap.sample_alias_index
+
+    def counted_draw(*args):
+        calls[where[0]] += 1
+        return draw(*args)
+
+    def trace(*args):
+        where[0] = "inside"
+        try:
+            return cw.trace_call(*args)
+        finally:
+            where[0] = "outside"
+
+    monkeypatch.setattr(envmap, "sample_alias_index", counted_draw)
+    wave = Wavefront(*_house_args(house_scene), 0, (16, 8), NO_LIMIT, 4, BOUNCES)
+    for it in range(3):
+        wave.step(it, trace=trace)
+    assert calls == {"inside": 3, "outside": 0}
+
+
 @pytest.mark.parametrize("name", ["default", "house"])
 def test_render_wavefront_matches_golden(assets_dir, name):
     scene = load_scene(os.path.join(assets_dir, "scenes", f"{name}.toml"))
