@@ -41,10 +41,18 @@ exits non-zero at the first failure. Phases, one line each or more:
 8. the sweep kernels (CLOSEST, ANY, FUSED; within phase 3, on the house
    loop states at 256x256 and 2048x2048): parity with their plain
    versions, then each one's time beside its plain version's and its
-   bound;
+   bound; then CLOSEST and ANY on the scan integrator's own states
+   (bounces 0 and 3 of one render_sample, profiling.capture_scan) at
+   256x256 and 2048x2048: every output by the parity gate, t, type,
+   index, material id and occlusion bitwise on every lane, the dead
+   lanes' fixed record; at 2048x2048 their times and the bounds of
+   profiling.scan_bounds (bounce 0's go to the kernels line);
 9. scan path: Renderer on house at 2048x2048, 8 bounces, a few step()
    calls through the scan integrator (CLOSEST and ANY once a bounce, no
-   TRACE or SHADE), seconds a sample and Mrays/s;
+   TRACE or SHADE), seconds a sample and Mrays/s; no index_select on a
+   table of the scene in a step (profiling.scene_gathers); a 256x256
+   sample on the card against the plain path on the CPU (relative RMSE
+   below GOLDEN_REL_RMSE_MAX);
 10. composed body: render_freerun at 2048x2048 with the float32 legacy
    quad (FUSED once an iteration, no TRACE or SHADE), Mrays/s and the ms
    split; then the RGBE quad under RT_DISABLE_WFKERNELS=1 against the
@@ -53,17 +61,20 @@ exits non-zero at the first failure. Phases, one line each or more:
    to PNG, .hdr with --save-checkpoint, and --checkpoint resume; the files
    are read back (under build/chip_smoke/).
 
-Then a JSON line with each kernel's launches, error, times and bound, the
+Then a JSON line with each kernel's launches, largest absolute and
+relative errors (and the outputs that hold them), times and bound, the
 card line again, and last {"ok": true, "device": {...}}. Imports nothing
 of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -83,8 +94,9 @@ from rsoderh_raytracing_tpu_torch.ops import cuda_wavefront as cw  # noqa: E402
 from rsoderh_raytracing_tpu_torch.ops import intersect  # noqa: E402
 from rsoderh_raytracing_tpu_torch.ops.tonemap import aces_tonemap, linear_to_srgb  # noqa: E402
 from rsoderh_raytracing_tpu_torch.profiling import (  # noqa: E402
-    KERNELS, bound_ms, capture_step, card_line, chunked_bound, first_hit_ops, kernel_breakdown,
-    scene_setup, shade_outputs, sweep_calls, sweep_ops, time_ms,
+    KERNELS, bound_ms, capture_scan, capture_step, card_line, chunked_bound, first_hit_ops,
+    kernel_breakdown, scan_bounds, scan_calls, scene_gathers, scene_setup, shade_outputs,
+    sweep_calls, sweep_ops, time_ms, valid_sweep_ops,
 )
 from rsoderh_raytracing_tpu_torch.render.integrator import (  # noqa: E402
     MAX_BOUNCES, camera_pytree, render_sample,
@@ -119,6 +131,14 @@ SRC_WAVEFRONT = "rsoderh_raytracing_tpu_torch/csrc/wavefront.cu"
 SRC_CHUNKED = "rsoderh_raytracing_tpu_torch/csrc/chunked.cu"
 SRC_SWEEP = "rsoderh_raytracing_tpu_torch/csrc/sweep.cu"
 SCAN_STEPS = 3
+# Samples of the 256^2 scan image held against the CPU's. One sample
+# differs from the CPU's by a relative RMSE of up to a few 1e-3 on an
+# H100 (700 W), 1.9e-3 for sample 0, in the tree before the lane masks
+# too: the card's and the CPU's tensor glue round apart and a few paths
+# flip (`python -m rsoderh_raytracing_tpu_torch.profiling --path
+# scan-image` reads it; the kernels equal their plain versions bit for
+# bit). The mean over 16 samples averages the flipped paths down.
+SCAN_CPU_SPP = 16
 OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
 # The big-mesh kernels by Wavefront.step keyword.
 BIG_KERNELS = {"closest": "chunked_closest", "occlusion": "chunked_any", "big_shade": "big_shade"}
@@ -130,24 +150,34 @@ def log(phase, **fields):
 
 def check_parity(kernel, lanes, got, ref, int_names, where=None):
     """Log and assert the kernel's agreement with its plain version on
-    the lanes `where` (all by default); returns the largest absolute
-    float difference."""
+    the lanes `where` (all by default); returns the largest absolute and
+    relative float differences, each with the output that holds it, as
+    {"abs": (value, output), "rel": (value, output)}."""
     if where is not None:
         got = {k: v[where] for k, v in got.items()}
         ref = {k: v[where] for k, v in ref.items()}
-    shares, max_abs, max_rel = cw.parity(got, ref, int_names, RTOL, ATOL)
+    shares, worst_abs, worst_rel = cw.parity(got, ref, int_names, RTOL, ATOL)
     ints = [shares[k] for k in shares if k in int_names]
     floats = [shares[k] for k in shares if k not in int_names]
     log("parity", kernel=kernel, lanes=lanes,
         compared=int(next(iter(got.values())).shape[0]),
         int_equal_min=f"{min(ints):.6f}" if ints else "none",
         float_close_min=f"{min(floats):.6f}" if floats else "none",
-        worst=min(shares, key=shares.get), max_rel_diff=f"{max_rel:.3e}",
-        max_abs_diff=f"{max_abs:.3e}")
+        worst=min(shares, key=shares.get), max_rel_diff=f"{worst_rel[0]:.3e}",
+        max_rel_output=worst_rel[1], max_abs_diff=f"{worst_abs[0]:.3e}",
+        max_abs_output=worst_abs[1])
     bad = sorted(k for k, v in shares.items() if v < PARITY_MIN)
     if bad:
         raise AssertionError(f"{kernel} kernel disagrees with its plain version in {bad}")
-    return max_abs
+    return {"abs": worst_abs, "rel": worst_rel}
+
+
+def keep_worst(max_err, name, err):
+    """Fold a check_parity result into max_err[name], the largest of each."""
+    cur = max_err.setdefault(name, {"abs": (0.0, None), "rel": (0.0, None)})
+    for k in ("abs", "rel"):
+        if err[k][1] is not None and (cur[k][1] is None or err[k][0] > cur[k][0]):
+            cur[k] = err[k]
 
 
 def trace_parity(label, lanes, args, max_err):
@@ -156,8 +186,7 @@ def trace_parity(label, lanes, args, max_err):
     the NEE pmf and the quad row on every lane, and the fused uv (the alias
     draw's texel and jitter) on the lanes where both hit."""
     got, ref = cw.trace_call(*args), cw.trace_plain(*args)
-    max_err["trace"] = max(max_err.get("trace", 0.0),
-                           check_parity(f"trace:{label}", lanes, got, ref, cw.TRACE_INT_NAMES))
+    keep_worst(max_err, "trace", check_parity(f"trace:{label}", lanes, got, ref, cw.TRACE_INT_NAMES))
     both_hit = (got["hit"] != 0) & (ref["hit"] != 0)
     differ = {
         "nee_pmf": int((got["nee_pmf"].view(torch.int32) != ref["nee_pmf"].view(torch.int32)).sum()),
@@ -188,8 +217,7 @@ def kernel_parity(key, label, args, lanes, max_err, ref=None):
     else:
         got, ref, ints, where = shade_outputs(got), shade_outputs(ref), cw.SHADE_INT_NAMES, None
     name = BIG_KERNELS[key]
-    err = check_parity(f"{name}:{label}", lanes, got, ref, ints, where)
-    max_err[name] = max(max_err.get(name, 0.0), err)
+    keep_worst(max_err, name, check_parity(f"{name}:{label}", lanes, got, ref, ints, where))
 
 
 def big_parity(label, state, lanes, max_err):
@@ -353,8 +381,41 @@ def anchor(name, size, spp, env, dev):
 
 def sweep_parity(trace_args, lanes, max_err):
     for name, (kfn, pfn, ints) in sweep_calls(trace_args)[0].items():
-        err = check_parity(name, lanes, kfn(), pfn(), ints)
-        max_err[name] = max(max_err.get(name, 0.0), err)
+        keep_worst(max_err, name, check_parity(name, lanes, kfn(), pfn(), ints))
+
+
+def _bits(x):
+    return x.view(torch.int32) if x.dtype == torch.float32 else x.to(torch.int32)
+
+
+def scan_parity(label, lanes, ds, state, max_err):
+    """CLOSEST and ANY on a capture_scan state against their plain
+    versions: every output by check_parity; t, type, index, material id
+    and occlusion bitwise on every lane; every dead (unmasked) lane holds
+    the miss record with zero attributes (0 for ANY)."""
+    closest, occlusion = scan_calls(ds, state)
+    ro, rd, live = state["closest"]
+    p, nd, mask = state["any"]
+    live, mask = live.to(torch.int32), mask.to(torch.int32)
+    got, ref = closest(), intersect.closest_record(ds, ro, rd, live)
+    keep_worst(max_err, "closest",
+               check_parity(f"closest:{label}", lanes, got, ref, ci.CLOSEST_INT_NAMES))
+    occ, occ_ref = occlusion(), intersect.any_sweep(ds, *p, *nd) & (mask != 0)
+    keep_worst(max_err, "any", check_parity(f"any:{label}", lanes, {"occ": occ.to(torch.int32)},
+                                            {"occ": occ_ref.to(torch.int32)}, {"occ"}))
+    dead = live == 0
+    differ = {k: int((_bits(got[k]) != _bits(ref[k])).sum()) for k in ("t", "type", "index", "material_id")}
+    differ["occ"] = int((occ != occ_ref).sum())
+    differ["dead_not_miss"] = int(sum(
+        (_bits(got[k])[dead] != _bits(torch.full_like(got[k][dead], v))).sum()
+        for k, v in (("t", intersect.INF), ("type", -1), ("index", 0), ("material_id", 0),
+                     *((k, 0.0) for k in ci.CLOSEST_OUT_NAMES[3:9]),
+                     *((k, 0.0) for k in intersect.MATERIAL_NAMES))))
+    differ["unmasked_occ"] = int(occ[mask == 0].sum())
+    log("parity", kernel=f"closest_any:{label}", lanes=lanes, live=int((~dead).sum()),
+        masked=int((mask != 0).sum()), **{f"{k}_lanes_differ": v for k, v in differ.items()})
+    if any(differ.values()):
+        raise AssertionError(f"CLOSEST/ANY on the scan state {label} are not exact: {differ}")
 
 
 def scan_path(scene, sky_host, sky, card, dev):
@@ -393,6 +454,47 @@ def scan_path(scene, sky_host, sky, card, dev):
         raise AssertionError("the scan path's film is wrong")
     os.makedirs(OUT_DIR, exist_ok=True)
     renderer.save_png(os.path.join(OUT_DIR, "house_scan_2048.png"))
+
+    # no row gather on a scene table: CLOSEST writes the hit record
+    gathers = scene_gathers(renderer.device_scene, renderer.step)
+    if gathers:
+        raise AssertionError(f"the scan path gathered {gathers} rows of scene tables")
+
+    # 256^2 through the scan path: on the card with the kernels, on the
+    # card with their plain versions in their place (the same image bit
+    # for bit: the kernels equal the plain versions on every lane), and
+    # on the CPU (the plain path); one sample and SCAN_CPU_SPP
+    def scan_film(device, plain=False):
+        r = Renderer(scene, 256, 256, environments=EnvironmentMaps([sky_host]),
+                     max_bounces=BOUNCES, device=device)
+        patches = contextlib.ExitStack()
+        if plain:
+            patches.enter_context(mock.patch.object(ci, "closest_call", intersect.closest_record))
+            patches.enter_context(mock.patch.object(
+                ci, "any_call", lambda s, ro, rd, mask=None: intersect.any_sweep(s, *ro, *rd) & (mask != 0)))
+        with patches:
+            r.step()
+            one = r.film.mean_radiance()
+            for _ in range(SCAN_CPU_SPP - 1):
+                r.step()
+        return one, r.film.mean_radiance()
+
+    def rel_rmse(got, ref):
+        return float(np.sqrt(np.mean((got - ref) ** 2)) / np.sqrt(np.mean(ref ** 2)))
+
+    kernels, plain, cpu = scan_film(dev), scan_film(dev, plain=True), scan_film("cpu")
+    differ = sum(int((a.view(np.uint32) != b.view(np.uint32)).sum()) for a, b in zip(kernels, plain))
+    log("scan", scene="house", size=256, scene_table_index_selects=gathers,
+        kernels_vs_plain_on_card_values_differ=differ,
+        card_vs_cpu_rel_rmse_1spp=f"{rel_rmse(kernels[0], cpu[0]):.3e}",
+        card_vs_cpu_rel_rmse=f"{rel_rmse(kernels[1], cpu[1]):.3e}", spp=SCAN_CPU_SPP,
+        bound=GOLDEN_REL_RMSE_MAX)
+    if differ:
+        raise AssertionError(f"the scan path's image through CLOSEST/ANY differs from the plain "
+                             f"versions' in {differ} values")
+    if not rel_rmse(kernels[1], cpu[1]) < GOLDEN_REL_RMSE_MAX:
+        raise AssertionError("the scan image on the card against the CPU's: relative RMSE "
+                             f"{rel_rmse(kernels[1], cpu[1]):.3e}")
     return counted
 
 
@@ -516,8 +618,9 @@ def main() -> int:
     ds, env, cam = scene_setup("house", dev, sky)
     small = loop_state(ds, env, cam, 256, 0, 3)
     trace_parity("house", 256 * 256, small["trace"], max_err)
-    max_err["shade"] = check_parity("shade", 256 * 256, shade_outputs(cw.shade_call(*small["shade"])),
-                                    shade_outputs(cw.shade_plain(*small["shade"])), cw.SHADE_INT_NAMES)
+    keep_worst(max_err, "shade", check_parity(
+        "shade", 256 * 256, shade_outputs(cw.shade_call(*small["shade"])),
+        shade_outputs(cw.shade_plain(*small["shade"])), cw.SHADE_INT_NAMES))
     sweep_parity(small["trace"], 256 * 256, max_err)
     counted, image, counts, warm = timed_main("house", ds, env, cam, card, TIMED_CALLS, dev)
     house_launches = counted
@@ -528,7 +631,7 @@ def main() -> int:
     no_gather("house", ds, env, cam, counts, card)
     main_args = loop_state(ds, env, cam, SIZE, 0, 0, kernel_iterations=2)
     trace_parity("house", n_pixels, main_args["trace"], max_err)
-    max_err["shade"] = max(max_err["shade"], check_parity(
+    keep_worst(max_err, "shade", check_parity(
         "shade", n_pixels, shade_outputs(cw.shade_call(*main_args["shade"])),
         shade_outputs(cw.shade_plain(*main_args["shade"])), cw.SHADE_INT_NAMES))
     prims = sweep_ops(ds)
@@ -558,13 +661,16 @@ def main() -> int:
             plain_ms=f"{times[name][1]:.4f}", bound_ms=f"{bounds[name][0]:.4f}",
             bound_by=bounds[name][1], card=repr(card))
 
-    # 8. the sweep kernels' times and bounds: 6 (or 9) inputs and 3, 1 or
-    # 16 outputs of 4 bytes a lane; the closest sweep's operations over
-    # every primitive, the occlusion sweep's up to each lane's first hit
+    # 8. the sweep kernels on the loop state (every lane live, for
+    # comparison with earlier readings): FUSED 9 inputs and 16 outputs of
+    # 4 bytes a lane and its sweeps over the padded table; CLOSEST 6 and
+    # 18, ANY 6 and 1, their sweeps over the valid rows (ANY's up to each
+    # lane's first hit)
     sweep_parity(main_args["trace"], n_pixels, max_err)
+    valid_shadow_ops = first_hit_ops(ds, shadow_rays, extents=ds.sweep_rows)
     for name, n_bytes, n_ops in (
-        ("closest", n_pixels * 9 * 4, n_pixels * prims),
-        ("any", n_pixels * 7 * 4, shadow_ops),
+        ("closest", n_pixels * 24 * 4, n_pixels * valid_sweep_ops(ds)),
+        ("any", n_pixels * 7 * 4, valid_shadow_ops),
         ("fused", n_pixels * 25 * 4, n_pixels * prims + shadow_ops),
     ):
         kfn, pfn, _ = calls[name]
@@ -572,12 +678,43 @@ def main() -> int:
         k1 = time_ms(kfn, 10)
         k2 = time_ms(kfn, 10)
         p2 = time_ms(pfn, 2)
-        times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        bounds[name] = bound_ms(n_bytes, n_ops)
-        log("timing", kernel=name, lanes=n_pixels, ms=f"{times[name][0]:.4f}",
-            plain_ms=f"{times[name][1]:.4f}", bound_ms=f"{bounds[name][0]:.4f}",
-            bound_by=bounds[name][1], ops_per_lane=f"{n_ops / n_pixels:.1f}", card=repr(card))
+        bound = bound_ms(n_bytes, n_ops)
+        if name == "fused":
+            times[name], bounds[name] = ((k1 + k2) / 2, (p1 + p2) / 2), bound
+        log("timing", kernel=name, state="loop", lanes=n_pixels, ms=f"{(k1 + k2) / 2:.4f}",
+            plain_ms=f"{(p1 + p2) / 2:.4f}", bound_ms=f"{bound[0]:.4f}",
+            bound_by=bound[1], ops_per_lane=f"{n_ops / n_pixels:.1f}", card=repr(card))
     del calls, shadow_rays, main_args, small
+
+    # 8b. CLOSEST and ANY on the scan integrator's own states (bounces 0
+    # and 3 of one render_sample), at 256^2 and 2048^2: parity, then at
+    # 2048^2 each one's time beside its plain version's and the bound
+    # of profiling.scan_bounds; the kernels line takes bounce 0's
+    for size in (256, SIZE):
+        for bounce, state in capture_scan(ds, env, cam, size, BOUNCES).items():
+            scan_parity(f"scan{bounce}", size * size, ds, state, max_err)
+            if size != SIZE:
+                continue
+            closest, occlusion = scan_calls(ds, state)
+            ro, rd, live = state["closest"]
+            p, nd, mask = state["any"]
+            live32, mask32 = live.to(torch.int32), mask.to(torch.int32)
+            plains = {
+                "closest": lambda: intersect.closest_record(ds, ro, rd, live32),
+                "any": lambda: intersect.any_sweep(ds, *p, *nd) & (mask32 != 0),
+            }
+            c_bound, a_bound, n_live, n_mask = scan_bounds(ds, state)
+            for name, kfn, bound in (("closest", closest, c_bound), ("any", occlusion, a_bound)):
+                pfn = plains[name]
+                p1 = time_ms(pfn, 2)
+                k1 = time_ms(kfn, 10)
+                k2 = time_ms(kfn, 10)
+                p2 = time_ms(pfn, 2)
+                if bounce == 0:
+                    times[name], bounds[name] = ((k1 + k2) / 2, (p1 + p2) / 2), bound
+                log("timing", kernel=name, state=f"scan{bounce}", lanes=n_pixels, live=n_live,
+                    masked=n_mask, ms=f"{(k1 + k2) / 2:.4f}", plain_ms=f"{(p1 + p2) / 2:.4f}",
+                    bound_ms=f"{bound[0]:.4f}", bound_by=bound[1], card=repr(card))
 
     # 9. scan path, 10. composed body, 11. command line
     house = load_scene(os.path.join(ROOT, "assets", "scenes", "house.toml"))
@@ -677,7 +814,9 @@ def main() -> int:
     kernels = [
         {"name": name, "route": "cuda",
          "source": sources[name],
-         "replaces": replaces[name], "launches": counted[name], "max_abs_err": max_err[name],
+         "replaces": replaces[name], "launches": counted[name],
+         "max_abs_err": max_err[name]["abs"][0], "max_rel_err": max_err[name]["rel"][0],
+         "max_abs_output": max_err[name]["abs"][1], "max_rel_output": max_err[name]["rel"][1],
          "ms": times[name][0], "plain_ms": times[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None}
         for name in sources

@@ -12,22 +12,44 @@
 //            trace_attrs_body): closest sweep, hit point, winner normal,
 //            material values and the NEE shadow sweep from the hit point.
 //
-// Design. One thread per lane over flat n-lane arrays, 256 threads a
-// block, ragged tail masked. Each block stages the packed scene table
-// (scene/device.py:pack_rows, at most 192 primitives; house 9 KB) in
-// shared memory; the threads of a warp then read the same primitive row,
-// a broadcast. The device functions are those of TRACE
-// (wavefront_common.cuh: sweep, trace_attrs), so the sweeps of the scan
-// integrator, of the composed body and of the kernel loop cannot drift
-// apart. ANY stops at a lane's first hit (sweep's any_only); the Pallas
-// kernel sweeps everything and tests best_t < INF, the same boolean.
+// Design. CLOSEST and ANY serve the scan integrator
+// (render/integrator.py), which asks them about every lane at every
+// bounce while only the live lanes (CLOSEST) or the live lanes that hit
+// (ANY) use the answer: at 2048^2 on house all and 68% at bounce 0, 35%
+// and 30% at bounce 3. So both take a lane mask. A block of 256 threads
+// owns 256 lanes: it packs the set lanes into a list in shared memory in
+// lane order (compact_block: a __ballot_sync a warp and a prefix over the
+// warps' counts), writes the fixed record of every unset lane, and its
+// first threads sweep the list, so the sweeping warps are dense and the
+// warps past the list do no sweep; a block with no set lane stages
+// nothing. The block stages the packed scene table (scene/device.py:
+// pack_rows, at most 192 primitives; house 9 KB) in shared memory, and
+// the threads of a warp read the same row at a time, a broadcast. Each
+// kind's loop stops at its last valid row (the padding is trailing; house
+// sweeps 2 + 2 + 52 of its 8 + 8 + 56 rows); indices stay those of the
+// padded table. CLOSEST writes the hit record of intersect._hit_attributes
+// and the 8 material values (closest_attrs, the closest half of FUSED's
+// trace_attrs) from the staged table, so the integrator gathers no row.
+// ANY stops at a lane's first hit (sweep's any_only); the Pallas kernel
+// sweeps everything and tests best_t < INF, the same boolean. FUSED is
+// one thread a lane over every row, as TRACE (wavefront_common.cuh:
+// sweep, trace_attrs), so the sweeps of the scan integrator, of the
+// composed body and of the kernel loop cannot drift apart. Measured and
+// dropped (PERF.md, PR 6): 1,024-lane tiles, a resident wave fed 32-lane
+// chunks from a counter, and ANY warps that walk the rows in a cycle and
+// refill a thread from the list when its lane has its answer.
 //
-// What bounds them on the H100. CLOSEST reads 6 and writes 3 four-byte
-// values a lane (36 B), ANY 6 and 1 (28 B), FUSED 9 and 16 (100 B); the
-// sweep over house's 72 primitive lanes is about 3,200 operations a lane,
-// so all three are bound by operations, not bytes. Built with -fmad=false
-// like the other kernels, so they round like the plain PyTorch versions
-// (ops/intersect.py: closest_sweep, any_sweep, trace_attrs).
+// What bounds them on the H100. CLOSEST reads the mask and writes 18
+// four-byte values a lane, and reads 6 a live lane; ANY reads the mask
+// and writes 1, and reads 6 a masked lane; FUSED reads 9 and writes 16
+// (100 B). The valid-row sweep over house is 2,586 operations a lane (a
+// fused multiply-add counted as two: the kernels are built with
+// -fmad=false, so the card's issue rate halves the f32 peak the bound is
+// taken against), so CLOSEST on every lane, ANY and FUSED are bound by
+// operations; CLOSEST on a third of live lanes by bytes. Built with
+// -fmad=false like the other kernels, so they round like the plain
+// PyTorch versions (ops/intersect.py: closest_record, any_sweep,
+// trace_attrs).
 
 #include <cstdint>
 #include <cstring>
@@ -39,47 +61,132 @@ using namespace rt;
 
 namespace {
 
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
+
+// The table staged and cut to the valid rows of each kind.
+__device__ __forceinline__ SceneView stage_valid(float* smem, const float* __restrict__ table,
+                                                 int table_len, int n_sph, int n_pln, int n_tri,
+                                                 int n_mat, const int* rows) {
+  SceneView s = stage_scene(smem, table, table_len, n_sph, n_pln, n_tri, n_mat);
+  s.n_sph = rows[0];
+  s.n_pln = rows[1];
+  s.n_tri = rows[2];
+  return s;
+}
+
 struct RayPtrs {
   const float *ox, *oy, *oz, *dx, *dy, *dz;
 };
 
-struct ClosestArgs {
-  RayPtrs r;
-  float* t;
-  int32_t *type, *index;
+__device__ __forceinline__ Ray load_ray(const RayPtrs& r, int i) {
+  return Ray{r.ox[i], r.oy[i], r.oz[i], r.dx[i], r.dy[i], r.dz[i]};
+}
+
+// Valid rows of each kind (sphere, plane, triangle), by value.
+struct Rows {
+  int n[3];
 };
 
-__global__ void closest_kernel(ClosestArgs a, const float* __restrict__ table, int table_len,
-                               int n, int n_sph, int n_pln, int n_tri) {
+// The set lanes of the block's 256 (lane i is this thread's; every lane
+// inside n is set without a mask) go to list in lane order, a ballot a
+// warp and a prefix over the 8 warps' counts; returns their count and
+// whether lane i is set. Every thread of the block calls it; it ends
+// with a barrier. counts: kWarps ints of shared memory.
+__device__ __forceinline__ int compact_block(const int32_t* __restrict__ mask, int i, int n,
+                                             int* list, int* counts, bool& set) {
+  const int warp = threadIdx.x >> 5, me = threadIdx.x & 31;
+  set = i < n && (mask == nullptr || mask[i] != 0);
+  const unsigned ballot = __ballot_sync(kFull, set);
+  if (me == 0) counts[warp] = __popc(ballot);
+  __syncthreads();
+  int before = 0, total = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const int c = counts[w];
+    before += w < warp ? c : 0;
+    total += c;
+  }
+  if (set) list[before + __popc(ballot & ((1u << me) - 1u))] = i;
+  __syncthreads();
+  return total;
+}
+
+// CLOSEST's outputs (cuda_intersect.CLOSEST_OUT_NAMES): the winner, the
+// hit point, normal and material id, and the 8 material values.
+struct ClosestArgs {
+  RayPtrs r;
+  const int32_t* live;  // may be null: every lane
+  float* t;
+  int32_t *type, *index;
+  float *px, *py, *pz, *nx, *ny, *nz;
+  int32_t* mat_id;
+  float* mat[MAT_COLS];
+};
+
+__global__ void __launch_bounds__(kThreads) closest_kernel(ClosestArgs a, const float* __restrict__ table,
+                                                           int table_len, int n, int n_sph, int n_pln,
+                                                           int n_tri, int n_mat, Rows rows) {
   extern __shared__ float smem[];
-  const SceneView s = stage_scene(smem, table, table_len, n_sph, n_pln, n_tri, 0);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float best_t;
-  int best_type, best_idx;
-  sweep(s, Ray{a.r.ox[i], a.r.oy[i], a.r.oz[i], a.r.dx[i], a.r.dy[i], a.r.dz[i]}, false, best_t,
-        best_type, best_idx);
-  a.t[i] = best_t;
-  a.type[i] = best_type;
-  a.index[i] = best_idx;
+  __shared__ int list[kThreads];
+  __shared__ int counts[kWarps];
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  bool set;
+  const int live = compact_block(a.live, i, n, list, counts, set);
+  if (i < n && !set) {  // a dead lane: the miss record, zero attributes
+    a.t[i] = INF;
+    a.type[i] = -1;
+    a.index[i] = 0;
+    a.px[i] = a.py[i] = a.pz[i] = 0.0f;
+    a.nx[i] = a.ny[i] = a.nz[i] = 0.0f;
+    a.mat_id[i] = 0;
+#pragma unroll
+    for (int c = 0; c < MAT_COLS; ++c) a.mat[c][i] = 0.0f;
+  }
+  if (live == 0) return;  // block-uniform, so no thread misses the staging barrier
+  const SceneView s = stage_valid(smem, table, table_len, n_sph, n_pln, n_tri, n_mat, rows.n);
+  if ((int)threadIdx.x >= live) return;  // whole warps past the list do no sweep
+  const int j = list[threadIdx.x];
+  const HitAttrs h = closest_attrs(s, load_ray(a.r, j));
+  a.t[j] = h.t;
+  a.type[j] = h.type;
+  a.index[j] = h.idx;
+  a.px[j] = h.px;
+  a.py[j] = h.py;
+  a.pz[j] = h.pz;
+  a.nx[j] = h.normal.x;
+  a.ny[j] = h.normal.y;
+  a.nz[j] = h.normal.z;
+  a.mat_id[j] = h.mat_id;
+#pragma unroll
+  for (int c = 0; c < MAT_COLS; ++c) a.mat[c][j] = h.mat[c];
 }
 
 struct AnyArgs {
   RayPtrs r;
+  const int32_t* mask;  // may be null: every lane
   int32_t* hit;
 };
 
-__global__ void any_kernel(AnyArgs a, const float* __restrict__ table, int table_len, int n,
-                           int n_sph, int n_pln, int n_tri) {
+__global__ void __launch_bounds__(kThreads) any_kernel(AnyArgs a, const float* __restrict__ table,
+                                                       int table_len, int n, int n_sph, int n_pln,
+                                                       int n_tri, Rows rows) {
   extern __shared__ float smem[];
-  const SceneView s = stage_scene(smem, table, table_len, n_sph, n_pln, n_tri, 0);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  __shared__ int list[kThreads];
+  __shared__ int counts[kWarps];
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  bool set;
+  const int masked = compact_block(a.mask, i, n, list, counts, set);
+  if (i < n && !set) a.hit[i] = 0;
+  if (masked == 0) return;
+  const SceneView s = stage_valid(smem, table, table_len, n_sph, n_pln, n_tri, 0, rows.n);
+  if ((int)threadIdx.x >= masked) return;
+  const int j = list[threadIdx.x];
   float best_t;
   int best_type, best_idx;
-  sweep(s, Ray{a.r.ox[i], a.r.oy[i], a.r.oz[i], a.r.dx[i], a.r.dy[i], a.r.dz[i]}, true, best_t,
-        best_type, best_idx);
-  a.hit[i] = best_t < INF ? 1 : 0;
+  sweep(s, load_ray(a.r, j), true, best_t, best_type, best_idx);
+  a.hit[j] = best_t < INF ? 1 : 0;
 }
 
 struct FusedArgs {
@@ -96,8 +203,7 @@ __global__ void fused_kernel(FusedArgs a, const float* __restrict__ table, int t
   const SceneView s = stage_scene(smem, table, table_len, n_sph, n_pln, n_tri, n_mat);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const Ray r{a.r.ox[i], a.r.oy[i], a.r.oz[i], a.r.dx[i], a.r.dy[i], a.r.dz[i]};
-  const TraceAttrs t = trace_attrs(s, r, V3{a.sx[i], a.sy[i], a.sz[i]});
+  const TraceAttrs t = trace_attrs(s, load_ray(a.r, i), V3{a.sx[i], a.sy[i], a.sz[i]});
   a.hit[i] = t.did_hit ? 1 : 0;
   a.px[i] = t.px;
   a.py[i] = t.py;
@@ -116,8 +222,6 @@ __global__ void fused_kernel(FusedArgs a, const float* __restrict__ table, int t
   a.occ[i] = t.occ ? 1 : 0;
 }
 
-constexpr int kThreads = 256;
-
 // Bytes of dynamic shared memory for the table; past 48 KB the kernel
 // must opt in. Returns a CUDA error code.
 template <class Kernel>
@@ -130,32 +234,35 @@ int reserve_table(Kernel kernel, size_t smem) {
 
 extern "C" {
 
-// p: 9 device pointers, ClosestArgs field order (6 f32 ray inputs, then
-// t f32, type i32, index i32).
+// p: 25 device pointers, ClosestArgs field order (6 f32 ray inputs, the
+// i32 live mask or null, then t f32, type i32, index i32, 6 f32, mat_id
+// i32, 8 f32); rows: the valid rows of each kind.
 int rt_closest_launch(void** p, const float* table, int table_len, int n, int n_sph, int n_pln,
-                      int n_tri, void* stream) {
-  static_assert(sizeof(ClosestArgs) == 9 * sizeof(void*), "ClosestArgs layout");
+                      int n_tri, int n_mat, int rows_sph, int rows_pln, int rows_tri,
+                      void* stream) {
+  static_assert(sizeof(ClosestArgs) == 25 * sizeof(void*), "ClosestArgs layout");
   ClosestArgs a;
   memcpy(&a, p, sizeof(a));
   if (n <= 0) return 0;
   const size_t smem = (size_t)table_len * sizeof(float);
   if (int err = reserve_table(closest_kernel, smem)) return err;
   closest_kernel<<<(n + kThreads - 1) / kThreads, kThreads, smem, (cudaStream_t)stream>>>(
-      a, table, table_len, n, n_sph, n_pln, n_tri);
+      a, table, table_len, n, n_sph, n_pln, n_tri, n_mat, Rows{{rows_sph, rows_pln, rows_tri}});
   return (int)cudaGetLastError();
 }
 
-// p: 7 device pointers, AnyArgs field order (6 f32 ray inputs, hit i32).
+// p: 8 device pointers, AnyArgs field order (6 f32 ray inputs, the i32
+// mask or null, hit i32); rows as for CLOSEST.
 int rt_any_launch(void** p, const float* table, int table_len, int n, int n_sph, int n_pln,
-                  int n_tri, void* stream) {
-  static_assert(sizeof(AnyArgs) == 7 * sizeof(void*), "AnyArgs layout");
+                  int n_tri, int rows_sph, int rows_pln, int rows_tri, void* stream) {
+  static_assert(sizeof(AnyArgs) == 8 * sizeof(void*), "AnyArgs layout");
   AnyArgs a;
   memcpy(&a, p, sizeof(a));
   if (n <= 0) return 0;
   const size_t smem = (size_t)table_len * sizeof(float);
   if (int err = reserve_table(any_kernel, smem)) return err;
   any_kernel<<<(n + kThreads - 1) / kThreads, kThreads, smem, (cudaStream_t)stream>>>(
-      a, table, table_len, n, n_sph, n_pln, n_tri);
+      a, table, table_len, n, n_sph, n_pln, n_tri, Rows{{rows_sph, rows_pln, rows_tri}});
   return (int)cudaGetLastError();
 }
 

@@ -536,47 +536,60 @@ __device__ __forceinline__ SceneView stage_scene(float* smem, const float* __res
 
 // -- trace_attrs (pallas_intersect.trace_attrs_body), one lane ---------------
 
-struct TraceAttrs {
-  bool did_hit, occ;
+// The closest hit and its attributes (intersect._hit_attributes).
+struct HitAttrs {
+  float t;
+  int type, idx;  // the sweep's winner: (3e38, -1, 0) on a miss
+  bool did_hit;
   float px, py, pz;
   V3 normal;
-  const float* mat;  // the winner's material row (MAT_COLS layout)
+  int mat_id;        // the winner's material id, as the scene stores it
+  const float* mat;  // its material row (MAT_COLS layout)
 };
 
 // Closest sweep, the hit point (the ray origin on a miss: t_safe = 0),
-// the winner's normal and material row, and the NEE shadow sweep from the
-// hit point along `nee`. A lane whose winner is another type, or a miss,
-// reads row 0 of a table like the reference's selects; a miss takes the
-// triangle branch (pallas_intersect.small_winner_normals / winner_rows).
-__device__ __forceinline__ TraceAttrs trace_attrs(const SceneView& s, const Ray& r, V3 nee) {
-  float best_t;
-  int best_type, best_idx;
-  sweep(s, r, false, best_t, best_type, best_idx);
-  TraceAttrs a;
-  a.did_hit = best_type >= 0;
-  const float t_safe = a.did_hit ? best_t : 0.0f;
+// the winner's normal and material. A lane whose winner is another type,
+// or a miss, reads row 0 of a table like the reference's selects; a miss
+// takes the triangle branch (pallas_intersect.small_winner_normals /
+// winner_rows). CLOSEST writes it out; trace_attrs goes on from it.
+__device__ __forceinline__ HitAttrs closest_attrs(const SceneView& s, const Ray& r) {
+  HitAttrs a;
+  sweep(s, r, false, a.t, a.type, a.idx);
+  a.did_hit = a.type >= 0;
+  const float t_safe = a.did_hit ? a.t : 0.0f;
   a.px = r.ox + r.dx * t_safe;
   a.py = r.oy + r.dy * t_safe;
   a.pz = r.oz + r.dz * t_safe;
 
   float mat_f;
-  if (best_type == 0) {
-    const float* sp = s.sph + best_idx * SPH_COLS;
+  if (a.type == 0) {
+    const float* sp = s.sph + a.idx * SPH_COLS;
     a.normal = sphere_normal(sp[0], sp[1], sp[2], sp[4], r, a.px, a.py, a.pz);
     mat_f = sp[5];
-  } else if (best_type == 1) {
-    const float* pp = s.pln + best_idx * PLN_COLS;
+  } else if (a.type == 1) {
+    const float* pp = s.pln + a.idx * PLN_COLS;
     a.normal = plane_normal(pp[0], pp[1], pp[2], r);
     mat_f = pp[12];
   } else {
-    const float* tp = s.tri + (best_type == 2 ? best_idx : 0) * TRI_COLS;
+    const float* tp = s.tri + (a.type == 2 ? a.idx : 0) * TRI_COLS;
     a.normal = tri_normal(V3{tp[20], tp[21], tp[22]}, V3{tp[3], tp[4], tp[5]}, V3{tp[6], tp[7], tp[8]},
                           V3{tp[23], tp[24], tp[25]}, V3{tp[26], tp[27], tp[28]},
                           V3{tp[29], tp[30], tp[31]}, r);
     mat_f = tp[32];
   }
-  a.mat = material_row(s.mat, s.n_mat, (int)mat_f);
+  a.mat_id = (int)mat_f;
+  a.mat = material_row(s.mat, s.n_mat, a.mat_id);
+  return a;
+}
 
+struct TraceAttrs : HitAttrs {
+  bool occ;
+};
+
+// closest_attrs, then the NEE shadow sweep from the hit point along `nee`.
+__device__ __forceinline__ TraceAttrs trace_attrs(const SceneView& s, const Ray& r, V3 nee) {
+  TraceAttrs a;
+  static_cast<HitAttrs&>(a) = closest_attrs(s, r);
   float occ_t;
   int occ_type, occ_idx;
   sweep(s, Ray{a.px, a.py, a.pz, nee.x, nee.y, nee.z}, true, occ_t, occ_type, occ_idx);

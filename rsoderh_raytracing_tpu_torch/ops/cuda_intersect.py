@@ -4,10 +4,10 @@ big-mesh route), CLOSEST, ANY and FUSED (scenes within the unroll budget).
 Counterpart of rsoderh_raytracing_tpu/ops/pallas_intersect.py's entry
 points (``chunked_closest_tiles``, ``chunked_any_tiles``,
 ``closest_sweep``, ``any_sweep``, ``fused_trace``). The wrappers take
-flat (n,) tensors: ray components as 3-tuples and, for the chunked
-kernels, an int32 lane mask. For CPU tensors they run the plain versions
+flat (n,) tensors: ray components as 3-tuples and an int32 lane mask
+(optional for CLOSEST and ANY). For CPU tensors they run the plain versions
 (``intersect.chunked_closest_plain`` / ``chunked_any_plain`` /
-``closest_sweep`` / ``any_sweep`` / ``trace_attrs``); for CUDA tensors
+``closest_record`` / ``any_sweep`` / ``trace_attrs``); for CUDA tensors
 they launch the kernels in ``csrc/chunked.cu`` and ``csrc/sweep.cu`` or
 raise. ``LAUNCHES`` counts the kernel launches of each wrapper.
 
@@ -17,6 +17,8 @@ spheres unless they are chunked, packed like the TRACE kernel's table).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -138,42 +140,73 @@ def _small_args(scene, rays, what):
     return n, dev, scene_args
 
 
-def closest_call(scene, ro, rd):
-    """CLOSEST: (t f32, type i32, index i32) of rays (ro, rd) over a
-    scene within the unroll budget; a miss is (3e38, -1, 0)."""
+# CLOSEST's outputs in launch order: the winner, the hit record of
+# intersect._hit_attributes and the 8 material values of material_values.
+CLOSEST_OUT_NAMES = (
+    "t", "type", "index", "px", "py", "pz", "nx", "ny", "nz", "material_id",
+    "cr", "cg", "cb", "rough", "metal", "er", "eg", "eb",
+)
+CLOSEST_INT_NAMES = frozenset({"type", "index", "material_id"})
+
+
+def _lane_mask(mask, n, dev, what):
+    """The launch pointer of an optional int32 lane mask (0: every lane)."""
+    if mask is None:
+        return 0
+    cw._check(f"{what} lane mask", mask, n, torch.int32, dev)
+    return mask.data_ptr()
+
+
+def closest_call(scene, ro, rd, live=None):
+    """CLOSEST over a scene within the unroll budget: a dict by
+    CLOSEST_OUT_NAMES of the closest hit of rays (ro, rd), its point,
+    normal, material id and material values, for lanes with live != 0
+    (every lane when live is None); a miss is (3e38, -1, 0) with the
+    point, normal and material of intersect._hit_attributes. Every other
+    lane holds the miss record with zero attributes
+    (intersect.closest_record)."""
     rays = (*ro, *rd)
     if rays[0].device.type == "cpu":
-        return intersect.closest_sweep(scene, *rays)
+        return intersect.closest_record(scene, ro, rd, live)
     if rays[0].device.type != "cuda":
         raise ValueError(f"closest_call: unsupported device {rays[0].device}")
     from rsoderh_raytracing_tpu_torch.ops import _kernels
 
     n, dev, scene_args = _small_args(scene, rays, "closest_call")
-    t = torch.empty(n, device=dev, dtype=torch.float32)
-    ptype = torch.empty(n, device=dev, dtype=torch.int32)
-    pidx = torch.empty(n, device=dev, dtype=torch.int32)
+    mask = _lane_mask(live, n, dev, "closest_call")
+    outs = {
+        k: torch.empty(n, device=dev, dtype=torch.int32 if k in CLOSEST_INT_NAMES else torch.float32)
+        for k in CLOSEST_OUT_NAMES
+    }
+    ptrs = [t.data_ptr() for t in rays] + [mask] + [outs[k].data_ptr() for k in CLOSEST_OUT_NAMES]
     rc = _kernels.library().rt_closest_launch(
-        cw._ptrs((*rays, t, ptype, pidx)), *scene_args, torch.cuda.current_stream(dev).cuda_stream,
+        (ctypes.c_void_p * len(ptrs))(*ptrs), *scene_args, scene.mat_roughness.shape[0],
+        *scene.sweep_rows, torch.cuda.current_stream(dev).cuda_stream,
     )
     cw._raise_on(rc, "CLOSEST")
     LAUNCHES["closest"] += 1
-    return t, ptype, pidx
+    return outs
 
 
-def any_call(scene, ro, rd):
+def any_call(scene, ro, rd, mask=None):
     """ANY: (n,) bool, some primitive of a scene within the unroll
-    budget is hit."""
+    budget is hit, for lanes with mask != 0 (every lane when mask is
+    None); False on every other lane."""
     rays = (*ro, *rd)
     if rays[0].device.type == "cpu":
-        return intersect.any_sweep(scene, *rays)
+        occ = intersect.any_sweep(scene, *rays)
+        return occ if mask is None else occ & (mask != 0)
     if rays[0].device.type != "cuda":
         raise ValueError(f"any_call: unsupported device {rays[0].device}")
     from rsoderh_raytracing_tpu_torch.ops import _kernels
 
     n, dev, scene_args = _small_args(scene, rays, "any_call")
+    mask_ptr = _lane_mask(mask, n, dev, "any_call")
     hit = torch.empty(n, device=dev, dtype=torch.int32)
+    ptrs = [t.data_ptr() for t in rays] + [mask_ptr, hit.data_ptr()]
     rc = _kernels.library().rt_any_launch(
-        cw._ptrs((*rays, hit)), *scene_args, torch.cuda.current_stream(dev).cuda_stream,
+        (ctypes.c_void_p * len(ptrs))(*ptrs), *scene_args, *scene.sweep_rows,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     cw._raise_on(rc, "ANY")
     LAUNCHES["any"] += 1

@@ -519,9 +519,11 @@ def tiles_to_flat(tiles: dict) -> dict:
 def parity(got: dict, ref: dict, int_names, rtol: float, atol: float):
     """Agreement of two output dicts, output by output. Returns ({name:
     share of lanes equal (integer outputs) or isclose(rtol, atol) with
-    NaN equal to NaN (floats)}, largest absolute and largest relative
-    float difference over lanes where both values are finite)."""
-    shares, max_abs, max_rel = {}, 0.0, 0.0
+    NaN equal to NaN (floats)}, (largest absolute float difference, the
+    output that holds it), (largest relative difference |a - b| /
+    max(|b|, atol), its output)), over lanes where both values are
+    finite; the name is None when no float lane compares."""
+    shares, worst_abs, worst_rel = {}, (0.0, None), (0.0, None)
     for name, a in got.items():
         b = ref[name]
         if name in int_names:
@@ -531,6 +533,10 @@ def parity(got: dict, ref: dict, int_names, rtol: float, atol: float):
         fin = torch.isfinite(a) & torch.isfinite(b)
         diff = (a - b).abs()[fin]
         if diff.numel():
-            max_abs = max(max_abs, float(diff.max()))
-            max_rel = max(max_rel, float((diff / b.abs()[fin].clamp_min(atol)).max()))
-    return shares, max_abs, max_rel
+            d_abs = float(diff.max())
+            d_rel = float((diff / b.abs()[fin].clamp_min(atol)).max())
+            if worst_abs[1] is None or d_abs > worst_abs[0]:
+                worst_abs = (d_abs, name)
+            if worst_rel[1] is None or d_rel > worst_rel[0]:
+                worst_rel = (d_rel, name)
+    return shares, worst_abs, worst_rel

@@ -5,6 +5,7 @@ winner normals live in ops/intersect.py."""
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -20,3 +21,7 @@ class HitRecord:
     point: tuple
     normal: tuple
     material_id: torch.Tensor  # (n,) int32
+    # The port's addition: (cr, cg, cb, rough, metal, er, eg, eb) of the
+    # winner's material (intersect.material_values), where the query
+    # computed them.
+    material: Optional[tuple] = None

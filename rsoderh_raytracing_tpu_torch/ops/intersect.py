@@ -548,6 +548,31 @@ def _hit_attributes(scene, ro, rd, t, ptype, pidx) -> HitRecord:
                      material_id=mat_id)
 
 
+# What a lane outside CLOSEST's live mask holds: the miss record, zero
+# attributes (csrc/sweep.cu:closest_kernel).
+_DEAD = {"t": INF, "type": -1}
+MATERIAL_NAMES = ("cr", "cg", "cb", "rough", "metal", "er", "eg", "eb")
+
+
+def closest_record(scene, ro, rd, live=None):
+    """CLOSEST's plain version: the closest sweep of rays (ro, rd),
+    _hit_attributes and material_values of its winner, as a dict by
+    cuda_intersect.CLOSEST_OUT_NAMES; lanes with live == 0 hold the miss
+    record (3e38, -1, 0) with zero point, normal, material id and
+    values."""
+    t, ptype, pidx = closest_sweep(scene, *ro, *rd)
+    hit = _hit_attributes(scene, ro, rd, t, ptype, pidx)
+    out = dict(
+        t=t, type=ptype, index=pidx, px=hit.point[0], py=hit.point[1], pz=hit.point[2],
+        nx=hit.normal[0], ny=hit.normal[1], nz=hit.normal[2], material_id=hit.material_id,
+        **dict(zip(MATERIAL_NAMES, material_values(scene, hit.material_id))),
+    )
+    if live is None:
+        return out
+    dead = live == 0
+    return {k: torch.where(dead, _DEAD.get(k, 0), v) for k, v in out.items()}
+
+
 def trace_attrs(scene, ox, oy, oz, dx, dy, dz, sx, sy, sz):
     """Closest sweep + winner attributes + material values + the NEE
     shadow sweep from the hit point (pallas_intersect.trace_attrs_body),
@@ -567,35 +592,54 @@ def trace_attrs(scene, ox, oy, oz, dx, dy, dz, sx, sy, sz):
 # -- scene-level queries (rsoderh_raytracing_tpu/ops/intersect.py) ------------
 # Routed by scene/device.route: a scene within the unroll budget takes the
 # CLOSEST, ANY and FUSED kernels (ops/cuda_intersect.py; their plain
-# versions above for CPU tensors), one past it the chunked kernels with an
-# all-ones lane mask, and any other scene raises NotImplementedError (the
-# BVH route is not ported).
+# versions above for CPU tensors), one past it the chunked kernels with the
+# caller's lane mask (all ones without one), and any other scene raises
+# NotImplementedError (the BVH route is not ported).
 
 
 def _all_lanes(t):
     return torch.ones(t.shape[0], dtype=torch.int32, device=t.device)
 
 
-def _closest(scene, ro, rd):
+def _int_mask(mask):
+    return None if mask is None else mask.to(torch.int32).contiguous()
+
+
+def closest_hit(scene, ro, rd, live=None) -> HitRecord:
+    """Closest intersection along each ray, with its material values
+    (HitRecord.material). ro, rd: 3-tuples of (n,) f32; live, an optional
+    (n,) bool or int mask: only lanes with live != 0 need an answer (the
+    others hold the miss record on the small route, what the unrolled
+    primitives alone give on the chunked one). On a small scene this is
+    one CLOSEST launch and no gather."""
     from rsoderh_raytracing_tpu_torch.ops import cuda_intersect as ci
 
+    live = _int_mask(live)
     if route(scene) == CHUNKED:
-        return ci.chunked_closest_call(scene, ro, rd, _all_lanes(ro[0]))
-    return ci.closest_call(scene, ro, rd)
+        lanes = _all_lanes(ro[0]) if live is None else live
+        hit = _hit_attributes(scene, ro, rd, *ci.chunked_closest_call(scene, ro, rd, lanes))
+        hit.material = material_values(scene, hit.material_id)
+        return hit
+    rec = ci.closest_call(scene, ro, rd, live)
+    did_hit = rec["type"] >= 0
+    return HitRecord(
+        did_hit=did_hit, distance=torch.where(did_hit, rec["t"], 0.0),
+        point=(rec["px"], rec["py"], rec["pz"]), normal=(rec["nx"], rec["ny"], rec["nz"]),
+        material_id=rec["material_id"], material=tuple(rec[k] for k in MATERIAL_NAMES),
+    )
 
 
-def closest_hit(scene, ro, rd) -> HitRecord:
-    """Closest intersection along each ray. ro, rd: 3-tuples of (n,) f32."""
-    return _hit_attributes(scene, ro, rd, *_closest(scene, ro, rd))
-
-
-def any_hit(scene, ro, rd):
-    """(n,) bool: some primitive blocks the ray."""
+def any_hit(scene, ro, rd, mask=None):
+    """(n,) bool: some primitive blocks the ray, for lanes with mask != 0
+    (every lane when mask is None); False on the others."""
     from rsoderh_raytracing_tpu_torch.ops import cuda_intersect as ci
 
+    mask = _int_mask(mask)
     if route(scene) == CHUNKED:
-        return ci.chunked_any_call(scene, ro, rd, _all_lanes(ro[0])) != 0
-    return ci.any_call(scene, ro, rd)
+        lanes = _all_lanes(ro[0]) if mask is None else mask
+        occ = ci.chunked_any_call(scene, ro, rd, lanes) != 0
+        return occ if mask is None else occ & (mask != 0)
+    return ci.any_call(scene, ro, rd, mask)
 
 
 def trace_nee(scene, ro, rd, nee_dir):
@@ -607,7 +651,7 @@ def trace_nee(scene, ro, rd, nee_dir):
     emission, occluded): 3-tuples of (n,) tensors, (n,) f32 and bool."""
     if route(scene) == CHUNKED:
         hit = closest_hit(scene, ro, rd)
-        cr, cg, cb, rough, metal, er, eg, eb = material_values(scene, hit.material_id)
+        cr, cg, cb, rough, metal, er, eg, eb = hit.material
         occ = any_hit(scene, hit.point, nee_dir)
         return hit.did_hit, hit.point, hit.normal, (cr, cg, cb), rough, metal, (er, eg, eb), occ
     from rsoderh_raytracing_tpu_torch.ops import cuda_intersect as ci

@@ -3,9 +3,13 @@ rsoderh_raytracing_tpu/render/integrator.py).
 
 Every pixel's path steps through ``max_bounces`` bounces, dead lanes
 masked; the reference's ``lax.scan`` is a Python loop here. Each bounce
-runs the closest-hit and the NEE occlusion query (``ops/intersect.py``:
-the CLOSEST and ANY kernels on the card for a scene within the unroll
-budget, the chunked kernels past it) between plain PyTorch glue. The RNG
+runs the closest-hit query on the live lanes and the NEE occlusion query
+on the live lanes that hit (``ops/intersect.py``: the CLOSEST and ANY
+kernels on the card for a scene within the unroll budget, CLOSEST
+writing the hit record and material values itself; the chunked kernels
+and a row gather past it) between plain PyTorch glue. Every later use of
+their answers is masked by the same lanes, so a dead lane's record
+changes nothing. The RNG
 of every lane advances every bounce, dead lanes too: four draws for the
 environment sample, then two for the bounce, so each (pixel, sample)
 stream equals the wavefront integrator's and the reference's.
@@ -64,7 +68,7 @@ def trace_rays(scene, env, state, ray_origin, ray_direction,
     shadow = torch.zeros((), dtype=torch.int64, device=ro[0].device)
 
     for _ in range(max_bounces):
-        hit = intersect.closest_hit(scene, ro, rd)
+        hit = intersect.closest_hit(scene, ro, rd, alive)
         active_hit = alive & hit.did_hit
         active_miss = alive & ~hit.did_hit
         closest = closest + alive.sum(dtype=torch.int64)
@@ -82,7 +86,7 @@ def trace_rays(scene, env, state, ray_origin, ray_direction,
         )
 
         # Surface emission with the pre-bounce throughput.
-        cr, cg, cb, rough, metal, er, eg, eb = intersect.material_values(scene, hit.material_id)
+        cr, cg, cb, rough, metal, er, eg, eb = hit.material
         emission = (er, eg, eb)
         incoming = tuple(
             incoming[i] + torch.where(active_hit, throughput[i] * emission[i], 0.0)
@@ -91,7 +95,7 @@ def trace_rays(scene, env, state, ray_origin, ray_direction,
 
         # Next-event estimation with MIS, then the BSDF bounce.
         state, nee_dir, nee_radiance, nee_pdf = envmap.sample_environment(state, env)
-        occluded = intersect.any_hit(scene, hit.point, nee_dir)
+        occluded = intersect.any_hit(scene, hit.point, nee_dir, active_hit)
         (
             cos_theta, nee_scatter, nee_bsdf_pdf, state, bdir, bscat, bpdf, bzero, cos_bounce,
         ) = bsdf.trace_epilogue(rd, nee_dir, hit.normal, (cr, cg, cb), rough, metal, state)

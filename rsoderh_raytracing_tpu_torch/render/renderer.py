@@ -136,16 +136,18 @@ class Renderer:
         self.film.add_samples(summed, spp)
         return self.film.sample_count
 
-    def step_freerun(self, iterations: int) -> int:
+    def step_freerun(self, iterations: int, compact_every: int | None = None) -> int:
         """Run the iteration-budget wavefront: every lane stays busy for
         `iterations` path segments, so the per-pixel sample count varies.
         Returns the minimum per-pixel sample count; ``last_stats`` holds
-        the rays traced in this step."""
+        the rays traced in this step. compact_every is the reference's
+        argument and has no effect here (render_freerun)."""
         self._reset_if_changed()
         summed, counts, stats = render_freerun(
             self.device_scene, self._device_env(), self._camera(),
             self.film.counts,  # stays on the device
             (self.width, self.height), iterations, self.max_bounces, with_stats=True,
+            compact_every=compact_every,
         )
         self.film.add_freerun(summed, counts)
         self.last_stats = {

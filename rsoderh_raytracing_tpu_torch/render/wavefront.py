@@ -49,6 +49,7 @@ import os
 import numpy as np
 import torch
 
+from rsoderh_raytracing_tpu_torch import _device
 from rsoderh_raytracing_tpu_torch.ops import cuda_intersect as ci
 from rsoderh_raytracing_tpu_torch.ops import cuda_wavefront as cw
 from rsoderh_raytracing_tpu_torch.ops import bsdf, envmap, intersect, rng
@@ -280,13 +281,20 @@ def render_wavefront(
 def render_freerun(
     scene, env, camera, base_counts, resolution, iterations,
     max_bounces: int = MAX_BOUNCES, with_stats: bool = False, profile=None,
+    compact_every: int | None = None,
 ):
     """Iteration-budget rendering: every lane stays busy for `iterations`
     path segments, completing a variable number of samples per pixel,
     then in-flight paths drain. base_counts: per-pixel starting sample
     index, (H, W) or scalar. Returns (sum image (H, W, 3), counts (H, W)
     int64[, stats]); resuming from the accumulated counts continues the
-    same deterministic streams."""
+    same deterministic streams.
+
+    compact_every is accepted for the reference's callers and has no
+    effect: the reference's lane compaction is bit-transparent, and the
+    port does not compact (RT_COMPACT_EVERY is ignored with a warning)."""
+    del compact_every
+    _device.warn_ignored_knobs()
     width, height = resolution
     film, counts, stats = _loop(
         scene, env, camera, base_counts, resolution, NO_LIMIT, iterations,

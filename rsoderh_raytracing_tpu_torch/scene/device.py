@@ -121,6 +121,10 @@ class DeviceScene:
     # The TRACE kernel's table (pack_rows: every primitive and material
     # row), built with the scene when its route is SMALL.
     trace_table: Optional[torch.Tensor] = dataclasses.field(default=None, repr=False)
+    # Rows of each kind (sphere, plane, triangle) up to its last valid
+    # one: what CLOSEST and ANY sweep of the table (the padding is
+    # trailing, so these are the valid counts).
+    sweep_rows: tuple = (0, 0, 0)
     # The chunked route's tables (ChunkTables), built with the scene
     # when its route is CHUNKED.
     chunks: Optional["ChunkTables"] = dataclasses.field(default=None, repr=False)
@@ -358,6 +362,7 @@ def build_device_scene(
     """Flatten + pad a host Scene into a DeviceScene on `device` (no BVH:
     the BVH route is not ported yet)."""
     device = _device.resolve(device)
+    _device.warn_ignored_knobs()
     materials = scene.materials or []
     m = max(1, len(materials))
     mat_color = np.zeros((m, 3), np.float32)
@@ -492,6 +497,10 @@ def device_scene_from_arrays(arrays: dict, device=_device.DEFAULT) -> DeviceScen
             arr = arr.astype(np.float32)
         host[name] = np.ascontiguousarray(arr)
     scene = DeviceScene(**{k: torch.from_numpy(v.copy()).to(device) for k, v in host.items()})
+    scene.sweep_rows = tuple(
+        int(np.flatnonzero(host[k])[-1]) + 1 if host[k].any() else 0
+        for k in ("sph_valid", "pln_valid", "tri_valid")
+    )
     n_sph, n_pln, n_tri = _counts(scene)
     if n_sph + n_pln + n_tri <= MAX_UNROLL_PRIMS:
         scene.trace_table = pack_rows(scene)

@@ -229,9 +229,9 @@ def test_wrapper_rejects_wrong_dtype(house_state, house_scene, dev):
 def _sweeps_bitwise(scene, ro, rd, nd):
     """CLOSEST, ANY and FUSED against their plain versions: every output
     bit for bit on every lane."""
-    names = ("t", "type", "index")
-    for a, b, name in zip(ci.closest_call(scene, ro, rd), intersect.closest_sweep(scene, *ro, *rd), names):
-        assert int(_bits_differ(a, b).sum()) == 0, name
+    closest = ci.closest_call(scene, ro, rd)
+    for name, b in intersect.closest_record(scene, ro, rd).items():
+        assert int(_bits_differ(closest[name], b).sum()) == 0, name
     fused = ci.fused_call(scene, ro, rd, nd)
     plain = intersect.trace_attrs(scene, *ro, *rd, *nd)
     for k in plain:
@@ -468,3 +468,79 @@ def test_chunked_kernels_with_a_nan_vertex(dev, n):
     ref = intersect.chunked_closest_plain(scene, ro, rd, mask)
     assert all(_same(a, b) for a, b in zip(got, ref))
     assert _same(ci.chunked_any_call(scene, ro, rd, mask), intersect.chunked_any_plain(scene, ro, rd, mask))
+
+
+def _lane_masks(n, dev):
+    g = np.random.default_rng(n)
+    return {
+        "none": None,
+        "all": torch.ones(n, dtype=torch.int32, device=dev),
+        "dead": torch.zeros(n, dtype=torch.int32, device=dev),
+        "half": torch.from_numpy((g.uniform(size=n) < 0.5).astype(np.int32)).to(dev),
+        "sparse": torch.from_numpy((g.uniform(size=n) < 0.03).astype(np.int32)).to(dev),
+    }
+
+
+@pytest.mark.parametrize("n", LANE_COUNTS)
+@pytest.mark.parametrize("name", ["tiny", "house"])
+def test_masked_sweeps_bitwise(small_scenes, dev, name, n):
+    """CLOSEST and ANY under lane masks (none, all, none set, half, 3%)
+    against their plain versions, every output bit for bit on every lane:
+    the record and material values on live lanes, the miss record with
+    zero attributes on dead ones, 0 on unmasked ANY lanes."""
+    scene, origin = small_scenes[name]
+    carry = _made_up_carry(n, dev, origin, n + 3)
+    ro = tuple(carry[f"ro{i}"] for i in range(3))
+    rd = tuple(carry[f"rd{i}"] for i in range(3))
+    for label, mask in _lane_masks(n, dev).items():
+        before = dict(ci.LAUNCHES)
+        got = ci.closest_call(scene, ro, rd, mask)
+        occ = ci.any_call(scene, ro, rd, mask)
+        assert ci.LAUNCHES["closest"] == before["closest"] + 1
+        assert ci.LAUNCHES["any"] == before["any"] + 1
+        for k, b in intersect.closest_record(scene, ro, rd, mask).items():
+            assert int(_bits_differ(got[k], b).sum()) == 0, (label, k)
+        ref = intersect.any_sweep(scene, *ro, *rd)
+        if mask is not None:
+            ref = ref & (mask != 0)
+        assert torch.equal(occ, ref), label
+
+
+def test_scan_states_match_plain(dev, house_scene):
+    """CLOSEST and ANY on the scan integrator's own queries at bounces 0
+    and 3 (128x128, 8 bounces) against their plain versions on every
+    lane, bit for bit; the dead lanes hold the miss record."""
+    from rsoderh_raytracing_tpu_torch.profiling import capture_scan
+
+    ds = build_device_scene(house_scene, dev)
+    env = device_environment(Environment.from_texture("s", procedural_sky(256, 128)), dev)
+    states = capture_scan(ds, env, camera_pytree(house_scene.camera, dev), 128, 8)
+    for bounce, state in states.items():
+        ro, rd, live = state["closest"]
+        p, nd, mask = state["any"]
+        live, mask = live.to(torch.int32), mask.to(torch.int32)
+        assert 0 < int(mask.sum()) <= int(live.sum())
+        got = ci.closest_call(ds, ro, rd, live)
+        for k, b in intersect.closest_record(ds, ro, rd, live).items():
+            assert int(_bits_differ(got[k], b).sum()) == 0, (bounce, k)
+        dead = live == 0
+        assert bool((got["type"][dead] == -1).all()) and bool((got["px"][dead] == 0).all())
+        assert torch.equal(ci.any_call(ds, p, nd, mask),
+                           intersect.any_sweep(ds, *p, *nd) & (mask != 0)), bounce
+
+
+def test_scan_path_gathers_no_scene_row(dev, house_scene):
+    """The scan integrator on the card: CLOSEST and ANY once a bounce, and
+    no index_select on a table of the scene (the hit record and material
+    values come from CLOSEST)."""
+    from rsoderh_raytracing_tpu_torch.profiling import scene_gathers
+    from rsoderh_raytracing_tpu_torch.render.integrator import render_sample
+
+    ds = build_device_scene(house_scene, dev)
+    env = device_environment(Environment.from_texture("s", procedural_sky(128, 64)), dev)
+    cam = camera_pytree(house_scene.camera, dev)
+    before = dict(ci.LAUNCHES)
+    gathers = scene_gathers(ds, lambda: render_sample(ds, env, cam, 0, (64, 64), 5))
+    assert gathers == 0
+    assert ci.LAUNCHES["closest"] == before["closest"] + 5
+    assert ci.LAUNCHES["any"] == before["any"] + 5

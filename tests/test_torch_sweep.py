@@ -144,8 +144,11 @@ def test_wrappers_on_cpu_run_plain_and_count_nothing():
     occ = ci.any_call(scene, ro, rd)
     fused = ci.fused_call(scene, ro, rd, nd)
     assert set(ci.LAUNCHES.values()) == {0}
-    for a, b in zip(closest, intersect.closest_sweep(scene, *ro, *rd)):
-        assert torch.equal(a, b)
+    assert tuple(closest) == ci.CLOSEST_OUT_NAMES
+    for name, b in zip(CLOSEST_NAMES, intersect.closest_sweep(scene, *ro, *rd)):
+        assert torch.equal(closest[name], b)
+    ref = intersect.closest_record(scene, ro, rd)
+    assert all(torch.equal(closest[k], ref[k]) for k in ref)
     assert torch.equal(occ, intersect.any_sweep(scene, *ro, *rd))
     ref = intersect.trace_attrs(scene, *ro, *rd, *nd)
     assert fused.keys() == ref.keys() == set(ci.FUSED_OUT_NAMES)
