@@ -59,9 +59,22 @@ exits non-zero at the first failure. Phases, one line each or more:
    kernel loop at 128x128;
 11. command line: cli.main on house at 256x256, 8 spp, exact and freerun
    to PNG, .hdr with --save-checkpoint, and --checkpoint resume; the files
-   are read back (under build/chip_smoke/).
+   are read back (under build/chip_smoke/);
+12. the BVH route (BVH_CLOSEST, BVH_ANY, BIG_SHADE): generates
+   assets/suzanne_xxhi.obj (991,232 triangles, past the chunked route's
+   ceilings) and assets/suzanne_xhi.obj with scripts/subdivide_obj.py when
+   they are absent; builds suzanne_xxhi's BVH (seconds, the native
+   builder, nodes, depth < 64); renders it at 2048x2048, 8 bounces,
+   free-run through the BVH route (Mrays/s, peak memory); holds BVH_CLOSEST
+   and BVH_ANY bitwise to their plain twins (ops/bvh.py) on every lane of
+   a 256x256 and a 2048x2048 loop state, then times them beside the plain
+   twins and the bound of their walks' counts (profiling.bvh_bound);
+   compares suzanne_hi at 256x256 through the BVH and the chunked routes
+   (the anchors' flip-aware criteria); and logs the Mrays/s of the sweep
+   route and of the BVH route on house, spheres, suzanne_hi and suzanne_xhi
+   (the crossover). Its seconds on a line of their own.
 
-Then a JSON line with each kernel's launches, largest absolute and
+Then a JSON line with each of the ten kernels' launches, largest absolute and
 relative errors (and the outputs that hold them), times and bound, the
 card line again, and last {"ok": true, "device": {...}}. Imports nothing
 of JAX or of the JAX package.
@@ -72,6 +85,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import subprocess
 import sys
 import time
 from unittest import mock
@@ -83,6 +97,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 from rsoderh_raytracing_tpu_torch import cli, load_scene, write_png  # noqa: E402
+from rsoderh_raytracing_tpu_torch.accel import bvh as accel_bvh  # noqa: E402
+from rsoderh_raytracing_tpu_torch.accel import native as accel_native  # noqa: E402
+from rsoderh_raytracing_tpu_torch.ops import bvh as bvh_ops  # noqa: E402
 from rsoderh_raytracing_tpu_torch.env.environment import (  # noqa: E402
     Environment, EnvironmentMaps, device_environment, load_default_environments,
 )
@@ -94,7 +111,7 @@ from rsoderh_raytracing_tpu_torch.ops import cuda_wavefront as cw  # noqa: E402
 from rsoderh_raytracing_tpu_torch.ops import intersect  # noqa: E402
 from rsoderh_raytracing_tpu_torch.ops.tonemap import aces_tonemap, linear_to_srgb  # noqa: E402
 from rsoderh_raytracing_tpu_torch.profiling import (  # noqa: E402
-    KERNELS, bound_ms, capture_scan, capture_step, card_line, chunked_bound, first_hit_ops,
+    KERNELS, bound_ms, bvh_bound, capture_scan, capture_step, card_line, chunked_bound, first_hit_ops,
     kernel_breakdown, scan_bounds, scan_calls, scene_gathers, scene_setup, shade_outputs,
     sweep_calls, sweep_ops, time_ms, valid_sweep_ops,
 )
@@ -105,7 +122,7 @@ from rsoderh_raytracing_tpu_torch.render.renderer import Renderer  # noqa: E402
 from rsoderh_raytracing_tpu_torch.render.wavefront import (  # noqa: E402
     NO_LIMIT, Wavefront, render_freerun, render_wavefront,
 )
-from rsoderh_raytracing_tpu_torch.scene.device import build_device_scene  # noqa: E402
+from rsoderh_raytracing_tpu_torch.scene.device import BVH, build_device_scene, route  # noqa: E402
 from rsoderh_raytracing_tpu_torch.utils.png import read_png  # noqa: E402
 
 # Kernel against plain version on the same card, output by output: an
@@ -130,6 +147,20 @@ CALL_SECONDS = 8.0  # target time of one timed call
 SRC_WAVEFRONT = "rsoderh_raytracing_tpu_torch/csrc/wavefront.cu"
 SRC_CHUNKED = "rsoderh_raytracing_tpu_torch/csrc/chunked.cu"
 SRC_SWEEP = "rsoderh_raytracing_tpu_torch/csrc/sweep.cu"
+SRC_BVH = "rsoderh_raytracing_tpu_torch/csrc/bvh.cu"
+# The generated meshes of the BVH phase: subdivision level by file.
+GENERATED_MESHES = {"suzanne_xxhi.obj": 5, "suzanne_xhi.obj": 4}
+# The BVH phase's crossover runs: the scenes, each through its sweep route
+# and through the BVH, and the iterations a call (a warm-up call first).
+CROSSOVER_SCENES = ("house", "spheres", "suzanne_hi", "suzanne_xhi")
+CROSSOVER_BUDGET = 64
+# suzanne_hi through the BVH and the chunked routes at 256x256: the leaf
+# tests round apart, so a few paths flip; the suzanne_hi anchor's
+# flip-aware criteria (tests/test_reference_estimator.py) hold the rest.
+ROUTES_SIZE, ROUTES_SPP = 256, 4
+FLIP_ABS = 1e-2
+FLIPPED_MAX = 0.03
+UNFLIPPED_REL_RMSE_MAX = 0.005
 SCAN_STEPS = 3
 # Samples of the 256^2 scan image held against the CPU's. One sample
 # differs from the CPU's by a relative RMSE of up to a few 1e-3 on an
@@ -252,6 +283,9 @@ def timed_main(label, ds, env, cam, card, calls, dev, budget=None):
         budget = int(min(1024, max(8, CALL_SECONDS / per_iter)))
     total_rays, total_spp, image, call_rates = 0, 0.0, None, []
     torch.cuda.reset_peak_memory_stats(dev)
+    # allocated before the timed calls: the scene, the environment and
+    # whatever earlier phases still hold
+    held = torch.cuda.memory_allocated(dev)
     reset_launches()
     torch.cuda.synchronize()
     start = time.perf_counter()
@@ -274,6 +308,7 @@ def timed_main(label, ds, env, cam, card, calls, dev, budget=None):
         rays_per_px_spp=f"{total_rays / (n_pixels * max(total_spp, 1e-9)):.3f}",
         spp=f"{total_spp:.2f}", **{f"{k}_launches": v for k, v in counted.items()},
         peak_allocated_mib=f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f}",
+        held_before_mib=f"{held / 2**20:.1f}",
         warmup_ms_per_iter=f"{per_iter * 1e3:.2f}", card=repr(card))
     if not bool(torch.isfinite(image).all()):
         raise AssertionError(f"{label}: non-finite pixels in the main-path image")
@@ -592,6 +627,142 @@ def cli_phase(dev):
         files=",".join(sorted(os.listdir(OUT_DIR))))
 
 
+def generated_mesh(name):
+    """assets/NAME, generated by scripts/subdivide_obj.py when absent."""
+    path = os.path.join(ROOT, "assets", name)
+    if not os.path.exists(path):
+        start = time.perf_counter()
+        subprocess.run([sys.executable, os.path.join(ROOT, "scripts", "subdivide_obj.py"),
+                        str(GENERATED_MESHES[name]), path], check=True, cwd=ROOT, timeout=600)
+        log("mesh", file=name, level=GENERATED_MESHES[name],
+            seconds=f"{time.perf_counter() - start:.2f}")
+    return path
+
+
+def bvh_parity(label, lanes, state, max_err):
+    """BVH_CLOSEST and BVH_ANY on a loop state (capture_step's arguments)
+    against their plain twins: every output by check_parity, then t, type,
+    index and occlusion bitwise on every lane, the masked-out ones
+    included. Returns {Wavefront.step keyword: (the plain twin's ms, its
+    walk counts)}."""
+    out = {}
+    for key, name, kfn, pfn, ints in (
+        ("closest", "bvh_closest", ci.bvh_closest_call, bvh_ops.closest_plain, {"type", "index"}),
+        ("occlusion", "bvh_any", ci.bvh_any_call, bvh_ops.any_plain, {"occ"}),
+    ):
+        args = state[key]
+        got = kfn(*args)
+        counts = {}
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        ref = pfn(*args, counts=counts)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - start) * 1e3
+        names = ("t", "type", "index") if key == "closest" else ("occ",)
+        got = dict(zip(names, got if key == "closest" else (got,)))
+        ref = dict(zip(names, ref if key == "closest" else (ref,)))
+        keep_worst(max_err, name, check_parity(f"{name}:{label}", lanes, got, ref, ints))
+        differ = {k: int((_bits(got[k]) != _bits(ref[k])).sum()) for k in names}
+        mask = args[3] != 0
+        log("parity", kernel=f"{name}:{label}", lanes=lanes, masked=int(mask.sum()),
+            **{f"{k}_lanes_differ": v for k, v in differ.items()},
+            **({"unmasked_not_miss": int((got["type"][~mask] != -1).sum())} if key == "closest"
+               else {"unmasked_occ": int(got["occ"][~mask].sum())}))
+        if any(differ.values()):
+            raise AssertionError(f"{name} is not bitwise its plain twin on {label}: {differ}")
+        out[key] = (plain_ms, counts)
+    return out
+
+
+def image_of(ds, env, cam, size, spp):
+    img = render_wavefront(ds, env, cam, 0, (size, size), spp, BOUNCES)
+    return img.cpu().numpy() / spp
+
+
+def bvh_phase(sky, card, dev, max_err, times, bounds):
+    """The BVH route (phase 12). Returns the launch counts of the
+    suzanne_xxhi main run."""
+    phase_start = time.perf_counter()
+    for name in GENERATED_MESHES:
+        generated_mesh(name)
+    scene = load_scene(os.path.join(ROOT, "assets", "scenes", "suzanne_xxhi.toml"))
+    start = time.perf_counter()
+    xx_ds = build_device_scene(scene, dev, with_bvh="auto")
+    scene_s = time.perf_counter() - start
+    if route(xx_ds) != BVH:
+        raise AssertionError("with_bvh='auto' did not route suzanne_xxhi to the BVH")
+    b = xx_ds.bvh
+    log("bvh_build", scene="suzanne_xxhi", triangles=len(scene.meshes.triangles),
+        primitives=b.prim_type.shape[0], seconds=f"{b.build_seconds:.3f}",
+        native=accel_native.available(), nodes=b.num_nodes, depth=b.depth, max_leaf=b.max_leaf)
+    if not accel_native.available():
+        raise AssertionError("the native BVH builder did not build or load")
+    if not b.depth < accel_bvh.TRAVERSAL_STACK_DEPTH:
+        raise AssertionError(f"suzanne_xxhi's BVH is {b.depth} deep")
+    log("bvh_scene", scene="suzanne_xxhi", route=route(xx_ds), seconds=f"{scene_s:.3f}",
+        lanes=xx_ds.num_lanes, node_mib=f"{b.nodes.numel() * 4 / 2**20:.1f}",
+        leaf_mib=f"{b.prims.numel() * 4 / 2**20:.1f}")
+    cam = camera_pytree(scene.camera, dev)
+
+    # parity of both walks with their twins at 256^2 and at 2048^2
+    bvh_parity("suzanne_xxhi", 256 * 256, loop_state(xx_ds, sky, cam, 256, 0, 3), max_err)
+    state = loop_state(xx_ds, sky, cam, SIZE, 0, 0, kernel_iterations=2)
+    plain = bvh_parity("suzanne_xxhi", SIZE * SIZE, state, max_err)
+    for key, name, closest in (("closest", "bvh_closest", True), ("occlusion", "bvh_any", False)):
+        kfn = ci.bvh_closest_call if closest else ci.bvh_any_call
+        k1 = time_ms(lambda: kfn(*state[key]), 5)
+        k2 = time_ms(lambda: kfn(*state[key]), 5)
+        plain_ms, counts = plain[key]
+        times[name] = ((k1 + k2) / 2, plain_ms)
+        ms, by, info = bvh_bound(xx_ds, SIZE * SIZE, counts, closest)
+        bounds[name] = (ms, by)
+        log("timing", kernel=name, scene="suzanne_xxhi", lanes=SIZE * SIZE,
+            masked=int((state[key][3] != 0).sum()), ms=f"{times[name][0]:.4f}",
+            plain_ms=f"{plain_ms:.1f}", bound_ms=f"{ms:.4f}", bound_by=by,
+            **{k: v for k, v in info.items()},
+            visits_per_lane=f"{info['visits'] / SIZE ** 2:.2f}", card=repr(card))
+    del state, plain
+
+    # the main path: suzanne_xxhi at 2048^2, 8 bounces, free-run
+    counted, image, counts, warm = timed_main("suzanne_xxhi_bvh", xx_ds, sky, cam, card, 1, dev)
+    for k in ("bvh_closest", "bvh_any", "big_shade"):
+        if counted[k] <= 0:
+            raise AssertionError(f"the suzanne_xxhi main path did not launch {k}")
+    if any(counted[k] for k in ("trace", "shade", "chunked_closest", "chunked_any")):
+        raise AssertionError(f"the suzanne_xxhi main path left the BVH route: {counted}")
+    save_png("suzanne_xxhi", image, counts, warm)
+    split("suzanne_xxhi_bvh", xx_ds, sky, cam, counts, card)
+    del xx_ds, image
+
+    # suzanne_hi through both routes at 256^2: the same image but for flips
+    hi = load_scene(os.path.join(ROOT, "assets", "scenes", "suzanne_hi.toml"))
+    hi_cam = camera_pytree(hi.camera, dev)
+    via_bvh = image_of(build_device_scene(hi, dev, with_bvh=True), sky, hi_cam, ROUTES_SIZE, ROUTES_SPP)
+    via_chunks = image_of(build_device_scene(hi, dev), sky, hi_cam, ROUTES_SIZE, ROUTES_SPP)
+    diff = via_bvh - via_chunks
+    flipped = np.abs(diff).max(-1) > FLIP_ABS
+    keep = ~flipped
+    rel = float(np.sqrt((diff[keep] ** 2).mean()) / np.sqrt((via_chunks[keep] ** 2).mean()))
+    log("bvh_image", scene="suzanne_hi", size=ROUTES_SIZE, spp=ROUTES_SPP,
+        flipped=f"{flipped.mean():.5f}", rel_rmse_unflipped=f"{rel:.3e}",
+        pixels_equal=f"{float((diff == 0).all(-1).mean()):.5f}",
+        image_mean_rel=f"{abs(float(via_bvh.mean()) / float(via_chunks.mean()) - 1):.3e}")
+    if not (flipped.mean() < FLIPPED_MAX and rel < UNFLIPPED_REL_RMSE_MAX):
+        raise AssertionError("suzanne_hi through the BVH route is not the chunked route's image")
+
+    # the crossover: Mrays/s of the sweep route (small or chunked) and of
+    # the BVH route on each scene, one call each after a warm-up
+    for name in CROSSOVER_SCENES:
+        sc = load_scene(os.path.join(ROOT, "assets", "scenes", f"{name}.toml"))
+        sc_cam = camera_pytree(sc.camera, dev)
+        for with_bvh in (False, True):
+            ds = build_device_scene(sc, dev, with_bvh=with_bvh)
+            timed_main(f"{name}_{route(ds)}", ds, sky, sc_cam, card, 1, dev, budget=CROSSOVER_BUDGET)
+            del ds
+    log("bvh_phase", seconds=f"{time.perf_counter() - phase_start:.1f}")
+    return counted
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -758,9 +929,8 @@ def main() -> int:
         if key == "big_shade":
             # its per-lane inputs, the 4-word quad row and 22 outputs; the
             # winner and material tables once
-            ch = hi_ds.chunks
             n_bytes = (n_pixels * 4 * (len(cw.BIG_SHADE_IN) + 4 + len(cw.SHADE_OUT_NAMES))
-                       + 4 * (ch.winner.numel() + ch.materials.numel()))
+                       + 4 * (hi_ds.winner.numel() + hi_ds.materials.numel()))
             bounds[name] = bound_ms(n_bytes, 0) + ({},)
             walked = {}
         else:
@@ -794,6 +964,9 @@ def main() -> int:
     anchor("suzanne_hi", 24, 2, env0, dev)
     anchor("spheres", 32, 4, env0, dev)
 
+    # 12. the BVH route
+    bvh_launches = bvh_phase(sky, card, dev, max_err, times, bounds)
+
     replaces = {
         "trace": "rsoderh_raytracing_tpu/ops/pallas_wavefront.py:775",
         "shade": "rsoderh_raytracing_tpu/ops/pallas_wavefront.py:840",
@@ -803,14 +976,18 @@ def main() -> int:
         "fused": "rsoderh_raytracing_tpu/ops/pallas_intersect.py:1964",
         "closest": "rsoderh_raytracing_tpu/ops/pallas_intersect.py:1624",
         "any": "rsoderh_raytracing_tpu/ops/pallas_intersect.py:1624",
+        # not Pallas kernels: the reference's BVH walks, lax.while_loops in XLA
+        "bvh_closest": "rsoderh_raytracing_tpu/ops/bvh_traverse.py:304",
+        "bvh_any": "rsoderh_raytracing_tpu/ops/bvh_traverse.py:468",
     }
     sources = {"trace": SRC_WAVEFRONT, "shade": SRC_WAVEFRONT, "chunked_closest": SRC_CHUNKED,
                "chunked_any": SRC_CHUNKED, "big_shade": SRC_WAVEFRONT, "fused": SRC_SWEEP,
-               "closest": SRC_SWEEP, "any": SRC_SWEEP}
+               "closest": SRC_SWEEP, "any": SRC_SWEEP, "bvh_closest": SRC_BVH, "bvh_any": SRC_BVH}
     counted = {**{k: house_launches[k] for k in ("trace", "shade")},
                **{k: big_launches[k] for k in ("chunked_closest", "chunked_any", "big_shade")},
                "fused": composed_launches["fused"],
-               **{k: scan_launches[k] for k in ("closest", "any")}}
+               **{k: scan_launches[k] for k in ("closest", "any")},
+               **{k: bvh_launches[k] for k in ("bvh_closest", "bvh_any")}}
     kernels = [
         {"name": name, "route": "cuda",
          "source": sources[name],

@@ -65,8 +65,10 @@ def build_parser() -> argparse.ArgumentParser:
         "--intersector",
         choices=("auto", "sweep", "bvh"),
         default="auto",
-        help="auto, sweep: the sweep kernels (unrolled within the unroll"
-        " budget, chunked past it). bvh: not ported yet.",
+        help="sweep: the sweep kernels (unrolled within the unroll budget,"
+        " chunked past it). bvh: build the SAH BVH and walk it. auto: the"
+        " sweep kernels where they cover the scene, the BVH past their"
+        " ceilings (on --device cpu also past 262,144 triangles).",
     )
     parser.add_argument("--max-bounces", type=int, default=10)
     parser.add_argument("--output", default="render.png")

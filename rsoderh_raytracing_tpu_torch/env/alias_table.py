@@ -4,7 +4,7 @@ A copy of ``rsoderh_raytracing_tpu.env.alias_table`` (pure numpy; the
 original's package imports jax), with its own native fast path: the C++
 pairing loop in ``csrc/alias_table.cpp`` (a copy of the reference
 package's), built at first use with the reference's g++ flags into
-``build/native/`` at the root of the checkout.
+``build/native/`` at the root of the checkout (accel/native.host_library).
 
 Same construction as the reference (src/environments.rs:96-187):
 per-pixel weight = luminance(color) * sin(theta_row) (lat-long solid-angle
@@ -25,7 +25,6 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
 import logging
 import os
 import subprocess
@@ -33,12 +32,10 @@ import threading
 
 import numpy as np
 
+from rsoderh_raytracing_tpu_torch.accel.native import NATIVE_DIR, host_library  # noqa: F401
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NATIVE_SRC = os.path.join(_PKG, "csrc", "alias_table.cpp")
-NATIVE_DIR = os.path.join(os.path.dirname(_PKG), "build", "native")
-# The reference's flags (rsoderh_raytracing_tpu/accel/native.py), so the
-# tables stay bitwise equal to the reference's.
-GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 
 _native_lock = threading.Lock()
 _native_lib = None
@@ -101,17 +98,8 @@ def _load_native():
     with _native_lock:
         if _native_lib is not None or _native_failed:
             return _native_lib
-        with open(NATIVE_SRC, "rb") as f:
-            digest = hashlib.sha256(f.read() + " ".join(GXX_FLAGS).encode())
-        lib_path = os.path.join(NATIVE_DIR, f"libalias_table_{digest.hexdigest()[:16]}.so")
         try:
-            if not os.path.exists(lib_path):
-                os.makedirs(NATIVE_DIR, exist_ok=True)
-                tmp = f"{lib_path}.tmp{os.getpid()}"
-                subprocess.run(["g++", *GXX_FLAGS, NATIVE_SRC, "-o", tmp],
-                               check=True, capture_output=True)
-                os.replace(tmp, lib_path)
-            lib = ctypes.CDLL(lib_path)
+            lib = ctypes.CDLL(host_library(NATIVE_SRC))
         except (OSError, subprocess.CalledProcessError) as err:
             logging.getLogger(__name__).warning(
                 "native alias-table builder unavailable (%s); using numpy", err)

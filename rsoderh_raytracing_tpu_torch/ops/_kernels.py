@@ -2,7 +2,8 @@
 
 At first use, ``nvcc`` compiles every ``csrc/*.cu`` (``wavefront.cu``:
 TRACE, SHADE, BIG_SHADE; ``chunked.cu``: CHUNKED_CLOSEST, CHUNKED_ANY;
-``sweep.cu``: CLOSEST, ANY, FUSED), one process a source, all started
+``sweep.cu``: CLOSEST, ANY, FUSED; ``bvh.cu``: BVH_CLOSEST, BVH_ANY), one
+process a source, all started
 together, and links them into one
 shared library with a plain C interface, written under
 ``build/kernels/`` at the root of the checkout (named by a hash of the
@@ -125,6 +126,8 @@ def load(flags=NVCC_FLAGS):
         "rt_closest_launch": [vp, vp, i, i, i, i, i, i, i, i, i, vp],
         "rt_any_launch": [vp, vp, i, i, i, i, i, i, i, i, vp],
         "rt_fused_launch": [vp, vp, i, i, i, i, i, i, vp],
+        "rt_bvh_closest_launch": [vp, vp, vp, vp, vp, vp, i, i, i, i, vp],
+        "rt_bvh_any_launch": [vp, vp, vp, i, vp],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

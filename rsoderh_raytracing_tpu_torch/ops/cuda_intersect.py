@@ -1,5 +1,6 @@
 """The sweep kernels' wrappers: CHUNKED_CLOSEST and CHUNKED_ANY (the
-big-mesh route), CLOSEST, ANY and FUSED (scenes within the unroll budget).
+big-mesh route), CLOSEST, ANY and FUSED (scenes within the unroll budget),
+and the BVH route's walks, BVH_CLOSEST and BVH_ANY.
 
 Counterpart of rsoderh_raytracing_tpu/ops/pallas_intersect.py's entry
 points (``chunked_closest_tiles``, ``chunked_any_tiles``,
@@ -8,8 +9,10 @@ flat (n,) tensors: ray components as 3-tuples and an int32 lane mask
 (optional for CLOSEST and ANY). For CPU tensors they run the plain versions
 (``intersect.chunked_closest_plain`` / ``chunked_any_plain`` /
 ``closest_record`` / ``any_sweep`` / ``trace_attrs``); for CUDA tensors
-they launch the kernels in ``csrc/chunked.cu`` and ``csrc/sweep.cu`` or
-raise. ``LAUNCHES`` counts the kernel launches of each wrapper.
+they launch the kernels in ``csrc/chunked.cu``, ``csrc/sweep.cu`` and
+``csrc/bvh.cu`` or raise. ``LAUNCHES`` counts the kernel launches of each
+wrapper. The BVH wrappers' plain versions are ``bvh.closest_plain`` and
+``bvh.any_plain`` (ops/bvh.py), and their tables the scene's DeviceBVH.
 
 The scene data are the DeviceScene's chunk tables (scene/device.py:
 bounds, 20-float window rows, and the unrolled primitives, planes and
@@ -22,12 +25,14 @@ import ctypes
 
 import torch
 
+from rsoderh_raytracing_tpu_torch.ops import bvh as bvh_ops
 from rsoderh_raytracing_tpu_torch.ops import cuda_wavefront as cw
 from rsoderh_raytracing_tpu_torch.ops import intersect
-from rsoderh_raytracing_tpu_torch.scene.device import CHUNKED, SMALL, route
+from rsoderh_raytracing_tpu_torch.scene.device import BVH, CHUNKED, SMALL, route
 
 # Kernel launches of each wrapper (CUDA tensors only).
-LAUNCHES = {"chunked_closest": 0, "chunked_any": 0, "closest": 0, "any": 0, "fused": 0}
+LAUNCHES = {"chunked_closest": 0, "chunked_any": 0, "closest": 0, "any": 0, "fused": 0,
+            "bvh_closest": 0, "bvh_any": 0}
 
 
 def reset_launches():
@@ -239,3 +244,76 @@ def fused_call(scene, ro, rd, nee_dir):
     outs["did_hit"] = outs["did_hit"] != 0
     outs["occ"] = outs["occ"] != 0
     return outs
+
+
+def _bvh_args(scene, rays, mask, what):
+    """Check the inputs of BVH_CLOSEST or BVH_ANY; returns (lanes, device,
+    the launch's pointer array)."""
+    if route(scene) != BVH:
+        raise ValueError(f"{what}: the scene carries no BVH")
+    n = mask.shape[0]
+    dev = mask.device
+    for i, t in enumerate(rays):
+        cw._check(f"{what} ray input {i}", t, n, torch.float32, dev)
+    cw._check(f"{what} lane mask", mask, n, torch.int32, dev)
+    if scene.bvh.nodes.device != dev:
+        raise ValueError(f"{what}: rays on {dev}, BVH on {scene.bvh.nodes.device}")
+    return n, dev
+
+
+def bvh_closest_call(scene, ro, rd, live):
+    """BVH_CLOSEST: the closest hit of rays (ro, rd) by the BVH walk, and
+    on a BVH miss by the sphere and plane sweep, for lanes with live != 0;
+    (3e38, -1, 0) on the others. Returns (t f32, type i32, index i32)."""
+    if live.device.type == "cpu":
+        return bvh_ops.closest_plain(scene, ro, rd, live)
+    if live.device.type != "cuda":
+        raise ValueError(f"bvh_closest_call: unsupported device {live.device}")
+    from rsoderh_raytracing_tpu_torch.ops import _kernels
+
+    n, dev = _bvh_args(scene, (*ro, *rd), live, "bvh_closest_call")
+    t = torch.empty(n, device=dev, dtype=torch.float32)
+    ptype = torch.empty(n, device=dev, dtype=torch.int32)
+    pidx = torch.empty(n, device=dev, dtype=torch.int32)
+    b = scene.bvh
+    rc = _kernels.library().rt_bvh_closest_launch(
+        cw._ptrs((*ro, *rd, live, t, ptype, pidx)), b.nodes.data_ptr(), b.prims.data_ptr(),
+        b.prim_type.data_ptr(), b.prim_index.data_ptr(), b.small.data_ptr(),
+        scene.sph_radius.shape[0], *scene.sweep_rows[:2], n,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    cw._raise_on(rc, "BVH_CLOSEST")
+    LAUNCHES["bvh_closest"] += 1
+    return t, ptype, pidx
+
+
+def bvh_any_call(scene, p, d, mask):
+    """BVH_ANY: occlusion (i32 0/1) of rays from p along d by the BVH walk
+    (no fallback), for lanes with mask != 0; 0 on the others."""
+    if mask.device.type == "cpu":
+        return bvh_ops.any_plain(scene, p, d, mask)
+    if mask.device.type != "cuda":
+        raise ValueError(f"bvh_any_call: unsupported device {mask.device}")
+    from rsoderh_raytracing_tpu_torch.ops import _kernels
+
+    n, dev = _bvh_args(scene, (*p, *d), mask, "bvh_any_call")
+    occ = torch.empty(n, device=dev, dtype=torch.int32)
+    b = scene.bvh
+    rc = _kernels.library().rt_bvh_any_launch(
+        cw._ptrs((*p, *d, mask, occ)), b.nodes.data_ptr(), b.prims.data_ptr(), n,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    cw._raise_on(rc, "BVH_ANY")
+    LAUNCHES["bvh_any"] += 1
+    return occ
+
+
+# The big-mesh routes' closest and occlusion wrappers, each with its plain
+# version, by Wavefront.step keyword: what Wavefront.step launches on each
+# route, and what profiling.capture_step wraps.
+ROUTE_CALLS = {
+    CHUNKED: {"closest": (chunked_closest_call, intersect.chunked_closest_plain),
+              "occlusion": (chunked_any_call, intersect.chunked_any_plain)},
+    BVH: {"closest": (bvh_closest_call, bvh_ops.closest_plain),
+          "occlusion": (bvh_any_call, bvh_ops.any_plain)},
+}

@@ -15,7 +15,7 @@ and of the big-mesh path (render/wavefront.py)
 
   [glue: alias draw, NEE and miss uv] [CHUNKED_CLOSEST] [glue: hit point]
   [CHUNKED_ANY] [glue: fused uv, ONE quad-row gather]
-  [BIG_SHADE kernel: the winner's union row (scene.chunks.winner), its normal
+  [BIG_SHADE kernel: the winner's union row (scene.winner), its normal
         and material, trace_epilogue, the SHADE core]
 
 ``trace_call`` takes the carried ray and RNG state and the environment and
@@ -253,7 +253,7 @@ def shade_plain(
 
 
 def winner_index(scene, btype, bidx):
-    """Row of scene.chunks.winner for each lane's (type, index); a miss reads
+    """Row of scene.winner for each lane's (type, index); a miss reads
     row 0 (render/wavefront.py:1003-1009 of the reference)."""
     n_sph = scene.sph_radius.shape[0]
     n_pln = scene.pln_valid.shape[0]
@@ -427,7 +427,7 @@ def big_shade_plain(
     ro = (carry["ro0"], carry["ro1"], carry["ro2"])
     rd = (carry["rd0"], carry["rd1"], carry["rd2"])
     px, py, pz = tr["px"], tr["py"], tr["pz"]
-    row = scene.chunks.winner.index_select(0, winner_index(scene, tr["btype"], tr["bidx"]))
+    row = scene.winner.index_select(0, winner_index(scene, tr["btype"], tr["bidx"]))
     s = [row[:, k] for k in range(WINNER_SLOTS - 1)]
     sn = intersect.sphere_normal_values(s[0], s[1], s[2], s[3], *ro, px, py, pz)
     pn = intersect.plane_normal_values(s[0], s[1], s[2], *ro)
@@ -463,7 +463,7 @@ def big_shade_call(
 ):
     """BIG_SHADE; returns (new_carry, active, hitmask). Arguments as in
     big_shade_plain. CPU tensors: big_shade_plain. CUDA tensors: the
-    kernel, which reads the winner's row of scene.chunks.winner itself."""
+    kernel, which reads the winner's row of scene.winner itself."""
     args = (
         scene, env_w, env_h, width, height, max_bounces, qwords, tr, nee_dir, state,
         fu, fv, nee_pmf, carry, pixel_index, pixel_x, pixel_y, base_sample, scal, iscal,
@@ -488,7 +488,7 @@ def big_shade_call(
         k: torch.empty(n, device=dev, dtype=torch.int32 if k in SHADE_INT_NAMES else torch.float32)
         for k in SHADE_OUT_NAMES
     }
-    table, mat = scene.chunks.winner, scene.chunks.materials
+    table, mat = scene.winner, scene.materials
     it_next, spp, budget, stride, offset = (int(x) & 0xFFFFFFFF for x in iscal)
     rc = _kernels.library().rt_big_shade_launch(
         _ptrs([qwords] + [t for _, t in named] + [scal] + [outs[k] for k in SHADE_OUT_NAMES]),

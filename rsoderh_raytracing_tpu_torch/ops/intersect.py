@@ -31,7 +31,7 @@ from __future__ import annotations
 import torch
 
 from rsoderh_raytracing_tpu_torch.ops.geometry import HitRecord
-from rsoderh_raytracing_tpu_torch.scene.device import CHUNKED, TRI_CHUNK, chunk_spheres, route
+from rsoderh_raytracing_tpu_torch.scene.device import BVH, CHUNKED, TRI_CHUNK, chunk_spheres, route
 
 INF = 3.0e38
 SPHERE_EPS = 1.0e-4
@@ -204,9 +204,11 @@ def _ray_terms(ox, oy, oz, dx, dy, dz):
     )
 
 
-def _blocks(scene, rays, kinds):
+def _blocks(scene, rays, kinds, rows=None):
     """Yield (lane slice, ray terms, kind, lo, hi) over lane blocks and,
-    within each, primitive blocks of `kinds` in order."""
+    within each, primitive blocks of `kinds` in order; with `rows`
+    (sphere, plane, triangle counts, as DeviceScene.sweep_rows holds
+    them) only the rows below them."""
     n = rays[0].shape[0]
     pairs = _PAIRS.get(rays[0].device.type, _PAIRS["cpu"])
     for s in range(0, n, _LANE_BLOCK):
@@ -214,18 +216,20 @@ def _blocks(scene, rays, kinds):
         r = _ray_terms(*(c[sl] for c in rays))
         step = max(1, pairs // (sl.stop - sl.start))
         for kind in kinds:
-            for lo in range(0, _n_prims(scene, kind), step):
-                yield sl, r, kind, lo, min(_n_prims(scene, kind), lo + step)
+            end = _n_prims(scene, kind) if rows is None else rows[kind]
+            for lo in range(0, end, step):
+                yield sl, r, kind, lo, min(end, lo + step)
 
 
-def _sweep(scene, rays, kinds=(SPHERE, PLANE, TRIANGLE)):
-    """(best_t, best_type, best_idx) over the primitives of `kinds`."""
+def _sweep(scene, rays, kinds=(SPHERE, PLANE, TRIANGLE), rows=None):
+    """(best_t, best_type, best_idx) over the primitives of `kinds` (the
+    rows below `rows` only, as _blocks)."""
     n = rays[0].shape[0]
     dev = rays[0].device
     best_t = torch.full((n,), INF, device=dev)
     best_type = torch.full((n,), -1, device=dev, dtype=torch.int32)
     best_idx = torch.zeros((n,), device=dev, dtype=torch.int32)
-    for sl, r, kind, lo, hi in _blocks(scene, rays, kinds):
+    for sl, r, kind, lo, hi in _blocks(scene, rays, kinds, rows):
         t, hit = _hits(scene, kind, lo, hi, r)
         t, k = torch.min(torch.where(hit, t, INF), dim=1)
         better = t < best_t[sl]
@@ -592,9 +596,10 @@ def trace_attrs(scene, ox, oy, oz, dx, dy, dz, sx, sy, sz):
 # -- scene-level queries (rsoderh_raytracing_tpu/ops/intersect.py) ------------
 # Routed by scene/device.route: a scene within the unroll budget takes the
 # CLOSEST, ANY and FUSED kernels (ops/cuda_intersect.py; their plain
-# versions above for CPU tensors), one past it the chunked kernels with the
-# caller's lane mask (all ones without one), and any other scene raises
-# NotImplementedError (the BVH route is not ported).
+# versions above for CPU tensors), one past it the chunked kernels, and a
+# scene carrying a BVH the BVH_CLOSEST and BVH_ANY walks (plain versions
+# in ops/bvh.py), the last two with the caller's lane mask (all ones
+# without one).
 
 
 def _all_lanes(t):
@@ -609,15 +614,17 @@ def closest_hit(scene, ro, rd, live=None) -> HitRecord:
     """Closest intersection along each ray, with its material values
     (HitRecord.material). ro, rd: 3-tuples of (n,) f32; live, an optional
     (n,) bool or int mask: only lanes with live != 0 need an answer (the
-    others hold the miss record on the small route, what the unrolled
-    primitives alone give on the chunked one). On a small scene this is
-    one CLOSEST launch and no gather."""
+    others hold the miss record on the small and BVH routes, what the
+    unrolled primitives alone give on the chunked one). On a small scene
+    this is one CLOSEST launch and no gather."""
     from rsoderh_raytracing_tpu_torch.ops import cuda_intersect as ci
 
     live = _int_mask(live)
-    if route(scene) == CHUNKED:
+    picked = route(scene)
+    if picked in (CHUNKED, BVH):
         lanes = _all_lanes(ro[0]) if live is None else live
-        hit = _hit_attributes(scene, ro, rd, *ci.chunked_closest_call(scene, ro, rd, lanes))
+        call = ci.chunked_closest_call if picked == CHUNKED else ci.bvh_closest_call
+        hit = _hit_attributes(scene, ro, rd, *call(scene, ro, rd, lanes))
         hit.material = material_values(scene, hit.material_id)
         return hit
     rec = ci.closest_call(scene, ro, rd, live)
@@ -635,9 +642,11 @@ def any_hit(scene, ro, rd, mask=None):
     from rsoderh_raytracing_tpu_torch.ops import cuda_intersect as ci
 
     mask = _int_mask(mask)
-    if route(scene) == CHUNKED:
+    picked = route(scene)
+    if picked in (CHUNKED, BVH):
         lanes = _all_lanes(ro[0]) if mask is None else mask
-        occ = ci.chunked_any_call(scene, ro, rd, lanes) != 0
+        call = ci.chunked_any_call if picked == CHUNKED else ci.bvh_any_call
+        occ = call(scene, ro, rd, lanes) != 0
         return occ if mask is None else occ & (mask != 0)
     return ci.any_call(scene, ro, rd, mask)
 
@@ -646,10 +655,11 @@ def trace_nee(scene, ro, rd, nee_dir):
     """One path segment for the composed wavefront body: closest hit,
     shading attributes, material values and the NEE occlusion from the
     hit point along nee_dir; the FUSED kernel on a small scene, composed
-    from closest_hit, the material rows and any_hit on a chunked one.
+    from closest_hit, the material rows and any_hit on a chunked or BVH
+    one.
     Returns (did_hit, point, normal, color, roughness, metallic,
     emission, occluded): 3-tuples of (n,) tensors, (n,) f32 and bool."""
-    if route(scene) == CHUNKED:
+    if route(scene) in (CHUNKED, BVH):
         hit = closest_hit(scene, ro, rd)
         cr, cg, cb, rough, metal, er, eg, eb = hit.material
         occ = any_hit(scene, hit.point, nee_dir)

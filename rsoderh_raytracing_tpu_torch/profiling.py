@@ -21,6 +21,11 @@ loop:
   the slab tests and the (lane, chunk) pairs that pass the cull of each
   chunked kernel, from a plain pass (``cull_counts``), and the bound
   they give;
+- ``walk`` (BVH route: a scene past the kernel ceilings, such as
+  suzanne_xxhi, which chip_smoke.py generates): on the loop state of the
+  third iteration, BVH_CLOSEST and BVH_ANY ms, the node visits, box tests
+  and leaf tests of the plain walk, and the bound they give
+  (``bvh_bound``);
 - ``sweep`` (small route): on the loop state of the third iteration,
   TRACE, CLOSEST, ANY and FUSED ms at 2048^2 lanes (CUDA events), the
   sweeps on TRACE's rays as ``sweep_calls`` builds them;
@@ -85,7 +90,9 @@ from rsoderh_raytracing_tpu_torch.ops import envmap, intersect, rng
 from rsoderh_raytracing_tpu_torch.render.integrator import camera_pytree, render_sample
 from rsoderh_raytracing_tpu_torch.render.renderer import Renderer
 from rsoderh_raytracing_tpu_torch.render.wavefront import NO_LIMIT, Wavefront, render_freerun
-from rsoderh_raytracing_tpu_torch.scene.device import CHUNKED, TRI_CHUNK, build_device_scene, route
+from rsoderh_raytracing_tpu_torch.scene.device import (
+    BVH, CHUNKED, TRI_CHUNK, build_device_scene, route,
+)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIZE = 2048
@@ -108,6 +115,12 @@ OPS_PLANE = 33
 OPS_TRIANGLE = 47
 OPS_TRI_OCCLUDED = 45
 OPS_SLAB = 33
+# The BVH walks' tests (csrc/bvh.cu), counted the same way: a child's box
+# (slab_axis three times, the entry and exit reductions, the hit and
+# best-t compares, the near/far selects) and each leaf test with its
+# kind select and winner compare (sphere_t, plane_t, triangle_t).
+OPS_BOX = 39
+OPS_LEAF = {"spheres": 49, "planes": 48, "triangles": 61}
 
 
 def card_line() -> str:
@@ -118,24 +131,32 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def scene_setup(name, device, env=None):
+def scene_setup(name, device, env=None, with_bvh=False):
     """(device scene, environment, camera) of assets/scenes/NAME.toml
-    under `env` (default procedural_sky(2048, 1024), the bench's sky)."""
+    under `env` (default procedural_sky(2048, 1024), the bench's sky),
+    built with `with_bvh` (build_device_scene)."""
     scene = load_scene(os.path.join(ROOT, "assets", "scenes", f"{name}.toml"))
     if env is None:
         env = device_environment(Environment.from_texture("sky", procedural_sky(2048, 1024)), device)
-    return build_device_scene(scene, device), env, camera_pytree(scene.camera, device)
+    return (build_device_scene(scene, device, with_bvh=with_bvh), env,
+            camera_pytree(scene.camera, device))
 
 
-# The kernels of each route: Wavefront.step's keyword, the wrapper and
-# its plain version.
+# The chunked route's kernels: Wavefront.step's keyword, the wrapper and
+# its plain version (the closest and occlusion pair of each big-mesh route
+# is ci.ROUTE_CALLS's).
 KERNELS = {
     "trace": (cw.trace_call, cw.trace_plain),
     "shade": (cw.shade_call, cw.shade_plain),
-    "closest": (ci.chunked_closest_call, intersect.chunked_closest_plain),
-    "occlusion": (ci.chunked_any_call, intersect.chunked_any_plain),
+    **ci.ROUTE_CALLS[CHUNKED],
     "big_shade": (cw.big_shade_call, cw.big_shade_plain),
 }
+
+
+def route_kernels(scene):
+    """The kernels of the scene's route, as KERNELS: the closest and
+    occlusion pair from ci.ROUTE_CALLS."""
+    return {**KERNELS, **ci.ROUTE_CALLS.get(route(scene), {})}
 
 
 def capture_step(wave, it, plain=False):
@@ -150,7 +171,8 @@ def capture_step(wave, it, plain=False):
             return fn(*args)
         return wrapped
 
-    wave.step(it, **{k: capture(k, fns[1] if plain else fns[0]) for k, fns in KERNELS.items()})
+    wave.step(it, **{k: capture(k, fns[1] if plain else fns[0])
+                     for k, fns in route_kernels(wave.scene).items()})
     return captured
 
 
@@ -275,6 +297,29 @@ def chunked_bound(scene, args, closest):
     return bound_ms(n_bytes, n_ops) + (dict(slab_tests=tests, pairs=pairs),)
 
 
+def bvh_bound(scene, n, counts, closest):
+    """bound_ms of one BVH_CLOSEST (`closest`) or BVH_ANY launch over n
+    lanes whose plain walk counted `counts` (ops/bvh.COUNT_KEYS): 7
+    four-byte inputs a lane and 3 (or 1) outputs, the node, leaf and slot
+    tables once; the box tests, the leaf tests of each kind and the
+    fallback sweep over the valid sphere and plane rows of the lanes the
+    walk missed. Also returns the counts
+    with the bytes of the rows the walk reads lane by lane (48 a node
+    visit, 32 a box, 64 a leaf test; the tables are smaller, so those
+    reads hit the caches)."""
+    b = scene.bvh
+    tables = b.nodes.numel() + b.prims.numel() + (2 * b.prim_type.numel() + b.small.numel()
+                                                  if closest else 0)
+    n_bytes = n * 4 * (7 + (3 if closest else 1)) + 4 * tables
+    leaf_tests = sum(counts[k] for k in OPS_LEAF)
+    n_sph, n_pln, _ = scene.sweep_rows
+    fallback = n_sph * OPS_SPHERE + n_pln * OPS_PLANE
+    n_ops = (counts["boxes"] * OPS_BOX + sum(counts[k] * v for k, v in OPS_LEAF.items())
+             + counts["fallback_lanes"] * fallback)
+    row_bytes = 48 * counts["visits"] + 32 * counts["boxes"] + 64 * leaf_tests
+    return bound_ms(n_bytes, n_ops) + (dict(counts, leaf_tests=leaf_tests, row_bytes=row_bytes),)
+
+
 def shade_outputs(result):
     """shade_call/shade_plain's (carry, active, hitmask) as one dict."""
     carry, active, hitmask = result
@@ -297,7 +342,8 @@ def time_ms(fn, reps):
 
 
 def _scan_group(name):
-    for kernel in ("chunked_closest_kernel", "chunked_any_kernel", "closest_kernel", "any_kernel"):
+    for kernel in ("bvh_closest_kernel", "bvh_any_kernel", "chunked_closest_kernel",
+                   "chunked_any_kernel", "closest_kernel", "any_kernel"):
         if kernel in name:
             return kernel[: -len("_kernel")]
     if "gather" in name or "indexselect" in name.lower():
@@ -309,7 +355,7 @@ def _scan_group(name):
 
 def _group(name):
     for kernel in ("trace_kernel", "big_shade_kernel", "chunked_closest_kernel",
-                   "chunked_any_kernel", "shade_kernel"):
+                   "chunked_any_kernel", "bvh_closest_kernel", "bvh_any_kernel", "shade_kernel"):
         if kernel in name:
             return kernel[: -len("_kernel")]
     # index_select's kernel (vectorized_gather_kernel, or indexSelect* in
@@ -586,7 +632,7 @@ def main(argv=None) -> int:
         return scan_main(args, dev, card)
     if args.path == "scan-image":
         return scan_image_main(args, dev, card)
-    ds, env, cam = scene_setup(args.scene, dev)
+    ds, env, cam = scene_setup(args.scene, dev, with_bvh="auto")
     res = (SIZE, SIZE)
     zeros = np.zeros(res, np.uint32)
 
@@ -622,6 +668,17 @@ def main(argv=None) -> int:
                   f"slab_tests={counts['slab_tests']} pairs={counts['pairs']} "
                   f"pairs_per_lane={counts['pairs'] / (SIZE * SIZE):.3f} "
                   f"bound_ms={ms:.4f} bound_by={by} card={card!r}", flush=True)
+        return 0
+    if route(ds) == BVH:
+        for key, closest in (("closest", True), ("occlusion", False)):
+            kfn, pfn = ci.ROUTE_CALLS[BVH][key]
+            counts = {}
+            pfn(*captured[key], counts=counts)
+            ms, by, info = bvh_bound(ds, SIZE * SIZE, counts, closest)
+            print(f"[walk] scene={args.scene} kernel={key} lanes={SIZE * SIZE} "
+                  f"ms={time_ms(lambda: kfn(*captured[key]), 5):.4f} "
+                  + " ".join(f"{k}={v}" for k, v in info.items())
+                  + f" bound_ms={ms:.4f} bound_by={by} card={card!r}", flush=True)
         return 0
 
     tr_args, sh_args = captured["trace"], captured["shade"]

@@ -31,7 +31,7 @@ from rsoderh_raytracing_tpu_torch.render.integrator import (
     render_sample,
 )
 from rsoderh_raytracing_tpu_torch.render.wavefront import render_freerun, render_wavefront
-from rsoderh_raytracing_tpu_torch.scene.device import build_device_scene, route
+from rsoderh_raytracing_tpu_torch.scene.device import BVH, build_device_scene, route
 from rsoderh_raytracing_tpu_torch.scene.types import Scene
 from rsoderh_raytracing_tpu_torch.utils.png import write_png
 
@@ -47,26 +47,26 @@ class Renderer:
         intersector: str = "auto",
         device=_device.DEFAULT,
     ):
-        """intersector: 'auto' or 'sweep' take the kernel routes (the
-        unrolled sweeps within the unroll budget, the chunked kernels
-        past it); 'bvh', and a scene outside both routes, raise
-        NotImplementedError: the BVH route is not ported. device: the
-        card unless the caller asks for the CPU."""
+        """intersector: 'sweep' takes the sweep kernels (unrolled within
+        the unroll budget, chunked past it) and raises NotImplementedError
+        for a scene outside both; 'bvh' builds the SAH BVH and walks it
+        (BVH_CLOSEST, BVH_ANY); 'auto' walks the BVH exactly where no
+        sweep route covers the scene (on the CPU also past the
+        reference's 262,144 triangle lanes; RT_BVH_ABOVE_TRIS=N lowers the
+        crossover: scene/device.auto_bvh). device: the card unless the
+        caller asks for the CPU."""
         if intersector not in ("auto", "sweep", "bvh"):
             raise ValueError(f"unknown intersector '{intersector}'")
-        if intersector == "bvh":
-            raise NotImplementedError(
-                "intersector='bvh': the BVH route is not ported yet; use 'auto' or 'sweep'"
-            )
         self.device = _device.resolve(device)
         self.scene = scene
         self.width = width
         self.height = height
         self.max_bounces = max_bounces
-        self.device_scene = build_device_scene(scene, self.device)
-        route(self.device_scene)  # raises for a scene no kernel route covers
-        #: the routing decision actually taken
-        self.intersector = "sweep"
+        self.device_scene = build_device_scene(
+            scene, self.device, with_bvh={"auto": "auto", "bvh": True, "sweep": False}[intersector])
+        #: the routing decision actually taken ('sweep' or 'bvh'); raises
+        #: for a scene that no route covers
+        self.intersector = "bvh" if route(self.device_scene) == BVH else "sweep"
         self.environments = environments or load_default_environments()
         self.environment_index = 0
         self._device_env_cache: dict[int, object] = {}

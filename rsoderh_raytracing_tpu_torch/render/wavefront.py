@@ -13,12 +13,16 @@ loop runs, by the scene's route (scene/device.route):
 - the big-mesh route: the same glue as tensor code (``envmap.trace_glue``),
   CHUNKED_CLOSEST over live lanes, the hit point, CHUNKED_ANY over live
   hit lanes (ops/cuda_intersect.py), the fused uv and one quad-row
-  gather, and BIG_SHADE, which reads the winner's union row itself.
+  gather, and BIG_SHADE, which reads the winner's union row itself;
+- the BVH route (a scene built with a BVH): the same iteration with
+  BVH_CLOSEST and BVH_ANY in place of the chunked kernels. The reference
+  renders such scenes through its composed body; BIG_SHADE computes the
+  same shade from (type, index).
 
 With a legacy float32 / bfloat16 environment, or with
 RT_DISABLE_WFKERNELS=1, the composed body runs: the glue,
 ``intersect.trace_nee`` (the FUSED kernel on a small scene; the chunked
-kernels over every lane on a big mesh), then the bounce sample, one
+or BVH kernels over every lane on a big mesh), then the bounce sample, one
 quad-row gather and the shading step as tensor code. That tensor code is
 the one the TRACE and SHADE kernels' plain versions are made of
 (``envmap.trace_glue``, ``bsdf.trace_epilogue``,
@@ -54,7 +58,7 @@ from rsoderh_raytracing_tpu_torch.ops import cuda_intersect as ci
 from rsoderh_raytracing_tpu_torch.ops import cuda_wavefront as cw
 from rsoderh_raytracing_tpu_torch.ops import bsdf, envmap, intersect, rng
 from rsoderh_raytracing_tpu_torch.render.integrator import MAX_BOUNCES, generate_camera_rays
-from rsoderh_raytracing_tpu_torch.scene.device import CHUNKED, route
+from rsoderh_raytracing_tpu_torch.scene.device import BVH, CHUNKED, route
 
 NO_LIMIT = 0xFFFFFFFF
 EXACT_CHECK_EVERY = 16
@@ -139,14 +143,18 @@ class Wavefront:
 
     def step(
         self, it, trace=cw.trace_call, shade=cw.shade_call,
-        closest=ci.chunked_closest_call, occlusion=ci.chunked_any_call,
-        big_shade=cw.big_shade_call, profile=None,
+        closest=None, occlusion=None, big_shade=cw.big_shade_call, profile=None,
     ):
         """One iteration (number `it`, from 0). The kernel arguments
-        default to the wrappers (the composed body takes none of them);
-        `profile`, if a dict, collects in profile["marks"] one list per
-        iteration of (part, CUDA event) pairs, each event starting the
-        named part and the last one (part None) ending the iteration."""
+        default to the wrappers (closest and occlusion to the route's in
+        ci.ROUTE_CALLS: the chunked kernels', or the BVH walks'; the
+        composed body takes none of them); `profile`, if a dict, collects in profile["marks"]
+        one list per iteration of (part, CUDA event) pairs, each event
+        starting the named part and the last one (part None) ending the
+        iteration."""
+        calls = ci.ROUTE_CALLS.get(self.route, ci.ROUTE_CALLS[CHUNKED])
+        closest = closest or calls["closest"][0]
+        occlusion = occlusion or calls["occlusion"][0]
         marks = [] if profile is not None else None
 
         def mark(part):
@@ -189,7 +197,7 @@ class Wavefront:
                 env_w, env_h, self.width, self.height, self.max_bounces,
                 q, tr, nee_pmf, c, *lanes,
             )
-        elif self.route == CHUNKED:
+        elif self.route in (CHUNKED, BVH):
             mark("glue")
             state, nee_u, nee_v, nee_pmf, nd, mu, mv = envmap.trace_glue(
                 rng.from_bits(c["state"]), self.env, *rd)

@@ -9,20 +9,29 @@ asked for).
 Scenes past the unroll budget take the chunked route: the chunk
 predicates, ceilings, bounds and window rows below are those of
 rsoderh_raytracing_tpu/ops/pallas_intersect.py (which imports jax).
+A scene built with a BVH (``with_bvh``) takes the BVH route whatever its
+size; such a scene keeps the host's triangle order (no Morton reorder),
+because the BVH's leaf slots name host triangles.
 ``device_scene_from_arrays`` also packs, once per scene, the flat tables
 the CUDA kernels read (row layouts in csrc/wavefront_common.cuh): the
-small route's ``trace_table``, or the chunked route's ``chunks``.
+small route's ``trace_table``, the chunked route's ``chunks``, the BVH
+route's ``bvh`` (ops/bvh.py), and for both of the last two the union rows
+and material rows that BIG_SHADE reads (``winner``, ``materials``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import time
 from typing import Optional
 
 import numpy as np
 import torch
 
 from rsoderh_raytracing_tpu_torch import _device
+from rsoderh_raytracing_tpu_torch.accel.bvh import build_bvh
+from rsoderh_raytracing_tpu_torch.ops.bvh import device_bvh
 from rsoderh_raytracing_tpu_torch.scene.types import Scene
 
 # From rsoderh_raytracing_tpu/ops/pallas_intersect.py: the unrolled-sweep
@@ -42,7 +51,12 @@ WIN_COLS = 20
 SPH_COLS, PLN_COLS, TRI_COLS, MAT_COLS = 8, 16, 36, 8
 WINNER_SLOTS = 20
 
-SMALL, CHUNKED = "small", "chunked"
+SMALL, CHUNKED, BVH = "small", "chunked", "bvh"
+
+# with_bvh="auto" on the CPU: the reference's crossover, past which its
+# CPU renders through the BVH walk (rsoderh_raytracing_tpu/scene/
+# device.py: CPU_BVH_ABOVE_LANES, padded triangle lanes).
+CPU_BVH_ABOVE_LANES = 262144
 
 FIELDS = (
     "mat_color", "mat_roughness", "mat_metallic", "mat_emission",
@@ -128,6 +142,13 @@ class DeviceScene:
     # The chunked route's tables (ChunkTables), built with the scene
     # when its route is CHUNKED.
     chunks: Optional["ChunkTables"] = dataclasses.field(default=None, repr=False)
+    # The BVH route's tables (ops/bvh.DeviceBVH): present when the scene
+    # was built with a BVH, and then its route is BVH.
+    bvh: Optional[object] = dataclasses.field(default=None, repr=False)
+    # BIG_SHADE's tables on the chunked and BVH routes: the union row of
+    # every primitive (winner_rows) and the material rows (material_rows).
+    winner: Optional[torch.Tensor] = dataclasses.field(default=None, repr=False)
+    materials: Optional[torch.Tensor] = dataclasses.field(default=None, repr=False)
 
     @property
     def device(self) -> torch.device:
@@ -156,8 +177,6 @@ class ChunkTables:
     # window (pack_rows: sphere rows unless spheres are chunked, then
     # plane rows).
     small: torch.Tensor
-    winner: torch.Tensor  # (S + P + T, WINNER_SLOTS) f32 union rows (winner_rows)
-    materials: torch.Tensor  # (n_mat, MAT_COLS) f32 (material_rows)
 
     @property
     def count(self) -> int:
@@ -204,19 +223,31 @@ def scene_chunk_count(scene) -> int:
     return c
 
 
-def route(scene) -> str:
-    """SMALL (every primitive in the unrolled sweep) or CHUNKED; raises
-    NotImplementedError for a scene that is neither."""
-    n_sph, n_pln, n_tri = _counts(scene)
+def counts_route(n_sph: int, n_pln: int, n_tri: int) -> Optional[str]:
+    """SMALL or CHUNKED for padded lane counts, None for counts that
+    neither sweep route covers."""
     if n_sph + n_pln + n_tri <= MAX_UNROLL_PRIMS:
         return SMALL
     if counts_chunked_applicable(n_sph, n_pln, n_tri):
         return CHUNKED
-    raise NotImplementedError(
-        f"scene with {n_sph} sphere, {n_pln} plane and {n_tri} triangle lanes "
-        f"is past the unroll budget ({MAX_UNROLL_PRIMS}) and outside the chunked "
-        "route's limits: it needs the BVH route, which is not ported yet"
-    )
+    return None
+
+
+def route(scene) -> str:
+    """BVH for a scene that carries a BVH, else SMALL (every primitive in
+    the unrolled sweep) or CHUNKED; raises NotImplementedError for a
+    scene without a BVH that is neither."""
+    if scene.bvh is not None:
+        return BVH
+    picked = counts_route(*_counts(scene))
+    if picked is None:
+        n_sph, n_pln, n_tri = _counts(scene)
+        raise NotImplementedError(
+            f"scene with {n_sph} sphere, {n_pln} plane and {n_tri} triangle lanes "
+            f"is past the unroll budget ({MAX_UNROLL_PRIMS}) and outside the chunked "
+            "route's limits: build it with with_bvh=True or 'auto' (the BVH route)"
+        )
+    return picked
 
 
 def chunk_bounds(tri_a, tri_edge0, tri_edge1):
@@ -352,15 +383,35 @@ def _chunk_tables(a: dict, scene: DeviceScene) -> ChunkTables:
     return ChunkTables(
         up([pair_nan_bounds(np.concatenate(bounds))]), up(windows), n_tri // TRI_CHUNK, n_sph_chunks,
         small=pack_rows(scene, spheres=not n_sph_chunks, triangles=False, materials=False),
-        winner=winner_rows(scene), materials=material_rows(scene),
     )
 
 
+def auto_bvh(n_sph: int, n_pln: int, n_tri: int, device: torch.device) -> bool:
+    """with_bvh="auto" for padded lane counts. On the CPU the reference's
+    rule, more than CPU_BVH_ABOVE_LANES triangle lanes, and also a scene
+    that no sweep route covers (the reference would sweep it densely in
+    XLA; the port has no such route). On the card exactly the scenes that
+    no kernel route covers. RT_BVH_ABOVE_TRIS=N moves the crossover down
+    to N triangle lanes in both cases."""
+    uncovered = counts_route(n_sph, n_pln, n_tri) is None
+    with_bvh = uncovered or (device.type == "cpu" and n_tri > CPU_BVH_ABOVE_LANES)
+    thresh = os.environ.get("RT_BVH_ABOVE_TRIS")
+    if not with_bvh and thresh and n_tri > int(thresh):
+        with_bvh = True
+    return with_bvh
+
+
 def build_device_scene(
-    scene: Scene, device=_device.DEFAULT, pad_to: int = 8
+    scene: Scene, device=_device.DEFAULT, pad_to: int = 8, with_bvh: "bool | str" = False
 ) -> DeviceScene:
-    """Flatten + pad a host Scene into a DeviceScene on `device` (no BVH:
-    the BVH route is not ported yet)."""
+    """Flatten + pad a host Scene into a DeviceScene on `device`.
+
+    with_bvh=True also builds the SAH BVH (accel/bvh.py, its native
+    builder where g++ is available) and attaches it, so the scene takes
+    the BVH route; "auto" attaches it by auto_bvh. A scene with a BVH
+    keeps the host's triangle order (leaf slots name host triangles), as
+    the reference's does; every field still equals the reference's lane
+    for lane."""
     device = _device.resolve(device)
     _device.warn_ignored_knobs()
     materials = scene.materials or []
@@ -413,13 +464,17 @@ def build_device_scene(
 
     # Triangles pad to TRI_CHUNK whenever the total padded lane count
     # exceeds the unroll budget; such scenes are stored in Morton order,
-    # the reference's default, so the fields match it lane for lane.
+    # the reference's default, unless a BVH is attached (its leaf slots
+    # name host triangles, as the reference keeps them), so the fields
+    # match the reference's lane for lane.
     tris = scene.meshes.triangles
     total_small = s_n + p_n + _round_up(len(tris), pad_to)
-    if total_small > MAX_UNROLL_PRIMS and len(tris) > 0:
+    tri_pad = pad_to if total_small <= MAX_UNROLL_PRIMS else TRI_CHUNK
+    if with_bvh == "auto":
+        with_bvh = auto_bvh(s_n, p_n, _round_up(len(tris), tri_pad), device)
+    if total_small > MAX_UNROLL_PRIMS and len(tris) > 0 and not with_bvh:
         tris = tris[_morton_order(scene.meshes.vertices, tris)]
 
-    tri_pad = pad_to if total_small <= MAX_UNROLL_PRIMS else TRI_CHUNK
     t_n = _round_up(len(tris), tri_pad)
     tri_a = np.zeros((t_n, 3), np.float32)
     tri_edge0 = np.zeros((t_n, 3), np.float32)
@@ -475,15 +530,24 @@ def build_device_scene(
         tri_cdet=tri_cdet, tri_cu=tri_cu, tri_cv=tri_cv, tri_n=tri_n,
         tri_adotn=tri_adotn,
     )
-    return device_scene_from_arrays(arrays, device)
+    if not with_bvh:
+        return device_scene_from_arrays(arrays, device)
+    start = time.perf_counter()
+    flat = build_bvh(scene)
+    seconds = time.perf_counter() - start
+    out = device_scene_from_arrays(arrays, device, flat)
+    out.bvh.build_seconds = seconds
+    return out
 
 
-def device_scene_from_arrays(arrays: dict, device=_device.DEFAULT) -> DeviceScene:
+def device_scene_from_arrays(arrays: dict, device=_device.DEFAULT, bvh=None) -> DeviceScene:
     """Build a DeviceScene on `device` from a dict of numpy arrays keyed
     by field name (for example the fields of the JAX package's
     DeviceScene). Float fields become float32, material ids int32, valid
-    masks bool. A scene within the unroll budget gets the TRACE kernel's
-    table; one past it that the chunked route covers gets its chunk
+    masks bool. With `bvh`, a FlatBVH over the arrays' primitive order,
+    the scene takes the BVH route and gets its tables (ops/bvh.py).
+    Otherwise a scene within the unroll budget gets the TRACE kernel's
+    table, and one past it that the chunked route covers its chunk
     tables."""
     device = _device.resolve(device)
     host = {}
@@ -501,9 +565,13 @@ def device_scene_from_arrays(arrays: dict, device=_device.DEFAULT) -> DeviceScen
         int(np.flatnonzero(host[k])[-1]) + 1 if host[k].any() else 0
         for k in ("sph_valid", "pln_valid", "tri_valid")
     )
-    n_sph, n_pln, n_tri = _counts(scene)
-    if n_sph + n_pln + n_tri <= MAX_UNROLL_PRIMS:
+    if bvh is not None:
+        scene.bvh = device_bvh(bvh, scene)
+    picked = route(scene) if bvh is not None else counts_route(*_counts(scene))
+    if picked == SMALL:
         scene.trace_table = pack_rows(scene)
-    elif counts_chunked_applicable(n_sph, n_pln, n_tri):
+    elif picked == CHUNKED:
         scene.chunks = _chunk_tables(host, scene)
+    if picked in (CHUNKED, BVH):
+        scene.winner, scene.materials = winner_rows(scene), material_rows(scene)
     return scene

@@ -8,7 +8,7 @@ index) pairs with misses, hit points, NEE directions, RNG states, fused
 uvs with their real quad rows, and the carry. The Pallas twin takes the
 19 slot tiles of JAX's winner_table rows at the global winner index
 (render/wavefront.py:1003-1010 of the reference); the port takes the
-(type, index) pairs and reads its own union rows (scene.chunks.winner).
+(type, index) pairs and reads its own union rows (scene.winner).
 
 Tolerances as in tests/test_torch_shade.py and test_torch_trace.py:
 torch and XLA round sqrt, sin and cos differently and XLA contracts

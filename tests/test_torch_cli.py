@@ -97,9 +97,12 @@ def test_cli_exit_codes(base, capsys, extra, code, message):
     assert message in capsys.readouterr().err
 
 
-def test_cli_bvh_is_not_ported(base):
-    with pytest.raises(NotImplementedError, match="BVH route"):
-        cli.main(base + ["--intersector", "bvh"])
+def test_cli_bvh_is_not_ported(base, tmp_path):
+    """--intersector bvh is ported now: it renders through the BVH route
+    (the name is the test's since the flag was refused)."""
+    assert cli.main(base + ["--intersector", "bvh", "--spp", "1", "--output",
+                            str(tmp_path / "bvh.png")]) == 0
+    assert (tmp_path / "bvh.png").exists()
 
 
 def test_cli_defaults_to_the_card(base, tmp_path):

@@ -544,3 +544,99 @@ def test_scan_path_gathers_no_scene_row(dev, house_scene):
     assert gathers == 0
     assert ci.LAUNCHES["closest"] == before["closest"] + 5
     assert ci.LAUNCHES["any"] == before["any"] + 5
+
+
+# -- the BVH walks -------------------------------------------------------------
+# BVH_CLOSEST and BVH_ANY against their plain twins (ops/bvh.py) on every
+# lane, t bit for bit: on made-up rays (origins around the scene, some
+# with a zero direction component, whose slab times go NaN), under three
+# masks, and on a real loop state.
+
+BVH_SCENES = ("house", "suzanne")
+
+
+@pytest.fixture(scope="module")
+def bvh_scenes(dev):
+    return {name: build_device_scene(load_scene(os.path.join(SCENES, f"{name}.toml")), dev,
+                                     with_bvh=True) for name in BVH_SCENES}
+
+
+def _bvh_rays(n, dev, seed=3):
+    rng = np.random.default_rng(seed)
+    ro = rng.uniform(-3.0, 3.0, (n, 3)).astype(np.float32)
+    rd = rng.normal(size=(n, 3)).astype(np.float32)
+    rd[::7, 1] = 0.0  # axis-parallel: NaN slab times where the origin is on a box face
+    ro[::14, 1] = 0.0
+    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a[:, k])).to(dev)
+                 for a in (ro, rd) for k in range(3))
+
+
+@pytest.mark.parametrize("mask", ["all", "mixed", "none"])
+@pytest.mark.parametrize("n", [1, 1000, 256 * 256 + 7])
+@pytest.mark.parametrize("name", BVH_SCENES)
+def test_bvh_kernels_bitwise_on_made_up_rays(dev, bvh_scenes, name, n, mask):
+    ds = bvh_scenes[name]
+    rays = _bvh_rays(n, dev)
+    ro, rd = rays[:3], rays[3:]
+    lanes = {"all": torch.ones(n, dtype=torch.int32, device=dev),
+             "mixed": (torch.arange(n, device=dev) % 3 != 1).to(torch.int32),
+             "none": torch.zeros(n, dtype=torch.int32, device=dev)}[mask]
+    before = dict(ci.LAUNCHES)
+    got = ci.bvh_closest_call(ds, ro, rd, lanes)
+    occ = ci.bvh_any_call(ds, ro, rd, lanes)
+    assert ci.LAUNCHES["bvh_closest"] == before["bvh_closest"] + 1
+    assert ci.LAUNCHES["bvh_any"] == before["bvh_any"] + 1
+    from rsoderh_raytracing_tpu_torch.ops import bvh as bvh_ops
+
+    for a, b in zip(got, bvh_ops.closest_plain(ds, ro, rd, lanes)):
+        assert int(_bits_differ(a, b).sum()) == 0
+    assert torch.equal(occ, bvh_ops.any_plain(ds, ro, rd, lanes))
+    # occlusion is the closest walk's hit without the fallback
+    _, slot = bvh_ops.traverse_closest(ds.bvh, ro, rd, lanes)
+    assert torch.equal(occ != 0, slot >= 0)
+
+
+@pytest.fixture(scope="module")
+def bvh_state(dev):
+    """The BVH route's kernel inputs of a real loop iteration at 128x128
+    on suzanne built with its BVH."""
+    scene = load_scene(os.path.join(SCENES, "suzanne.toml"))
+    ds = build_device_scene(scene, dev, with_bvh=True)
+    env = device_environment(Environment.from_texture("s", procedural_sky(256, 128)), dev)
+    wave = Wavefront(ds, env, camera_pytree(scene.camera, dev), 0, (128, 128), NO_LIMIT, 32, 8)
+    for it in range(3):
+        wave.step(it)
+    return capture_step(wave, 3)
+
+
+def test_bvh_kernels_match_plain_on_a_loop_state(bvh_state):
+    from rsoderh_raytracing_tpu_torch.ops import bvh as bvh_ops
+
+    args = bvh_state["closest"]
+    for a, b in zip(ci.bvh_closest_call(*args), bvh_ops.closest_plain(*args)):
+        assert int(_bits_differ(a, b).sum()) == 0
+    args = bvh_state["occlusion"]
+    assert torch.equal(ci.bvh_any_call(*args), bvh_ops.any_plain(*args))
+    assert int(args[3].sum()) > 0
+
+
+def test_card_bvh_render_matches_cpu_render(dev):
+    """render_freerun through the BVH route (BVH_CLOSEST, BVH_ANY and
+    BIG_SHADE once an iteration) against the CPU's plain route."""
+    scene = load_scene(os.path.join(SCENES, "suzanne.toml"))
+    env_args = Environment.from_texture("s", procedural_sky(128, 64))
+    out = {}
+    for device in ("cpu", dev):
+        before = {**ci.LAUNCHES, **cw.LAUNCHES}
+        img, counts = render_freerun(
+            build_device_scene(scene, device, with_bvh=True), device_environment(env_args, device),
+            camera_pytree(scene.camera, device), 0, (32, 32), 16, 8,
+        )
+        launched = {k: v - before[k] for k, v in {**ci.LAUNCHES, **cw.LAUNCHES}.items()}
+        out[str(device)] = (img.cpu().numpy(), counts.cpu().numpy(), launched)
+    (ci_, cc, _), (gi, gc, launched) = out["cpu"], out[str(dev)]
+    assert launched["bvh_closest"] == launched["bvh_any"] == launched["big_shade"] == 16 + 8 - 1
+    assert not launched["chunked_closest"] and not launched["trace"]
+    assert (cc == gc).mean() >= 0.99
+    np.testing.assert_allclose(gi.mean(), ci_.mean(), rtol=2e-3)

@@ -1,4 +1,6 @@
-"""Port environment (env/*, ops/envmap.py) against the JAX reference.
+"""Port environment (env/*, ops/envmap.py) against the JAX reference,
+and the port's native host builders (alias table, SAH BVH) against the
+reference's, compiled privately (compile_reference_native).
 
 The copied numpy modules and the device arrays are held bitwise equal.
 The alias draw is integer work plus one f32 multiply and division, so
@@ -7,13 +9,17 @@ through atan2/asin/sin/cos, which torch and XLA round differently
 (ROADMAP queue 3): they are held to an absolute bound measured here.
 """
 
+import ctypes
+import os
+import subprocess
+
 import numpy as np
 import pytest
 import torch
 
 import jax.numpy as jnp
 
-from rsoderh_raytracing_tpu.accel import native as j_native
+from rsoderh_raytracing_tpu.accel import bvh as j_bvh
 from rsoderh_raytracing_tpu.env import alias_table as j_alias
 from rsoderh_raytracing_tpu.env import hdr_io as j_hdr
 from rsoderh_raytracing_tpu.env.environment import Environment as JEnvironment
@@ -22,6 +28,9 @@ from rsoderh_raytracing_tpu.env.environment import (
     load_default_environments as j_load_default_environments,
 )
 from rsoderh_raytracing_tpu.ops import envmap as jenv
+from rsoderh_raytracing_tpu_torch import load_scene
+from rsoderh_raytracing_tpu_torch.accel import bvh as t_bvh
+from rsoderh_raytracing_tpu_torch.accel import native as t_native
 from rsoderh_raytracing_tpu_torch.env import alias_table, hdr_io
 from rsoderh_raytracing_tpu_torch.env.environment import (
     Environment,
@@ -52,6 +61,38 @@ def _bits(a):
     return np.ascontiguousarray(np.asarray(a)).view(np.uint32)
 
 
+REF_NATIVE_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                              "native", "raytracing_native.cpp")
+
+
+def compile_reference_native(directory):
+    """The JAX package's native builders (native/raytracing_native.cpp),
+    compiled with its g++ flags into `directory` and bound with its
+    argtypes (rsoderh_raytracing_tpu/accel/native.py). The package's own
+    loader writes native/libraytracing_native.so in place, with no
+    temporary file, so a test process that loads it while another
+    rebuilds it reads a half-written file; a private copy cannot race."""
+    lib_path = os.path.join(str(directory), "libraytracing_native.so")
+    subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-std=c++17", REF_NATIVE_SRC, "-o", lib_path],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(lib_path)
+    f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+    i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+    lib.build_alias_table.restype = ctypes.c_int64
+    lib.build_alias_table.argtypes = [f32p, ctypes.c_int64, f32p, i32p, f32p]
+    lib.build_bvh_sah.restype = ctypes.c_int64
+    lib.build_bvh_sah.argtypes = [
+        f32p, f32p, ctypes.c_int64, f32p, f32p, i32p, i32p, i32p, i32p,
+        ctypes.POINTER(ctypes.c_int32),
+    ]
+    return lib
+
+
+@pytest.fixture(scope="module")
+def reference_native(tmp_path_factory):
+    return compile_reference_native(tmp_path_factory.mktemp("reference_native"))
+
+
 @pytest.fixture(scope="module")
 def envs():
     sky = j_hdr.procedural_sky(128, 64, sun_radius=0.1)
@@ -79,17 +120,61 @@ def test_rgbe_and_alias_table_bitwise():
     np.testing.assert_array_equal(_bits(a.pmf), _bits(b.pmf))
 
 
-def test_native_alias_builder_matches_reference_native():
+def test_native_alias_builder_matches_reference_native(reference_native):
     """The port's own C++ builder, built into build/native/, against the
-    reference package's native builder: bitwise."""
+    reference package's native builder (a private build of its source):
+    bitwise."""
     w = np.random.default_rng(4).exponential(1.0, 300_000).astype(np.float32)
     p = (w * np.float32(w.size) / np.float32(w.sum(dtype=np.float64))).astype(np.float32)
     got = alias_table.build_alias_table_native(p)
-    ref = j_native.build_alias_table_native(p)
-    assert got is not None and ref is not None
+    ref = (np.empty(p.size, np.float32), np.empty(p.size, np.int32), np.empty(p.size, np.float32))
+    reference_native.build_alias_table(p, p.size, *ref)
+    assert got is not None
     assert alias_table._native_lib._name.startswith(alias_table.NATIVE_DIR)
-    for a, b in zip(got, ref[:3]):
+    for a, b in zip(got, ref):
         np.testing.assert_array_equal(_bits(a), _bits(b))
+
+
+def _reference_native_bvh(lib, mins, maxs):
+    """The reference's native SAH build (the arguments of
+    rsoderh_raytracing_tpu/accel/native.build_bvh_native) through the
+    private build."""
+    n = len(mins)
+    cap = max(1, 2 * n - 1)
+    out = [np.empty((cap, 3), np.float32), np.empty((cap, 3), np.float32),
+           np.empty(cap, np.int32), np.empty(cap, np.int32), np.empty(cap, np.int32)]
+    order = np.empty(n, np.int32)
+    depth = ctypes.c_int32(0)
+    k = lib.build_bvh_sah(np.ascontiguousarray(mins, np.float32),
+                          np.ascontiguousarray(maxs, np.float32), n, *out, order, ctypes.byref(depth))
+    return (*(a[:k].copy() for a in out), order, int(depth.value))
+
+
+@pytest.mark.parametrize("name", ["default", "house", "spheres", "random"])
+def test_native_bvh_builder_matches_reference_native(reference_native, assets_dir, name):
+    """The port's C++ SAH builder (csrc/bvh_build.cpp, built into
+    build/native/) against the reference's native builder: every array of
+    the tree and its depth bitwise, on three scenes' primitive bounds and
+    2,000 random boxes; the tree validates (accel/bvh.validate_bvh)."""
+    if name == "random":
+        rng = np.random.default_rng(11)
+        c = rng.uniform(-10.0, 10.0, (2000, 3)).astype(np.float32)
+        e = rng.exponential(0.3, (2000, 3)).astype(np.float32)
+        mins, maxs = c - e, c + e
+        types, idx = rng.integers(0, 3, 2000).astype(np.int32), np.arange(2000, dtype=np.int32)
+    else:
+        scene = load_scene(os.path.join(assets_dir, "scenes", f"{name}.toml"))
+        mins, maxs, types, idx = t_bvh.scene_primitive_bounds(scene)
+    native = t_native.build_bvh_native(mins, maxs)
+    assert native is not None and t_native._bvh_lib._name.startswith(t_native.NATIVE_DIR)
+    got = t_bvh._assemble(native, types, idx)
+    ref = j_bvh._assemble(_reference_native_bvh(reference_native, mins, maxs), types, idx)
+    for f in ("nodes_min", "nodes_max", "node_payload", "node_count", "node_axis",
+              "prim_type", "prim_index"):
+        np.testing.assert_array_equal(_bits(getattr(got, f)), _bits(getattr(ref, f)), err_msg=f)
+    assert got.depth == ref.depth < t_bvh.TRAVERSAL_STACK_DEPTH
+    t_bvh.validate_bvh(got, mins, maxs, order_types=types)
+    assert got.node_count.max() <= t_bvh.MAX_PRIMITIVES_PER_LEAF
 
 
 def test_default_environments_bitwise():

@@ -16,6 +16,8 @@ or resolution resets the film, exact mode refuses a free-run film, and a
 checkpoint crosses between the two packages in both directions.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -195,6 +197,16 @@ def test_render_exact_reaches_spp(house_scene, envs, batch):
 
 @pytest.mark.parametrize("intersector,error", [("bvh", NotImplementedError), ("octree", ValueError)])
 def test_renderer_refuses_intersector(house_scene, envs, intersector, error):
+    """An unknown intersector raises ValueError. 'bvh' is ported now and
+    takes the BVH route; what still raises NotImplementedError is 'sweep'
+    on a scene that no sweep route covers (200 plane lanes)."""
+    if intersector == "bvh":
+        assert make_renderer(house_scene, envs, intersector="bvh").intersector == "bvh"
+        plane = type(house_scene.planes[0])
+        house_scene = dataclasses.replace(house_scene, spheres=[], planes=[
+            plane(pos=(float(i), -1.0, -4.0), right=(0.5, 0.0, 0.0), forward=(0.0, 0.0, 0.5),
+                  material_id=0) for i in range(200)])
+        intersector = "sweep"
     with pytest.raises(error):
         make_renderer(house_scene, envs, intersector=intersector)
 

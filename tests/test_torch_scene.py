@@ -159,13 +159,17 @@ from rsoderh_raytracing_tpu_torch.render.integrator import camera_pytree
 from rsoderh_raytracing_tpu_torch.render.renderer import Renderer
 from rsoderh_raytracing_tpu_torch.render.wavefront import render_freerun
 from rsoderh_raytracing_tpu_torch.scene.device import build_device_scene
+from rsoderh_raytracing_tpu_torch.accel import bvh as accel_bvh, native as accel_native
+from rsoderh_raytracing_tpu_torch.ops import bvh as ops_bvh
 
 host_env = Environment.from_texture("s", procedural_sky(64, 32))
 env = device_environment(host_env, device="cpu")
-for name, size in (("house", 16), ("suzanne", 8)):
+for name, size, with_bvh in (("house", 16, False), ("suzanne", 8, False), ("house", 8, True)):
     scene = load_scene(f"assets/scenes/{name}.toml")
-    img, counts = render_freerun(build_device_scene(scene, device="cpu"), env,
-                                 camera_pytree(scene.camera, device="cpu"), 0, (size, size), 4, 4)
+    ds = build_device_scene(scene, device="cpu", with_bvh=with_bvh)
+    assert (ds.bvh is not None) == with_bvh
+    img, counts = render_freerun(ds, env, camera_pytree(scene.camera, device="cpu"), 0,
+                                 (size, size), 4, 4)
     assert img.shape == (size, size, 3) and bool(torch.isfinite(img).all())
     assert int(counts.min()) > 0
     write_png(os.devnull, tonemap.linear_to_srgb(tonemap.aces_tonemap(img / counts[..., None])).numpy())
@@ -182,14 +186,17 @@ assert cli.main(["--scene", "assets/scenes/house.toml", "--resolution", "12x8", 
 assert os.environ["RT_DEBUG_NANS"] == "1"
 assert not [m for m in sys.modules if blocked(m)]
 assert "rsoderh_raytracing_tpu_torch.ops.cuda_intersect" in sys.modules
+assert accel_native.available() and isinstance(ds.bvh, ops_bvh.DeviceBVH)
+assert accel_bvh.TRAVERSAL_STACK_DEPTH == 64
 print("ok")
 """
 
 
 def test_port_imports_and_renders_without_jax(tmp_path):
     # Neither jax nor the JAX package may be imported: chip_smoke.py and
-    # the port render house (small route) and suzanne (big-mesh route),
-    # and the Renderer and the command line render house, with
+    # the port render house (small route), suzanne (big-mesh route) and
+    # house with its BVH (the BVH modules: accel.bvh, accel.native,
+    # ops.bvh), and the Renderer and the command line render house, with
     # RT_DEBUG_NANS=1 set, the JAX package's switch that imports jax.
     env = dict(os.environ, PYTHONPATH=REPO, RT_DEBUG_NANS="1", PORT_TEST_TMP=str(tmp_path))
     proc = subprocess.run(
