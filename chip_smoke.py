@@ -68,7 +68,9 @@ exits non-zero at the first failure. Phases, one line each or more:
    free-run through the BVH route (Mrays/s, peak memory); holds BVH_CLOSEST
    and BVH_ANY bitwise to their plain twins (ops/bvh.py) on every lane of
    a 256x256 and a 2048x2048 loop state, then times them beside the plain
-   twins and the bound of their walks' counts (profiling.bvh_bound);
+   twins and the bound of their walks' counts (profiling.bvh_bound), with
+   each walk's ptxas registers and stack and the lanes it walks (masked
+   lanes whose ray enters the root's box);
    compares suzanne_hi at 256x256 through the BVH and the chunked routes
    (the anchors' flip-aware criteria); and logs the Mrays/s of the sweep
    route and of the BVH route on house, spheres, suzanne_hi and suzanne_xhi
@@ -85,6 +87,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -674,6 +677,14 @@ def bvh_parity(label, lanes, state, max_err):
     return out
 
 
+def walked_lanes(scene, ro, rd, mask):
+    """The lanes a BVH walk starts: mask set and the ray enters the
+    root's box."""
+    root = scene.bvh.nodes[0:1]
+    enters, _ = bvh_ops.slab(ro, tuple(1.0 / c for c in rd), root[:, 0:3], root[:, 4:7])
+    return int((enters & (mask != 0)).sum())
+
+
 def image_of(ds, env, cam, size, spp):
     img = render_wavefront(ds, env, cam, 0, (size, size), spp, BOUNCES)
     return img.cpu().numpy() / spp
@@ -708,6 +719,7 @@ def bvh_phase(sky, card, dev, max_err, times, bounds):
     bvh_parity("suzanne_xxhi", 256 * 256, loop_state(xx_ds, sky, cam, 256, 0, 3), max_err)
     state = loop_state(xx_ds, sky, cam, SIZE, 0, 0, kernel_iterations=2)
     plain = bvh_parity("suzanne_xxhi", SIZE * SIZE, state, max_err)
+    ptxas = [ln.split("ptxas info    : ")[-1] for ln in _kernels.BUILD_INFO.get("ptxas", [])]
     for key, name, closest in (("closest", "bvh_closest", True), ("occlusion", "bvh_any", False)):
         kfn = ci.bvh_closest_call if closest else ci.bvh_any_call
         k1 = time_ms(lambda: kfn(*state[key]), 5)
@@ -721,6 +733,19 @@ def bvh_phase(sky, card, dev, max_err, times, bounds):
             plain_ms=f"{plain_ms:.1f}", bound_ms=f"{ms:.4f}", bound_by=by,
             **{k: v for k, v in info.items()},
             visits_per_lane=f"{info['visits'] / SIZE ** 2:.2f}", card=repr(card))
+        # each of its kernels' registers and stack (ptxas), and the lanes it
+        # walks: masked, and the ray enters the root's box
+        kind = "Closest" if closest else "Any"
+        regs = {}
+        for i, ln in enumerate(ptxas[:-2]):
+            found = re.search(r"(walk_kernel)INS_\d+(Closest|Any)E|(fallback_kernel)", ln)
+            if "Compiling" not in ln or not found:
+                continue
+            if found.group(2) == kind or (closest and found.group(3)):
+                regs[found.group(1) or found.group(3)] = (f"{ptxas[i + 2].strip()}; "
+                                                          f"{ptxas[i + 1].strip()}")
+        log("bvh_walk", kernel=name, walked_lanes=walked_lanes(*state[key]),
+            ptxas=json.dumps(regs))
     del state, plain
 
     # the main path: suzanne_xxhi at 2048^2, 8 bounces, free-run

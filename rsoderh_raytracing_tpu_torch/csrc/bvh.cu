@@ -1,49 +1,87 @@
-// BVH_CLOSEST and BVH_ANY: the BVH route's walks, one thread a lane.
+// BVH_CLOSEST and BVH_ANY: the BVH route's walks, for the H100.
 //
 // The JAX package has no Pallas kernel for these: it walks its flat BVH
 // in XLA (rsoderh_raytracing_tpu/ops/bvh_traverse.py: traverse_closest at
 // :304 and traverse_any at :468, each a lax.while_loop that advances every
 // ray one node a trip), and intersect._sweep_bvh adds the linear sphere
-// and plane fallback on a miss. The reference renderer's shader walks
-// one ray a thread with a 64-deep stack (shader.wgsl:469-564), and so do
-// these kernels:
-//   BVH_CLOSEST  per lane the walk of traverse_closest (best-t pruning,
-//                both children's boxes tested at the parent, the near one
-//                first by the sign of 1/rd on the node's split axis, the
-//                far one pushed with its slab entry time and skipped when
-//                popped if that entry is past the best t, leaf slots in
-//                slot order with a strict < winner), then on a miss the
-//                sphere and plane sweep over the valid rows
-//                (wavefront_common.cuh:sweep, the rows of pack_rows); writes (t, type, index), a miss
-//                (3e38, -1, 0);
+// and plane fallback on a miss.
+//   BVH_CLOSEST  per ray the walk of traverse_closest, step for step
+//                (best-t pruning, both children's boxes tested at the
+//                parent, the near one first by the sign of 1/rd on the
+//                node's split axis, the far one pushed with its slab entry
+//                time and skipped when popped if that entry is past the
+//                best t, leaf slots in slot order with a strict < winner),
+//                then on a miss the sphere and plane sweep over the valid
+//                rows (wavefront_common.cuh:sweep, in fallback_kernel);
+//                writes (t, type, index), a miss (3e38, -1, 0);
 //   BVH_ANY      the same walk without a best t, stopping at the first
 //                hit; no fallback (the reference's occlusion has none).
 // Lanes outside the int32 mask (null: every lane) get the miss record or
-// 0. The plain twins are ops/bvh.py: closest_plain and any_plain.
+// 0. The plain twins are ops/bvh.py: closest_plain and any_plain;
+// ops/bvh.walk_model walks the child-pair rows as these kernels walk each
+// ray, in lane order, and gives the twins' outputs and counts exactly.
 //
 // Numbers. The leaf tests are the reference's direct formulas
 // (_sphere_t, _plane_t, _triangle_t), not the sweep's expanded ones; sums
 // of three products are written left to right, as the plain twins write
 // them, and the build has -fmad=false and IEEE division and square root,
-// so t, type and index are bitwise the plain twins'. The slab test drops
-// a NaN axis ((b - o) * inf with b == o) explicitly: entry 0 and exit
-// 3e38 for that axis, as geometry.ray_bounds_entry does after
-// jnp.minimum/maximum propagate the NaN (fminf/fmaxf would drop the NaN
-// operand and give another box).
+// so t, type and index are bitwise the plain twins'. The slab test keeps
+// the reference's NaN rule (a NaN axis is unconstrained: entry 0, exit
+// 3e38); see slab_axis.
 //
-// Tables (ops/bvh.py): a node is three 16-byte words (min xyz, payload |
-// max xyz, count | axis, -, -, -), the integers bit-cast into float
-// lanes; a leaf slot four (the reference's _prim_table row, type tag in
-// column 15). Both are read through the read-only cache (__ldg).
+// Tables (ops/bvh.py). An interior node's child-pair row (pair_table):
+// 64 bytes, both children's boxes (the node table's floats, bit for bit),
+// each child's reference (its row, or for a leaf ~(first slot << 3 |
+// count)) and the split axis, so a visit is four 16-byte reads of one
+// aligned row and a leaf child needs no node read. The root's box from
+// the node table. A leaf slot's four 16-byte words (the reference's
+// _prim_table row, type tag in column 15). All through the read-only
+// cache (__ldg).
 //
-// What bounds them on the H100. Every lane walks its own path, so a warp
-// diverges at every node and reads rows no neighbour reads: the work is
-// per-lane box and leaf tests (operations), and the rows come from L2 or
-// device memory one lane at a time. The stack is 64 node indices and 64
-// entry times a thread (512 B of local memory). This first version makes
-// no attempt at coherence (no ray binning, no short or shared stack, no
-// packed 32-byte nodes): ROADMAP queue 2 lists those.
+// The design. Persistent warps: as many 128-thread blocks as the SMs
+// hold; a warp takes the next lanes from a counter (lane 0's atomicAdd,
+// then __shfl_sync) whenever 8 or more of its lanes are idle, so a walk,
+// whose length varies more than 10x from lane to lane, no longer holds a
+// warp to its longest lane, and a lane off the mask or outside the root's
+// box is answered at once. The while-while loop of Aila and Laine (HPG
+// 2009): a warp runs interior nodes until each lane wants a leaf or is
+// done, then tests the leaves; which thread walks which ray, and when,
+// changes, each ray's order does not. The stack: 64 entries a thread in
+// local memory, clamped as the reference clamps it (the tree's depth
+// bounds its use; the wrapper raises on a deeper tree). BVH_CLOSEST's
+// fallback sweep is a second pass over the lanes the walk leaves pending,
+// so a 1,000-row sweep never holds up a warp's walks.
+//
+// What bounds them on the H100. The published count is operations (box
+// and leaf tests; profiling.bvh_bound): 0.0839 and 0.0703 ms on a 2048^2
+// suzanne_xxhi loop state, against 1.28 and 1.37 ms (6.5% and 5.1%).
+// Warps still diverge on box hits and leaf sizes, a box test issues about
+// twice the counted operations (the NaN rule, the near/far selects), and
+// the leaf rows (60.5 MiB) do not fit the 50 MB L2.
+//
+// Levers, each timed in one call against the first version's one thread
+// a ray on the node table (2.93 / 2.44 ms), BVH_CLOSEST / BVH_ANY ms
+// (PERF.md section 6; NVIDIA H100 80GB HBM3, 700 W):
+//   child-pair rows and the cheaper slab test together, one thread a ray:
+//     1.83 / 1.95
+//   + while-while: 1.74 / 2.05 (kept only with persistence)
+//   lane packing passes (count, then scatter lane ids into 8 lists), one
+//     thread a lane: lane order 1.92 / 1.82, by direction octant 1.84 /
+//     2.06; with persistent warps 1.37 / 1.37 and 1.43 / 1.47: dropped
+//     (the refill already skips idle lanes; the passes cost more than the
+//     coherence buys)
+//   a depth-sized shared-memory stack ([entry][thread]): 1.34 / 1.40
+//     against the local stack's 1.28 / 1.37: dropped
+//   persistent warps that refill at 32 / 16 / 8 idle lanes: 1.61 / 1.97,
+//     1.29 / 1.42, 1.28 / 1.37: kept at 8; the one-node-a-trip loop
+//     there 1.48 / 1.39: dropped
+// Also tried and removed (no faster): a register cap for 12 or 16 blocks
+// an SM, evict-first leaf reads.
+//
+// Registers (-Xptxas -v): BVH_CLOSEST 45 and a 512-byte stack frame,
+// BVH_ANY 44 and 264 bytes, no spills.
 
+#include <algorithm>
 #include <cstdint>
 #include <cstring>
 #include <cuda_runtime.h>
@@ -54,17 +92,28 @@ using namespace rt;
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kStack = 64;  // accel/bvh.py: TRAVERSAL_STACK_DEPTH
+constexpr int kThreads = 128;       // a walk block
+constexpr int kSweepThreads = 256;  // a block of BVH_CLOSEST's fallback pass
+constexpr int kMaxStack = 64;       // accel/bvh.py: TRAVERSAL_STACK_DEPTH
+constexpr int kRefill = 8;          // the idle lanes that make a warp take more rays
+constexpr int kMaxDevices = 64;
+constexpr unsigned kFull = 0xffffffffu;
 
 struct Tree {
-  const float4* __restrict__ nodes;  // 3 words a node
+  const float4* __restrict__ nodes;  // 3 words a node; the walk reads the root's box
+  const float4* __restrict__ pairs;  // 4 words an interior node: its children's boxes
   const float4* __restrict__ prims;  // 4 words a leaf slot
+  int root;  // the root's reference (an interior row, or ~(slot << 3 | count))
 };
 
 struct Walker {
   float o[3], d[3], inv[3];
+  bool finite;  // o finite and 0 < |inv| < inf on every axis: no slab time can be NaN
 };
+
+__device__ __forceinline__ bool finite_ray(float o, float inv) {
+  return fabsf(o) < INFINITY && fabsf(inv) > 0.0f && fabsf(inv) < INFINITY;
+}
 
 __device__ __forceinline__ Walker walker(const Ray& r) {
   Walker w;
@@ -73,33 +122,44 @@ __device__ __forceinline__ Walker walker(const Ray& r) {
   w.inv[0] = 1.0f / r.dx;
   w.inv[1] = 1.0f / r.dy;
   w.inv[2] = 1.0f / r.dz;
+  w.finite = finite_ray(r.ox, w.inv[0]) && finite_ray(r.oy, w.inv[1]) && finite_ray(r.oz, w.inv[2]);
   return w;
 }
 
 // One axis of the slab test: the slab times' NaN-propagating min and max,
 // a NaN axis left without a constraint (entry 0, exit 3e38), the entry
-// clamped at 0.
+// clamped at 0. A NaN in either slab time leaves the axis unconstrained,
+// so both times are tested once, and otherwise the min and max of two
+// numbers are plain fminf/fmaxf (a -0 entry for +0 changes no comparison). A slab time is NaN only for
+// 0 * inf or inf * 0 (the origin on the slab's plane with a zero
+// direction component, or an infinite one) or a NaN origin, so kChecked =
+// false skips the test for a ray whose origin is finite and whose
+// reciprocals are finite and non-zero (Walker::finite).
+template <bool kChecked>
 __device__ __forceinline__ void slab_axis(float lo, float hi, float o, float inv, float& t_lo,
                                           float& t_hi) {
   const float near = (lo - o) * inv;
   const float far = (hi - o) * inv;
-  const float a = minn(near, far), b = maxn(near, far);
-  t_lo = isnan_(a) ? 0.0f : maxn(a, 0.0f);
-  t_hi = isnan_(b) ? INF : b;
+  const bool free_axis = kChecked && (isnan_(near) || isnan_(far));
+  t_lo = free_axis ? 0.0f : fmaxf(fminf(near, far), 0.0f);
+  t_hi = free_axis ? INF : fmaxf(near, far);
 }
 
-// geometry.ray_bounds_entry against node k's box: returns t0 <= t1 and
-// the entry t0.
-__device__ __forceinline__ bool slab(const Tree& tree, int k, const Walker& w, float& t0) {
-  const float4 lo = __ldg(tree.nodes + 3 * k);
-  const float4 hi = __ldg(tree.nodes + 3 * k + 1);
+// geometry.ray_bounds_entry against the box (lo, hi): returns t0 <= t1
+// and the entry t0.
+template <bool kChecked>
+__device__ __forceinline__ bool slab_of(float4 lo, float4 hi, const Walker& w, float& t0) {
   float l0, l1, l2, h0, h1, h2;
-  slab_axis(lo.x, hi.x, w.o[0], w.inv[0], l0, h0);
-  slab_axis(lo.y, hi.y, w.o[1], w.inv[1], l1, h1);
-  slab_axis(lo.z, hi.z, w.o[2], w.inv[2], l2, h2);
-  t0 = maxn(maxn(l0, l1), l2);
-  const float t1 = minn(minn(h0, h1), h2);
+  slab_axis<kChecked>(lo.x, hi.x, w.o[0], w.inv[0], l0, h0);
+  slab_axis<kChecked>(lo.y, hi.y, w.o[1], w.inv[1], l1, h1);
+  slab_axis<kChecked>(lo.z, hi.z, w.o[2], w.inv[2], l2, h2);
+  t0 = fmaxf(fmaxf(l0, l1), l2);
+  const float t1 = fminf(fminf(h0, h1), h2);
   return t0 <= t1;
+}
+
+__device__ __forceinline__ bool slab(float4 lo, float4 hi, const Walker& w, float& t0) {
+  return slab_of<true>(lo, hi, w, t0);
 }
 
 __device__ __forceinline__ float dot3(float ax, float ay, float az, float bx, float by, float bz) {
@@ -172,92 +232,12 @@ __device__ __forceinline__ float leaf_t(const Tree& tree, int s, const Walker& w
   return INF;
 }
 
-// Node k's payload (second child or first slot), count and split axis.
-struct NodeMeta {
-  int payload, count, axis;
-};
 
-__device__ __forceinline__ NodeMeta meta(const Tree& tree, int k) {
-  const float4 m0 = __ldg(tree.nodes + 3 * k);
-  const float4 m1 = __ldg(tree.nodes + 3 * k + 1);
-  const float4 m2 = __ldg(tree.nodes + 3 * k + 2);
-  return NodeMeta{__float_as_int(m0.w), __float_as_int(m1.w), __float_as_int(m2.x)};
-}
-
-// The walk of traverse_closest (kClosest) or traverse_any. Returns the
-// winning slot (-1: none) and its t in best_t; traverse_any's walk
-// returns the first slot that hits.
-template <bool kClosest>
-__device__ __forceinline__ int walk(const Tree& tree, const Walker& w, float& best_t) {
-  best_t = INF;
-  int best_slot = -1;
-  float entry;
-  if (!slab(tree, 0, w, entry)) return -1;
-  int stack[kStack];
-  float tstack[kStack];
-  int sp = 0;
-  int cur = 0;
-  float cur_entry = 0.0f;
-  while (true) {
-    bool has_child = false;
-    int descend = 0;
-    float descend_entry = 0.0f;
-    if (!kClosest || cur_entry <= best_t) {
-      const NodeMeta m = meta(tree, cur);
-      if (m.count > 0) {
-        for (int j = 0; j < m.count; ++j) {
-          const float t = leaf_t(tree, m.payload + j, w);
-          if (t < best_t) {
-            best_t = t;
-            best_slot = m.payload + j;
-            if (!kClosest) return best_slot;
-          }
-        }
-      } else {
-        const float inv_axis = m.axis == 0 ? w.inv[0] : (m.axis == 1 ? w.inv[1] : w.inv[2]);
-        const bool neg = inv_axis < 0.0f;
-        const int near = neg ? m.payload : cur + 1;
-        const int far = neg ? cur + 1 : m.payload;
-        float n_entry, f_entry;
-        bool hit_n = slab(tree, near, w, n_entry);
-        bool hit_f = slab(tree, far, w, f_entry);
-        if (kClosest) {
-          hit_n = hit_n && n_entry <= best_t;
-          hit_f = hit_f && f_entry <= best_t;
-        }
-        if (hit_n && hit_f) {
-          const int k = min(sp, kStack - 1);
-          stack[k] = far;
-          tstack[k] = f_entry;
-          ++sp;
-        }
-        has_child = hit_n || hit_f;
-        descend = hit_n ? near : far;
-        descend_entry = hit_n ? n_entry : f_entry;
-      }
-    }
-    if (has_child) {
-      cur = descend;
-      cur_entry = descend_entry;
-    } else if (sp > 0) {
-      --sp;
-      const int k = clampi(sp, 0, kStack - 1);
-      cur = stack[k];
-      cur_entry = tstack[k];
-    } else {
-      break;
-    }
-  }
-  return best_slot;
-}
-
+// The outputs of each walk, and what it writes for a lane it does not
+// walk (off the mask) or whose walk found no slot.
 struct RayPtrs {
   const float *ox, *oy, *oz, *dx, *dy, *dz;
 };
-
-__device__ __forceinline__ Ray load_ray(const RayPtrs& r, int i) {
-  return Ray{r.ox[i], r.oy[i], r.oz[i], r.dx[i], r.dy[i], r.dz[i]};
-}
 
 struct ClosestArgs {
   RayPtrs r;
@@ -273,49 +253,268 @@ struct AnyArgs {
   int32_t* occ;
 };
 
-__global__ void __launch_bounds__(kThreads)
-    bvh_closest_kernel(ClosestArgs a, Tree tree, const int32_t* __restrict__ prim_type,
-                       const int32_t* __restrict__ prim_index, const float* __restrict__ small,
-                       int n_sph, int rows_sph, int rows_pln, int n) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  float t = INF;
-  int type = -1, idx = 0;
-  if (a.live == nullptr || a.live[i] != 0) {
-    const Ray r = load_ray(a.r, i);
-    float best_t;
-    const int slot = walk<true>(tree, walker(r), best_t);
+// BVH_CLOSEST's type of a lane whose walk found no slot, until the
+// fallback pass sweeps it.
+constexpr int32_t kPendingSweep = -2;
+
+struct Closest {
+  static constexpr bool kPrune = true;  // best-t pruning, entry times on the stack
+  ClosestArgs a;
+  const int32_t* __restrict__ prim_type;
+  const int32_t* __restrict__ prim_index;
+  const float* __restrict__ small;  // the fallback's sphere and plane rows
+  int n_sph, rows_sph, rows_pln;
+
+  __device__ const int32_t* mask() const { return a.live; }
+  __device__ void off(int i) const {
+    a.t[i] = INF;
+    a.type[i] = -1;
+    a.index[i] = 0;
+  }
+  // the walk's winner; a lane without one waits for the fallback pass
+  __device__ void finish(int i, const Walker&, int slot, float best_t) const {
     if (slot >= 0) {
-      t = best_t;
-      type = __ldg(prim_type + slot);
-      idx = __ldg(prim_index + slot);
+      a.t[i] = best_t;
+      a.type[i] = __ldg(prim_type + slot);
+      a.index[i] = __ldg(prim_index + slot);
     } else {
-      SceneView s;
-      s.sph = small;
-      s.pln = small + n_sph * SPH_COLS;
-      s.tri = nullptr;
-      s.mat = nullptr;
-      s.n_sph = rows_sph;
-      s.n_pln = rows_pln;
-      s.n_tri = 0;
-      s.n_mat = 0;
-      sweep(s, r, false, t, type, idx);
+      a.type[i] = kPendingSweep;
     }
   }
-  a.t[i] = t;
-  a.type[i] = type;
-  a.index[i] = idx;
+};
+
+// BVH_CLOSEST's fallback pass, one thread a lane in lane order: the
+// sphere and plane sweep over the valid rows (intersect._sweep_bvh) for
+// each lane the walk left pending. A separate pass, so the sweep runs in
+// warps of the lanes that need it and never holds up a warp's walks.
+__global__ void __launch_bounds__(kSweepThreads) fallback_kernel(Closest k, int n) {
+  const int i = blockIdx.x * kSweepThreads + threadIdx.x;
+  if (i >= n || k.a.type[i] != kPendingSweep) return;
+  SceneView s;
+  s.sph = k.small;
+  s.pln = k.small + k.n_sph * SPH_COLS;
+  s.tri = nullptr;
+  s.mat = nullptr;
+  s.n_sph = k.rows_sph;
+  s.n_pln = k.rows_pln;
+  s.n_tri = 0;
+  s.n_mat = 0;
+  const RayPtrs& r = k.a.r;
+  float t;
+  int type, idx;
+  sweep(s, Ray{r.ox[i], r.oy[i], r.oz[i], r.dx[i], r.dy[i], r.dz[i]}, false, t, type, idx);
+  k.a.t[i] = t;
+  k.a.type[i] = type;
+  k.a.index[i] = idx;
 }
 
-__global__ void __launch_bounds__(kThreads) bvh_any_kernel(AnyArgs a, Tree tree, int n) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  int occ = 0;
-  if (a.mask == nullptr || a.mask[i] != 0) {
-    float best_t;
-    occ = walk<false>(tree, walker(load_ray(a.r, i)), best_t) >= 0 ? 1 : 0;
+cudaError_t fallback(const Closest& k, int n, cudaStream_t stream) {
+  fallback_kernel<<<(n + kSweepThreads - 1) / kSweepThreads, kSweepThreads, 0, stream>>>(k, n);
+  return cudaGetLastError();
+}
+
+struct Any {
+  static constexpr bool kPrune = false;  // stops at the first hit
+  AnyArgs a;
+
+  __device__ const int32_t* mask() const { return a.mask; }
+  __device__ void off(int i) const { a.occ[i] = 0; }
+  __device__ void finish(int i, const Walker&, int slot, float) const {
+    a.occ[i] = slot >= 0 ? 1 : 0;
   }
-  a.occ[i] = occ;
+};
+
+cudaError_t fallback(const Any&, int, cudaStream_t) { return cudaSuccess; }
+
+// Lane i before its walk: off the mask it gets the miss record (or 0); a
+// ray that misses the root's box gets its finish at once (BVH_CLOSEST:
+// pending the fallback pass). Returns whether lane i is walked, with its
+// walker.
+template <class K>
+__device__ __forceinline__ bool start(const K& k, const Tree& tree, int i, Walker& w) {
+  const int32_t* mask = k.mask();
+  if (mask != nullptr && mask[i] == 0) {
+    k.off(i);
+    return false;
+  }
+  const RayPtrs& r = k.a.r;
+  w = walker(Ray{r.ox[i], r.oy[i], r.oz[i], r.dx[i], r.dy[i], r.dz[i]});
+  float entry;
+  if (!slab(__ldg(tree.nodes), __ldg(tree.nodes + 1), w, entry)) {
+    k.finish(i, w, -1, INF);
+    return false;
+  }
+  return true;
+}
+
+// The walk. Each thread walks one lane at a time, as the reference's
+// traverse_closest / traverse_any walk it: an interior node's row holds
+// both children's boxes; the near child (by the sign of 1/rd on the
+// split axis) first, the far one pushed with its entry time when both
+// are entered (BVH_CLOSEST: entered before the best t); a popped node
+// whose entry is past the best t is skipped; a leaf's slots in slot
+// order, a strict < winner (BVH_ANY: the first hit ends the walk). A
+// warp runs interior nodes until each of its lanes wants a leaf or is
+// done, then tests the leaves, and takes the next lanes from *fetch
+// whenever kRefill or more of its lanes are idle.
+template <class K>
+__global__ void __launch_bounds__(kThreads) walk_kernel(K k, Tree tree, int* __restrict__ fetch,
+                                                        int n) {
+  int stack_ref[kMaxStack];
+  float stack_time[K::kPrune ? kMaxStack : 1];
+  const int me = threadIdx.x & 31;
+  int lane = -1;  // the lane this thread walks; -1: none
+  Walker w;
+  int cur = 0, sp = 0, best_slot = -1;
+  float cur_entry = 0.0f, best_t = INF;
+
+  auto take = [&](int i) {
+    lane = -1;
+    if (i >= n || !start(k, tree, i, w)) return;
+    lane = i;
+    cur = tree.root;
+    cur_entry = 0.0f;
+    best_t = INF;
+    best_slot = -1;
+    sp = 0;
+  };
+  // the next node off the stack (BVH_CLOSEST: skipping those entered past
+  // the best t); false when the stack is empty
+  auto pop = [&]() {
+    while (sp > 0) {
+      --sp;
+      const int at = min(sp, kMaxStack - 1);
+      cur = stack_ref[at];
+      cur_entry = K::kPrune ? stack_time[at] : 0.0f;
+      if (!K::kPrune || cur_entry <= best_t) return true;
+    }
+    return false;
+  };
+  auto done = [&](int slot) {
+    k.finish(lane, w, slot, best_t);
+    lane = -1;
+  };
+
+  // one interior node: both children's boxes from its row
+  auto interior = [&]() {
+    const float4* row = tree.pairs + 4 * cur;
+    const float4 l_lo = __ldg(row), l_hi = __ldg(row + 1);
+    const float4 r_lo = __ldg(row + 2), r_hi = __ldg(row + 3);
+    const int axis = __float_as_int(r_lo.w);
+    const float inv_axis = axis == 0 ? w.inv[0] : (axis == 1 ? w.inv[1] : w.inv[2]);
+    const bool neg = inv_axis < 0.0f;
+    float l_entry, r_entry;
+    bool l_hit, r_hit;
+    if (w.finite) {
+      l_hit = slab_of<false>(l_lo, l_hi, w, l_entry);
+      r_hit = slab_of<false>(r_lo, r_hi, w, r_entry);
+    } else {
+      l_hit = slab_of<true>(l_lo, l_hi, w, l_entry);
+      r_hit = slab_of<true>(r_lo, r_hi, w, r_entry);
+    }
+    const int l_ref = __float_as_int(l_lo.w), r_ref = __float_as_int(l_hi.w);
+    const int near = neg ? r_ref : l_ref, far = neg ? l_ref : r_ref;
+    const float n_entry = neg ? r_entry : l_entry, f_entry = neg ? l_entry : r_entry;
+    bool hit_n = neg ? r_hit : l_hit, hit_f = neg ? l_hit : r_hit;
+    if (K::kPrune) {
+      hit_n = hit_n && n_entry <= best_t;
+      hit_f = hit_f && f_entry <= best_t;
+    }
+    if (hit_n && hit_f) {
+      const int at = min(sp, kMaxStack - 1);
+      stack_ref[at] = far;
+      if (K::kPrune) stack_time[at] = f_entry;
+      ++sp;
+    }
+    if (hit_n || hit_f) {
+      cur = hit_n ? near : far;
+      cur_entry = hit_n ? n_entry : f_entry;
+    } else if (!pop()) {
+      done(best_slot);
+    }
+  };
+  // one leaf: its slots in order
+  auto leaf = [&]() {
+    const int packed = ~cur;
+    const int first = packed >> 3, count = packed & 7;
+    int hit = -1;
+    for (int j = 0; j < count; ++j) {
+      const float t = leaf_t(tree, first + j, w);
+      if (t < best_t) {
+        best_t = t;
+        best_slot = first + j;
+        if (!K::kPrune) {
+          hit = best_slot;
+          break;
+        }
+      }
+    }
+    if (hit >= 0) {
+      done(hit);
+    } else if (!pop()) {
+      done(best_slot);
+    }
+  };
+
+  bool drained = false;
+  while (true) {
+    if (!drained) {
+      const unsigned idle = __ballot_sync(kFull, lane < 0);
+      const int m = __popc(idle);
+      if (m >= kRefill) {
+        int first = 0;
+        if (me == 0) first = atomicAdd(fetch, m);
+        first = __shfl_sync(kFull, first, 0);
+        if (lane < 0) take(first + __popc(idle & ((1u << me) - 1u)));
+        drained = first + m >= n;
+      }
+    }
+    if (__ballot_sync(kFull, lane >= 0) == 0) {
+      if (drained) break;
+      continue;
+    }
+    while (lane >= 0 && cur >= 0) interior();
+    if (lane >= 0) leaf();
+  }
+}
+
+// As many blocks as the SMs hold (found once a kernel and device), or
+// fewer for a small launch.
+template <class K>
+cudaError_t launch_walk(const K& k, const Tree& tree, int* fetch, int n, cudaStream_t stream) {
+  static int resident[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (resident[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return err;
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, walk_kernel<K>, kThreads,
+                                                             0)) != cudaSuccess)
+      return err;
+    resident[dev] = std::max(1, sms * per_sm);
+  }
+  const int grid = std::min((n + kThreads - 1) / kThreads, resident[dev]);
+  walk_kernel<K><<<grid, kThreads, 0, stream>>>(k, tree, fetch, n);
+  return cudaGetLastError();
+}
+
+// fetch: one int32 of scratch, the walk's lane counter.
+template <class K>
+int launch(const K& k, const Tree& tree, int depth, int* fetch, int n, cudaStream_t stream) {
+  if (depth > kMaxStack) return (int)cudaErrorInvalidValue;
+  if (n <= 0) return 0;
+  cudaError_t err = cudaMemsetAsync(fetch, 0, sizeof(int), stream);
+  if (err == cudaSuccess) err = launch_walk(k, tree, fetch, n, stream);
+  if (err == cudaSuccess) err = fallback(k, n, stream);
+  return (int)err;
+}
+
+Tree tree_of(const float* nodes, const float* pairs, const float* prims, int root) {
+  return Tree{reinterpret_cast<const float4*>(nodes), reinterpret_cast<const float4*>(pairs),
+              reinterpret_cast<const float4*>(prims), root};
 }
 
 }  // namespace
@@ -323,36 +522,37 @@ __global__ void __launch_bounds__(kThreads) bvh_any_kernel(AnyArgs a, Tree tree,
 extern "C" {
 
 // p: 10 device pointers, ClosestArgs field order (6 f32 ray inputs, the
-// i32 live mask or null, t f32, type i32, index i32). nodes (K, 12) and
-// prims (R, 16) f32, prim_type and prim_index (R,) i32, small the sphere
-// and plane rows of the miss fallback (n_sph sphere rows, then the
-// planes); the fallback sweeps the first rows_sph spheres and rows_pln
-// planes (the valid ones: DeviceScene.sweep_rows).
-int rt_bvh_closest_launch(void** p, const float* nodes, const float* prims,
-                          const int32_t* prim_type, const int32_t* prim_index,
-                          const float* small, int n_sph, int rows_sph, int rows_pln, int n,
-                          void* stream) {
+// i32 live mask or null, t f32, type i32, index i32). nodes (K, 12),
+// pairs (I, 16) and prims (R, 16) f32, prim_type and prim_index (R,) i32,
+// small the sphere and plane rows of the miss fallback (n_sph sphere rows,
+// then the planes); the fallback sweeps the first rows_sph spheres and
+// rows_pln planes (the valid ones: DeviceScene.sweep_rows). root: the
+// root's reference; depth: the tree's (at most 64, the stack's entries);
+// fetch: one int32 of device scratch.
+int rt_bvh_closest_launch(void** p, const float* nodes, const float* pairs, const float* prims,
+                          const int32_t* prim_type, const int32_t* prim_index, const float* small,
+                          int n_sph, int rows_sph, int rows_pln, int root, int depth, int* fetch,
+                          int n, void* stream) {
   static_assert(sizeof(ClosestArgs) == 10 * sizeof(void*), "ClosestArgs layout");
-  ClosestArgs a;
-  memcpy(&a, p, sizeof(a));
-  if (n <= 0) return 0;
-  const Tree tree{reinterpret_cast<const float4*>(nodes), reinterpret_cast<const float4*>(prims)};
-  bvh_closest_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
-      a, tree, prim_type, prim_index, small, n_sph, rows_sph, rows_pln, n);
-  return (int)cudaGetLastError();
+  Closest k;
+  memcpy(&k.a, p, sizeof(k.a));
+  k.prim_type = prim_type;
+  k.prim_index = prim_index;
+  k.small = small;
+  k.n_sph = n_sph;
+  k.rows_sph = rows_sph;
+  k.rows_pln = rows_pln;
+  return launch(k, tree_of(nodes, pairs, prims, root), depth, fetch, n, (cudaStream_t)stream);
 }
 
 // p: 8 device pointers, AnyArgs field order (6 f32 ray inputs, the i32
-// mask or null, occ i32); tables as for BVH_CLOSEST.
-int rt_bvh_any_launch(void** p, const float* nodes, const float* prims, int n, void* stream) {
+// mask or null, occ i32); the rest as for BVH_CLOSEST.
+int rt_bvh_any_launch(void** p, const float* nodes, const float* pairs, const float* prims,
+                      int root, int depth, int* fetch, int n, void* stream) {
   static_assert(sizeof(AnyArgs) == 8 * sizeof(void*), "AnyArgs layout");
-  AnyArgs a;
-  memcpy(&a, p, sizeof(a));
-  if (n <= 0) return 0;
-  const Tree tree{reinterpret_cast<const float4*>(nodes), reinterpret_cast<const float4*>(prims)};
-  bvh_any_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(a, tree,
-                                                                                      n);
-  return (int)cudaGetLastError();
+  Any k;
+  memcpy(&k.a, p, sizeof(k.a));
+  return launch(k, tree_of(nodes, pairs, prims, root), depth, fetch, n, (cudaStream_t)stream);
 }
 
 }  // extern "C"

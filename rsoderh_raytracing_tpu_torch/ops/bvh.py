@@ -5,7 +5,10 @@ rsoderh_raytracing_tpu/ops/bvh_traverse.py and of intersect._sweep_bvh).
 (csrc/bvh.cu) read: one 12-float row a node (the reference's
 ``_node_table`` with its three integers bit-cast into float lanes and
 padded to three 16-byte words: min xyz, payload | max xyz, count | axis,
-0, 0, 0) and the reference's 16-float leaf rows in slot order
+0, 0, 0; the plain walks walk it, the kernels read the root's box from
+it), one 16-float child-pair row an interior node (``pair_table``: both
+children's boxes and references, the split axis; what the kernels walk),
+and the reference's 16-float leaf rows in slot order
 (``_prim_table``: triangle a, e0, e1; sphere centre, radius; plane pos,
 normal, the 9 base-change entries; column 15 the bit-cast type tag),
 plus the slot -> (type, index) arrays and the sphere and plane rows of
@@ -32,6 +35,12 @@ can also count what it does (``counts``): node visits, box tests, and
 leaf tests of each primitive kind, from which profiling.bvh_bound works
 out the kernels' bound. Nothing on a render path calls these with a CUDA
 tensor: the wrappers (ops/cuda_intersect.py) launch the kernels there.
+
+``walk_model`` walks the child-pair rows as the kernels walk each ray:
+the lanes that enter the root's box in lane order, both children's boxes
+from one row, popping past pruned entries. It gives the plain walks'
+outputs and counts exactly (the tests hold it to them), which is why
+profiling.bvh_bound may take the plain walks' counts.
 """
 
 from __future__ import annotations
@@ -51,8 +60,16 @@ TRI_DET_EPS = 1.0e-8
 TRI_T_EPS = 1.0e-5
 
 NODE_COLS = 12
+PAIR_COLS = 16
 PRIM_COLS = 16
-COUNT_KEYS = ("visits", "boxes", "spheres", "planes", "triangles", "fallback_lanes")
+COUNT_KEYS = ("visits", "interior", "boxes", "spheres", "planes", "triangles", "fallback_lanes")
+# The deepest tree the kernels take: a thread's stack holds one entry a
+# level, at most the reference's TRAVERSAL_STACK_DEPTH (the builders
+# refuse deeper trees; the wrappers raise on one).
+MAX_DEPTH = TRAVERSAL_STACK_DEPTH
+# A leaf child's reference packs its first slot and count: ~(slot << 3 | count).
+LEAF_COUNT_BITS = 3
+MAX_SLOTS = 1 << 28
 
 
 @dataclasses.dataclass
@@ -64,11 +81,17 @@ class DeviceBVH:
     small: torch.Tensor  # flat f32 sphere and plane rows (pack_rows) of the fallback
     max_leaf: int
     depth: int
+    pairs: torch.Tensor  # (I, PAIR_COLS) f32 child-pair rows of the interior nodes
+    root: int  # the root's reference: pair row 0, or a leaf's packed slots
     build_seconds: float = 0.0  # the host build's, where build_device_scene built the tree
 
     @property
     def num_nodes(self) -> int:
         return self.nodes.shape[0]
+
+
+def _as_f32(a):
+    return np.ascontiguousarray(a, np.int32).view(np.float32)
 
 
 def node_table(bvh: FlatBVH) -> np.ndarray:
@@ -78,11 +101,41 @@ def node_table(bvh: FlatBVH) -> np.ndarray:
     rows = np.zeros((k, NODE_COLS), np.float32)
     rows[:, 0:3] = bvh.nodes_min
     rows[:, 4:7] = bvh.nodes_max
-    as_f32 = lambda a: np.ascontiguousarray(a, np.int32).view(np.float32)  # noqa: E731
-    rows[:, 3] = as_f32(bvh.node_payload)
-    rows[:, 7] = as_f32(bvh.node_count)
-    rows[:, 8] = as_f32(bvh.node_axis)
+    rows[:, 3] = _as_f32(bvh.node_payload)
+    rows[:, 7] = _as_f32(bvh.node_count)
+    rows[:, 8] = _as_f32(bvh.node_axis)
     return rows
+
+
+def pair_table(bvh: FlatBVH) -> tuple[np.ndarray, int]:
+    """(I, PAIR_COLS) f32 child-pair rows, one an interior node in node
+    order, and the root's reference. A row: the first child's (node + 1)
+    min xyz, its reference | its max xyz, the second child's (payload)
+    reference | the second child's min xyz, the split axis | its max xyz,
+    0; box floats copied bit for bit, integers bit-cast. A reference is
+    the child's row, or for a leaf ~(first slot << 3 | count)."""
+    count = np.asarray(bvh.node_count, np.int64)
+    payload = np.asarray(bvh.node_payload, np.int64)
+    leaf = count > 0
+    if count.max(initial=0) >= 1 << LEAF_COUNT_BITS or payload[leaf].max(initial=0) + count.max(initial=0) > MAX_SLOTS:
+        raise ValueError("the tree's leaves do not fit the child-pair references")
+    interior = np.nonzero(~leaf)[0]
+    row_of = np.zeros(count.shape[0], np.int64)
+    row_of[interior] = np.arange(interior.shape[0])
+
+    def ref(node):
+        return np.where(leaf[node], ~((payload[node] << LEAF_COUNT_BITS) | count[node]), row_of[node])
+
+    first, second = interior + 1, payload[interior]
+    rows = np.zeros((interior.shape[0], PAIR_COLS), np.float32)
+    rows[:, 0:3] = bvh.nodes_min[first]
+    rows[:, 3] = _as_f32(ref(first))
+    rows[:, 4:7] = bvh.nodes_max[first]
+    rows[:, 7] = _as_f32(ref(second))
+    rows[:, 8:11] = bvh.nodes_min[second]
+    rows[:, 11] = _as_f32(bvh.node_axis[interior])
+    rows[:, 12:15] = bvh.nodes_max[second]
+    return rows, int(ref(np.zeros(1, np.int64))[0])
 
 
 def prim_table(scene, bvh: FlatBVH) -> torch.Tensor:
@@ -119,6 +172,7 @@ def device_bvh(bvh: FlatBVH, scene) -> DeviceBVH:
     def up(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
+    pairs, root = pair_table(bvh)
     return DeviceBVH(
         nodes=up(node_table(bvh)),
         prims=prim_table(scene, bvh),
@@ -127,6 +181,8 @@ def device_bvh(bvh: FlatBVH, scene) -> DeviceBVH:
         small=pack_rows(scene, spheres=True, triangles=False, materials=False),
         max_leaf=int(bvh.node_count.max()),
         depth=int(bvh.depth),
+        pairs=up(pairs),
+        root=root,
     )
 
 
@@ -296,6 +352,7 @@ def _walk(bvh: DeviceBVH, ro, rd, lanes, closest, counts):
             hit_n, n_entry = slab(o, iv, n_row[:, 0:3], n_row[:, 4:7])
             hit_f, f_entry = slab(o, iv, f_row[:, 0:3], f_row[:, 4:7])
             counts["boxes"] += 2 * int(ii.numel())
+            counts["interior"] += int(ii.numel())
             if closest:
                 bt = best_t.index_select(0, int_lane)
                 hit_n = hit_n & (n_entry <= bt)
@@ -381,3 +438,117 @@ def any_plain(scene, p, d, mask, counts=None):
     """BVH_ANY's plain twin: occlusion (i32 0/1) of rays from p along d by
     the walk, for lanes with mask != 0; 0 on the others."""
     return traverse_any(scene.bvh, p, d, mask, counts).to(torch.int32)
+
+
+def walk_model(bvh: DeviceBVH, ro, rd, mask, closest, counts=None):
+    """A plain walk over the child-pair rows, each ray's as the kernels
+    walk it: the lanes with mask != 0 whose ray enters the root's box (a
+    box test each), in lane order, from bvh.root; both children's boxes
+    from one row, a leaf child's slots from its reference, popping past
+    entries whose entry time is beyond the best t (closest). Returns what
+    traverse_closest (closest) or traverse_any returns, and adds the same
+    counts."""
+    counts = _counts(counts)
+    n = ro[0].shape[0]
+    dev = ro[0].device
+    lanes = _lanes(ro, mask)
+    counts["boxes"] += int(lanes.numel())
+    root = bvh.nodes[0:1]
+    enters, _ = slab(tuple(c.index_select(0, lanes) for c in ro),
+                     tuple(1.0 / c.index_select(0, lanes) for c in rd), root[:, 0:3], root[:, 4:7])
+    lanes = lanes[enters]
+    m = lanes.numel()
+    o = tuple(c.index_select(0, lanes) for c in ro)
+    d = tuple(c.index_select(0, lanes) for c in rd)
+    inv = tuple(1.0 / c for c in d)
+    pairs_i = bvh.pairs.view(torch.int32)
+    prims_i = bvh.prims.view(torch.int32)
+    depth = TRAVERSAL_STACK_DEPTH
+    stack = torch.zeros((m, depth), dtype=torch.int64, device=dev)
+    tstack = torch.zeros((m, depth), dtype=torch.float32, device=dev)
+    sp = torch.zeros(m, dtype=torch.int64, device=dev)
+    cur = torch.full((m,), bvh.root, dtype=torch.int64, device=dev)
+    best_t = torch.full((m,), INF, device=dev)
+    best_slot = torch.full((m,), -1, dtype=torch.int64, device=dev)
+    running = torch.ones(m, dtype=torch.bool, device=dev)
+
+    def at(vec, idx):
+        return tuple(c.index_select(0, idx) for c in vec)
+
+    while bool(running.any()):
+        act = torch.nonzero(running).squeeze(1)
+        node = cur.index_select(0, act)
+        counts["visits"] += int(act.numel())
+        need_pop = torch.zeros(m, dtype=torch.bool, device=dev)
+
+        ii = act[node >= 0]
+        if ii.numel():
+            counts["interior"] += int(ii.numel())
+            counts["boxes"] += 2 * int(ii.numel())
+            row, row_i = bvh.pairs.index_select(0, cur[ii]), pairs_i.index_select(0, cur[ii])
+            oi, iv = at(o, ii), at(inv, ii)
+            hit_l, entry_l = slab(oi, iv, row[:, 0:3], row[:, 4:7])
+            hit_r, entry_r = slab(oi, iv, row[:, 8:11], row[:, 12:15])
+            ax = row_i[:, 11].long()
+            neg = torch.where(ax == 0, iv[0], torch.where(ax == 1, iv[1], iv[2])) < 0.0
+            ref_l, ref_r = row_i[:, 3].long(), row_i[:, 7].long()
+            near, far = torch.where(neg, ref_r, ref_l), torch.where(neg, ref_l, ref_r)
+            hit_n, hit_f = torch.where(neg, hit_r, hit_l), torch.where(neg, hit_l, hit_r)
+            n_entry, f_entry = torch.where(neg, entry_r, entry_l), torch.where(neg, entry_l, entry_r)
+            if closest:
+                bt = best_t.index_select(0, ii)
+                hit_n, hit_f = hit_n & (n_entry <= bt), hit_f & (f_entry <= bt)
+            push = hit_n & hit_f
+            pos = ii[push]
+            k = torch.clamp(sp.index_select(0, pos), max=depth - 1)
+            stack[pos, k], tstack[pos, k] = far[push], f_entry[push]
+            sp[pos] += 1
+            child = hit_n | hit_f
+            cur[ii[child]] = torch.where(hit_n, near, far)[child]
+            need_pop[ii[~child]] = True
+
+        li = act[node < 0]
+        if li.numel():
+            packed = ~cur.index_select(0, li)
+            first, cnt = packed >> LEAF_COUNT_BITS, packed & ((1 << LEAF_COUNT_BITS) - 1)
+            ol, dl = at(o, li), at(d, li)
+            found = torch.zeros(li.shape[0], dtype=torch.bool, device=dev)
+            for j in range(int(cnt.max())):
+                tested = (j < cnt) & ~found
+                slot = torch.where(tested, first + j, 0)
+                row = bvh.prims.index_select(0, slot)
+                ptype = prims_i.index_select(0, slot)[:, 15]
+                t = torch.full((li.shape[0],), INF, device=dev)
+                for kind, key, test in _LEAF_TESTS:
+                    is_kind = ptype == kind
+                    counts[key] += int((is_kind & tested).sum())
+                    if bool((is_kind & tested).any()):
+                        t = torch.where(is_kind, test(ol, dl, row), t)
+                better = tested & (t < best_t.index_select(0, li))
+                best_t[li[better]] = t[better]
+                best_slot[li[better]] = slot[better]
+                if not closest:
+                    found |= better
+            running[li[found]] = False
+            need_pop[li[~found]] = True
+
+        # pop; closest skips the entries entered past the best t, a visit each
+        while bool(need_pop.any()):
+            pi = torch.nonzero(need_pop).squeeze(1)
+            empty = sp.index_select(0, pi) == 0
+            running[pi[empty]] = False
+            pi = pi[~empty]
+            sp[pi] -= 1
+            k = torch.clamp(sp.index_select(0, pi), max=depth - 1)
+            cur[pi] = stack[pi, k]
+            need_pop[:] = False
+            if closest:
+                pruned = tstack[pi, k] > best_t.index_select(0, pi)
+                counts["visits"] += int(pruned.sum())
+                need_pop[pi[pruned]] = True
+
+    out_t = torch.full((n,), INF, device=dev)
+    out_slot = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    out_t[lanes] = best_t
+    out_slot[lanes] = best_slot.to(torch.int32)
+    return (out_t, out_slot) if closest else out_slot >= 0

@@ -246,40 +246,50 @@ def fused_call(scene, ro, rd, nee_dir):
     return outs
 
 
-def _bvh_args(scene, rays, mask, what):
-    """Check the inputs of BVH_CLOSEST or BVH_ANY; returns (lanes, device,
-    the launch's pointer array)."""
+def _bvh_depth(scene, what):
     if route(scene) != BVH:
         raise ValueError(f"{what}: the scene carries no BVH")
+    if scene.bvh.depth > bvh_ops.MAX_DEPTH:
+        raise ValueError(f"{what}: the BVH is {scene.bvh.depth} deep, the walks' stack holds "
+                         f"{bvh_ops.MAX_DEPTH} entries")
+
+
+def _bvh_args(scene, rays, mask, what):
+    """Check the inputs of BVH_CLOSEST or BVH_ANY; returns (lanes, device,
+    the tree's launch arguments, the walk's lane counter: one int32 of
+    scratch, which must outlive the launch call)."""
     n = mask.shape[0]
     dev = mask.device
     for i, t in enumerate(rays):
         cw._check(f"{what} ray input {i}", t, n, torch.float32, dev)
     cw._check(f"{what} lane mask", mask, n, torch.int32, dev)
-    if scene.bvh.nodes.device != dev:
-        raise ValueError(f"{what}: rays on {dev}, BVH on {scene.bvh.nodes.device}")
-    return n, dev
+    b = scene.bvh
+    if b.nodes.device != dev:
+        raise ValueError(f"{what}: rays on {dev}, BVH on {b.nodes.device}")
+    tree = (b.nodes.data_ptr(), b.pairs.data_ptr(), b.prims.data_ptr())
+    return n, dev, tree, torch.empty(1, dtype=torch.int32, device=dev)
 
 
 def bvh_closest_call(scene, ro, rd, live):
     """BVH_CLOSEST: the closest hit of rays (ro, rd) by the BVH walk, and
     on a BVH miss by the sphere and plane sweep, for lanes with live != 0;
     (3e38, -1, 0) on the others. Returns (t f32, type i32, index i32)."""
+    _bvh_depth(scene, "bvh_closest_call")
     if live.device.type == "cpu":
         return bvh_ops.closest_plain(scene, ro, rd, live)
     if live.device.type != "cuda":
         raise ValueError(f"bvh_closest_call: unsupported device {live.device}")
     from rsoderh_raytracing_tpu_torch.ops import _kernels
 
-    n, dev = _bvh_args(scene, (*ro, *rd), live, "bvh_closest_call")
+    n, dev, tree, fetch = _bvh_args(scene, (*ro, *rd), live, "bvh_closest_call")
     t = torch.empty(n, device=dev, dtype=torch.float32)
     ptype = torch.empty(n, device=dev, dtype=torch.int32)
     pidx = torch.empty(n, device=dev, dtype=torch.int32)
     b = scene.bvh
     rc = _kernels.library().rt_bvh_closest_launch(
-        cw._ptrs((*ro, *rd, live, t, ptype, pidx)), b.nodes.data_ptr(), b.prims.data_ptr(),
-        b.prim_type.data_ptr(), b.prim_index.data_ptr(), b.small.data_ptr(),
-        scene.sph_radius.shape[0], *scene.sweep_rows[:2], n,
+        cw._ptrs((*ro, *rd, live, t, ptype, pidx)), *tree, b.prim_type.data_ptr(),
+        b.prim_index.data_ptr(), b.small.data_ptr(), scene.sph_radius.shape[0],
+        *scene.sweep_rows[:2], b.root, b.depth, fetch.data_ptr(), n,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     cw._raise_on(rc, "BVH_CLOSEST")
@@ -290,17 +300,18 @@ def bvh_closest_call(scene, ro, rd, live):
 def bvh_any_call(scene, p, d, mask):
     """BVH_ANY: occlusion (i32 0/1) of rays from p along d by the BVH walk
     (no fallback), for lanes with mask != 0; 0 on the others."""
+    _bvh_depth(scene, "bvh_any_call")
     if mask.device.type == "cpu":
         return bvh_ops.any_plain(scene, p, d, mask)
     if mask.device.type != "cuda":
         raise ValueError(f"bvh_any_call: unsupported device {mask.device}")
     from rsoderh_raytracing_tpu_torch.ops import _kernels
 
-    n, dev = _bvh_args(scene, (*p, *d), mask, "bvh_any_call")
+    n, dev, tree, fetch = _bvh_args(scene, (*p, *d), mask, "bvh_any_call")
     occ = torch.empty(n, device=dev, dtype=torch.int32)
     b = scene.bvh
     rc = _kernels.library().rt_bvh_any_launch(
-        cw._ptrs((*p, *d, mask, occ)), b.nodes.data_ptr(), b.prims.data_ptr(), n,
+        cw._ptrs((*p, *d, mask, occ)), *tree, b.root, b.depth, fetch.data_ptr(), n,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     cw._raise_on(rc, "BVH_ANY")

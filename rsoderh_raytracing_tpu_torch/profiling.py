@@ -51,7 +51,11 @@ With ``--path scan-image``, ``scan_image``: the relative RMSE of each of
 the first 16 samples of the scan integrator (``render_sample``) at
 256x256, rendered on the card through the kernels, against the same
 sample rendered on the CPU through the plain versions, and of their
-means. Run as ``PYTHONPATH=OLD python rsoderh_raytracing_tpu_torch/profiling.py
+means; then ``scan_stage``: sample 0 bounce by bounce, the closest and
+occlusion queries' inputs on the card against the CPU's (lanes that
+differ bitwise, largest difference), and ``device_math``: the glue's
+transcendental functions on the card against the CPU on the same inputs.
+Run as ``PYTHONPATH=OLD python rsoderh_raytracing_tpu_torch/profiling.py
 --path scan-image`` it reads the package of the tree OLD instead.
 
 ``--sass`` prints, for each kernel of the built library, the SASS
@@ -300,23 +304,23 @@ def chunked_bound(scene, args, closest):
 def bvh_bound(scene, n, counts, closest):
     """bound_ms of one BVH_CLOSEST (`closest`) or BVH_ANY launch over n
     lanes whose plain walk counted `counts` (ops/bvh.COUNT_KEYS): 7
-    four-byte inputs a lane and 3 (or 1) outputs, the node, leaf and slot
-    tables once; the box tests, the leaf tests of each kind and the
+    four-byte inputs a lane and 3 (or 1) outputs, the tables once; the box
+    tests, the leaf tests of each kind and the
     fallback sweep over the valid sphere and plane rows of the lanes the
-    walk missed. Also returns the counts
-    with the bytes of the rows the walk reads lane by lane (48 a node
-    visit, 32 a box, 64 a leaf test; the tables are smaller, so those
-    reads hit the caches)."""
+    walk missed; the tables are the root's box, the child-pair rows and the
+    leaf rows (and the slot and fallback rows). Also returns the counts
+    with the bytes of the rows the walk reads lane by lane (a 64-byte
+    child-pair row an interior visit, a 64-byte leaf row a leaf test)."""
     b = scene.bvh
-    tables = b.nodes.numel() + b.prims.numel() + (2 * b.prim_type.numel() + b.small.numel()
-                                                  if closest else 0)
+    tables = (8 + b.pairs.numel() + b.prims.numel()
+              + (2 * b.prim_type.numel() + b.small.numel() if closest else 0))
     n_bytes = n * 4 * (7 + (3 if closest else 1)) + 4 * tables
     leaf_tests = sum(counts[k] for k in OPS_LEAF)
     n_sph, n_pln, _ = scene.sweep_rows
     fallback = n_sph * OPS_SPHERE + n_pln * OPS_PLANE
     n_ops = (counts["boxes"] * OPS_BOX + sum(counts[k] * v for k, v in OPS_LEAF.items())
              + counts["fallback_lanes"] * fallback)
-    row_bytes = 48 * counts["visits"] + 32 * counts["boxes"] + 64 * leaf_tests
+    row_bytes = 64 * counts["interior"] + 64 * leaf_tests
     return bound_ms(n_bytes, n_ops) + (dict(counts, leaf_tests=leaf_tests, row_bytes=row_bytes),)
 
 
@@ -341,9 +345,21 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def _bvh_group(name):
+    """bvh_closest or bvh_any for a kernel of csrc/bvh.cu (the walk,
+    templated on the walk's kind, and BVH_CLOSEST's fallback pass), else
+    None."""
+    if "fallback_kernel" in name:
+        return "bvh_closest"
+    if "walk_kernel" in name:
+        return "bvh_closest" if "Closest" in name else "bvh_any"
+    return None
+
+
 def _scan_group(name):
-    for kernel in ("bvh_closest_kernel", "bvh_any_kernel", "chunked_closest_kernel",
-                   "chunked_any_kernel", "closest_kernel", "any_kernel"):
+    if _bvh_group(name):
+        return _bvh_group(name)
+    for kernel in ("chunked_closest_kernel", "chunked_any_kernel", "closest_kernel", "any_kernel"):
         if kernel in name:
             return kernel[: -len("_kernel")]
     if "gather" in name or "indexselect" in name.lower():
@@ -354,8 +370,10 @@ def _scan_group(name):
 
 
 def _group(name):
+    if _bvh_group(name):
+        return _bvh_group(name)
     for kernel in ("trace_kernel", "big_shade_kernel", "chunked_closest_kernel",
-                   "chunked_any_kernel", "bvh_closest_kernel", "bvh_any_kernel", "shade_kernel"):
+                   "chunked_any_kernel", "shade_kernel"):
         if kernel in name:
             return kernel[: -len("_kernel")]
     # index_select's kernel (vectorized_gather_kernel, or indexSelect* in
@@ -564,7 +582,95 @@ def scan_image_main(args, dev, card) -> int:
           f"rel_rmse_per_sample={per} "
           f"rel_rmse_mean_{IMAGE_SAMPLES}={rel(card_img.mean(0), cpu_img.mean(0)):.3e} "
           f"card={card!r}", flush=True)
+    scan_stages(scene, sky, dev, card)
     return 0
+
+
+def _ulps(a, b):
+    """Largest distance in units in the last place between f32 tensors
+    of equal shape (their int32 bit patterns, sign folded)."""
+    def key(x):
+        bits = x.contiguous().view(torch.int32).long()
+        return torch.where(bits < 0, -(bits & 0x7FFFFFFF), bits)
+    return int((key(a) - key(b)).abs().max()) if a.numel() else 0
+
+
+# The transcendental functions of the scan integrator's glue (camera,
+# ops/envmap.py, ops/bsdf.py), each on 2^20 seeded inputs in its range.
+DEVICE_MATH = {
+    "sin": (torch.sin, lambda u, v: (u * 2.0 - 1.0) * np.pi),
+    "cos": (torch.cos, lambda u, v: (u * 2.0 - 1.0) * np.pi),
+    "atan2": (torch.atan2, lambda u, v: (u * 2.0 - 1.0, v * 2.0 - 1.0)),
+    "asin": (torch.asin, lambda u, v: u * 2.0 - 1.0),
+    "sqrt": (torch.sqrt, lambda u, v: u * 4.0),
+    "div": (torch.div, lambda u, v: (u + 0.5, v + 0.5)),
+}
+
+
+def scan_stages(scene, sky, dev, card):
+    """Sample 0 of the scan integrator at IMAGE_SIZE^2, stage by stage,
+    on the card against the CPU: for each bounce, the closest query's
+    (ro, rd, live) and the occlusion query's (p, nee_dir, mask) as
+    capture_scan records them; per field the lanes that differ (bitwise,
+    on lanes set on both devices, or every lane where the query has no
+    mask), the largest absolute difference and ulps ([scan_stage]). Then
+    each function of DEVICE_MATH on the card against the CPU on the same
+    inputs ([device_math])."""
+    res = (IMAGE_SIZE, IMAGE_SIZE)
+    states, max_y = [], []
+    for device in (dev, "cpu"):
+        r = Renderer(scene, *res, environments=sky, max_bounces=BOUNCES, device=device)
+        states.append(capture_scan(r.device_scene, r._device_env(), r._camera(), IMAGE_SIZE,
+                                   BOUNCES, at=tuple(range(BOUNCES))))
+        # the camera's one transcendental, which scales every camera ray
+        # (integrator.generate_camera_rays)
+        max_y.append(torch.sin(r._camera()["fov_y"] / 2.0).cpu().reshape(1))
+    print(f"[scan_stage] camera_sin_half_fov card={float(max_y[0]):.9g} cpu={float(max_y[1]):.9g} "
+          f"ulps={_ulps(*max_y)} card={card!r}", flush=True)
+    # the camera jitter's functions (rng.next_in_circle) on one seed a pixel
+    seeded = rng.seed(torch.arange(IMAGE_SIZE * IMAGE_SIZE), 0)
+    parts = []
+    for device in (dev, "cpu"):
+        state, angle_u = rng.next_uniform(seeded.to(device))
+        _, radius_u = rng.next_uniform(state)
+        angle = angle_u * rng.TWO_PI_CIRCLE
+        parts.append({"sqrt_radius": torch.sqrt(radius_u), "cos_angle": torch.cos(angle),
+                      "sin_angle": torch.sin(angle)})
+    print("[scan_stage] camera_jitter lanes=%d %s card=%r" % (
+        seeded.numel(), " ".join(
+            f"{k}_differ={int((parts[0][k].cpu().view(torch.int32) != v.view(torch.int32)).sum())}"
+            for k, v in parts[1].items()), card), flush=True)
+    for b in range(BOUNCES):
+        for query, names in (("closest", ("ro", "rd", "live")), ("any", ("p", "nee_dir", "mask"))):
+            if query not in states[0][b] or query not in states[1][b]:
+                continue
+            (g_o, g_d, g_m), (c_o, c_d, c_m) = states[0][b][query], states[1][b][query]
+            both = torch.ones(c_o[0].shape[0], dtype=torch.bool)
+            mask_differ = 0
+            if g_m is not None and c_m is not None:
+                g_m, c_m = g_m.cpu() != 0, c_m != 0
+                both, mask_differ = g_m & c_m, int((g_m != c_m).sum())
+            fields = []
+            for name, g, c in ((names[0], g_o, c_o), (names[1], g_d, c_d)):
+                g = torch.stack([x.cpu() for x in g], -1)[both]
+                c = torch.stack(list(c), -1)[both]
+                differ = (g.view(torch.int32) != c.view(torch.int32)).any(-1)
+                fields.append(f"{name}_differ={int(differ.sum())} "
+                              f"{name}_max_abs={float((g - c).abs().max()) if g.numel() else 0.0:.3e} "
+                              f"{name}_max_ulps={_ulps(g, c)}")
+            print(f"[scan_stage] bounce={b} query={query} lanes={int(both.sum())} "
+                  f"{names[2]}_differ={mask_differ} " + " ".join(fields) + f" card={card!r}",
+                  flush=True)
+    gen = torch.Generator().manual_seed(0)
+    u, v = torch.rand(1 << 20, generator=gen), torch.rand(1 << 20, generator=gen)
+    for name, (fn, inputs) in DEVICE_MATH.items():
+        args = inputs(u, v)
+        args = args if isinstance(args, tuple) else (args,)
+        ref = fn(*args)
+        got = fn(*(a.to(dev) for a in args)).cpu()
+        differ = got.view(torch.int32) != ref.view(torch.int32)
+        print(f"[device_math] fn={name} inputs={ref.numel()} differ={int(differ.sum())} "
+              f"max_ulps={_ulps(got, ref)} card={card!r}", flush=True)
 
 
 # One instruction of cuobjdump's SASS: address, predicate, opcode, operands.

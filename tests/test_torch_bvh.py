@@ -46,6 +46,7 @@ RT_BVH_ABOVE_TRIS in both packages.
 
 import dataclasses
 import os
+import types
 import warnings
 
 import numpy as np
@@ -277,6 +278,85 @@ def test_port_tree_is_the_reference_tree(walk_case):
     if walk_case["name"] == "house":  # every kind of leaf row
         np.testing.assert_array_equal(ts.bvh.prims.numpy(),
                                       np.asarray(j_walk._prim_table(js, js.bvh)))
+
+
+def test_pair_table_is_the_reference_tree(walk_case):
+    """The child-pair rows: each interior node's two children's boxes
+    (node + 1 and payload) bit for bit the reference tree's, the split
+    axis, and the child references decoding back to the child's row or
+    its leaf's first slot and count."""
+    tree = walk_case["js"].bvh
+    mins, maxs = np.asarray(tree.nodes_min), np.asarray(tree.nodes_max)
+    payload, count = np.asarray(tree.node_payload), np.asarray(tree.node_count)
+    interior = np.nonzero(count == 0)[0]
+    bvh = walk_case["ts"].bvh
+    rows = bvh.pairs.numpy()
+    bits = rows.view(np.int32)
+    assert rows.shape == (interior.shape[0], t_walk.PAIR_COLS) and interior[0] == 0
+    row_of = {int(k): r for r, k in enumerate(interior)}
+    for cols, ref_col, child in (((0, 4), 3, interior + 1), ((8, 12), 7, payload[interior])):
+        np.testing.assert_array_equal(rows[:, cols[0]:cols[0] + 3].view(np.int32),
+                                      mins[child].view(np.int32))
+        np.testing.assert_array_equal(rows[:, cols[1]:cols[1] + 3].view(np.int32),
+                                      maxs[child].view(np.int32))
+        ref = bits[:, ref_col]
+        leaf = count[child] > 0
+        assert (leaf == (ref < 0)).all()
+        np.testing.assert_array_equal((~ref[leaf]) >> t_walk.LEAF_COUNT_BITS, payload[child][leaf])
+        np.testing.assert_array_equal((~ref[leaf]) & 7, count[child][leaf])
+        np.testing.assert_array_equal(ref[~leaf], [row_of[int(k)] for k in child[~leaf]])
+    np.testing.assert_array_equal(bits[:, 11], np.asarray(tree.node_axis)[interior])
+    assert (bits[:, 15] == 0).all() and bvh.root == 0
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_walk_model_is_the_plain_walk(walk_case, masked):
+    """The walk over the child-pair rows in lane order (walk_model) gives
+    traverse_closest's and traverse_any's outputs and every walk count
+    exactly."""
+    ts, ro, rd = walk_case["ts"], walk_case["ro"], walk_case["rd"]
+    n = ro[0].shape[0]
+    mask = (torch.arange(n) % 3 != 1).to(torch.int32) if masked else None
+    for closest, walk in ((True, t_walk.traverse_closest), (False, t_walk.traverse_any)):
+        plain_counts, model_counts = {}, {}
+        ref = walk(ts.bvh, ro, rd, mask, counts=plain_counts)
+        got = t_walk.walk_model(ts.bvh, ro, rd, mask, closest, counts=model_counts)
+        if closest:
+            assert torch.equal(got[0].view(torch.int32), ref[0].view(torch.int32))
+            assert torch.equal(got[1], ref[1])
+        else:
+            assert torch.equal(got, ref)
+        assert model_counts == plain_counts
+        assert plain_counts["boxes"] == (n if mask is None else int(mask.sum())) + 2 * plain_counts["interior"]
+
+
+def test_pair_table_refuses_leaves_that_do_not_fit(walk_case):
+    """pair_table of the reference tree is the scene's child-pair table;
+    a leaf of 8 slots, or slots past MAX_SLOTS, do not fit a packed
+    reference and raise."""
+    tree = walk_case["js"].bvh
+    arrays = {k: np.asarray(getattr(tree, k)) for k in
+              ("nodes_min", "nodes_max", "node_payload", "node_count", "node_axis")}
+    rows, root = t_walk.pair_table(types.SimpleNamespace(**arrays))
+    np.testing.assert_array_equal(rows.view(np.int32), walk_case["ts"].bvh.pairs.numpy().view(np.int32))
+    assert root == walk_case["ts"].bvh.root
+    leaf = int(np.nonzero(arrays["node_count"] > 0)[0][0])
+    for key, value in (("node_count", 1 << t_walk.LEAF_COUNT_BITS), ("node_payload", t_walk.MAX_SLOTS)):
+        broken = dict(arrays, **{key: arrays[key].copy()})
+        broken[key][leaf] = value
+        with pytest.raises(ValueError, match="do not fit"):
+            t_walk.pair_table(types.SimpleNamespace(**broken))
+
+
+def test_wrappers_raise_on_a_tree_deeper_than_the_stack(walk_case):
+    ts, ro, rd = walk_case["ts"], walk_case["ro"], walk_case["rd"]
+    deep = dataclasses.replace(ts, bvh=dataclasses.replace(ts.bvh, depth=t_walk.MAX_DEPTH + 1))
+    mask = torch.ones(ro[0].shape[0], dtype=torch.int32)
+    for call in (ci.bvh_closest_call, ci.bvh_any_call):
+        with pytest.raises(ValueError, match="deep"):
+            call(deep, ro, rd, mask)
+    shallow = dataclasses.replace(ts, bvh=dataclasses.replace(ts.bvh, depth=t_walk.MAX_DEPTH))
+    assert torch.equal(ci.bvh_any_call(shallow, ro, rd, mask), walk_case["occ"].int())
 
 
 def test_walks_match_jax(walk_case):
