@@ -74,9 +74,32 @@ exits non-zero at the first failure. Phases, one line each or more:
    compares suzanne_hi at 256x256 through the BVH and the chunked routes
    (the anchors' flip-aware criteria); and logs the Mrays/s of the sweep
    route and of the BVH route on house, spheres, suzanne_hi and suzanne_xhi
-   (the crossover). Its seconds on a line of their own.
+   (the crossover). Its seconds on a line of their own;
+13. sync rounds (render_spp_sync): at 256x256 on house against
+   render_wavefront(spp=2) (counts equal everywhere, the bit-equal share,
+   the anchors' flip-aware criteria: SHADE regenerates render_wavefront's
+   later camera rays in-kernel, the rounds take theirs from tensor code),
+   then at 2048x2048, 8 bounces, house (32 rounds a call) and suzanne_hi
+   (4 rounds a call), a warm-up call then timed calls carrying the counts
+   (bench.py's BENCH_MODE=sync settings and ray accounting), beside one
+   free-run call of the same scene; the launch counts of each;
+14. multi-device (parallel/sharding.py) on slots of the one card: dryrun(4);
+   at 256x256 on house the tile-only split over 2 and 4 slots bitwise the
+   unsharded render_freerun (image and counts), dp:2 and tile:2,dp:2 with
+   exact counts (max_bounces=1) and images allclose(2e-5) to the unsharded
+   render of the same samples, render_spp_sharded on dp:2 allclose(1e-4)
+   to render_sample 0 + 1; then house at 2048x2048, 8 bounces, through
+   ShardedRenderer dp:1 and Renderer.step_freerun in turns (Mrays/s each
+   and their ratio: the single controller's cost on one card), and one
+   dp:2 run on two slots of the card (Mrays/s, peak memory: no scaling
+   figure, both slots share the card);
+15. viewer: the CLI's --view on house at 256x144 on a pseudo-terminal of
+   120x40 cells, frames watched for 10 s, then 'p', a key, dev views 2, 3
+   and 1, and 'q'; exit code 0, frames a second, the last spp= and the
+   fitted resolution.
+Each of 13-15 logs its seconds.
 
-Then a JSON line with each of the ten kernels' launches, largest absolute and
+Then the run's seconds, a JSON line with each of the ten kernels' launches, largest absolute and
 relative errors (and the outputs that hold them), times and bound, the
 card line again, and last {"ok": true, "device": {...}}. Imports nothing
 of JAX or of the JAX package.
@@ -85,11 +108,16 @@ of JAX or of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import fcntl
 import json
 import os
+import pty
 import re
+import select
+import struct
 import subprocess
 import sys
+import termios
 import time
 from unittest import mock
 
@@ -113,6 +141,9 @@ from rsoderh_raytracing_tpu_torch.ops import cuda_intersect as ci  # noqa: E402
 from rsoderh_raytracing_tpu_torch.ops import cuda_wavefront as cw  # noqa: E402
 from rsoderh_raytracing_tpu_torch.ops import intersect  # noqa: E402
 from rsoderh_raytracing_tpu_torch.ops.tonemap import aces_tonemap, linear_to_srgb  # noqa: E402
+from rsoderh_raytracing_tpu_torch.parallel.sharding import (  # noqa: E402
+    ShardedRenderer, dryrun, make_mesh, render_freerun_sharded, render_spp_sharded,
+)
 from rsoderh_raytracing_tpu_torch.profiling import (  # noqa: E402
     KERNELS, bound_ms, bvh_bound, capture_scan, capture_step, card_line, chunked_bound, first_hit_ops,
     kernel_breakdown, scan_bounds, scan_calls, scene_gathers, scene_setup, shade_outputs,
@@ -123,7 +154,7 @@ from rsoderh_raytracing_tpu_torch.render.integrator import (  # noqa: E402
 )
 from rsoderh_raytracing_tpu_torch.render.renderer import Renderer  # noqa: E402
 from rsoderh_raytracing_tpu_torch.render.wavefront import (  # noqa: E402
-    NO_LIMIT, Wavefront, render_freerun, render_wavefront,
+    NO_LIMIT, Wavefront, render_freerun, render_spp_sync, render_wavefront,
 )
 from rsoderh_raytracing_tpu_torch.scene.device import BVH, build_device_scene, route  # noqa: E402
 from rsoderh_raytracing_tpu_torch.utils.png import read_png  # noqa: E402
@@ -318,6 +349,7 @@ def timed_main(label, ds, env, cam, card, calls, dev, budget=None):
     if int(counts.min()) <= 0 or total_rays <= 0:
         raise AssertionError(f"{label}: pixels without samples or no rays traced")
     counted["iterations"] = calls * (budget + BOUNCES - 1)
+    counted["mrays_per_s"] = total_rays / elapsed / 1e6
     return counted, image, counts, warm_counts
 
 
@@ -788,7 +820,275 @@ def bvh_phase(sky, card, dev, max_err, times, bounds):
     return counted
 
 
+# Phase 13: BENCH_MODE=sync's samples a call by scene (bench.py:116-117)
+# and the timed calls after the warm-up one.
+SYNC_ROUNDS = {"house": 32, "suzanne_hi": 4}
+SYNC_CALLS = 3
+SYNC_SIZE, SYNC_CHECK_ROUNDS = 256, 2
+# Phase 14: house at SPLIT_SIZE^2; then 2048^2 turns of this budget.
+SPLIT_SIZE = 256
+SPLIT_BUDGET = 512
+# Phase 15: the viewer's pseudo-terminal and its watch window.
+VIEW_ROWS, VIEW_COLS = 40, 120
+VIEW_WATCH_SECONDS = 10.0
+VIEW_STATUS = re.compile(rb"(\d+)x(\d+) spp=(\d+) env=\d+ dev=(\d)")
+
+
+def flip_criteria(got, ref):
+    """(flipped share, unflipped relative RMSE) of two mean images, the
+    anchors' criteria (tests/test_reference_estimator.py)."""
+    diff = got - ref
+    flipped = np.abs(diff).max(-1) > FLIP_ABS
+    keep = ~flipped
+    rel = float(np.sqrt((diff[keep] ** 2).mean()) / np.sqrt((ref[keep] ** 2).mean()))
+    return float(flipped.mean()), rel
+
+
+def timed_sync(label, ds, env, cam, card, rounds, dev):
+    """A warm-up render_spp_sync call, then SYNC_CALLS timed calls at
+    SIZE^2 carrying the counts, counted as bench.py counts; returns
+    (launches of the timed calls, Mrays/s)."""
+    res = (SIZE, SIZE)
+    _, counts = render_spp_sync(ds, env, cam, np.zeros(res, np.uint32), res, rounds, BOUNCES)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    total_rays, total_spp = 0, 0.0
+    start = time.perf_counter()
+    for _ in range(SYNC_CALLS):
+        _, counts_dev, stats = render_spp_sync(ds, env, cam, counts, res, rounds, BOUNCES,
+                                               with_stats=True)
+        counts = counts + counts_dev
+        total_rays += int(stats["closest_rays"] + stats["shadow_rays"])  # synchronizes
+        total_spp += float(counts_dev.float().mean())
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - start
+    counted = launches()
+    rate = total_rays / elapsed / 1e6
+    log("sync", scene=label, size=SIZE, bounces=BOUNCES, rounds=rounds, calls=SYNC_CALLS,
+        seconds=f"{elapsed:.3f}", mrays_per_s=f"{rate:.2f}",
+        rays_per_px_spp=f"{total_rays / (SIZE * SIZE * max(total_spp, 1e-9)):.3f}",
+        spp=f"{total_spp:.2f}", **{f"{k}_launches": v for k, v in counted.items() if v},
+        peak_allocated_mib=f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f}", card=repr(card))
+    if total_spp != SYNC_CALLS * rounds or int(counts.min()) != (SYNC_CALLS + 1) * rounds:
+        raise AssertionError(f"{label}: sync calls did not complete {rounds} samples a pixel each")
+    return counted, rate
+
+
+def sync_phase(sky, card, dev):
+    """Phase 13: bounce-synchronized rounds."""
+    phase_start = time.perf_counter()
+    ds, _, cam = scene_setup("house", dev, sky)
+    res = (SYNC_SIZE, SYNC_SIZE)
+    img, counts = render_spp_sync(ds, sky, cam, 0, res, SYNC_CHECK_ROUNDS, BOUNCES)
+    ref = render_wavefront(ds, sky, cam, 0, res, SYNC_CHECK_ROUNDS, BOUNCES)
+    bit_equal = float((img.view(torch.int32) == ref.view(torch.int32)).double().mean())
+    flipped, rel = flip_criteria(img.cpu().numpy() / SYNC_CHECK_ROUNDS,
+                                 ref.cpu().numpy() / SYNC_CHECK_ROUNDS)
+    log("sync", scene="house", size=SYNC_SIZE, rounds=SYNC_CHECK_ROUNDS, compare="render_wavefront",
+        counts_equal=bool((counts == SYNC_CHECK_ROUNDS).all()), bit_equal_share=f"{bit_equal:.6f}",
+        flipped=f"{flipped:.5f}", rel_rmse_unflipped=f"{rel:.3e}")
+    if not bool((counts == SYNC_CHECK_ROUNDS).all()):
+        raise AssertionError("render_spp_sync did not complete its rounds on every pixel")
+    if not (flipped < FLIPPED_MAX and rel < UNFLIPPED_REL_RMSE_MAX):
+        raise AssertionError("render_spp_sync is not render_wavefront's image within the anchors' criteria")
+
+    for name, rounds in SYNC_ROUNDS.items():
+        if name != "house":
+            ds, _, cam = scene_setup(name, dev, sky)
+        counted, rate = timed_sync(name, ds, sky, cam, card, rounds, dev)
+        free, _, _, _ = timed_main(f"{name}_freerun_beside_sync", ds, sky, cam, card, 1, dev)
+        iterations = SYNC_CALLS * rounds * BOUNCES
+        kernels = ("trace", "shade") if name == "house" else ("chunked_closest", "chunked_any",
+                                                               "big_shade")
+        if any(counted[k] != iterations for k in kernels) or any(
+                v for k, v in counted.items() if k not in kernels):
+            raise AssertionError(f"{name}: the sync calls launched {counted}, expected "
+                                 f"{iterations} of each of {kernels}")
+        log("sync", scene=name, sync_mrays_per_s=f"{rate:.2f}",
+            freerun_mrays_per_s=f"{free['mrays_per_s']:.2f}",
+            sync_over_freerun=f"{rate / free['mrays_per_s']:.4f}", card=repr(card))
+        del ds
+    log("sync_phase", seconds=f"{time.perf_counter() - phase_start:.1f}")
+
+
+def renderer_mrays(renderer, dev):
+    """One timed step_freerun(SPLIT_BUDGET) call: (Mrays/s, MiB the call
+    added at its peak to what was allocated before it)."""
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    start = time.perf_counter()
+    renderer.step_freerun(SPLIT_BUDGET)
+    rays = renderer.last_stats["closest_rays"] + renderer.last_stats["shadow_rays"]
+    torch.cuda.synchronize()
+    return (rays / (time.perf_counter() - start) / 1e6,
+            (torch.cuda.max_memory_allocated(dev) - held) / 2**20)
+
+
+def multi_device_phase(sky_host, sky, card, dev):
+    """Phase 14: the multi-device split on slots of the one card."""
+    phase_start = time.perf_counter()
+    dryrun(4, device=dev)
+    ds, _, cam = scene_setup("house", dev, sky)
+    res = (SPLIT_SIZE, SPLIT_SIZE)
+    budget = 16
+    ref, ref_counts = render_freerun(ds, sky, cam, 0, res, budget, BOUNCES)
+    for n in (2, 4):
+        reset_launches()
+        img, counts, _ = render_freerun_sharded(ds, sky, cam, 0, make_mesh(n, tile=n, devices=[dev] * n),
+                                                res, budget, BOUNCES)
+        counted = launches()
+        differ = int((img.view(torch.int32) != ref.view(torch.int32)).sum())
+        counts_differ = int((counts != ref_counts).sum())
+        log("split", mesh=f"tile:{n}", size=SPLIT_SIZE, budget=budget, values_differ=differ,
+            counts_differ=counts_differ, trace_launches=counted["trace"],
+            shade_launches=counted["shade"])
+        if differ or counts_differ:
+            raise AssertionError(f"the tile-only split over {n} slots is not the unsharded render")
+        if counted["trace"] != n * (budget + BOUNCES - 1):
+            raise AssertionError(f"the tile-only split launched TRACE {counted['trace']} times")
+
+    exact_budget = 4
+    for spec, tile in (("dp:2", 1), ("tile:2,dp:2", 2)):
+        mesh = make_mesh(2 * tile, tile=tile, devices=[dev] * (2 * tile))
+        reset_launches()
+        img, counts, shard_counts = render_freerun_sharded(ds, sky, cam, 0, mesh, res, exact_budget, 1)
+        counted = launches()
+        same = render_wavefront(ds, sky, cam, 0, res, exact_budget * 2, 1)
+        close = bool(torch.allclose(img, same, rtol=2e-5, atol=2e-5))
+        exact = bool((counts == exact_budget * 2).all() and (shard_counts == exact_budget).all())
+        log("split", mesh=spec, size=SPLIT_SIZE, budget=exact_budget, max_bounces=1,
+            counts_exact=exact, allclose_2e5=close,
+            max_abs_diff=f"{float((img - same).abs().max()):.3e}",
+            **{f"{k}_launches": v for k, v in counted.items() if v})
+        if not (exact and close):
+            raise AssertionError(f"{spec}: counts or image differ from the unsharded render")
+    mesh = make_mesh(2, devices=[dev] * 2)
+    reset_launches()
+    summed = render_spp_sharded(ds, sky, cam, 0, mesh, res, BOUNCES)
+    counted = launches()
+    seq = render_sample(ds, sky, cam, 0, res, BOUNCES) + render_sample(ds, sky, cam, 1, res, BOUNCES)
+    close = bool(torch.allclose(summed, seq, rtol=1e-4, atol=1e-4))
+    log("split", mesh="dp:2", path="render_spp_sharded", size=SPLIT_SIZE, allclose_1e4=close,
+        max_abs_diff=f"{float((summed - seq).abs().max()):.3e}",
+        **{f"{k}_launches": v for k, v in counted.items() if v})
+    if not close or counted["closest"] != 2 * BOUNCES or counted["any"] != 2 * BOUNCES:
+        raise AssertionError(f"render_spp_sharded on dp:2: close={close}, launches {counted}")
+    del ds
+
+    # 2048^2: ShardedRenderer dp:1 against Renderer.step_freerun, in turns
+    house = load_scene(os.path.join(ROOT, "assets", "scenes", "house.toml"))
+
+    def renderer():
+        r = Renderer(house, SIZE, SIZE, environments=EnvironmentMaps([sky_host]), max_bounces=BOUNCES,
+                     device=dev)
+        r.step_freerun(16)  # warm-up: uploads the environment
+        return r
+
+    plain, sharded = renderer(), ShardedRenderer.wrap(renderer(), "dp:1")
+    sharded.step_freerun(16)
+    runs = {"renderer": [], "dp1": []}
+    for kind in ("renderer", "dp1", "dp1", "renderer"):
+        runs[kind].append(renderer_mrays(plain if kind == "renderer" else sharded, dev))
+    ratio = sum(r for r, _ in runs["dp1"]) / sum(r for r, _ in runs["renderer"])
+    log("split", scene="house", size=SIZE, bounces=BOUNCES, budget=SPLIT_BUDGET,
+        renderer_mrays_per_s=",".join(f"{r:.2f}" for r, _ in runs["renderer"]),
+        dp1_mrays_per_s=",".join(f"{r:.2f}" for r, _ in runs["dp1"]),
+        dp1_over_renderer=f"{ratio:.4f}",
+        renderer_call_peak_mib=",".join(f"{m:.1f}" for _, m in runs["renderer"]),
+        dp1_call_peak_mib=",".join(f"{m:.1f}" for _, m in runs["dp1"]), card=repr(card))
+    del plain, sharded
+    torch.cuda.empty_cache()
+    two = ShardedRenderer(renderer(), make_mesh(2, devices=[dev] * 2))
+    two.step_freerun(16)
+    reset_launches()
+    rate, peak = renderer_mrays(two, dev)
+    counted = launches()
+    log("split", scene="house", mesh="dp:2 on one card", size=SIZE, bounces=BOUNCES,
+        budget=SPLIT_BUDGET, mrays_per_s=f"{rate:.2f}", call_peak_mib=f"{peak:.1f}",
+        peak_allocated_mib=f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f}",
+        **{f"{k}_launches": v for k, v in counted.items() if v}, card=repr(card))
+    if counted["trace"] != 2 * (SPLIT_BUDGET + BOUNCES - 1):
+        raise AssertionError(f"dp:2 launched TRACE {counted['trace']} times")
+    del two
+    log("multi_device_phase", seconds=f"{time.perf_counter() - phase_start:.1f}")
+
+
+def viewer_phase(card, dev):
+    """Phase 15: the CLI's viewer on a pseudo-terminal, on the card."""
+    phase_start = time.perf_counter()
+    master, slave = pty.openpty()
+    fcntl.ioctl(master, termios.TIOCSWINSZ, struct.pack("HHHH", VIEW_ROWS, VIEW_COLS, 0, 0))
+    cmd = [sys.executable, "-m", "rsoderh_raytracing_tpu_torch", "--scene",
+           os.path.join(ROOT, "assets", "scenes", "house.toml"), "--view", "--resolution", "256x144"]
+    if dev.type != "cuda":
+        cmd += ["--device", dev.type]
+    proc = subprocess.Popen(cmd, stdin=slave, stdout=slave, stderr=slave, cwd=ROOT,
+                            env=dict(os.environ, PYTHONPATH=ROOT), close_fds=True)
+    os.close(slave)
+    out, frames, scanned = bytearray(), [], 0
+
+    def read(until, timeout, exits=False):
+        """Read until `until()` holds (or, with `exits`, the viewer has
+        exited: it blocks on a full terminal otherwise); frames gets
+        (time, w, h, spp, dev)."""
+        nonlocal scanned
+        end = time.monotonic() + timeout
+        while not until():
+            if time.monotonic() > end or (proc.poll() is not None and not exits):
+                raise AssertionError(f"viewer: timed out or exited (rc {proc.poll()}): "
+                                     f"{bytes(out[-600:])!r}")
+            if select.select([master], [], [], 0.1)[0]:
+                try:
+                    out.extend(os.read(master, 1 << 20))
+                except OSError:  # EIO: the viewer has closed the terminal
+                    proc.wait(timeout=10)
+                    continue
+                now = time.monotonic()
+                for m in VIEW_STATUS.finditer(out, scanned):
+                    frames.append((now, *(int(g) for g in m.groups())))
+                    scanned = m.end()
+
+    def key(k):
+        os.write(master, k)
+        return len(frames), len(out)
+
+    try:
+        read(lambda: any(f[4] == 1 for f in frames), 300)
+        t_first = frames[-1][0]
+        read(lambda: time.monotonic() > t_first + VIEW_WATCH_SECONDS, 60)
+        watched = [f for f in frames if t_first <= f[0] <= t_first + VIEW_WATCH_SECONDS and f[4] == 1]
+        if len(watched) < 2:
+            raise AssertionError(f"viewer: {len(watched)} frames in {VIEW_WATCH_SECONDS} s")
+        fps = (len(watched) - 1) / (watched[-1][0] - watched[0][0])
+        _, at = key(b"p")
+        read(lambda: b"for use with --state" in out[at:], 30)
+        n, _ = key(b" ")
+        read(lambda: len(frames) > n, 30)
+        for k, dev_index in ((b"2", 2), (b"3", 3), (b"1", 1)):
+            n, _ = key(k)
+            read(lambda: any(f[4] == dev_index for f in frames[n:]), 30)
+        key(b"q")
+        read(lambda: proc.poll() is not None, 30, exits=True)
+        rc = proc.wait(timeout=10)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=10)
+        os.close(master)
+    last = [f for f in frames if f[4] == 1][-1]
+    log("viewer", scene="house", requested="256x144", pty=f"{VIEW_COLS}x{VIEW_ROWS}",
+        fitted=f"{last[1]}x{last[2]}", frames_per_s=f"{fps:.2f}", watched_frames=len(watched),
+        last_spp=last[3], dev_views=sorted({f[4] for f in frames}), rc=rc,
+        seconds=f"{time.perf_counter() - phase_start:.1f}", card=repr(card))
+    if rc != 0 or sorted({f[4] for f in frames}) != [1, 2, 3] or last[3] < 1:
+        raise AssertionError(f"viewer: rc {rc}, dev views {sorted({f[4] for f in frames})}, "
+                             f"last spp {last[3]}")
+
+
 def main() -> int:
+    smoke_start = time.perf_counter()
     # 1. device
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: this smoke run needs a GPU")
@@ -992,6 +1292,11 @@ def main() -> int:
     # 12. the BVH route
     bvh_launches = bvh_phase(sky, card, dev, max_err, times, bounds)
 
+    # 13. sync rounds, 14. the multi-device split, 15. the viewer
+    sync_phase(sky, card, dev)
+    multi_device_phase(sky_host, sky, card, dev)
+    viewer_phase(card, dev)
+
     replaces = {
         "trace": "rsoderh_raytracing_tpu/ops/pallas_wavefront.py:775",
         "shade": "rsoderh_raytracing_tpu/ops/pallas_wavefront.py:840",
@@ -1023,6 +1328,7 @@ def main() -> int:
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None}
         for name in sources
     ]
+    log("smoke", seconds=f"{time.perf_counter() - smoke_start:.1f}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

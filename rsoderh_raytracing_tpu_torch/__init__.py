@@ -4,9 +4,15 @@ A port of ``rsoderh_raytracing_tpu`` (JAX/Pallas, the reference) to
 PyTorch on an NVIDIA H100. It covers the renderer and its command line
 (``render.renderer.Renderer``, ``python -m rsoderh_raytracing_tpu_torch``:
 film, tonemap, PNG and .hdr output, checkpoints), the scan integrator
-(``render.integrator.render_sample``) and the wavefront loop
+(``render.integrator.render_sample``), the wavefront loop
 (``render.wavefront.render_freerun`` / ``render_wavefront``) with its
-kernel loop and its composed body. The kernels are written in CUDA C++
+kernel loop and its composed body, bounce-synchronized rounds
+(``render.wavefront.render_spp_sync``), the multi-device split
+(``parallel.sharding``: ``make_mesh``, ``render_spp_sharded``,
+``render_freerun_sharded``, ``ShardedRenderer``, ``dryrun``; the CLI's
+``--devices``) and the terminal viewer (``view`` below,
+``viewer.terminal.run_viewer``; the CLI's ``--view``). The kernels are
+written in CUDA C++
 (``csrc/``) with a plain PyTorch twin each: TRACE and SHADE for small
 scenes, BIG_SHADE for meshes past the unroll budget
 (``ops/cuda_wavefront.py``), and the sweeps CLOSEST, ANY, FUSED,
@@ -41,3 +47,23 @@ def render(scene, width=512, height=512, spp=16, **kwargs):
 
     renderer = Renderer(scene, width=width, height=height, **kwargs)
     return renderer.render(spp=spp)
+
+
+def view(
+    scene,
+    width: int = 256,
+    height: int = 144,
+    movement_keys: str = "wasdqe",
+    other_keys: str = "cpe",
+    **kwargs,
+):
+    """Open the interactive terminal viewer on `scene`. The key strings
+    follow the reference renderer's layout config (6 movement + 3 other);
+    extra keywords go to viewer/terminal.py:run_viewer (environments,
+    max_bounces, max_fps, intersector, ``device="cpu"`` for the plain
+    PyTorch path). Requires a TTY; returns the exit code."""
+    from rsoderh_raytracing_tpu_torch.scene.camera import KeyboardLayout
+    from rsoderh_raytracing_tpu_torch.viewer.terminal import run_viewer
+
+    layout = KeyboardLayout.parse_config(movement_keys, other_keys)
+    return run_viewer(scene, layout, width=width, height=height, **kwargs)

@@ -3,6 +3,7 @@ silent drop to the CPU; and no reference knob ignored without a word."""
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import warnings
 
@@ -44,3 +45,21 @@ def resolve(device) -> torch.device:
             "pass device='cpu' to run its plain PyTorch path on the CPU"
         )
     return dev
+
+
+def copy_to(obj, device):
+    """A copy of the dataclass `obj` on `device`: every tensor field
+    copied there, every dataclass field (the chunk tables, the BVH)
+    copied the same way, every other field as it is. Fields that the
+    class computes itself (init=False) are computed anew."""
+    device = resolve(device)
+
+    def move(value):
+        if isinstance(value, torch.Tensor):
+            return value.to(device)
+        if dataclasses.is_dataclass(value) and not isinstance(value, type):
+            return copy_to(value, device)
+        return value
+
+    return type(obj)(**{f.name: move(getattr(obj, f.name))
+                        for f in dataclasses.fields(obj) if f.init})

@@ -10,10 +10,11 @@ repeatable with the last one winning, ``--state``, ``--movement-keys``,
 ``--checkpoint``, ``--save-checkpoint``, ``--quiet``) plus
 
     --device {cuda,cpu}   where to render (default cuda; raises without a card)
-
-``--view`` and ``--devices`` are parsed and refused with exit code 2: the
-terminal viewer and the multi-GPU split are not ported yet (ROADMAP queue
-1, items 9 and 8).
+    --view                the interactive terminal viewer on --device
+                          (exit code 2 without a TTY)
+    --devices SPEC        split the render over a mesh: 'dp:N' (N samples
+                          at once) or 'tile:T,dp:S'; N cards on cuda,
+                          N slots on the CPU with --device cpu
 """
 
 from __future__ import annotations
@@ -90,12 +91,14 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument(
         "--devices",
         default=None,
-        help="Shard spec of the reference CLI; not ported yet.",
+        help="Shard spec, e.g. 'dp:8' to split samples over 8 devices, or"
+        " 'tile:2,dp:4'. Cards on cuda; slots on the CPU with --device cpu.",
     )
     parser.add_argument(
         "--view",
         action="store_true",
-        help="The reference CLI's terminal viewer; not ported yet.",
+        help="Open the interactive terminal viewer on --device instead of"
+        " writing a single image.",
     )
     parser.add_argument("--quiet", action="store_true")
     return parser
@@ -104,19 +107,10 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
-    if args.view:
-        print("--view: the terminal viewer is not ported yet (ROADMAP queue 1, item 9)",
-              file=sys.stderr)
-        return 2
-    if args.devices:
-        print("--devices: the multi-GPU split is not ported yet (ROADMAP queue 1, item 8)",
-              file=sys.stderr)
-        return 2
-
     from rsoderh_raytracing_tpu_torch.scene.camera import Camera, KeyboardLayout
 
     try:
-        KeyboardLayout.parse_config(args.movement_keys, args.other_keys)
+        layout = KeyboardLayout.parse_config(args.movement_keys, args.other_keys)
     except ValueError as err:
         print(f"Invalid keyboard config: {err}", file=sys.stderr)
         return 2
@@ -142,6 +136,22 @@ def main(argv=None) -> int:
     from rsoderh_raytracing_tpu_torch.render.renderer import Renderer
 
     environments = load_default_environments(args.hdri_dir)
+
+    if args.view:
+        from rsoderh_raytracing_tpu_torch.viewer.terminal import run_viewer
+
+        return run_viewer(
+            scene,
+            layout,
+            width=width,
+            height=height,
+            environments=environments,
+            max_bounces=args.max_bounces,
+            environment_index=args.env_index,
+            intersector=args.intersector,
+            device=args.device,
+        )
+
     renderer = Renderer(
         scene,
         width=width,
@@ -153,10 +163,16 @@ def main(argv=None) -> int:
     )
     renderer.environment_index = args.env_index % len(environments)
 
+    if args.devices:
+        from rsoderh_raytracing_tpu_torch.parallel.sharding import ShardedRenderer
+
+        renderer = ShardedRenderer.wrap(renderer, args.devices)
+
     if args.checkpoint:
         # Establish the state hash without rendering, so the first step
         # does not reset what the load brings.
-        renderer._last_state_hash = renderer._state_hash()
+        inner = getattr(renderer, "inner", renderer)
+        inner._last_state_hash = inner._state_hash()
         renderer.load_checkpoint(args.checkpoint)
         if not args.quiet:
             print(f"Resumed from {args.checkpoint} at {renderer.film.sample_count} spp")

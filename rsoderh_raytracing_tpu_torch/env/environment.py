@@ -88,6 +88,10 @@ class DeviceEnvironment:
     def device(self) -> torch.device:
         return self.quad.device
 
+    def to(self, device) -> "DeviceEnvironment":
+        """A replica on `device` (every table copied)."""
+        return _device.copy_to(self, device)
+
 
 def _neighbours(width: int, height: int):
     return np.minimum(np.arange(width) + 1, width - 1), np.minimum(np.arange(height) + 1, height - 1)

@@ -1,7 +1,7 @@
 """Where the main path's device time goes, on a GPU.
 
-    python -m rsoderh_raytracing_tpu_torch.profiling [--path loop|scan|scan-image] [--scene NAME]
-                                                    [--out DIR] [--sass]
+    python -m rsoderh_raytracing_tpu_torch.profiling [--path loop|scan|scan-image|split]
+                                                    [--scene NAME] [--out DIR] [--sass]
 
 Runs assets/scenes/NAME.toml (default house) at 2048x2048, 8 bounces,
 procedural_sky(2048, 1024), as chip_smoke.py does, and prints one line
@@ -57,6 +57,21 @@ differ bitwise, largest difference), and ``device_math``: the glue's
 transcendental functions on the card against the CPU on the same inputs.
 Run as ``PYTHONPATH=OLD python rsoderh_raytracing_tpu_torch/profiling.py
 --path scan-image`` it reads the package of the tree OLD instead.
+
+With ``--path split``, the multi-device split (parallel/sharding.py)
+over every card of the machine, house:
+
+- ``split_cards``: the cards as nvidia-smi reports them;
+- ``split`` (two cards or more) at 256x256: the tile-only mesh over every
+  card bitwise the unsharded render_freerun on card 0 (image and
+  counts); dp:N and, for an even N >= 4, tile:2,dp:N/2 with
+  max_bounces=1 (counts exact, the image allclose(2e-5) to the unsharded
+  render of the same samples); render_spp_sharded on dp:N allclose(1e-4)
+  to the sum of render_sample over samples 0..N-1; the memory each card
+  holds after them (the scene's replica);
+- ``split_scale``: Mrays/s of ShardedRenderer dp:k step_freerun(512) at
+  2048x2048, 8 bounces, for k = 1, 2, 4, ... up to N and back down (one
+  call each way), and each k's speed-up over dp:1.
 
 ``--sass`` prints, for each kernel of the built library, the SASS
 instruction count by opcode and each loop's (backward branch's) body,
@@ -710,11 +725,83 @@ def sass_report(lib_path, out_dir, kernels=("closest_kernel", "any_kernel", "fus
     return report
 
 
+SPLIT_SIZE = 256  # --path split: the parity checks
+SPLIT_BUDGET = 512  # --path split: iterations of a timed step
+
+
+def split_main(dev, card) -> int:
+    """--path split: the multi-device split over every card."""
+    from rsoderh_raytracing_tpu_torch.parallel.sharding import (
+        ShardedRenderer, make_mesh, render_freerun_sharded, render_spp_sharded,
+    )
+    from rsoderh_raytracing_tpu_torch.render.wavefront import render_wavefront
+
+    n = torch.cuda.device_count()
+    cards = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                           capture_output=True, text=True, check=True, timeout=60).stdout
+    print(f"[split_cards] count={n} cards={[c for c in cards.strip().splitlines()]!r}", flush=True)
+    ds, env, cam = scene_setup("house", dev)
+    res = (SPLIT_SIZE, SPLIT_SIZE)
+    if n >= 2:
+        ref, ref_counts = render_freerun(ds, env, cam, 0, res, 16, BOUNCES)
+        img, counts, _ = render_freerun_sharded(ds, env, cam, 0, make_mesh(n, tile=n), res, 16, BOUNCES)
+        differ = int((img.to(dev).view(torch.int32) != ref.view(torch.int32)).sum())
+        counts_differ = int((counts.to(dev) != ref_counts).sum())
+        print(f"[split] mesh=tile:{n} size={SPLIT_SIZE} values_differ={differ} "
+              f"counts_differ={counts_differ} card={card!r}", flush=True)
+        if differ or counts_differ:
+            raise AssertionError(f"the tile-only split over {n} cards is not the unsharded render")
+        specs = [(f"dp:{n}", 1)] + ([(f"tile:2,dp:{n // 2}", 2)] if n % 2 == 0 and n >= 4 else [])
+        for spec, tile in specs:
+            mesh = make_mesh(n, tile=tile)
+            s_n = mesh.shape["sample"]
+            img, counts, _ = render_freerun_sharded(ds, env, cam, 0, mesh, res, 4, 1)
+            same = render_wavefront(ds, env, cam, 0, res, 4 * s_n, 1)
+            exact = bool((counts == 4 * s_n).all())
+            close = bool(torch.allclose(img.to(dev), same, rtol=2e-5, atol=2e-5))
+            print(f"[split] mesh={spec} size={SPLIT_SIZE} max_bounces=1 counts_exact={exact} "
+                  f"allclose_2e5={close} card={card!r}", flush=True)
+            if not (exact and close):
+                raise AssertionError(f"{spec}: counts or image differ from the unsharded render")
+        summed = render_spp_sharded(ds, env, cam, 0, make_mesh(n), res, BOUNCES)
+        seq = sum(render_sample(ds, env, cam, s, res, BOUNCES) for s in range(n))
+        close = bool(torch.allclose(summed.to(dev), seq, rtol=1e-4, atol=1e-4))
+        held = ",".join(f"{torch.cuda.memory_allocated(i) / 2**20:.1f}" for i in range(n))
+        print(f"[split] mesh=dp:{n} path=render_spp_sharded size={SPLIT_SIZE} allclose_1e4={close} "
+              f"held_mib_by_card={held} card={card!r}", flush=True)
+        if not close:
+            raise AssertionError(f"render_spp_sharded on dp:{n} is not the render_sample sum")
+
+    scene = load_scene(os.path.join(ROOT, "assets", "scenes", "house.toml"))
+    sky = Environment.from_texture("sky", procedural_sky(2048, 1024))
+    ks = [k for k in (1, 2, 4, 8) if k < n] + [n]
+    rates = collections.defaultdict(list)
+    for k in ks + ks[::-1]:
+        renderer = Renderer(scene, SIZE, SIZE, environments=EnvironmentMaps([sky]),
+                            max_bounces=BOUNCES, device=dev)
+        sharded = ShardedRenderer(renderer, make_mesh(k))
+        sharded.step_freerun(16)
+        for i in range(k):
+            torch.cuda.synchronize(i)
+        start = time.perf_counter()
+        sharded.step_freerun(SPLIT_BUDGET)
+        rays = sharded.last_stats["closest_rays"] + sharded.last_stats["shadow_rays"]
+        rates[k].append(rays / (time.perf_counter() - start) / 1e6)
+        del renderer, sharded
+    base = sum(rates[1]) / len(rates[1])
+    for k in ks:
+        mean = sum(rates[k]) / len(rates[k])
+        print(f"[split_scale] scene=house size={SIZE} bounces={BOUNCES} budget={SPLIT_BUDGET} "
+              f"mesh=dp:{k} mrays_per_s={','.join(f'{r:.2f}' for r in rates[k])} "
+              f"speedup={mean / base:.3f} card={card!r}", flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--path", choices=("loop", "scan", "scan-image"), default="loop",
-                        help="the free-run kernel loop, the scan integrator, or its image "
-                             "on the card against the CPU's")
+    parser.add_argument("--path", choices=("loop", "scan", "scan-image", "split"), default="loop",
+                        help="the free-run kernel loop, the scan integrator, its image on the "
+                             "card against the CPU's, or the split over every card")
     parser.add_argument("--scene", default="house", help="a scene of assets/scenes")
     parser.add_argument("--out", default=os.path.join(ROOT, "build", "profile"))
     parser.add_argument("--sass", action="store_true", help="the SASS instruction counts")
@@ -738,6 +825,8 @@ def main(argv=None) -> int:
         return scan_main(args, dev, card)
     if args.path == "scan-image":
         return scan_image_main(args, dev, card)
+    if args.path == "split":
+        return split_main(dev, card)
     ds, env, cam = scene_setup(args.scene, dev, with_bvh="auto")
     res = (SIZE, SIZE)
     zeros = np.zeros(res, np.uint32)

@@ -251,6 +251,10 @@ class Renderer:
         differs from the current camera, environment and resolution:
         blending two states double-exposes. A checkpoint without a stamp
         loads as it is."""
+        self._check_state_stamp(path)
+        self.film.load_checkpoint(path)
+
+    def _check_state_stamp(self, path: str) -> None:
         with np.load(path) as z:
             saved = z["state_stamp"] if "state_stamp" in z.files else None
         if saved is not None and not np.array_equal(saved, self._state_stamp()):
@@ -260,7 +264,6 @@ class Renderer:
                 " --state (the camera string printed when it was saved)"
                 " or render fresh — blending states would double-expose"
             )
-        self.film.load_checkpoint(path)
 
     # -- dev debug views (reference shader.wgsl:1314-1338) ------------------
 

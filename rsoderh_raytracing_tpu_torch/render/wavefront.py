@@ -44,6 +44,12 @@ Differences from the reference's loop:
   the reference's 64x128 block remap (a TPU tiling) is skipped, and so is
   its lane compaction on the big-mesh route (bit-transparent by the
   reference's tests; candidates for the H100's queue of measurements).
+
+The reference's seeding hook (``wavefront_loop_custom``) is the keywords
+of ``Wavefront``: a block of pixel rows (``row0``, ``rows``) and a sample
+map (``local * sample_stride + sample_offset``). ``render_spp_sync`` runs
+rounds of one sample a lane through it, and the multi-device split
+(parallel/sharding.py) gives each slot its rows and its stride.
 """
 
 from __future__ import annotations
@@ -71,25 +77,41 @@ def kernel_loop_enabled(env) -> bool:
     return env.quad.dtype == torch.int32 and os.environ.get("RT_DISABLE_WFKERNELS") != "1"
 
 
+def u32_tensor(value, device) -> torch.Tensor:
+    """u32 values (numpy, int or tensor) as an int64 tensor on `device`."""
+    if isinstance(value, torch.Tensor):
+        return value.to(device=device, dtype=torch.int64) & rng.MASK
+    return torch.from_numpy(
+        np.asarray(value).astype(np.uint32).astype(np.int64)
+    ).to(device)
+
+
 def _base_lanes(base, n, device):
     """Per-lane u32 starting sample (int64) from an (H, W), (H*W,) or
-    scalar input (numpy, int or tensor)."""
-    if isinstance(base, torch.Tensor):
-        t = base.to(device=device, dtype=torch.int64) & rng.MASK
-    else:
-        t = torch.from_numpy(
-            np.asarray(base).astype(np.uint32).astype(np.int64)
-        ).to(device)
+    scalar input (numpy, int or tensor) of n pixels."""
+    t = u32_tensor(base, device)
     if t.numel() == n:
         return t.reshape(n).contiguous()
-    return t.reshape(-1)[:1].expand(n).contiguous()
+    if t.numel() != 1:
+        raise ValueError(f"base samples: {t.numel()} values for {n} lanes")
+    return t.reshape(1).expand(n).contiguous()
 
 
 class Wavefront:
     """The loop state of one render call: the carry (CARRY_NAMES), the
-    loop-invariant lanes, the camera scalars and the device counters."""
+    loop-invariant lanes, the camera scalars and the device counters.
 
-    def __init__(self, scene, env, camera, base_sample, resolution, spp, budget, max_bounces):
+    The lanes are the pixels of rows [row0, row0 + rows) of the
+    resolution's image (rows=None: every row), one lane a pixel in
+    row-major order; base_sample gives each lane's first LOCAL sample
+    index ((rows, W), (rows*W,) or a scalar). Local sample k of a pixel is
+    its global progressive sample k * sample_stride + sample_offset (u32),
+    which seeds its path with the GLOBAL pixel index, so a lane renders
+    what the same pixel renders in a whole-image call. The camera and the
+    kernels' regeneration take the whole image's width and height."""
+
+    def __init__(self, scene, env, camera, base_sample, resolution, spp, budget, max_bounces,
+                 row0=0, rows=None, sample_stride=1, sample_offset=0):
         self.route = route(scene)
         self.composed = not kernel_loop_enabled(env)
         device = scene.device
@@ -98,17 +120,22 @@ class Wavefront:
         self.max_bounces = max_bounces
         self.spp = int(spp) & rng.MASK
         self.budget = int(budget) & rng.MASK
-        n = self.width * self.height
+        self.rows = self.height if rows is None else int(rows)
+        if not 0 <= row0 <= self.height - self.rows:
+            raise ValueError(f"rows [{row0}, {row0 + self.rows}) outside the image's {self.height}")
+        self.stride = int(sample_stride) & rng.MASK
+        self.offset = int(sample_offset) & rng.MASK
+        n = self.width * self.rows
 
         lane = torch.arange(n, device=device, dtype=torch.int64)
         self.pixel_x = (lane % self.width).to(torch.int32)
-        self.pixel_y = (lane // self.width).to(torch.int32)
-        pixel_index = lane & rng.MASK  # y * W + x
+        self.pixel_y = (row0 + lane // self.width).to(torch.int32)
+        pixel_index = (lane + row0 * self.width) & rng.MASK  # y * W + x
         base = _base_lanes(base_sample, n, device)
         self.pixel_bits = rng.to_bits(pixel_index)
         self.base_bits = rng.to_bits(base)
 
-        state0 = rng.seed(pixel_index, base)
+        state0 = rng.seed(pixel_index, (base * self.stride + self.offset) & rng.MASK)
         state0, o0, d0 = generate_camera_rays(
             state0, self.pixel_x, self.pixel_y, camera, resolution
         )
@@ -168,7 +195,7 @@ class Wavefront:
         ro = (c["ro0"], c["ro1"], c["ro2"])
         rd = (c["rd0"], c["rd1"], c["rd2"])
         lanes = (self.pixel_bits, self.pixel_x, self.pixel_y, self.base_bits, self.scal,
-                 (it + 1, self.spp, self.budget, 1, 0))
+                 (it + 1, self.spp, self.budget, self.stride, self.offset))
         if self.composed:
             mark("glue")
             state, nee_u, nee_v, nee_pmf, nd, mu, mv = envmap.trace_glue(
@@ -237,14 +264,20 @@ class Wavefront:
         self.shadow = self.shadow + hitm.sum(dtype=torch.int64)
         self.iterations = self.iterations + (n_act > 0).to(torch.int64)
 
+    def drain_iterations(self) -> int:
+        """Free-run: regeneration stops at it_next >= budget, so the last
+        path ends within this many iterations."""
+        return max(self.budget, 1) + self.max_bounces - 1
+
+    def in_path(self):
+        """A device bool: some lane is still in a path."""
+        return self.carry["in_path"].any()
+
     def run(self, profile=None):
         if self.budget != NO_LIMIT:
-            # Free-run: regeneration stops at it_next >= budget, so the
-            # last path ends within this many iterations.
-            for it in range(max(self.budget, 1) + self.max_bounces - 1):
+            for it in range(self.drain_iterations()):
                 self.step(it, profile=profile)
-            if bool(self.carry["in_path"].any()):
-                raise RuntimeError("wavefront: lanes still in a path after the drain")
+            check_drained([self.in_path()])
         else:
             it = 0
             while True:
@@ -255,7 +288,7 @@ class Wavefront:
                     break
 
     def results(self):
-        """(film (n, 3), counts (n,) int64, stats)."""
+        """(film (n, 3), counts (n,) int64, stats) of the lanes."""
         c = self.carry
         film = torch.stack([c["film0"], c["film1"], c["film2"]], dim=-1)
         stats = {
@@ -264,6 +297,13 @@ class Wavefront:
             "iterations": self.iterations,
         }
         return film, rng.from_bits(c["sample"]), stats
+
+
+def check_drained(flags):
+    """Raise if one of the device bools `flags` (Wavefront.in_path) is
+    set; read after every loop of a call has been enqueued."""
+    if any(bool(f) for f in flags):
+        raise RuntimeError("wavefront: lanes still in a path after the drain")
 
 
 def _loop(scene, env, camera, base_sample, resolution, spp, budget, max_bounces, profile=None):
@@ -308,6 +348,57 @@ def render_freerun(
         scene, env, camera, base_counts, resolution, NO_LIMIT, iterations,
         max_bounces, profile=profile,
     )
+    image = film.reshape(height, width, 3)
+    counts = counts.reshape(height, width)
+    return (image, counts, stats) if with_stats else (image, counts)
+
+
+def render_spp_sync(
+    scene, env, camera, base_counts, resolution, rounds,
+    max_bounces: int = MAX_BOUNCES, with_stats: bool = False,
+):
+    """Bounce-synchronized progressive rendering: each round renders ONE
+    sample for every pixel (sample base + r), every lane launches the
+    round's camera ray together and the round drains completely before
+    the next one starts. The per-(pixel, sample) paths and RNG streams
+    are render_wavefront's, and the films are summed in round order from
+    zeros (the in-lane order of render_wavefront's film), so the image is
+    render_wavefront(spp=rounds)'s wherever both compute the same camera
+    rays: every round's camera rays come from generate_camera_rays, while
+    render_wavefront regenerates samples 1.. inside SHADE. The two round
+    alike on the CPU and on an H100 (bitwise at 256^2, chip_smoke.py phase
+    13); the checks hold the card to the flip-aware criteria all the same.
+    The port's lanes are row-major, so the reference's lane-order remap is
+    the identity here.
+
+    A round is max_bounces iterations of the loop (a path of one sample
+    ends within them) and no host sync; one check after the last round
+    asserts that every path ended.
+
+    base_counts: per-pixel starting sample index, (H, W), flat (H*W,) in
+    pixel order, or a scalar. Returns (sum image (H, W, 3), counts (H, W)
+    int64[, stats]): counts are the samples completed this call (rounds
+    everywhere), stats the rays and iterations summed over the rounds."""
+    width, height = resolution
+    n = width * height
+    device = scene.device
+    base = _base_lanes(base_counts, n, device)
+    film = torch.zeros((n, 3), dtype=torch.float32, device=device)
+    counts = torch.zeros(n, dtype=torch.int64, device=device)
+    zero = torch.zeros((), dtype=torch.int64, device=device)
+    stats = {"closest_rays": zero, "shadow_rays": zero, "iterations": zero}
+    flags = []
+    for r in range(int(rounds)):
+        wave = Wavefront(scene, env, camera, (base + r) & rng.MASK, resolution, 1, NO_LIMIT,
+                         max_bounces)
+        for it in range(max(max_bounces, 1)):
+            wave.step(it)
+        flags.append(wave.in_path())
+        f, c, st = wave.results()
+        film = film + f
+        counts = counts + c
+        stats = {k: stats[k] + st[k] for k in stats}
+    check_drained(flags)
     image = film.reshape(height, width, 3)
     counts = counts.reshape(height, width)
     return (image, counts, stats) if with_stats else (image, counts)

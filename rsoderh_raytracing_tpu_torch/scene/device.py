@@ -162,6 +162,12 @@ class DeviceScene:
             + self.tri_valid.shape[0]
         )
 
+    def to(self, device) -> "DeviceScene":
+        """A replica on `device`: every table copied, the kernels' tables
+        (trace_table, chunks, bvh, winner, materials) included, so a
+        device holds the scene without building it again."""
+        return _device.copy_to(self, device)
+
 
 @dataclasses.dataclass
 class ChunkTables:

@@ -1,5 +1,7 @@
 """The port's command line on the CPU (``--device cpu``): PNG and .hdr
-output, checkpoint save and resume, and the exit codes.
+output, checkpoint save and resume, the multi-device split on CPU slots
+(``--devices``), the viewer's refusal without a TTY (``--view``; the
+viewer itself: tests/test_torch_viewer.py), and the exit codes.
 
 ``--hdri-dir`` points at a directory with one small .npy environment, so
 a run does not build the alias tables of the two 2k default HDRIs.
@@ -87,14 +89,41 @@ def test_cli_resume_under_another_camera_is_refused(base, tmp_path):
 
 @pytest.mark.parametrize("extra,code,message", [
     (["--resolution", "20"], 2, "expected WxH"),
-    (["--view"], 2, "ROADMAP queue 1, item 9"),
-    (["--devices", "dp:4"], 2, "ROADMAP queue 1, item 8"),
+    (["--view"], 2, "not a TTY"),
     (["--movement-keys", "wasd"], 2, "Invalid keyboard config"),
     (["--scene", "no/such/scene.toml"], 1, "scene.toml"),
 ])
 def test_cli_exit_codes(base, capsys, extra, code, message):
     assert cli.main(base + extra) == code
     assert message in capsys.readouterr().err
+
+
+def test_cli_devices_splits_over_cpu_slots(base, tmp_path, capsys):
+    """--devices dp:4 with --device cpu: four samples at once on four CPU
+    slots (parallel/sharding.py), one step of the ShardedRenderer."""
+    out, ckpt = str(tmp_path / "x.png"), str(tmp_path / "x.npz")
+    assert cli.main(base + ["--devices", "dp:4", "--spp", "4", "--output", out,
+                            "--save-checkpoint", ckpt]) == 0
+    assert read_png(out).shape == (12, 20, 3)
+    assert "sample 4/4" in capsys.readouterr().out
+    with np.load(ckpt) as z:
+        assert int(z["sample_count"]) == 4 and (z["counts"] == 4).all()
+        assert "shard_counts" not in z.files  # exact steps leave a prefix
+
+
+def test_cli_devices_on_cuda_needs_the_cards(base, tmp_path):
+    """--devices dp:2 --device cuda never renders on the CPU: without a
+    card it raises the device error, with one card the mesh's."""
+    args = ["cuda" if a == "cpu" else a for a in base]
+    args += ["--devices", "dp:2", "--spp", "2", "--output", str(tmp_path / "a.png")]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main(args)
+    elif torch.cuda.device_count() < 2:
+        with pytest.raises(ValueError, match="requested 2 devices but only 1"):
+            cli.main(args)
+    else:
+        assert cli.main(args) == 0
 
 
 def test_cli_bvh_is_not_ported(base, tmp_path):

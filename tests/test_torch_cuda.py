@@ -640,3 +640,66 @@ def test_card_bvh_render_matches_cpu_render(dev):
     assert not launched["chunked_closest"] and not launched["trace"]
     assert (cc == gc).mean() >= 0.99
     np.testing.assert_allclose(gi.mean(), ci_.mean(), rtol=2e-3)
+
+
+@pytest.fixture(scope="module")
+def house_args(dev, house_scene):
+    env = device_environment(Environment.from_texture("s", procedural_sky(256, 128)), dev)
+    return build_device_scene(house_scene, dev), env, camera_pytree(house_scene.camera, dev)
+
+
+def test_tile_only_sharded_freerun_is_bitwise_on_the_card(dev, house_args):
+    """A (2, 1) mesh of two slots on the card: every lane runs the same
+    kernels on the same inputs, so image and counts are the unsharded
+    render's bit for bit."""
+    from rsoderh_raytracing_tpu_torch.parallel.sharding import make_mesh, render_freerun_sharded
+
+    mesh = make_mesh(n_devices=2, tile=2, devices=[dev] * 2)
+    before = cw.LAUNCHES["trace"]
+    img, counts, _ = render_freerun_sharded(*house_args, 0, mesh, (64, 64), 16, 8)
+    assert cw.LAUNCHES["trace"] == before + 2 * (16 + 8 - 1)
+    ref, ref_counts = render_freerun(*house_args, 0, (64, 64), 16, 8)
+    assert torch.equal(img.view(torch.int32), ref.view(torch.int32))
+    assert torch.equal(counts, ref_counts)
+
+
+@pytest.mark.parametrize("tile", [1, 2])
+def test_dp2_sharded_on_the_card(dev, house_args, tile):
+    """dp:2 and tile:2,dp:2 on slots of the one card: with max_bounces=1
+    the counts are exactly budget * 2, the image the unsharded render of
+    the same samples within the reference's 2e-5; the per-sample step is
+    the sum of render_sample for samples 0 and 1 within 1e-4."""
+    from rsoderh_raytracing_tpu_torch.parallel.sharding import (
+        make_mesh, render_freerun_sharded, render_spp_sharded,
+    )
+    from rsoderh_raytracing_tpu_torch.render.integrator import render_sample
+    from rsoderh_raytracing_tpu_torch.render.wavefront import render_wavefront
+
+    mesh = make_mesh(n_devices=2 * tile, tile=tile, devices=[dev] * (2 * tile))
+    budget = 4
+    img, counts, _ = render_freerun_sharded(*house_args, 0, mesh, (64, 64), budget, 1)
+    assert bool((counts == budget * 2).all())
+    ref = render_wavefront(*house_args, 0, (64, 64), budget * 2, 1)
+    torch.testing.assert_close(img, ref, rtol=2e-5, atol=2e-5)
+    summed = render_spp_sharded(*house_args, 0, mesh, (64, 64), 4)
+    seq = render_sample(*house_args, 0, (64, 64), 4) + render_sample(*house_args, 1, (64, 64), 4)
+    torch.testing.assert_close(summed, seq, rtol=1e-4, atol=1e-4)
+
+
+def test_sync_rounds_on_the_card(dev, house_args):
+    """render_spp_sync against render_wavefront(spp=rounds) on the card:
+    counts equal, and the image within the anchors' flip-aware criteria
+    (SHADE regenerates render_wavefront's later camera rays in-kernel)."""
+    from rsoderh_raytracing_tpu_torch.render.wavefront import render_spp_sync, render_wavefront
+
+    before = cw.LAUNCHES["shade"]
+    img, counts = render_spp_sync(*house_args, 0, (64, 64), 2, 8)
+    assert cw.LAUNCHES["shade"] == before + 2 * 8
+    ref = render_wavefront(*house_args, 0, (64, 64), 2, 8)
+    assert bool((counts == 2).all())
+    diff = (img - ref).cpu().numpy() / 2
+    flipped = np.abs(diff).max(-1) > 1e-2
+    keep = ~flipped
+    ref_mean = ref.cpu().numpy() / 2
+    rel = np.sqrt((diff[keep] ** 2).mean()) / np.sqrt((ref_mean[keep] ** 2).mean())
+    assert flipped.mean() < 0.03 and rel < 0.005
