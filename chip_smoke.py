@@ -96,8 +96,25 @@ exits non-zero at the first failure. Phases, one line each or more:
 15. viewer: the CLI's --view on house at 256x144 on a pseudo-terminal of
    120x40 cells, frames watched for 10 s, then 'p', a key, dev views 2, 3
    and 1, and 'q'; exit code 0, frames a second, the last spp= and the
-   fitted resolution.
-Each of 13-15 logs its seconds.
+   fitted resolution;
+16. chunk orders (RT_CHUNK_CLUSTER=morton|bvh|treelet, and the OBJ order
+   of RT_DISABLE_MORTON=1, each set and unset by the phase): suzanne_hi
+   in the bvh and treelet orders, CHUNKED_CLOSEST, CHUNKED_ANY and
+   BIG_SHADE against their plain versions at 256x256 (after 3 plain
+   iterations) and 2048x2048, t, type, index and occlusion bitwise on
+   every lane; each order's 256x256 free-run image against Morton's
+   (counts, the bit-equal share, the anchors' flip-aware criteria); the
+   lines of profiling --path cluster (chunks, surface area, host
+   seconds, CHUNKED_CLOSEST and CHUNKED_ANY ms and the pairs of the
+   kernels' batch model on a 2048^2 loop state, Mrays/s of a 32-iteration
+   free-run call) for suzanne_hi and suzanne_xhi in every order,
+   suzanne_xhi under RT_MAX_CHUNKED_TRIS=1048576 (its treelet order
+   passes the default ceiling); then suzanne_xxhi under that ceiling:
+   'auto' takes the chunked route, the shared-memory mirror equals the
+   kernels' figure, parity at 256x256, the three kernels' ms at 2048^2
+   and one short 2048^2 call (budget 16) beside phase 12's BVH-route
+   Mrays/s; with the default ceiling 'auto' takes the BVH again.
+Each of 13-16 logs its seconds.
 
 Then the run's seconds, a JSON line with each of the ten kernels' launches, largest absolute and
 relative errors (and the outputs that hold them), times and bound, the
@@ -145,9 +162,9 @@ from rsoderh_raytracing_tpu_torch.parallel.sharding import (  # noqa: E402
     ShardedRenderer, dryrun, make_mesh, render_freerun_sharded, render_spp_sharded,
 )
 from rsoderh_raytracing_tpu_torch.profiling import (  # noqa: E402
-    KERNELS, bound_ms, bvh_bound, capture_scan, capture_step, card_line, chunked_bound, first_hit_ops,
-    kernel_breakdown, scan_bounds, scan_calls, scene_gathers, scene_setup, shade_outputs,
-    sweep_calls, sweep_ops, time_ms, valid_sweep_ops,
+    CLUSTER_ORDERS, KERNELS, bound_ms, bvh_bound, capture_scan, capture_step, card_line, chunk_order,
+    chunked_bound, cluster_report, first_hit_ops, kernel_breakdown, knob_env, scan_bounds, scan_calls,
+    scene_gathers, scene_setup, shade_outputs, sweep_calls, sweep_ops, time_ms, valid_sweep_ops,
 )
 from rsoderh_raytracing_tpu_torch.render.integrator import (  # noqa: E402
     MAX_BOUNCES, camera_pytree, render_sample,
@@ -156,7 +173,9 @@ from rsoderh_raytracing_tpu_torch.render.renderer import Renderer  # noqa: E402
 from rsoderh_raytracing_tpu_torch.render.wavefront import (  # noqa: E402
     NO_LIMIT, Wavefront, render_freerun, render_spp_sync, render_wavefront,
 )
-from rsoderh_raytracing_tpu_torch.scene.device import BVH, build_device_scene, route  # noqa: E402
+from rsoderh_raytracing_tpu_torch.scene.device import (  # noqa: E402
+    BVH, CHUNKED, TRI_CHUNK, auto_bvh, build_device_scene, route,
+)
 from rsoderh_raytracing_tpu_torch.utils.png import read_png  # noqa: E402
 
 # Kernel against plain version on the same card, output by output: an
@@ -1087,6 +1106,123 @@ def viewer_phase(card, dev):
                              f"last spp {last[3]}")
 
 
+# Phase 16: the chunk orders (profiling.CLUSTER_ORDERS), the scenes of the
+# speed lines, suzanne_xxhi's raised ceiling and its short call's budget.
+CLUSTER_PARITY_ORDERS = ("bvh", "treelet")
+CLUSTER_SCENES = ("suzanne_hi", "suzanne_xhi")
+CLUSTER_IMAGE_BUDGET = 32
+CLUSTER_SPEED_BUDGET = 32
+RAISED_TRIS = "1048576"
+RAISED_BUDGET = 16
+
+
+def chunked_parity(label, lanes, state, max_err):
+    """CHUNKED_CLOSEST, CHUNKED_ANY and BIG_SHADE on a loop state against
+    their plain versions: each by kernel_parity, then CHUNKED_CLOSEST's t,
+    type and index and CHUNKED_ANY's occlusion bitwise on every lane."""
+    for key in BIG_KERNELS:
+        kfn, pfn = KERNELS[key]
+        args = state[key]
+        got, ref = kfn(*args), pfn(*args)
+        kernel_parity(key, label, args, lanes, max_err, ref)
+        if key == "big_shade":
+            continue
+        got, ref = (got, ref) if key == "closest" else ((got,), (ref,))
+        differ = sum(int((_bits(a) != _bits(b)).sum()) for a, b in zip(got, ref))
+        log("parity", kernel=f"{BIG_KERNELS[key]}:{label}", lanes=lanes, lanes_differ_bitwise=differ)
+        if differ:
+            raise AssertionError(f"{BIG_KERNELS[key]} is not bitwise its plain version on {label}")
+
+
+def freerun_image(ds, env, cam, size, budget):
+    """(mean image, counts) of one free-run call at size^2 from counts 0."""
+    img, counts = render_freerun(ds, env, cam, 0, (size, size), budget, BOUNCES)
+    return (img / counts.clamp_min(1).unsqueeze(-1).to(img.dtype)).cpu().numpy(), counts.cpu().numpy()
+
+
+def cluster_phase(sky, card, dev, max_err, bvh_mrays):
+    """Phase 16: the chunk orders and the raised ceiling."""
+    phase_start = time.perf_counter()
+    hi = load_scene(os.path.join(ROOT, "assets", "scenes", "suzanne_hi.toml"))
+    cam = camera_pytree(hi.camera, dev)
+    base = None
+    for order in CLUSTER_ORDERS:
+        with chunk_order(order):
+            ds = build_device_scene(hi, dev)
+        valid = ds.tri_valid.reshape(-1, TRI_CHUNK)
+        if order in CLUSTER_PARITY_ORDERS:
+            chunked_parity(f"suzanne_hi_{order}", 256 * 256, loop_state(ds, sky, cam, 256, 0, 3), max_err)
+            chunked_parity(f"suzanne_hi_{order}", SIZE * SIZE,
+                           loop_state(ds, sky, cam, SIZE, 0, 0, kernel_iterations=2), max_err)
+        # the 256^2 image against Morton's: storage order only
+        img, counts = freerun_image(ds, sky, cam, ROUTES_SIZE, CLUSTER_IMAGE_BUDGET)
+        if base is None:
+            base = (img, counts)
+        flipped, rel = flip_criteria(img, base[0])
+        counts_equal = float((counts == base[1]).mean())
+        log("cluster_image", scene="suzanne_hi", order=order, size=ROUTES_SIZE,
+            budget=CLUSTER_IMAGE_BUDGET, chunks=ds.chunks.count,
+            pad_rows=int((~ds.tri_valid).sum()), interleaved_pads=int((~valid[:-1]).sum()),
+            counts_equal=f"{counts_equal:.6f}",
+            bit_equal_share=f"{float((img.view(np.uint32) == base[0].view(np.uint32)).mean()):.6f}",
+            flipped=f"{flipped:.5f}", rel_rmse_unflipped=f"{rel:.3e}")
+        if not (counts_equal >= 0.999 and flipped < FLIPPED_MAX and rel < UNFLIPPED_REL_RMSE_MAX):
+            raise AssertionError(f"suzanne_hi in the {order} order is not Morton's image")
+        del ds
+
+    parity_s = time.perf_counter() - phase_start
+
+    # Mrays/s, pairs and kernel ms in each order (profiling --path cluster's
+    # lines, without the cull's bound); suzanne_xhi under the raised
+    # ceiling, which its treelet order (350,848 lanes) passes by default
+    start = time.perf_counter()
+    for name in CLUSTER_SCENES:
+        with knob_env({"RT_MAX_CHUNKED_TRIS": RAISED_TRIS if name == "suzanne_xhi" else None}):
+            for order in CLUSTER_ORDERS:
+                got = cluster_report(name, order, dev, card, sky, bounds=False,
+                                     budget=CLUSTER_SPEED_BUDGET)
+                if got is None or not all(int(k) > 0 for k in got["launches"].split("/")):
+                    raise AssertionError(f"{name} in the {order} order left the chunked route")
+    speed_s = time.perf_counter() - start
+
+    # suzanne_xxhi on the chunked route under the raised ceiling
+    start = time.perf_counter()
+    xx = load_scene(os.path.join(ROOT, "assets", "scenes", "suzanne_xxhi.toml"))
+    xx_cam = camera_pytree(xx.camera, dev)
+    with knob_env({"RT_MAX_CHUNKED_TRIS": RAISED_TRIS}):
+        start = time.perf_counter()
+        ds = build_device_scene(xx, dev, with_bvh="auto")
+        build_s = time.perf_counter() - start
+        if route(ds) != CHUNKED:
+            raise AssertionError("RT_MAX_CHUNKED_TRIS=1048576 did not route suzanne_xxhi to the chunked route")
+    mirror, built = ci.chunked_shared_bytes_of(ds), ci.chunked_shared_bytes(ds)
+    log("cluster_ceiling", scene="suzanne_xxhi", max_chunked_tris=RAISED_TRIS, chunks=ds.chunks.count,
+        seconds=f"{build_s:.3f}", shared_bytes=built, shared_mirror=mirror,
+        window_mib=f"{ds.chunks.windows.numel() * 4 / 2**20:.1f}")
+    if mirror != built:
+        raise AssertionError(f"the shared-memory mirror says {mirror} bytes, the kernels {built}")
+    chunked_parity("suzanne_xxhi", 256 * 256, loop_state(ds, sky, xx_cam, 256, 0, 0, kernel_iterations=2),
+                   max_err)
+    state = loop_state(ds, sky, xx_cam, SIZE, 0, 0, kernel_iterations=2)
+    log("timing", scene="suzanne_xxhi", max_chunked_tris=RAISED_TRIS, lanes=SIZE * SIZE,
+        **{f"{name}_ms": f"{time_ms(lambda: KERNELS[key][0](*state[key]), 3):.4f}"
+           for key, name in BIG_KERNELS.items()}, card=repr(card))
+    del state
+    counted, image, counts, warm = timed_main("suzanne_xxhi_chunked", ds, sky, xx_cam, card, 1, dev,
+                                              budget=RAISED_BUDGET)
+    if not all(counted[k] for k in BIG_KERNELS.values()) or counted["bvh_closest"] or counted["bvh_any"]:
+        raise AssertionError(f"the raised-ceiling suzanne_xxhi run left the chunked route: {counted}")
+    log("cluster_ceiling", scene="suzanne_xxhi", chunked_mrays_per_s=f"{counted['mrays_per_s']:.2f}",
+        bvh_mrays_per_s=f"{bvh_mrays:.2f}", chunked_over_bvh=f"{counted['mrays_per_s'] / bvh_mrays:.4f}",
+        card=repr(card))
+    counts_xx = (ds.sph_radius.shape[0], ds.pln_valid.shape[0], ds.tri_valid.shape[0])
+    del ds, image
+    if not auto_bvh(*counts_xx, dev):
+        raise AssertionError("with the default ceiling 'auto' does not route suzanne_xxhi to the BVH")
+    log("cluster_phase", seconds=f"{time.perf_counter() - phase_start:.1f}", parity_s=f"{parity_s:.1f}",
+        speed_s=f"{speed_s:.1f}", ceiling_s=f"{time.perf_counter() - start:.1f}")
+
+
 def main() -> int:
     smoke_start = time.perf_counter()
     # 1. device
@@ -1292,10 +1428,12 @@ def main() -> int:
     # 12. the BVH route
     bvh_launches = bvh_phase(sky, card, dev, max_err, times, bounds)
 
-    # 13. sync rounds, 14. the multi-device split, 15. the viewer
+    # 13. sync rounds, 14. the multi-device split, 15. the viewer, 16. the
+    # chunk orders
     sync_phase(sky, card, dev)
     multi_device_phase(sky_host, sky, card, dev)
     viewer_phase(card, dev)
+    cluster_phase(sky, card, dev, max_err, bvh_launches["mrays_per_s"])
 
     replaces = {
         "trace": "rsoderh_raytracing_tpu/ops/pallas_wavefront.py:775",

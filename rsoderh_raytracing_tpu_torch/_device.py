@@ -12,27 +12,31 @@ import torch
 DEFAULT = "cuda"
 
 # Environment knobs of the reference (rsoderh_raytracing_tpu) that the
-# port does not honour: the chunk ceiling, the chunk orders and the
-# compaction cadence. A run that sets one measures something else than it
-# claims, so the port says so, once a knob. (RT_BVH_ABOVE_TRIS, the BVH
-# crossover, is honoured: scene/device.auto_bvh.)
-IGNORED_KNOBS = (
-    "RT_MAX_CHUNKED_TRIS", "RT_CHUNK_CLUSTER", "RT_DISABLE_MORTON", "RT_COMPACT_EVERY",
-)
+# port does not honour: the compaction cadence, which is TPU grid
+# machinery. A run that sets one measures something else than it claims,
+# so the port says so, once a knob. (The chunked route's ceilings and
+# chunk orders, RT_MAX_CHUNKED_TRIS, RT_MAX_CHUNKED_SPHERES,
+# RT_CHUNK_CLUSTER and RT_DISABLE_MORTON, and the BVH crossover,
+# RT_BVH_ABOVE_TRIS, are honoured: scene/device.py.)
+IGNORED_KNOBS = ("RT_COMPACT_EVERY",)
 _warned: set = set()
+
+
+def warn_once(key: str, message: str) -> None:
+    """A RuntimeWarning with `message`, the first time this process
+    warns under `key`."""
+    if key not in _warned:
+        _warned.add(key)
+        warnings.warn(message, RuntimeWarning, stacklevel=4)
 
 
 def warn_ignored_knobs() -> None:
     """A RuntimeWarning naming each IGNORED_KNOBS variable that is set,
     the first time this process sees it set."""
     for knob in IGNORED_KNOBS:
-        if knob in os.environ and knob not in _warned:
-            _warned.add(knob)
-            warnings.warn(
-                f"{knob}={os.environ[knob]!r} is a knob of rsoderh_raytracing_tpu that the "
-                "PyTorch port ignores: this run does not take the setting",
-                RuntimeWarning, stacklevel=3,
-            )
+        if knob in os.environ:
+            warn_once(knob, f"{knob}={os.environ[knob]!r} is a knob of rsoderh_raytracing_tpu "
+                            "that the PyTorch port ignores: this run does not take the setting")
 
 
 def resolve(device) -> torch.device:

@@ -67,11 +67,17 @@
 // 5,120 B = 80 KB, ray terms kTile x 64 B = 64 KB, keys 8 KB, queues
 // kBatch x kTile x 2 B = 32 KB (a lane enters a chunk's queue at most once,
 // so they cannot overflow), candidates 2 KB, the batch's bounds and two
-// sets of counts under 1 KB: 186.7 KB, then the unrolled primitives (at
-// most 12 KB) and 32 B a batch for the union boxes: 187.9 KB on
-// suzanne_hi, 214.7 KB at the 8,192-chunk ceiling (the bounds table
-// itself, up to 196 KB, is staged a batch at a time) of the 227 KB a
-// block may ask for. One block of 512 threads a multiprocessor, at most
+// sets of counts under 1 KB: OFF_SMALL = 191,136 B, then the unrolled
+// primitives (small_len floats rounded up to a quad, at most 12 KB) and
+// 32 B a batch for the union boxes (the bounds table itself is staged a
+// batch at a time): 192,416 B on suzanne_hi (242 chunks; its 8 sphere and
+// 8 plane lanes unrolled, 768 B), 222,880 B on suzanne_xxhi (15,488
+// chunks) of the MAX_SHARED = 232,448 B (227 KB) a block may ask for. So
+// the block's shared memory, not a count, limits a scene's chunks: 20,272
+// with suzanne's unrolled rows.
+// scene/device.py mirrors shared_bytes (chunked_shared_bytes) and keeps a
+// scene past the limit off the launchers, which refuse it too
+// (cudaErrorInvalidValue). One block of 512 threads a multiprocessor, at most
 // 128 registers a thread. Every block streams every window from L2:
 // lanes / kTile x the window table a launch (5 GB on suzanne_hi at 4.2M
 // lanes).

@@ -28,7 +28,10 @@ import torch
 from rsoderh_raytracing_tpu_torch.ops import bvh as bvh_ops
 from rsoderh_raytracing_tpu_torch.ops import cuda_wavefront as cw
 from rsoderh_raytracing_tpu_torch.ops import intersect
-from rsoderh_raytracing_tpu_torch.scene.device import BVH, CHUNKED, SMALL, route
+from rsoderh_raytracing_tpu_torch.scene.device import (
+    BVH, CHUNKED, CHUNKED_MAX_SHARED, SMALL, route,
+)
+from rsoderh_raytracing_tpu_torch.scene.device import chunked_shared_bytes as mirror_shared_bytes
 
 # Kernel launches of each wrapper (CUDA tensors only).
 LAUNCHES = {"chunked_closest": 0, "chunked_any": 0, "closest": 0, "any": 0, "fused": 0,
@@ -50,12 +53,25 @@ def _launch_args(scene, rays, mask, what):
         cw._check(f"{what} ray input {i}", t, n, torch.float32, dev)
     cw._check(f"{what} lane mask", mask, n, torch.int32, dev)
     ch = scene.chunks
+    n_bytes = chunked_shared_bytes_of(scene)
+    if n_bytes > CHUNKED_MAX_SHARED:
+        raise NotImplementedError(
+            f"{what}: {ch.count} chunks ask for {n_bytes} bytes of shared memory a block, past "
+            f"the card's limit of {CHUNKED_MAX_SHARED}"
+        )
     n_sph = 0 if ch.n_sph_chunks else scene.sph_radius.shape[0]
     scene_args = (
         ch.small.data_ptr(), ch.small.numel(), n_sph, scene.pln_valid.shape[0],
         ch.bounds.data_ptr(), ch.windows.data_ptr(), ch.n_tri_chunks, ch.count,
     )
     return n, dev, cw._ptrs((*rays, mask)), scene_args
+
+
+def chunked_shared_bytes_of(scene) -> int:
+    """Dynamic shared memory a block of the chunked kernels asks for on
+    this scene, bytes, from scene/device.py's mirror of the kernels'
+    layout (chunked_shared_bytes below asks the built kernels)."""
+    return mirror_shared_bytes(scene.chunks.small.numel(), scene.chunks.count)
 
 
 def chunked_shared_bytes(scene) -> int:

@@ -44,6 +44,10 @@ SPHERE, PLANE, TRIANGLE = 0, 1, 2
 # Lane x primitive pairs per broadcast block: bounds the temporaries
 # (4 bytes a pair each): 4 MiB on the CPU, 64 MiB on the card.
 _PAIRS = {"cpu": 1 << 20, "cuda": 1 << 24}
+# Lanes a group of the traversal model walks together (chunked_*_model):
+# on the card every lane of a 2048^2 state, so that a batch costs one
+# round of launches (its slab temporaries: 16 chunks x 4 bytes a lane).
+_MODEL_LANES = {"cpu": 1 << 16, "cuda": 1 << 22}
 _LANE_BLOCK = 1 << 16
 
 
@@ -51,9 +55,16 @@ def _n_prims(scene, kind):
     return (scene.sph_radius, scene.pln_valid, scene.tri_valid)[kind].shape[0]
 
 
+def _take(field, lo, hi):
+    """Rows of a scene field against (nb, 1) lane terms: rows lo:hi as a
+    (1, k) row, or, with hi None, the rows of the (nb, k) index tensor lo,
+    each lane its own."""
+    return field[lo] if hi is None else field[None, lo:hi]
+
+
 def _cols(field, lo, hi):
-    """Rows lo:hi of an (n, 3) scene field as three (1, k) columns."""
-    return tuple(field[lo:hi, c][None, :] for c in range(3))
+    """Rows of an (n, 3) scene field (as _take) as three columns."""
+    return tuple(_take(field[:, c], lo, hi) for c in range(3))
 
 
 def _sphere_terms(scene, lo, hi, r):
@@ -61,7 +72,7 @@ def _sphere_terms(scene, lo, hi, r):
     ox, oy, oz, dx, dy, dz = r["o"] + r["d"]
     cx, cy, cz = _cols(scene.sph_pos, lo, hi)
     b = 2.0 * (r["d_dot_o"] - (dx * cx + dy * cy + dz * cz))
-    c = r["o_dot_o"] - 2.0 * (ox * cx + oy * cy + oz * cz) + scene.sph_c2[None, lo:hi]
+    c = r["o_dot_o"] - 2.0 * (ox * cx + oy * cy + oz * cz) + _take(scene.sph_c2, lo, hi)
     return b, c, b * b - 4.0 * r["a_q"] * c
 
 
@@ -70,12 +81,13 @@ def _plane_terms(scene, lo, hi, r):
     ox, oy, oz, dx, dy, dz = r["o"] + r["d"]
     nx, ny, nz = _cols(scene.pln_normal, lo, hi)
     denom = dx * nx + dy * ny + dz * nz
-    return denom, scene.pln_ndotp[None, lo:hi] - (ox * nx + oy * ny + oz * nz)
+    return denom, _take(scene.pln_ndotp, lo, hi) - (ox * nx + oy * ny + oz * nz)
 
 
 def _hits(scene, kind, lo, hi, r):
     """(t, hit) of lanes r (a dict of (nb, 1) ray terms) against
-    primitives lo:hi of one kind, each (nb, k)."""
+    primitives lo:hi of one kind (or, with hi None, each lane against its
+    own rows of the (nb, k) index tensor lo), each (nb, k)."""
     ox, oy, oz, dx, dy, dz = r["o"] + r["d"]
     if kind == SPHERE:
         b, c, disc = _sphere_terms(scene, lo, hi, r)
@@ -89,7 +101,7 @@ def _hits(scene, kind, lo, hi, r):
             torch.where(t1 < SPHERE_EPS, t0, torch.minimum(t0, t1)),
         )
         t = torch.where(disc == 0.0, -0.5 * b / r["a_q"], t)
-        return t, (disc >= 0.0) & (t >= SPHERE_EPS) & scene.sph_valid[None, lo:hi]
+        return t, (disc >= 0.0) & (t >= SPHERE_EPS) & _take(scene.sph_valid, lo, hi)
     if kind == PLANE:
         r0 = _cols(scene.pln_r0, lo, hi)
         r2 = _cols(scene.pln_r2, lo, hi)
@@ -99,16 +111,16 @@ def _hits(scene, kind, lo, hi, r):
         px = (
             (ox * r0[0] + oy * r0[1] + oz * r0[2])
             + t * (dx * r0[0] + dy * r0[1] + dz * r0[2])
-            - scene.pln_r0dotp[None, lo:hi]
+            - _take(scene.pln_r0dotp, lo, hi)
         )
         pz = (
             (ox * r2[0] + oy * r2[1] + oz * r2[2])
             + t * (dx * r2[0] + dy * r2[1] + dz * r2[2])
-            - scene.pln_r2dotp[None, lo:hi]
+            - _take(scene.pln_r2dotp, lo, hi)
         )
         hit = (
             ok & (t >= PLANE_T_EPS) & (px >= 0.0) & (px <= 1.0)
-            & (pz >= 0.0) & (pz <= 1.0) & scene.pln_valid[None, lo:hi]
+            & (pz >= 0.0) & (pz <= 1.0) & _take(scene.pln_valid, lo, hi)
         )
         return t, hit
     det, un, vn, tn = _tri_numerators(scene, lo, hi, r)
@@ -119,7 +131,7 @@ def _hits(scene, kind, lo, hi, r):
     t = tn * inv
     hit = (
         ok & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0)
-        & (t >= TRI_T_EPS) & scene.tri_valid[None, lo:hi]
+        & (t >= TRI_T_EPS) & _take(scene.tri_valid, lo, hi)
     )
     return t, hit
 
@@ -142,11 +154,11 @@ def prefilter_hits(scene, kind, lo, hi, r):
     wherever _hits does (tests/test_torch_sweep_prefilter.py). Nothing on
     a render path calls it."""
     if kind == SPHERE:
-        return (_sphere_terms(scene, lo, hi, r)[2] >= 0.0) & scene.sph_valid[None, lo:hi]
+        return (_sphere_terms(scene, lo, hi, r)[2] >= 0.0) & _take(scene.sph_valid, lo, hi)
     if kind == PLANE:
         denom, num = _plane_terms(scene, lo, hi, r)
         same_sign = torch.where(denom > 0.0, num > 0.0, num < 0.0)
-        return (torch.abs(denom) >= PLANE_DENOM_EPS) & same_sign & scene.pln_valid[None, lo:hi]
+        return (torch.abs(denom) >= PLANE_DENOM_EPS) & same_sign & _take(scene.pln_valid, lo, hi)
     det, un, vn, tn = _tri_numerators(scene, lo, hi, r)
     adet = torch.abs(det)
     neg = det < 0.0
@@ -154,7 +166,7 @@ def prefilter_hits(scene, kind, lo, hi, r):
     return (
         (adet >= TRI_DET_EPS) & (us >= -TRI_PRE_MARGIN * adet) & (us <= TRI_PRE_ONE * adet)
         & (vs >= -TRI_PRE_MARGIN * adet) & (us + vs <= TRI_PRE_ONE * adet)
-        & (ts >= TRI_PRE_T_EPS * adet) & scene.tri_valid[None, lo:hi]
+        & (ts >= TRI_PRE_T_EPS * adet) & _take(scene.tri_valid, lo, hi)
     )
 
 
@@ -171,7 +183,7 @@ def _tri_numerators(scene, lo, hi, r):
     det = dx * cd[0] + dy * cd[1] + dz * cd[2]
     un = (mx * e1[0] + my * e1[1] + mz * e1[2]) + (dx * cu[0] + dy * cu[1] + dz * cu[2])
     vn = -((mx * e0[0] + my * e0[1] + mz * e0[2]) + (dx * cv[0] + dy * cv[1] + dz * cv[2]))
-    tnum = (ox * tn[0] + oy * tn[1] + oz * tn[2]) - scene.tri_adotn[None, lo:hi]
+    tnum = (ox * tn[0] + oy * tn[1] + oz * tn[2]) - _take(scene.tri_adotn, lo, hi)
     return det, un, vn, tnum
 
 
@@ -187,7 +199,7 @@ def _tri_occluded(scene, lo, hi, r):
     tn = torch.where(neg, -tn, tn)
     return (
         (adet >= TRI_DET_EPS) & (un >= 0.0) & (un <= adet) & (vn >= 0.0)
-        & (un + vn <= adet) & (tn >= TRI_T_EPS * adet) & scene.tri_valid[None, lo:hi]
+        & (un + vn <= adet) & (tn >= TRI_T_EPS * adet) & _take(scene.tri_valid, lo, hi)
     )
 
 
@@ -355,15 +367,19 @@ def slab_entry(bounds, rays):
 
 def _model_walk(scene, rays, lanes, batch, visit, bound):
     """Walk the chunks for the lanes `lanes` (indices into rays) in
-    batches of `batch` chunks, the lanes in groups of at most _PAIRS (lane,
-    primitive) pairs a chunk. A lane that the slab of
-    the batch's union box and `bound(group lanes, t0)` let through at the
-    batch's start is a candidate; for each chunk of the batch,
-    visit(lanes, their ray terms, kind, first row) is called with the
-    candidates that the chunk's own slab and `bound` let through. Returns
-    the counts: pairs visited, candidates, slab tests."""
+    batches of `batch` chunks, the lanes in groups of at most _MODEL_LANES.
+    A lane that the slab of the batch's union
+    box and `bound(group lanes, t0)` let through at the batch's start is
+    a candidate; its (lane, chunk) pairs that the chunk's own slab and
+    `bound` let through are visited together, at most _PAIRS / TRI_CHUNK
+    pairs a call: visit(lanes, their ray terms, kind, rows), rows the
+    (pairs, TRI_CHUNK) index tensor of each pair's chunk rows among its
+    kind (a lane may come more than once). Returns the counts: pairs
+    visited, candidates, slab tests."""
     ch = scene.chunks
-    group = max(1, _PAIRS.get(rays[0].device.type, _PAIRS["cpu"]) // TRI_CHUNK)
+    group = _MODEL_LANES.get(rays[0].device.type, _MODEL_LANES["cpu"])
+    block = max(1, _PAIRS.get(rays[0].device.type, _PAIRS["cpu"]) // TRI_CHUNK)
+    rows = torch.arange(TRI_CHUNK, device=lanes.device)
     counts = dict(pairs=0, candidates=0, slab_tests=0)
     for s in range(0, lanes.shape[0], group):
         sel = lanes[s:s + group]
@@ -381,15 +397,18 @@ def _model_walk(scene, rays, lanes, batch, visit, bound):
             cand_rays = tuple(x.index_select(0, cand) for x in sub)
             passes, t0 = slab_entry(boxes, cand_rays)
             passes &= bound(cand_sel, t0)
-            counts["pairs"] += int(passes.sum())
-            for c in range(c0, c0 + boxes.shape[0]):
-                k = torch.nonzero(passes[:, c - c0]).squeeze(1)
-                if k.numel() == 0:
-                    continue
-                is_tri = c < ch.n_tri_chunks
-                first = (c if is_tri else c - ch.n_tri_chunks) * TRI_CHUNK
-                terms = _ray_terms(*(x.index_select(0, k) for x in cand_rays))
-                visit(cand_sel[k], terms, TRIANGLE if is_tri else SPHERE, first)
+            which, chunk = torch.nonzero(passes, as_tuple=True)
+            chunk = chunk + c0
+            counts["pairs"] += which.shape[0]
+            for kind, of_kind in ((TRIANGLE, chunk < ch.n_tri_chunks), (SPHERE, chunk >= ch.n_tri_chunks)):
+                k = torch.nonzero(of_kind).squeeze(1)
+                for b in range(0, k.shape[0], block):
+                    part = k[b:b + block]
+                    first = chunk.index_select(0, part) - (0 if kind == TRIANGLE else ch.n_tri_chunks)
+                    lane_part = which.index_select(0, part)
+                    terms = _ray_terms(*(x.index_select(0, lane_part) for x in cand_rays))
+                    visit(cand_sel.index_select(0, lane_part), terms, kind,
+                          first[:, None] * TRI_CHUNK + rows[None, :])
     return counts
 
 
@@ -401,16 +420,15 @@ def chunked_closest_model(scene, ro, rd, live, batch, counts=None):
     rays = (*ro, *rd)
     t, ptype, pidx = _sweep(scene, rays, _unrolled_kinds(scene))
     key = torch.where(ptype >= 0, pack_key(t, ptype, pidx), _MISS_KEY)
-    rows = torch.arange(TRI_CHUNK, device=key.device)
 
     def bound(sel, t0):
         best_t = unpack_key(key.index_select(0, sel))[0][:, None]
         return t0 <= best_t * (1.0 + 1e-3) + 1e-4
 
-    def visit(sel, terms, kind, first):
-        t, hit = _hits(scene, kind, first, first + TRI_CHUNK, terms)
-        cand = torch.where(hit, pack_key(t, kind, (first + rows)[None, :].expand_as(t)), _NO_KEY)
-        key[sel] = torch.minimum(key[sel], cand.min(dim=1).values)
+    def visit(sel, terms, kind, rows):
+        t, hit = _hits(scene, kind, rows, None, terms)
+        cand = torch.where(hit, pack_key(t, kind, rows), _NO_KEY)
+        key.scatter_reduce_(0, sel, cand.min(dim=1).values, reduce="amin")
 
     lanes = torch.nonzero(live != 0).squeeze(1)
     walked = _model_walk(scene, rays, lanes, batch, visit, bound)
@@ -429,12 +447,12 @@ def chunked_any_model(scene, p, d, mask, batch, counts=None):
     def bound(sel, t0):
         return ~occ.index_select(0, sel)[:, None].expand_as(t0)
 
-    def visit(sel, terms, kind, first):
+    def visit(sel, terms, kind, rows):
         if kind == TRIANGLE:
-            hit = _tri_occluded(scene, first, first + TRI_CHUNK, terms)
+            hit = _tri_occluded(scene, rows, None, terms)
         else:
-            hit = _hits(scene, kind, first, first + TRI_CHUNK, terms)[1]
-        occ[sel] |= hit.any(dim=1)
+            hit = _hits(scene, kind, rows, None, terms)[1]
+        occ[sel[hit.any(dim=1)]] = True
 
     lanes = torch.nonzero((mask != 0) & ~occ).squeeze(1)
     walked = _model_walk(scene, rays, lanes, batch, visit, bound)

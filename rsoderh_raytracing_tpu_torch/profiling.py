@@ -1,6 +1,6 @@
 """Where the main path's device time goes, on a GPU.
 
-    python -m rsoderh_raytracing_tpu_torch.profiling [--path loop|scan|scan-image|split]
+    python -m rsoderh_raytracing_tpu_torch.profiling [--path loop|scan|scan-image|split|cluster]
                                                     [--scene NAME] [--out DIR] [--sass]
 
 Runs assets/scenes/NAME.toml (default house) at 2048x2048, 8 bounces,
@@ -73,6 +73,20 @@ over every card of the machine, house:
   2048x2048, 8 bounces, for k = 1, 2, 4, ... up to N and back down (one
   call each way), and each k's speed-up over dp:1.
 
+With ``--path cluster``, the chunk orders of the chunked route (default
+scene suzanne_hi; suzanne_xhi and suzanne_xxhi are generated by
+scripts/subdivide_obj.py; an order whose padded lanes pass the ceiling,
+such as suzanne_xhi's treelet order (350,848) or suzanne_xxhi in any
+order, prints ``route=none`` unless RT_MAX_CHUNKED_TRIS=1048576 raises
+it): for RT_CHUNK_CLUSTER=morton, bvh,
+treelet and RT_DISABLE_MORTON=1 (``host``), one ``cluster`` line
+(``cluster_report``): chunks, padded triangle lanes, the chunk boxes'
+total surface area, the host's seconds for the order and for the scene
+build; on the 2048^2 loop state of the third iteration CHUNKED_CLOSEST's
+and CHUNKED_ANY's ms, the pairs, candidates and slab tests of the
+kernels' batch model and the bound of ``chunked_bound`` with its cull's
+pairs; and the Mrays/s of one free-run call of 64 iterations.
+
 ``--sass`` prints, for each kernel of the built library, the SASS
 instruction count by opcode and each loop's (backward branch's) body,
 from ``cuobjdump -sass``; the dump goes under DIR.
@@ -85,6 +99,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import dataclasses
 import json
 import os
@@ -110,7 +125,7 @@ from rsoderh_raytracing_tpu_torch.render.integrator import camera_pytree, render
 from rsoderh_raytracing_tpu_torch.render.renderer import Renderer
 from rsoderh_raytracing_tpu_torch.render.wavefront import NO_LIMIT, Wavefront, render_freerun
 from rsoderh_raytracing_tpu_torch.scene.device import (
-    BVH, CHUNKED, TRI_CHUNK, build_device_scene, route,
+    BVH, CHUNKED, TRI_CHUNK, build_device_scene, cluster_triangles, route,
 )
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -725,6 +740,119 @@ def sass_report(lib_path, out_dir, kernels=("closest_kernel", "any_kernel", "fus
     return report
 
 
+# --path cluster: the chunk orders (RT_CHUNK_CLUSTER, and the host order
+# of RT_DISABLE_MORTON=1) and the iterations of the free-run call.
+CLUSTER_ORDERS = ("morton", "bvh", "treelet", "host")
+CLUSTER_BUDGET = 64
+
+
+@contextlib.contextmanager
+def knob_env(settings):
+    """The environment variables of `settings` (name: value, or None for
+    unset) while the block runs; as they were afterwards."""
+    saved = {k: os.environ.get(k) for k in settings}
+    try:
+        for k, v in settings.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+
+
+def chunk_order(order):
+    """knob_env of a chunk order: RT_CHUNK_CLUSTER=order, or
+    RT_DISABLE_MORTON=1 for "host"."""
+    if order == "host":
+        return knob_env({"RT_CHUNK_CLUSTER": None, "RT_DISABLE_MORTON": "1"})
+    return knob_env({"RT_CHUNK_CLUSTER": order, "RT_DISABLE_MORTON": None})
+
+
+def chunk_surface(scene):
+    """Total surface area of the triangle chunks' boxes (inflated, as the
+    kernels cull by them)."""
+    b = scene.chunks.bounds[: scene.chunks.n_tri_chunks].double()
+    d = (b[:, 3:] - b[:, :3]).clamp_min(0.0)
+    return float((2.0 * (d[:, 0] * d[:, 1] + d[:, 0] * d[:, 2] + d[:, 1] * d[:, 2])).sum())
+
+
+def cluster_report(name, order, dev, card, env, bounds=True, budget=CLUSTER_BUDGET, label="cluster"):
+    """One order of scene NAME at SIZE^2 (the --path cluster line): chunks,
+    padded triangle lanes, total chunk-box surface area, the host's
+    seconds for the order (cluster_s) and for the whole scene build; on
+    the loop state of the third iteration, CHUNKED_CLOSEST's and
+    CHUNKED_ANY's ms (CUDA events), the pairs, candidates and slab tests
+    of the kernels' batch model (intersect.chunked_*_model) and, with
+    `bounds`, chunked_bound's ms and its cull's pairs (cull_counts); then
+    the Mrays/s of one free-run call of `budget` iterations and the
+    launches of CHUNKED_CLOSEST, CHUNKED_ANY and BIG_SHADE in it. Returns
+    the numbers by name, or None where the scene in this order does not
+    take the chunked route (a ceiling)."""
+    scene = load_scene(os.path.join(ROOT, "assets", "scenes", f"{name}.toml"))
+    with chunk_order(order):
+        start = time.perf_counter()
+        ds = build_device_scene(scene, dev)
+        build_s = time.perf_counter() - start
+        if order == "host":
+            cluster_s = 0.0
+        else:
+            start = time.perf_counter()
+            cluster_triangles(scene.meshes.vertices, scene.meshes.triangles, order)
+            cluster_s = time.perf_counter() - start
+    if ds.chunks is None:
+        print(f"[{label}] scene={name} order={order} route=none lanes={ds.tri_valid.shape[0]} "
+              f"card={card!r}", flush=True)
+        return None
+    out = dict(chunks=ds.chunks.count, lanes=ds.tri_valid.shape[0], surface=chunk_surface(ds),
+               cluster_s=cluster_s, build_s=build_s)
+    cam = camera_pytree(scene.camera, dev)
+    res = (SIZE, SIZE)
+    wave = Wavefront(ds, env, cam, np.zeros(res, np.uint32), res, NO_LIMIT, 64, BOUNCES)
+    for it in range(2):
+        wave.step(it)
+    captured = capture_step(wave, 2)
+    batch = ci.chunked_batch()
+    for key, closest in (("closest", True), ("occlusion", False)):
+        args = captured[key]
+        kfn = ci.chunked_closest_call if closest else ci.chunked_any_call
+        model = intersect.chunked_closest_model if closest else intersect.chunked_any_model
+        out[f"{key}_ms"] = time_ms(lambda: kfn(*args), 5)
+        walked = {}
+        model(*args, batch, counts=walked)
+        out.update({f"{key}_{k}": v for k, v in walked.items()})
+        if bounds:
+            ms, by, cull = chunked_bound(ds, args, closest)
+            out.update({f"{key}_bound_ms": ms, f"{key}_bound_by": by,
+                        f"{key}_cull_pairs": cull["pairs"]})
+    del wave, captured
+    before = {**ci.LAUNCHES, **cw.LAUNCHES}
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    _, _, stats = render_freerun(ds, env, cam, np.zeros(res, np.uint32), res, budget,
+                                 BOUNCES, with_stats=True)
+    rays = int(stats["closest_rays"] + stats["shadow_rays"])  # synchronizes
+    out["mrays_per_s"] = rays / (time.perf_counter() - start) / 1e6
+    after = {**ci.LAUNCHES, **cw.LAUNCHES}
+    out["launches"] = "/".join(str(after[k] - before[k])
+                               for k in ("chunked_closest", "chunked_any", "big_shade"))
+    print(f"[{label}] scene={name} order={order} size={SIZE} budget={budget} "
+          + " ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}" for k, v in out.items())
+          + f" card={card!r}", flush=True)
+    return out
+
+
+def cluster_main(args, dev, card) -> int:
+    """--path cluster: scene NAME in each of CLUSTER_ORDERS."""
+    env = device_environment(Environment.from_texture("sky", procedural_sky(2048, 1024)), dev)
+    for order in CLUSTER_ORDERS:
+        cluster_report(args.scene, order, dev, card, env)
+    return 0
+
+
 SPLIT_SIZE = 256  # --path split: the parity checks
 SPLIT_BUDGET = 512  # --path split: iterations of a timed step
 
@@ -799,13 +927,18 @@ def split_main(dev, card) -> int:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--path", choices=("loop", "scan", "scan-image", "split"), default="loop",
+    parser.add_argument("--path", choices=("loop", "scan", "scan-image", "split", "cluster"),
+                        default="loop",
                         help="the free-run kernel loop, the scan integrator, its image on the "
-                             "card against the CPU's, or the split over every card")
-    parser.add_argument("--scene", default="house", help="a scene of assets/scenes")
+                             "card against the CPU's, the split over every card, or the "
+                             "chunk orders")
+    parser.add_argument("--scene", default=None,
+                        help="a scene of assets/scenes (default house; suzanne_hi for --path cluster)")
     parser.add_argument("--out", default=os.path.join(ROOT, "build", "profile"))
     parser.add_argument("--sass", action="store_true", help="the SASS instruction counts")
     args = parser.parse_args(argv)
+    if args.scene is None:
+        args.scene = "suzanne_hi" if args.path == "cluster" else "house"
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: profiling needs a GPU")
     dev = torch.device("cuda", 0)
@@ -827,6 +960,8 @@ def main(argv=None) -> int:
         return scan_image_main(args, dev, card)
     if args.path == "split":
         return split_main(dev, card)
+    if args.path == "cluster":
+        return cluster_main(args, dev, card)
     ds, env, cam = scene_setup(args.scene, dev, with_bvh="auto")
     res = (SIZE, SIZE)
     zeros = np.zeros(res, np.uint32)

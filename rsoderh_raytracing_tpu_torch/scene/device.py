@@ -9,8 +9,15 @@ asked for).
 Scenes past the unroll budget take the chunked route: the chunk
 predicates, ceilings, bounds and window rows below are those of
 rsoderh_raytracing_tpu/ops/pallas_intersect.py (which imports jax).
+Such a scene stores its triangles in the order RT_CHUNK_CLUSTER picks
+(morton, the default, or bvh or treelet: scene/cluster.py), or in the
+host's order under RT_DISABLE_MORTON=1, as the reference does. On the
+card a chunked scene must also fit a block of the chunked kernels'
+shared memory (chunked_shared_bytes, the mirror of csrc/chunked.cu's
+layout); a scene past it is refused (or, under with_bvh="auto", walked
+through its BVH).
 A scene built with a BVH (``with_bvh``) takes the BVH route whatever its
-size; such a scene keeps the host's triangle order (no Morton reorder),
+size; such a scene keeps the host's triangle order (no reorder),
 because the BVH's leaf slots name host triangles.
 ``device_scene_from_arrays`` also packs, once per scene, the flat tables
 the CUDA kernels read (row layouts in csrc/wavefront_common.cuh): the
@@ -36,12 +43,27 @@ from rsoderh_raytracing_tpu_torch.scene.types import Scene
 
 # From rsoderh_raytracing_tpu/ops/pallas_intersect.py: the unrolled-sweep
 # budget, the chunk height that decides the triangle padding, and the
-# chunked route's ceilings (the reference's defaults, without its
-# environment overrides).
+# chunked route's ceilings in padded lanes (the reference's defaults;
+# RT_MAX_CHUNKED_TRIS and RT_MAX_CHUNKED_SPHERES override them, read each
+# time a route is decided: max_chunked).
 MAX_UNROLL_PRIMS = 192
 TRI_CHUNK = 64
 MAX_CHUNKED_TRIS = 262144
 MAX_CHUNKED_SPHERES = 262144
+
+# RT_CHUNK_CLUSTER's orders of a chunked scene's triangles (scene/cluster.py).
+CLUSTER_ORDERS = ("morton", "bvh", "treelet")
+
+# A block's dynamic shared memory in the chunked kernels (csrc/chunked.cu:
+# shared_bytes, OFF_SMALL, MAX_SHARED): the fixed tables, then the
+# unrolled primitive rows rounded up to a quad of floats, then a union box
+# of CHUNKED_BOUND_COLS floats for every batch of CHUNKED_BATCH chunks. A
+# block may ask for at most CHUNKED_MAX_SHARED bytes, so that, and not a
+# count, limits the chunks of a scene on the card.
+CHUNKED_OFF_SMALL = 191136
+CHUNKED_MAX_SHARED = 232448
+CHUNKED_BATCH = 16
+CHUNKED_BOUND_COLS = 8
 
 # Window rows of the chunked kernels (pallas_intersect.tri_const_table /
 # sphere_const_table): one 20-float row a primitive.
@@ -189,6 +211,14 @@ class ChunkTables:
         return self.n_tri_chunks + self.n_sph_chunks
 
 
+def max_chunked(kind: str) -> int:
+    """The chunked route's ceiling in padded lanes of `kind` ("TRIS" or
+    "SPHERES"): its knob where it is set, else the default."""
+    knob, default = {"TRIS": ("RT_MAX_CHUNKED_TRIS", MAX_CHUNKED_TRIS),
+                     "SPHERES": ("RT_MAX_CHUNKED_SPHERES", MAX_CHUNKED_SPHERES)}[kind]
+    return int(os.environ.get(knob, default))
+
+
 def counts_chunk_spheres(n_sph: int, n_pln: int) -> bool:
     """Sphere lanes stream as chunk windows when the sphere+plane unroll
     no longer fits the per-step budget (pallas_intersect._counts_chunk_spheres)."""
@@ -196,7 +226,7 @@ def counts_chunk_spheres(n_sph: int, n_pln: int) -> bool:
         n_sph + n_pln + TRI_CHUNK > MAX_UNROLL_PRIMS
         and n_sph > 0
         and n_sph % TRI_CHUNK == 0
-        and n_sph <= MAX_CHUNKED_SPHERES
+        and n_sph <= max_chunked("SPHERES")
         and n_pln + TRI_CHUNK <= MAX_UNROLL_PRIMS
     )
 
@@ -204,11 +234,30 @@ def counts_chunk_spheres(n_sph: int, n_pln: int) -> bool:
 def counts_chunked_applicable(n_sph: int, n_pln: int, n_tri: int) -> bool:
     """Whether the chunked route covers padded lane counts
     (pallas_intersect._counts_chunked_applicable)."""
-    if n_tri % TRI_CHUNK != 0 or n_tri > MAX_CHUNKED_TRIS:
+    if n_tri % TRI_CHUNK != 0 or n_tri > max_chunked("TRIS"):
         return False
     if n_sph + n_pln + TRI_CHUNK <= MAX_UNROLL_PRIMS:
         return n_tri > 0
     return counts_chunk_spheres(n_sph, n_pln)
+
+
+def chunked_shared_bytes(small_len: int, n_chunks: int) -> int:
+    """Dynamic shared memory a block of the chunked kernels asks for, bytes
+    (csrc/chunked.cu: shared_bytes); small_len is the unrolled rows'
+    floats."""
+    quads = -(-small_len // 4) * 4
+    batches = -(-n_chunks // CHUNKED_BATCH)
+    return CHUNKED_OFF_SMALL + 4 * (quads + batches * CHUNKED_BOUND_COLS)
+
+
+def counts_shared_bytes(n_sph: int, n_pln: int, n_tri: int) -> int:
+    """chunked_shared_bytes of a chunked scene of these padded lane
+    counts: its unrolled rows (spheres unless they are chunked, then
+    planes) and its chunks."""
+    sph_chunked = counts_chunk_spheres(n_sph, n_pln)
+    small_len = (0 if sph_chunked else n_sph * SPH_COLS) + n_pln * PLN_COLS
+    n_chunks = -(-n_tri // TRI_CHUNK) + (-(-n_sph // TRI_CHUNK) if sph_chunked else 0)
+    return chunked_shared_bytes(small_len, n_chunks)
 
 
 def _counts(scene):
@@ -216,6 +265,10 @@ def _counts(scene):
 
 
 def chunk_spheres(scene) -> bool:
+    """Whether the scene's spheres stream as chunk windows: its chunk
+    tables say so where it has them."""
+    if scene.chunks is not None:
+        return scene.chunks.n_sph_chunks > 0
     return counts_chunk_spheres(*_counts(scene)[:2])
 
 
@@ -231,7 +284,7 @@ def scene_chunk_count(scene) -> int:
 
 def counts_route(n_sph: int, n_pln: int, n_tri: int) -> Optional[str]:
     """SMALL or CHUNKED for padded lane counts, None for counts that
-    neither sweep route covers."""
+    neither sweep route covers (under the ceilings as they are set now)."""
     if n_sph + n_pln + n_tri <= MAX_UNROLL_PRIMS:
         return SMALL
     if counts_chunked_applicable(n_sph, n_pln, n_tri):
@@ -239,21 +292,35 @@ def counts_route(n_sph: int, n_pln: int, n_tri: int) -> Optional[str]:
     return None
 
 
+def shared_overflow(n_sph: int, n_pln: int, n_tri: int, device: torch.device) -> int:
+    """The bytes a block of the chunked kernels would ask for, where a
+    scene of these padded lane counts takes the chunked route on the card
+    and they pass CHUNKED_MAX_SHARED; else 0 (the plain versions on the
+    CPU have no such limit)."""
+    if device.type != "cuda" or counts_route(n_sph, n_pln, n_tri) != CHUNKED:
+        return 0
+    n_bytes = counts_shared_bytes(n_sph, n_pln, n_tri)
+    return n_bytes if n_bytes > CHUNKED_MAX_SHARED else 0
+
+
 def route(scene) -> str:
-    """BVH for a scene that carries a BVH, else SMALL (every primitive in
-    the unrolled sweep) or CHUNKED; raises NotImplementedError for a
-    scene without a BVH that is neither."""
+    """The route the scene was built for: BVH for a scene that carries a
+    BVH, else SMALL (every primitive in the unrolled sweep) or CHUNKED, by
+    the kernels' tables it holds (so a ceiling changed after the build
+    does not move it); raises NotImplementedError for a scene that has
+    none of them."""
     if scene.bvh is not None:
         return BVH
-    picked = counts_route(*_counts(scene))
-    if picked is None:
-        n_sph, n_pln, n_tri = _counts(scene)
-        raise NotImplementedError(
-            f"scene with {n_sph} sphere, {n_pln} plane and {n_tri} triangle lanes "
-            f"is past the unroll budget ({MAX_UNROLL_PRIMS}) and outside the chunked "
-            "route's limits: build it with with_bvh=True or 'auto' (the BVH route)"
-        )
-    return picked
+    if scene.chunks is not None:
+        return CHUNKED
+    if scene.trace_table is not None:
+        return SMALL
+    n_sph, n_pln, n_tri = _counts(scene)
+    raise NotImplementedError(
+        f"scene with {n_sph} sphere, {n_pln} plane and {n_tri} triangle lanes "
+        f"is past the unroll budget ({MAX_UNROLL_PRIMS}) and outside the chunked "
+        "route's limits: build it with with_bvh=True or 'auto' (the BVH route)"
+    )
 
 
 def chunk_bounds(tri_a, tri_edge0, tri_edge1):
@@ -397,14 +464,40 @@ def auto_bvh(n_sph: int, n_pln: int, n_tri: int, device: torch.device) -> bool:
     rule, more than CPU_BVH_ABOVE_LANES triangle lanes, and also a scene
     that no sweep route covers (the reference would sweep it densely in
     XLA; the port has no such route). On the card exactly the scenes that
-    no kernel route covers. RT_BVH_ABOVE_TRIS=N moves the crossover down
-    to N triangle lanes in both cases."""
-    uncovered = counts_route(n_sph, n_pln, n_tri) is None
+    no kernel route covers: past the ceilings (which RT_MAX_CHUNKED_TRIS
+    and RT_MAX_CHUNKED_SPHERES raise, as the reference's TPU routing
+    follows them) or past a block's shared memory (shared_overflow).
+    RT_BVH_ABOVE_TRIS=N moves the crossover down to N triangle lanes in
+    both cases."""
+    uncovered = (counts_route(n_sph, n_pln, n_tri) is None
+                 or shared_overflow(n_sph, n_pln, n_tri, device) > 0)
     with_bvh = uncovered or (device.type == "cpu" and n_tri > CPU_BVH_ABOVE_LANES)
     thresh = os.environ.get("RT_BVH_ABOVE_TRIS")
     if not with_bvh and thresh and n_tri > int(thresh):
         with_bvh = True
     return with_bvh
+
+
+def chunk_cluster() -> str:
+    """RT_CHUNK_CLUSTER (default morton), checked: ValueError for a value
+    that is not one of CLUSTER_ORDERS."""
+    cluster = os.environ.get("RT_CHUNK_CLUSTER", "morton")
+    if cluster not in CLUSTER_ORDERS:
+        raise ValueError(f"RT_CHUNK_CLUSTER={cluster!r}: expected morton|bvh|treelet")
+    return cluster
+
+
+def cluster_triangles(vertices, tris, cluster):
+    """(triangles in the order `cluster` names, their valid mask or None):
+    Morton or the BVH's depth-first order permute them; treelet also
+    pads each chunk and returns its mask (scene/cluster.py)."""
+    if cluster == "morton":
+        return tris[_morton_order(vertices, tris)], None
+    from rsoderh_raytracing_tpu_torch.scene import cluster as orders
+
+    if cluster == "bvh":
+        return tris[orders.bvh_dfs_order(vertices, tris)], None
+    return orders.treelet_pack(vertices, tris, TRI_CHUNK)
 
 
 def build_device_scene(
@@ -414,12 +507,17 @@ def build_device_scene(
 
     with_bvh=True also builds the SAH BVH (accel/bvh.py, its native
     builder where g++ is available) and attaches it, so the scene takes
-    the BVH route; "auto" attaches it by auto_bvh. A scene with a BVH
-    keeps the host's triangle order (leaf slots name host triangles), as
-    the reference's does; every field still equals the reference's lane
-    for lane."""
+    the BVH route; "auto" attaches it by auto_bvh, and also where the
+    chunk order leaves more chunks than a block's shared memory holds. A
+    scene with a BVH keeps the host's triangle order (leaf slots name
+    host triangles), as the reference's does; every field still equals
+    the reference's lane for lane. A scene on the card that the chunked
+    route takes past a block's shared memory raises NotImplementedError
+    under with_bvh=False."""
     device = _device.resolve(device)
     _device.warn_ignored_knobs()
+    cluster = chunk_cluster()
+    asked = with_bvh
     materials = scene.materials or []
     m = max(1, len(materials))
     mat_color = np.zeros((m, 3), np.float32)
@@ -469,17 +567,27 @@ def build_device_scene(
         pln_valid[i] = True
 
     # Triangles pad to TRI_CHUNK whenever the total padded lane count
-    # exceeds the unroll budget; such scenes are stored in Morton order,
-    # the reference's default, unless a BVH is attached (its leaf slots
-    # name host triangles, as the reference keeps them), so the fields
-    # match the reference's lane for lane.
+    # exceeds the unroll budget; such scenes are stored in the order
+    # RT_CHUNK_CLUSTER picks (Morton by default), unless a BVH is attached
+    # (its leaf slots name host triangles, as the reference keeps them) or
+    # RT_DISABLE_MORTON=1 keeps the host's order, so the fields match the
+    # reference's lane for lane.
     tris = scene.meshes.triangles
     total_small = s_n + p_n + _round_up(len(tris), pad_to)
     tri_pad = pad_to if total_small <= MAX_UNROLL_PRIMS else TRI_CHUNK
     if with_bvh == "auto":
         with_bvh = auto_bvh(s_n, p_n, _round_up(len(tris), tri_pad), device)
-    if total_small > MAX_UNROLL_PRIMS and len(tris) > 0 and not with_bvh:
-        tris = tris[_morton_order(scene.meshes.vertices, tris)]
+    explicit_valid = None
+    if (total_small > MAX_UNROLL_PRIMS and len(tris) > 0 and not with_bvh
+            and os.environ.get("RT_DISABLE_MORTON") != "1"):
+        tris, explicit_valid = cluster_triangles(scene.meshes.vertices, tris, cluster)
+    elif cluster != "morton":
+        _device.warn_once(
+            "RT_CHUNK_CLUSTER",
+            f"RT_CHUNK_CLUSTER={cluster!r} orders the triangles of a chunked scene only; this "
+            "scene keeps its order (it has no triangles, is within the unroll budget, has a "
+            "BVH, or RT_DISABLE_MORTON=1 is set)",
+        )
 
     t_n = _round_up(len(tris), tri_pad)
     tri_a = np.zeros((t_n, 3), np.float32)
@@ -503,7 +611,9 @@ def build_device_scene(
         tri_n1[: len(tris)] = n[tris[:, 4]]
         tri_n2[: len(tris)] = n[tris[:, 5]]
         tri_material[: len(tris)] = tris[:, 6]
-        tri_valid[: len(tris)] = True
+        # treelet_pack's pad rows lie between real triangles: its mask
+        # replaces the fill that marks only the tail
+        tri_valid[: len(tris)] = True if explicit_valid is None else explicit_valid
 
     # Intersection constants: sph_c2 in float64 (cancellation-sensitive),
     # the rest in f32, exactly as the reference computes them.
@@ -537,6 +647,9 @@ def build_device_scene(
         tri_adotn=tri_adotn,
     )
     if not with_bvh:
+        if asked == "auto" and shared_overflow(s_n, p_n, t_n, device):
+            # the chunk order left more chunks than a block holds
+            return build_device_scene(scene, device, pad_to, with_bvh=True)
         return device_scene_from_arrays(arrays, device)
     start = time.perf_counter()
     flat = build_bvh(scene)
@@ -573,7 +686,14 @@ def device_scene_from_arrays(arrays: dict, device=_device.DEFAULT, bvh=None) -> 
     )
     if bvh is not None:
         scene.bvh = device_bvh(bvh, scene)
-    picked = route(scene) if bvh is not None else counts_route(*_counts(scene))
+    picked = BVH if bvh is not None else counts_route(*_counts(scene))
+    n_bytes = shared_overflow(*_counts(scene), device) if picked == CHUNKED else 0
+    if n_bytes:
+        raise NotImplementedError(
+            f"the chunked kernels would ask for {n_bytes} bytes of shared memory a block on "
+            f"this scene ({scene_chunk_count(scene)} chunks), past the card's limit of "
+            f"{CHUNKED_MAX_SHARED}: build it with with_bvh=True or 'auto' (the BVH route)"
+        )
     if picked == SMALL:
         scene.trace_table = pack_rows(scene)
     elif picked == CHUNKED:

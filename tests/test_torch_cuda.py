@@ -703,3 +703,101 @@ def test_sync_rounds_on_the_card(dev, house_args):
     ref_mean = ref.cpu().numpy() / 2
     rel = np.sqrt((diff[keep] ** 2).mean()) / np.sqrt((ref_mean[keep] ** 2).mean())
     assert flipped.mean() < 0.03 and rel < 0.005
+
+
+# -- the chunk orders and the raised ceiling -----------------------------------
+# The three big-mesh kernels on suzanne stored in the bvh and treelet orders
+# (treelet's pad rows lie between real triangles) and in the host's order:
+# CHUNKED_CLOSEST and CHUNKED_ANY bitwise their plain versions on every
+# lane, BIG_SHADE by the gates.
+
+ORDER_KNOBS = {"bvh": {"RT_CHUNK_CLUSTER": "bvh"}, "treelet": {"RT_CHUNK_CLUSTER": "treelet"},
+               "host": {"RT_DISABLE_MORTON": "1"}}
+
+
+@pytest.fixture(scope="module", params=sorted(ORDER_KNOBS))
+def ordered_state(request, dev):
+    """The big-mesh kernels' inputs of a real loop iteration at 128x128 on
+    suzanne in one order."""
+    scene = load_scene(os.path.join(SCENES, "suzanne.toml"))
+    with pytest.MonkeyPatch.context() as mp:
+        for knob in ("RT_CHUNK_CLUSTER", "RT_DISABLE_MORTON"):
+            mp.delenv(knob, raising=False)
+        for knob, value in ORDER_KNOBS[request.param].items():
+            mp.setenv(knob, value)
+        ds = build_device_scene(scene, dev)
+    env = device_environment(Environment.from_texture("s", procedural_sky(256, 128)), dev)
+    wave = Wavefront(ds, env, camera_pytree(scene.camera, dev), 0, (128, 128), NO_LIMIT, 32, 8)
+    for it in range(3):
+        wave.step(it)
+    return request.param, ds, capture_step(wave, 3)
+
+
+def test_big_mesh_kernels_in_each_order(ordered_state):
+    order, ds, state = ordered_state
+    interleaved = (~ds.tri_valid.reshape(-1, 64)[:-1]).any()
+    assert bool(interleaved) == (order == "treelet")
+    args = state["closest"]
+    for a, b in zip(ci.chunked_closest_call(*args), intersect.chunked_closest_plain(*args)):
+        assert int(_bits_differ(a, b).sum()) == 0
+    args = state["occlusion"]
+    assert torch.equal(ci.chunked_any_call(*args), intersect.chunked_any_plain(*args))
+    assert int(args[3].sum()) > 0
+    args = state["big_shade"]
+    carry, act, hitm = cw.big_shade_call(*args)
+    ref_carry, ref_act, ref_hitm = cw.big_shade_plain(*args)
+    _compare(dict(carry, active=act, hitmask=hitm), dict(ref_carry, active=ref_act, hitmask=ref_hitm),
+             cw.SHADE_INT_NAMES)
+
+
+@pytest.mark.parametrize("small_len", [0, 192, 768, 3072])
+def test_shared_mirror_equals_the_kernels(dev, small_len):
+    from rsoderh_raytracing_tpu_torch.ops import _kernels
+    from rsoderh_raytracing_tpu_torch.scene.device import chunked_shared_bytes
+
+    lib = _kernels.library()
+    for n_chunks in (1, 15, 16, 17, 242, 3872, 15488, 16384, 20272, 20273, 30000):
+        assert chunked_shared_bytes(small_len, n_chunks) == lib.rt_chunked_shared_bytes(small_len, n_chunks)
+
+
+def test_raised_ceiling_sixteen_thousand_chunks(dev, monkeypatch):
+    """A seeded grid of 1,048,576 small triangles (16,384 chunks) under
+    RT_MAX_CHUNKED_TRIS=1048576: the chunked route on the card, both
+    kernels bitwise their plain versions on 4,096 lanes, t included; with
+    the default ceiling 'auto' takes the BVH route's decision."""
+    from rsoderh_raytracing_tpu_torch.scene.device import CHUNKED, auto_bvh, route
+
+    n_tri = 1 << 20
+    side = 1 << 10
+    g = np.random.default_rng(16)
+    ij = np.stack(np.meshgrid(np.arange(side), np.arange(side), indexing="ij"), -1).reshape(-1, 2)
+    base = np.concatenate([ij * 0.01, g.normal(0.0, 0.002, (n_tri, 1))], axis=1).astype(np.float32)
+    vertices = np.concatenate([base, base + [0.009, 0, 0], base + [0, 0.009, 0]]).astype(np.float32)
+    idx = np.arange(n_tri)
+    tris = np.stack([idx, idx + n_tri, idx + 2 * n_tri] + [np.zeros(n_tri, np.int64)] * 4,
+                    axis=-1).astype(np.int32)
+    scene = Scene(materials=[Material((1, 1, 1), 1, 0, (0, 0, 0))], spheres=[], planes=[],
+                  meshes=PackedMeshes(vertices=vertices, normals=np.array([[0.0, 0.0, 1.0]], np.float32),
+                                      triangles=tris),
+                  camera=Camera(pos=[5.0, 5.0, 3.0], yaw=0, pitch=0, fov_y=1.0))
+    monkeypatch.delenv("RT_CHUNK_CLUSTER", raising=False)
+    monkeypatch.setenv("RT_MAX_CHUNKED_TRIS", "1048576")
+    ds = build_device_scene(scene, dev, with_bvh="auto")
+    assert route(ds) == CHUNKED and ds.chunks.count == 16384
+    n = 4096
+    o = np.concatenate([g.uniform(0.0, 10.24, (n, 2)), g.uniform(0.5, 3.0, (n, 1))], axis=1)
+    d = np.concatenate([g.uniform(0.0, 10.24, (n, 2)), np.zeros((n, 1))], axis=1) - o
+    d[::5] = g.normal(size=(len(d[::5]), 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    comps = lambda a: tuple(torch.from_numpy(np.ascontiguousarray(a[:, k], np.float32)).to(dev)  # noqa: E731
+                            for k in range(3))
+    ro, rd = comps(o), comps(d)
+    mask = torch.from_numpy((g.random(n) < 0.9).astype(np.int32)).to(dev)
+    got = ci.chunked_closest_call(ds, ro, rd, mask)
+    ref = intersect.chunked_closest_plain(ds, ro, rd, mask)
+    for a, b in zip(got, ref):
+        assert int(_bits_differ(a, b).sum()) == 0
+    assert int((got[1] == 2).sum()) > n // 4  # about 40% of a cell is triangle
+    assert torch.equal(ci.chunked_any_call(ds, ro, rd, mask), intersect.chunked_any_plain(ds, ro, rd, mask))
+    monkeypatch.delenv("RT_MAX_CHUNKED_TRIS")
+    assert auto_bvh(8, 8, n_tri, dev)

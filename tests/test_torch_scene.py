@@ -173,6 +173,17 @@ for name, size, with_bvh in (("house", 16, False), ("suzanne", 8, False), ("hous
     assert img.shape == (size, size, 3) and bool(torch.isfinite(img).all())
     assert int(counts.min()) > 0
     write_png(os.devnull, tonemap.linear_to_srgb(tonemap.aces_tonemap(img / counts[..., None])).numpy())
+# a treelet-ordered chunked scene (scene.cluster): pad rows between real triangles
+os.environ["RT_CHUNK_CLUSTER"] = "treelet"
+from rsoderh_raytracing_tpu_torch.scene import cluster
+from rsoderh_raytracing_tpu_torch.scene.device import CHUNKED, route
+scene = load_scene("assets/scenes/suzanne.toml")
+treelet = build_device_scene(scene, device="cpu")
+del os.environ["RT_CHUNK_CLUSTER"]
+valid = treelet.tri_valid.reshape(-1, 64)
+assert route(treelet) == CHUNKED and int(valid.sum()) == 968 and bool((~valid[:-1]).any())
+img, counts = render_freerun(treelet, env, camera_pytree(scene.camera, device="cpu"), 0, (8, 8), 4, 4)
+assert bool(torch.isfinite(img).all()) and int(counts.min()) > 0
 # the Renderer (scan integrator, wavefront, film) and the command line
 scene = load_scene("assets/scenes/house.toml")
 renderer = Renderer(scene, 12, 8, environments=EnvironmentMaps([host_env]), max_bounces=3, device="cpu")
@@ -186,6 +197,7 @@ assert cli.main(["--scene", "assets/scenes/house.toml", "--resolution", "12x8", 
 assert os.environ["RT_DEBUG_NANS"] == "1"
 assert not [m for m in sys.modules if blocked(m)]
 assert "rsoderh_raytracing_tpu_torch.ops.cuda_intersect" in sys.modules
+assert "rsoderh_raytracing_tpu_torch.scene.cluster" in sys.modules
 assert accel_native.available() and isinstance(ds.bvh, ops_bvh.DeviceBVH)
 assert accel_bvh.TRAVERSAL_STACK_DEPTH == 64
 print("ok")
@@ -194,9 +206,10 @@ print("ok")
 
 def test_port_imports_and_renders_without_jax(tmp_path):
     # Neither jax nor the JAX package may be imported: chip_smoke.py and
-    # the port render house (small route), suzanne (big-mesh route) and
+    # the port render house (small route), suzanne (big-mesh route),
     # house with its BVH (the BVH modules: accel.bvh, accel.native,
-    # ops.bvh), and the Renderer and the command line render house, with
+    # ops.bvh) and suzanne in the treelet order (scene.cluster), and the
+    # Renderer and the command line render house, with
     # RT_DEBUG_NANS=1 set, the JAX package's switch that imports jax.
     env = dict(os.environ, PYTHONPATH=REPO, RT_DEBUG_NANS="1", PORT_TEST_TMP=str(tmp_path))
     proc = subprocess.run(
