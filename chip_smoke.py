@@ -113,8 +113,25 @@ exits non-zero at the first failure. Phases, one line each or more:
    'auto' takes the chunked route, the shared-memory mirror equals the
    kernels' figure, parity at 256x256, the three kernels' ms at 2048^2
    and one short 2048^2 call (budget 16) beside phase 12's BVH-route
-   Mrays/s; with the default ceiling 'auto' takes the BVH again.
-Each of 13-16 logs its seconds.
+   Mrays/s; with the default ceiling 'auto' takes the BVH again;
+17. every scene (profiling.tiled_house; the phase sets and unsets its
+   knobs): house_tiled16 (256 ground tiles, 328 padded lanes, a 26 KB
+   table: the small route past Mosaic's 192-lane budget) with the sweep
+   mirror against the card's limit, TRACE, SHADE, FUSED, CLOSEST and ANY
+   against their plain versions at 256x256 (and CLOSEST/ANY on the scan
+   states, t, type and index bitwise) and 2048x2048, the main path at
+   2048x2048, 8 bounces, free-run (TRACE and SHADE only), TRACE and SHADE
+   ms with their bounds, Mrays/s beside the BVH route's, and the 256x256
+   images of both routes by the flip-aware criteria; house_tiled64 (4,096
+   tiles) under intersector='sweep': the dense route, no kernel launched,
+   its warning once, its 256x256 image against the BVH route's, and one
+   2048x2048 call (seconds, Mrays/s, peak memory); RT_DISABLE_PALLAS=1:
+   house, suzanne_hi and suzanne_xxhi (BVH) at 256x256 with no kernel
+   launched, each image against its kernel route's, and house at
+   2048x2048; RT_DEBUG_NANS=1: the three scenes at 256x256 raise nothing,
+   a NaN ray lane handed to CLOSEST raises FloatingPointError naming it,
+   and house at 2048x2048 Mrays/s with the knob on and off.
+Each of 13-17 logs its seconds.
 
 Then the run's seconds, a JSON line with each of the ten kernels' launches, largest absolute and
 relative errors (and the outputs that hold them), times and bound, the
@@ -136,6 +153,7 @@ import subprocess
 import sys
 import termios
 import time
+import warnings
 from unittest import mock
 
 import numpy as np
@@ -144,7 +162,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-from rsoderh_raytracing_tpu_torch import cli, load_scene, write_png  # noqa: E402
+from rsoderh_raytracing_tpu_torch import _device, cli, load_scene, write_png  # noqa: E402
 from rsoderh_raytracing_tpu_torch.accel import bvh as accel_bvh  # noqa: E402
 from rsoderh_raytracing_tpu_torch.accel import native as accel_native  # noqa: E402
 from rsoderh_raytracing_tpu_torch.ops import bvh as bvh_ops  # noqa: E402
@@ -163,8 +181,9 @@ from rsoderh_raytracing_tpu_torch.parallel.sharding import (  # noqa: E402
 )
 from rsoderh_raytracing_tpu_torch.profiling import (  # noqa: E402
     CLUSTER_ORDERS, KERNELS, bound_ms, bvh_bound, capture_scan, capture_step, card_line, chunk_order,
-    chunked_bound, cluster_report, first_hit_ops, kernel_breakdown, knob_env, scan_bounds, scan_calls,
-    scene_gathers, scene_setup, shade_outputs, sweep_calls, sweep_ops, time_ms, valid_sweep_ops,
+    chunked_bound, cluster_report, first_hit_ops, kernel_breakdown, knob_env, named_scene, scan_bounds,
+    scan_calls, scene_gathers, scene_setup, shade_outputs, sweep_calls, sweep_ops, time_ms,
+    valid_sweep_ops,
 )
 from rsoderh_raytracing_tpu_torch.render.integrator import (  # noqa: E402
     MAX_BOUNCES, camera_pytree, render_sample,
@@ -174,7 +193,8 @@ from rsoderh_raytracing_tpu_torch.render.wavefront import (  # noqa: E402
     NO_LIMIT, Wavefront, render_freerun, render_spp_sync, render_wavefront,
 )
 from rsoderh_raytracing_tpu_torch.scene.device import (  # noqa: E402
-    BVH, CHUNKED, TRI_CHUNK, auto_bvh, build_device_scene, route,
+    BVH, CHUNKED, DENSE, SMALL, SWEEP_MAX_SHARED, TRI_CHUNK, auto_bvh, build_device_scene, route,
+    sweep_shared_bytes,
 )
 from rsoderh_raytracing_tpu_torch.utils.png import read_png  # noqa: E402
 
@@ -1223,6 +1243,221 @@ def cluster_phase(sky, card, dev, max_err, bvh_mrays):
         speed_s=f"{speed_s:.1f}", ceiling_s=f"{time.perf_counter() - start:.1f}")
 
 
+# Phase 17: every scene. The tiled scenes' image checks (size, free-run
+# budget), the BVH route's speed call on house_tiled16, house_tiled64's
+# dense 2048^2 call, and the knobs' 256^2 images (budget by scene) and
+# 2048^2 calls.
+EVERY_SIZE, EVERY_BUDGET = 256, 8
+TILED_BVH_BUDGET = 64
+DENSE_BUDGET = 1
+KNOB_SCENES = {"house": (False, 8), "suzanne_hi": (False, 4), "suzanne_xxhi": ("auto", 2)}
+KNOB_MAIN_BUDGET = 8
+NANS_MAIN_BUDGET = 64
+
+
+def image_check(label, got, ref):
+    """Log and assert the flip-aware criteria of two (mean image, counts)
+    pairs of the same samples."""
+    flipped, rel = flip_criteria(got[0], ref[0])
+    counts_equal = float((got[1] == ref[1]).mean())
+    log("every_image", compare=label, flipped=f"{flipped:.5f}", rel_rmse_unflipped=f"{rel:.3e}",
+        counts_equal=f"{counts_equal:.6f}",
+        bit_equal_share=f"{float((got[0].view(np.uint32) == ref[0].view(np.uint32)).mean()):.6f}")
+    if not (counts_equal >= 0.999 and flipped < FLIPPED_MAX and rel < UNFLIPPED_REL_RMSE_MAX):
+        raise AssertionError(f"{label}: the images fail the flip-aware criteria")
+
+
+def no_launches(label):
+    counted = launches()
+    if any(counted.values()):
+        raise AssertionError(f"{label} launched a kernel: {counted}")
+
+
+def freerun_rate(ds, env, cam, budget, dev):
+    """(seconds, Mrays/s, peak MiB) of one free-run call at SIZE^2 from
+    counts 0."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    start = time.perf_counter()
+    _, counts, stats = render_freerun(ds, env, cam, 0, (SIZE, SIZE), budget, BOUNCES, with_stats=True)
+    rays = int(stats["closest_rays"] + stats["shadow_rays"])  # synchronizes
+    seconds = time.perf_counter() - start
+    if int(counts.min()) <= 0:
+        raise AssertionError("a free-run call left pixels without samples")
+    return seconds, rays / seconds / 1e6, torch.cuda.max_memory_allocated(dev) / 2**20
+
+
+def every_scene_phase(sky, card, dev, max_err, paths):
+    """Phase 17: the small route past the unroll budget, the dense route,
+    RT_DISABLE_PALLAS and RT_DEBUG_NANS. Adds house_tiled16's TRACE and
+    SHADE launches to `paths`."""
+    phase_start = time.perf_counter()
+    n_pixels = SIZE * SIZE
+    with knob_env({"RT_DISABLE_PALLAS": None, "RT_DEBUG_NANS": None}):
+        # house_tiled16: the small route past the budget
+        start = time.perf_counter()
+        ds, env, cam = scene_setup("house_tiled16", dev, sky)
+        counts4 = (ds.sph_radius.shape[0], ds.pln_valid.shape[0], ds.tri_valid.shape[0],
+                   ds.mat_roughness.shape[0])
+        card_max = ci.sweep_max_table_bytes()
+        log("every_scene", scene="house_tiled16", route=route(ds), lanes=ds.num_lanes, counts=counts4,
+            sweep_rows=ds.sweep_rows, table_bytes=ds.trace_table.numel() * 4,
+            mirror_bytes=sweep_shared_bytes(*counts4), mirror_max=SWEEP_MAX_SHARED, card_max=card_max)
+        if route(ds) != SMALL or ds.num_lanes != 328 or card_max != SWEEP_MAX_SHARED:
+            raise AssertionError("house_tiled16 is not on the small route, or the mirror is not the card's")
+        small = loop_state(ds, env, cam, 256, 0, 3)
+        trace_parity("house_tiled16", 256 * 256, small["trace"], max_err)
+        keep_worst(max_err, "shade", check_parity(
+            "shade:house_tiled16", 256 * 256, shade_outputs(cw.shade_call(*small["shade"])),
+            shade_outputs(cw.shade_plain(*small["shade"])), cw.SHADE_INT_NAMES))
+        sweep_parity(small["trace"], 256 * 256, max_err)
+        for size in (256, SIZE):
+            for bounce, state in capture_scan(ds, env, cam, size, BOUNCES).items():
+                scan_parity(f"house_tiled16_scan{bounce}", size * size, ds, state, max_err)
+        del small
+        counted, image, counts, warm = timed_main("house_tiled16", ds, env, cam, card, 1, dev)
+        others = {k: counted[k] for k in launches() if k not in ("trace", "shade")}
+        if not counted["trace"] == counted["shade"] == counted["iterations"] or any(others.values()):
+            raise AssertionError(f"the house_tiled16 main path is not TRACE and SHADE alone: {counted}")
+        paths["trace"]["house_tiled16"] = counted["trace"]
+        paths["shade"]["house_tiled16"] = counted["shade"]
+        small_mrays = counted["mrays_per_s"]
+        save_png("house_tiled16", image, counts, warm)
+        del image
+        main_args = loop_state(ds, env, cam, SIZE, 0, 0, kernel_iterations=2)
+        trace_parity("house_tiled16", n_pixels, main_args["trace"], max_err)
+        keep_worst(max_err, "shade", check_parity(
+            "shade:house_tiled16", n_pixels, shade_outputs(cw.shade_call(*main_args["shade"])),
+            shade_outputs(cw.shade_plain(*main_args["shade"])), cw.SHADE_INT_NAMES))
+        sweep_parity(main_args["trace"], n_pixels, max_err)
+        # TRACE and SHADE ms with the bounds of phase 3, on this table
+        calls, shadow_rays = sweep_calls(main_args["trace"])
+        trace_ops = n_pixels * sweep_ops(ds) + first_hit_ops(ds, shadow_rays)
+        for name, kfn, n_bytes, n_ops in (
+            ("trace", cw.trace_call,
+             n_pixels * (4 * len(cw.TRACE_CARRY_IN) + 16 + 16 + 4 * (len(cw.TRACE_OUT_NAMES) - 1) + 16),
+             trace_ops),
+            ("shade", cw.shade_call, n_pixels * 4 * (len(cw.SHADE_IN) + 4 + len(cw.SHADE_OUT_NAMES)), 0),
+        ):
+            args = main_args[name]
+            ms = (time_ms(lambda: kfn(*args), 10) + time_ms(lambda: kfn(*args), 10)) / 2
+            bound = bound_ms(n_bytes, n_ops)
+            log("timing", kernel=name, scene="house_tiled16", lanes=n_pixels, ms=f"{ms:.4f}",
+                bound_ms=f"{bound[0]:.4f}", bound_by=bound[1], ops_per_lane=f"{n_ops / n_pixels:.1f}",
+                card=repr(card))
+        del calls, shadow_rays, main_args
+        hi_img = freerun_image(ds, env, cam, EVERY_SIZE, EVERY_BUDGET)
+        bvh_ds = build_device_scene(named_scene("house_tiled16"), dev, with_bvh=True)
+        image_check("house_tiled16_small_vs_bvh", hi_img, freerun_image(bvh_ds, env, cam, EVERY_SIZE,
+                                                                        EVERY_BUDGET))
+        bvh_counted = timed_main("house_tiled16_bvh", bvh_ds, env, cam, card, 1, dev,
+                                 budget=TILED_BVH_BUDGET)[0]
+        log("every_scene", scene="house_tiled16", small_mrays_per_s=f"{small_mrays:.2f}",
+            bvh_mrays_per_s=f"{bvh_counted['mrays_per_s']:.2f}",
+            small_over_bvh=f"{small_mrays / bvh_counted['mrays_per_s']:.4f}",
+            seconds=f"{time.perf_counter() - start:.1f}", card=repr(card))
+        del ds, bvh_ds
+
+        # house_tiled64 under intersector='sweep': the dense route
+        start = time.perf_counter()
+        scene64 = named_scene("house_tiled64")
+        cam64 = camera_pytree(scene64.camera, dev)
+        _device._warned.discard("dense")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            dense = build_device_scene(scene64, dev, with_bvh=False)
+            counts64 = (dense.sph_radius.shape[0], dense.pln_valid.shape[0], dense.tri_valid.shape[0])
+            if route(dense) != DENSE or not auto_bvh(*counts64, dev, dense.mat_roughness.shape[0]):
+                raise AssertionError("house_tiled64 is not dense under 'sweep' and BVH under 'auto'")
+            reset_launches()
+            dense_img = freerun_image(dense, env, cam64, EVERY_SIZE, EVERY_BUDGET)
+            no_launches("house_tiled64 on the dense route")
+        warned = sum("dense sweep" in str(w.message) for w in caught)
+        log("every_scene", scene="house_tiled64", route=route(dense), why=repr(dense.why_dense),
+            dense_warnings=warned)
+        if warned != 1:
+            raise AssertionError(f"the dense route warned {warned} times, not once")
+        bvh_ds = build_device_scene(scene64, dev, with_bvh="auto")
+        if route(bvh_ds) != BVH:
+            raise AssertionError("'auto' did not walk house_tiled64's BVH on the card")
+        image_check("house_tiled64_dense_vs_bvh", dense_img,
+                    freerun_image(bvh_ds, env, cam64, EVERY_SIZE, EVERY_BUDGET))
+        reset_launches()
+        seconds, mrays, peak = freerun_rate(dense, env, cam64, DENSE_BUDGET, dev)
+        no_launches("house_tiled64's 2048^2 dense call")
+        bvh_seconds, bvh_mrays, _ = freerun_rate(bvh_ds, env, cam64, DENSE_BUDGET, dev)
+        log("every_scene", scene="house_tiled64", size=SIZE, budget=DENSE_BUDGET,
+            dense_seconds=f"{seconds:.3f}", dense_mrays_per_s=f"{mrays:.3f}",
+            dense_peak_allocated_mib=f"{peak:.1f}", bvh_seconds=f"{bvh_seconds:.3f}",
+            bvh_mrays_per_s=f"{bvh_mrays:.2f}", seconds=f"{time.perf_counter() - start:.1f}",
+            card=repr(card))
+        del dense, bvh_ds
+
+        # RT_DISABLE_PALLAS=1: no kernel on three scenes
+        start = time.perf_counter()
+        for name, (with_bvh, budget) in KNOB_SCENES.items():
+            scene = named_scene(name)
+            kcam = camera_pytree(scene.camera, dev)
+            kernel_ds = build_device_scene(scene, dev, with_bvh=with_bvh)
+            ref = freerun_image(kernel_ds, env, kcam, EVERY_SIZE, budget)
+            del kernel_ds
+            with knob_env({"RT_DISABLE_PALLAS": "1"}):
+                plain_ds = build_device_scene(scene, dev, with_bvh=with_bvh)
+                reset_launches()
+                got = freerun_image(plain_ds, env, kcam, EVERY_SIZE, budget)
+                no_launches(f"{name} under RT_DISABLE_PALLAS=1")
+                log("every_scene", scene=name, knob="RT_DISABLE_PALLAS=1", route=route(plain_ds),
+                    budget=budget)
+                if name == "house":
+                    seconds, mrays, peak = freerun_rate(plain_ds, env, kcam, KNOB_MAIN_BUDGET, dev)
+                    no_launches("house at 2048^2 under RT_DISABLE_PALLAS=1")
+                    log("every_scene", scene=name, knob="RT_DISABLE_PALLAS=1", size=SIZE,
+                        budget=KNOB_MAIN_BUDGET, seconds=f"{seconds:.3f}", mrays_per_s=f"{mrays:.2f}",
+                        peak_allocated_mib=f"{peak:.1f}", card=repr(card))
+            del plain_ds
+            image_check(f"{name}_disable_pallas_vs_kernels", got, ref)
+        log("every_scene", knob="RT_DISABLE_PALLAS=1", seconds=f"{time.perf_counter() - start:.1f}")
+
+        # RT_DEBUG_NANS=1: clean runs raise nothing; a NaN ray lane does
+        start = time.perf_counter()
+        for name, (with_bvh, budget) in KNOB_SCENES.items():
+            scene = named_scene(name)
+            nds = build_device_scene(scene, dev, with_bvh=with_bvh)
+            with knob_env({"RT_DEBUG_NANS": "1"}):
+                freerun_image(nds, env, camera_pytree(scene.camera, dev), EVERY_SIZE, budget)
+            if name == "house":
+                house_ds = nds
+            del nds
+        hcam = camera_pytree(named_scene("house").camera, dev)
+        carry = loop_state(house_ds, env, hcam, 256, 0, 0, kernel_iterations=1)["trace"][2]
+        ro = [carry[k].clone() for k in ("ro0", "ro1", "ro2")]
+        rd = tuple(carry[k] for k in ("rd0", "rd1", "rd2"))
+        ro[0][7] = float("nan")
+        with knob_env({"RT_DEBUG_NANS": "1"}):
+            reset_launches()
+            try:
+                ci.closest_call(house_ds, tuple(ro), rd)
+            except FloatingPointError as err:
+                raised = str(err)
+            else:
+                raised = None
+        log("every_scene", knob="RT_DEBUG_NANS=1", injected="a NaN ray origin in lane 7 of CLOSEST",
+            closest_launches=launches()["closest"], raised=repr(raised))
+        if raised is None or "CLOSEST output" not in raised or launches()["closest"] != 1:
+            raise AssertionError("the NaN in CLOSEST's outputs did not raise FloatingPointError")
+        rates = {}
+        for knob in (None, "1", "1", None):
+            with knob_env({"RT_DEBUG_NANS": knob}):
+                rates.setdefault(knob, []).append(
+                    freerun_rate(house_ds, env, hcam, NANS_MAIN_BUDGET, dev)[1])
+        log("every_scene", knob="RT_DEBUG_NANS", scene="house", size=SIZE, budget=NANS_MAIN_BUDGET,
+            off_mrays_per_s=",".join(f"{r:.2f}" for r in rates[None]),
+            on_mrays_per_s=",".join(f"{r:.2f}" for r in rates["1"]),
+            seconds=f"{time.perf_counter() - start:.1f}", card=repr(card))
+        del house_ds
+    log("every_scene_phase", seconds=f"{time.perf_counter() - phase_start:.1f}")
+
+
 def main() -> int:
     smoke_start = time.perf_counter()
     # 1. device
@@ -1429,7 +1664,7 @@ def main() -> int:
     bvh_launches = bvh_phase(sky, card, dev, max_err, times, bounds)
 
     # 13. sync rounds, 14. the multi-device split, 15. the viewer, 16. the
-    # chunk orders
+    # chunk orders, 17. every scene
     sync_phase(sky, card, dev)
     multi_device_phase(sky_host, sky, card, dev)
     viewer_phase(card, dev)
@@ -1456,10 +1691,17 @@ def main() -> int:
                "fused": composed_launches["fused"],
                **{k: scan_launches[k] for k in ("closest", "any")},
                **{k: bvh_launches[k] for k in ("bvh_closest", "bvh_any")}}
+    # each kernel's launches by the main path that counted them
+    paths = {k: {path: counted[k]} for k, path in (
+        ("trace", "house"), ("shade", "house"), ("chunked_closest", "suzanne_hi"),
+        ("chunked_any", "suzanne_hi"), ("big_shade", "suzanne_hi"), ("fused", "house_composed"),
+        ("closest", "house_scan"), ("any", "house_scan"), ("bvh_closest", "suzanne_xxhi"),
+        ("bvh_any", "suzanne_xxhi"))}
+    every_scene_phase(sky, card, dev, max_err, paths)
     kernels = [
         {"name": name, "route": "cuda",
          "source": sources[name],
-         "replaces": replaces[name], "launches": counted[name],
+         "replaces": replaces[name], "launches": counted[name], "launches_by_path": paths[name],
          "max_abs_err": max_err[name]["abs"][0], "max_rel_err": max_err[name]["rel"][0],
          "max_abs_output": max_err[name]["abs"][1], "max_rel_output": max_err[name]["rel"][1],
          "ms": times[name][0], "plain_ms": times[name][1],

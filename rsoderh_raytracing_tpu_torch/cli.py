@@ -66,10 +66,12 @@ def build_parser() -> argparse.ArgumentParser:
         "--intersector",
         choices=("auto", "sweep", "bvh"),
         default="auto",
-        help="sweep: the sweep kernels (unrolled within the unroll budget,"
-        " chunked past it). bvh: build the SAH BVH and walk it. auto: the"
-        " sweep kernels where they cover the scene, the BVH past their"
-        " ceilings (on --device cpu also past 262,144 triangles).",
+        help="sweep: the sweep kernels (the packed table within a block's"
+        " shared memory, or chunked past the unroll budget), and the dense"
+        " sweep in plain PyTorch, with a warning, for a scene neither covers."
+        " bvh: build the SAH BVH and walk it. auto: on the card the sweep"
+        " kernels where they cover the scene, else the BVH; on --device cpu"
+        " the reference's rule, the BVH past 262,144 triangle lanes.",
     )
     parser.add_argument("--max-bounces", type=int, default=10)
     parser.add_argument("--output", default="render.png")

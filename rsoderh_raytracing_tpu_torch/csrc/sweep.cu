@@ -23,7 +23,8 @@
 // first threads sweep the list, so the sweeping warps are dense and the
 // warps past the list do no sweep; a block with no set lane stages
 // nothing. The block stages the packed scene table (scene/device.py:
-// pack_rows, at most 192 primitives; house 9 KB) in shared memory, and
+// pack_rows; house 9 KB, house_tiled16's 328 rows 26 KB, at most
+// SWEEP_MAX_TABLE_BYTES) in shared memory, and
 // the threads of a warp read the same row at a time, a broadcast. Each
 // kind's loop stops at its last valid row (the padding is trailing; house
 // sweeps 2 + 2 + 52 of its 8 + 8 + 56 rows); indices stay those of the
@@ -222,14 +223,6 @@ __global__ void fused_kernel(FusedArgs a, const float* __restrict__ table, int t
   a.occ[i] = t.occ ? 1 : 0;
 }
 
-// Bytes of dynamic shared memory for the table; past 48 KB the kernel
-// must opt in. Returns a CUDA error code.
-template <class Kernel>
-int reserve_table(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
 }  // namespace
 
 extern "C" {
@@ -264,6 +257,26 @@ int rt_any_launch(void** p, const float* table, int table_len, int n, int n_sph,
   any_kernel<<<(n + kThreads - 1) / kThreads, kThreads, smem, (cudaStream_t)stream>>>(
       a, table, table_len, n, n_sph, n_pln, n_tri, Rows{{rows_sph, rows_pln, rows_tri}});
   return (int)cudaGetLastError();
+}
+
+// The dynamic shared memory that each of CLOSEST, ANY and FUSED can ask
+// for on the current card: its opt-in limit less the kernel's static
+// shared memory, the least of the three (what SWEEP_MAX_TABLE_BYTES
+// assumes); -1 where the card cannot be asked.
+int rt_sweep_max_table_bytes() {
+  int dev = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
+    return -1;
+  const void* kernels[] = {(const void*)closest_kernel, (const void*)any_kernel,
+                           (const void*)fused_kernel};
+  size_t fixed = 0;
+  for (const void* k : kernels) {
+    cudaFuncAttributes attr;
+    if (cudaFuncGetAttributes(&attr, k) != cudaSuccess) return -1;
+    fixed = attr.sharedSizeBytes > fixed ? attr.sharedSizeBytes : fixed;
+  }
+  return optin - (int)fixed;
 }
 
 // p: 25 device pointers, FusedArgs field order (9 f32 inputs, then hit

@@ -26,7 +26,9 @@
 // block, ragged tail masked). The (32,128) tiles, SMEM windows and the
 // hi/lo u32->f32 split of the Pallas version only served Mosaic. TRACE
 // stages the packed scene table (house: 72 primitives + 8 materials,
-// 9 KB; at most 192 primitives) in shared memory at block start; every
+// 9 KB; house_tiled16: 328 primitives, 26 KB; any table up to
+// SWEEP_MAX_TABLE_BYTES, past Mosaic's 192-lane unroll budget) in shared
+// memory at block start; every
 // thread of a warp then reads the same primitive, a broadcast. SHADE and
 // BIG_SHADE share shade_core (wavefront_common.cuh), so they cannot drift
 // apart.
@@ -346,12 +348,8 @@ int rt_trace_launch(void** p, const float* table, int table_len, int n, int n_sp
   TraceArgs a;
   memcpy(&a, p, sizeof(a));
   if (n <= 0) return 0;
-  size_t smem = (size_t)table_len * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        trace_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  const size_t smem = (size_t)table_len * sizeof(float);
+  if (int err = reserve_table(trace_kernel, smem)) return err;
   const EnvRows env{(const float4*)alias, (const uint4*)quad, env_w, env_h};
   trace_kernel<<<(n + kThreads - 1) / kThreads, kThreads, smem, (cudaStream_t)stream>>>(
       a, table, table_len, n, n_sph, n_pln, n_tri, n_mat, env);

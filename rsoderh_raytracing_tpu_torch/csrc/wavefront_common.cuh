@@ -515,6 +515,25 @@ __device__ __forceinline__ const float* material_row(const float* mat, int n_mat
   return mat + ((mat_id >= 0 && mat_id < n_mat) ? mat_id : 0) * MAT_COLS;
 }
 
+// The most dynamic shared memory a sweep kernel (TRACE, FUSED, CLOSEST,
+// ANY) asks for to stage the packed table: a block's 232,448 bytes (227 KB,
+// the H100's opt-in limit) less the 1,056 bytes of CLOSEST's and ANY's
+// static lane list (sweep.cu). The table has no row cap besides: past
+// 48 KB a launcher opts in (reserve_table), past this it refuses the
+// launch. scene/device.py mirrors it (SWEEP_MAX_SHARED) and routes a
+// larger table elsewhere; rt_sweep_max_table_bytes asks the card.
+constexpr size_t SWEEP_MAX_TABLE_BYTES = 232448 - 1056;
+
+// Bytes of dynamic shared memory for a table of table_len floats, after
+// the kernel's opt-in past 48 KB; a CUDA error code, cudaErrorInvalidValue
+// past SWEEP_MAX_TABLE_BYTES.
+template <class Kernel>
+int reserve_table(Kernel kernel, size_t smem) {
+  if (smem > SWEEP_MAX_TABLE_BYTES) return (int)cudaErrorInvalidValue;
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
 // Stage the packed scene table in shared memory (every thread of the block
 // takes part, then a barrier) and return its rows' view.
 __device__ __forceinline__ SceneView stage_scene(float* smem, const float* __restrict__ table,

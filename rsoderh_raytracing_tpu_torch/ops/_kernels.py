@@ -123,6 +123,7 @@ def load(flags=NVCC_FLAGS):
         "rt_chunked_any_launch": [vp, vp, i, i, i, vp, vp, i, i, vp, i, vp],
         "rt_chunked_shared_bytes": [i, i],
         "rt_chunked_batch": [],
+        "rt_sweep_max_table_bytes": [],
         "rt_closest_launch": [vp, vp, i, i, i, i, i, i, i, i, i, vp],
         "rt_any_launch": [vp, vp, i, i, i, i, i, i, i, i, vp],
         "rt_fused_launch": [vp, vp, i, i, i, i, i, i, vp],

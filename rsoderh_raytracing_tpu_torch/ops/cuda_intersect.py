@@ -1,18 +1,22 @@
 """The sweep kernels' wrappers: CHUNKED_CLOSEST and CHUNKED_ANY (the
-big-mesh route), CLOSEST, ANY and FUSED (scenes within the unroll budget),
-and the BVH route's walks, BVH_CLOSEST and BVH_ANY.
+big-mesh route), CLOSEST, ANY and FUSED (the small route: a packed table
+within a block's shared memory, SWEEP_MAX_SHARED), and the BVH route's
+walks, BVH_CLOSEST and BVH_ANY.
 
 Counterpart of rsoderh_raytracing_tpu/ops/pallas_intersect.py's entry
 points (``chunked_closest_tiles``, ``chunked_any_tiles``,
 ``closest_sweep``, ``any_sweep``, ``fused_trace``). The wrappers take
 flat (n,) tensors: ray components as 3-tuples and an int32 lane mask
-(optional for CLOSEST and ANY). For CPU tensors they run the plain versions
+(optional for CLOSEST and ANY). For CPU tensors, and for CUDA tensors under
+RT_DISABLE_PALLAS=1 (``_device.use_plain``), they run the plain versions
 (``intersect.chunked_closest_plain`` / ``chunked_any_plain`` /
-``closest_record`` / ``any_sweep`` / ``trace_attrs``); for CUDA tensors
-they launch the kernels in ``csrc/chunked.cu``, ``csrc/sweep.cu`` and
+``closest_record`` / ``any_sweep`` / ``trace_attrs``); otherwise they
+launch the kernels in ``csrc/chunked.cu``, ``csrc/sweep.cu`` and
 ``csrc/bvh.cu`` or raise. ``LAUNCHES`` counts the kernel launches of each
 wrapper. The BVH wrappers' plain versions are ``bvh.closest_plain`` and
 ``bvh.any_plain`` (ops/bvh.py), and their tables the scene's DeviceBVH.
+Under RT_DEBUG_NANS=1 every wrapper checks its float outputs, whichever
+ran (``_device.check_nans``).
 
 The scene data are the DeviceScene's chunk tables (scene/device.py:
 bounds, 20-float window rows, and the unrolled primitives, planes and
@@ -25,11 +29,12 @@ import ctypes
 
 import torch
 
+from rsoderh_raytracing_tpu_torch import _device
 from rsoderh_raytracing_tpu_torch.ops import bvh as bvh_ops
 from rsoderh_raytracing_tpu_torch.ops import cuda_wavefront as cw
 from rsoderh_raytracing_tpu_torch.ops import intersect
 from rsoderh_raytracing_tpu_torch.scene.device import (
-    BVH, CHUNKED, CHUNKED_MAX_SHARED, SMALL, route,
+    BVH, CHUNKED, CHUNKED_MAX_SHARED, DENSE, route,
 )
 from rsoderh_raytracing_tpu_torch.scene.device import chunked_shared_bytes as mirror_shared_bytes
 
@@ -96,10 +101,14 @@ def chunked_closest_call(scene, ro, rd, live):
     """Closest hit of rays (ro, rd) over the whole scene for lanes with
     live != 0, over the unrolled primitives only for the others.
     Returns (t f32, type i32, index i32); type -1 is a miss."""
-    if live.device.type == "cpu":
-        return intersect.chunked_closest_plain(scene, ro, rd, live)
-    if live.device.type != "cuda":
-        raise ValueError(f"chunked_closest_call: unsupported device {live.device}")
+    if _device.use_plain(live, "chunked_closest_call"):
+        out = intersect.chunked_closest_plain(scene, ro, rd, live)
+    else:
+        out = _chunked_closest_launch(scene, ro, rd, live)
+    return _device.check_nans("CHUNKED_CLOSEST", out, ("t", "type", "index"))
+
+
+def _chunked_closest_launch(scene, ro, rd, live):
     from rsoderh_raytracing_tpu_torch.ops import _kernels
 
     n, dev, ptrs, scene_args = _launch_args(scene, (*ro, *rd), live, "chunked_closest_call")
@@ -118,10 +127,8 @@ def chunked_closest_call(scene, ro, rd, live):
 def chunked_any_call(scene, p, d, mask):
     """Occlusion (i32 0/1) of rays from p along d by any primitive, the
     chunked ones only for lanes with mask != 0."""
-    if mask.device.type == "cpu":
+    if _device.use_plain(mask, "chunked_any_call"):
         return intersect.chunked_any_plain(scene, p, d, mask)
-    if mask.device.type != "cuda":
-        raise ValueError(f"chunked_any_call: unsupported device {mask.device}")
     from rsoderh_raytracing_tpu_torch.ops import _kernels
 
     n, dev, ptrs, scene_args = _launch_args(scene, (*p, *d), mask, "chunked_any_call")
@@ -142,16 +149,24 @@ FUSED_OUT_NAMES = (
 )
 
 
+def sweep_max_table_bytes() -> int:
+    """The dynamic shared memory that each of CLOSEST, ANY and FUSED can
+    ask for on this card (its opt-in limit less the kernel's static shared
+    memory; TRACE has none), from the kernels' library (builds the
+    kernels): what SWEEP_MAX_SHARED mirrors."""
+    from rsoderh_raytracing_tpu_torch.ops import _kernels
+
+    return _kernels.library().rt_sweep_max_table_bytes()
+
+
 def _small_args(scene, rays, what):
     """Check the ray inputs of CLOSEST, ANY or FUSED; returns (lanes,
     device, the packed scene table's launch arguments)."""
-    if route(scene) != SMALL:
-        raise ValueError(f"{what}: the scene is past the unroll budget; it takes the chunked route")
+    table = cw.check_table(scene, what)
     n = rays[0].shape[0]
     dev = rays[0].device
     for i, t in enumerate(rays):
         cw._check(f"{what} ray input {i}", t, n, torch.float32, dev)
-    table = scene.trace_table
     if table.device != dev:
         raise ValueError(f"{what}: rays on {dev}, scene on {table.device}")
     scene_args = (
@@ -179,20 +194,24 @@ def _lane_mask(mask, n, dev, what):
 
 
 def closest_call(scene, ro, rd, live=None):
-    """CLOSEST over a scene within the unroll budget: a dict by
+    """CLOSEST over a SMALL scene's packed table: a dict by
     CLOSEST_OUT_NAMES of the closest hit of rays (ro, rd), its point,
     normal, material id and material values, for lanes with live != 0
     (every lane when live is None); a miss is (3e38, -1, 0) with the
     point, normal and material of intersect._hit_attributes. Every other
     lane holds the miss record with zero attributes
     (intersect.closest_record)."""
-    rays = (*ro, *rd)
-    if rays[0].device.type == "cpu":
-        return intersect.closest_record(scene, ro, rd, live)
-    if rays[0].device.type != "cuda":
-        raise ValueError(f"closest_call: unsupported device {rays[0].device}")
+    if _device.use_plain(ro[0], "closest_call"):
+        out = intersect.closest_record(scene, ro, rd, live)
+    else:
+        out = _closest_launch(scene, ro, rd, live)
+    return _device.check_nans("CLOSEST", out)
+
+
+def _closest_launch(scene, ro, rd, live):
     from rsoderh_raytracing_tpu_torch.ops import _kernels
 
+    rays = (*ro, *rd)
     n, dev, scene_args = _small_args(scene, rays, "closest_call")
     mask = _lane_mask(live, n, dev, "closest_call")
     outs = {
@@ -210,15 +229,13 @@ def closest_call(scene, ro, rd, live=None):
 
 
 def any_call(scene, ro, rd, mask=None):
-    """ANY: (n,) bool, some primitive of a scene within the unroll
-    budget is hit, for lanes with mask != 0 (every lane when mask is
-    None); False on every other lane."""
+    """ANY: (n,) bool, some primitive of a SMALL scene is hit, for lanes
+    with mask != 0 (every lane when mask is None); False on every other
+    lane."""
     rays = (*ro, *rd)
-    if rays[0].device.type == "cpu":
+    if _device.use_plain(rays[0], "any_call"):
         occ = intersect.any_sweep(scene, *rays)
         return occ if mask is None else occ & (mask != 0)
-    if rays[0].device.type != "cuda":
-        raise ValueError(f"any_call: unsupported device {rays[0].device}")
     from rsoderh_raytracing_tpu_torch.ops import _kernels
 
     n, dev, scene_args = _small_args(scene, rays, "any_call")
@@ -236,14 +253,18 @@ def any_call(scene, ro, rd, mask=None):
 
 def fused_call(scene, ro, rd, nee_dir):
     """FUSED: closest hit, hit point, winner normal, material values and
-    the NEE occlusion from the hit point along nee_dir, over a scene
-    within the unroll budget. Returns a dict by FUSED_OUT_NAMES
+    the NEE occlusion from the hit point along nee_dir, over a SMALL
+    scene's packed table. Returns a dict by FUSED_OUT_NAMES
     (intersect.trace_attrs's)."""
     rays = (*ro, *rd, *nee_dir)
-    if rays[0].device.type == "cpu":
-        return intersect.trace_attrs(scene, *rays)
-    if rays[0].device.type != "cuda":
-        raise ValueError(f"fused_call: unsupported device {rays[0].device}")
+    if _device.use_plain(rays[0], "fused_call"):
+        out = intersect.trace_attrs(scene, *rays)
+    else:
+        out = _fused_launch(scene, rays)
+    return _device.check_nans("FUSED", out)
+
+
+def _fused_launch(scene, rays):
     from rsoderh_raytracing_tpu_torch.ops import _kernels
 
     n, dev, scene_args = _small_args(scene, rays, "fused_call")
@@ -291,10 +312,14 @@ def bvh_closest_call(scene, ro, rd, live):
     on a BVH miss by the sphere and plane sweep, for lanes with live != 0;
     (3e38, -1, 0) on the others. Returns (t f32, type i32, index i32)."""
     _bvh_depth(scene, "bvh_closest_call")
-    if live.device.type == "cpu":
-        return bvh_ops.closest_plain(scene, ro, rd, live)
-    if live.device.type != "cuda":
-        raise ValueError(f"bvh_closest_call: unsupported device {live.device}")
+    if _device.use_plain(live, "bvh_closest_call"):
+        out = bvh_ops.closest_plain(scene, ro, rd, live)
+    else:
+        out = _bvh_closest_launch(scene, ro, rd, live)
+    return _device.check_nans("BVH_CLOSEST", out, ("t", "type", "index"))
+
+
+def _bvh_closest_launch(scene, ro, rd, live):
     from rsoderh_raytracing_tpu_torch.ops import _kernels
 
     n, dev, tree, fetch = _bvh_args(scene, (*ro, *rd), live, "bvh_closest_call")
@@ -317,10 +342,8 @@ def bvh_any_call(scene, p, d, mask):
     """BVH_ANY: occlusion (i32 0/1) of rays from p along d by the BVH walk
     (no fallback), for lanes with mask != 0; 0 on the others."""
     _bvh_depth(scene, "bvh_any_call")
-    if mask.device.type == "cpu":
+    if _device.use_plain(mask, "bvh_any_call"):
         return bvh_ops.any_plain(scene, p, d, mask)
-    if mask.device.type != "cuda":
-        raise ValueError(f"bvh_any_call: unsupported device {mask.device}")
     from rsoderh_raytracing_tpu_torch.ops import _kernels
 
     n, dev, tree, fetch = _bvh_args(scene, (*p, *d), mask, "bvh_any_call")
@@ -335,12 +358,17 @@ def bvh_any_call(scene, p, d, mask):
     return occ
 
 
-# The big-mesh routes' closest and occlusion wrappers, each with its plain
-# version, by Wavefront.step keyword: what Wavefront.step launches on each
-# route, and what profiling.capture_step wraps.
+# The closest and occlusion queries of the routes that answer (t, type,
+# index) and an int32 occlusion, each with its plain version, by
+# Wavefront.step keyword: what intersect.closest_hit and any_hit call on
+# each route, what Wavefront.step launches on the big-mesh routes, and what
+# profiling.capture_step wraps. The dense route has no kernel: its queries
+# are their own plain versions.
 ROUTE_CALLS = {
     CHUNKED: {"closest": (chunked_closest_call, intersect.chunked_closest_plain),
               "occlusion": (chunked_any_call, intersect.chunked_any_plain)},
     BVH: {"closest": (bvh_closest_call, bvh_ops.closest_plain),
           "occlusion": (bvh_any_call, bvh_ops.any_plain)},
+    DENSE: {"closest": (intersect.dense_closest, intersect.dense_closest),
+            "occlusion": (intersect.dense_any, intersect.dense_any)},
 }

@@ -25,10 +25,13 @@ index, plus the NEE pmf and the quad row itself; ``shade_call`` and
 SHADE_OUT_NAMES), as flat (n,) tensors per component; BIG_SHADE takes the
 winner's (type, index) and reads its row itself instead of the Pallas
 call's 19 slot arrays. u32 values (RNG state, sample counts, pixel ids)
-travel as int32 bit patterns. For CPU tensors the wrappers run the plain
-versions ``trace_plain`` / ``shade_plain`` / ``big_shade_plain``; for CUDA
-tensors they launch the kernels in ``csrc/wavefront.cu`` or raise.
-``LAUNCHES`` counts the kernel launches of each wrapper.
+travel as int32 bit patterns. For CPU tensors, and for CUDA tensors under
+RT_DISABLE_PALLAS=1 (``_device.use_plain``), the wrappers run the plain
+versions ``trace_plain`` / ``shade_plain`` / ``big_shade_plain``;
+otherwise they launch the kernels in ``csrc/wavefront.cu`` or raise.
+``LAUNCHES`` counts the kernel launches of each wrapper. Under
+RT_DEBUG_NANS=1 each wrapper checks its float outputs
+(``_device.check_nans``).
 """
 
 from __future__ import annotations
@@ -38,9 +41,10 @@ import ctypes
 import numpy as np
 import torch
 
+from rsoderh_raytracing_tpu_torch import _device
 from rsoderh_raytracing_tpu_torch.ops import bsdf, envmap, intersect, rng
 from rsoderh_raytracing_tpu_torch.render.integrator import THROUGHPUT_CUTOFF
-from rsoderh_raytracing_tpu_torch.scene.device import MAX_UNROLL_PRIMS, WINNER_SLOTS
+from rsoderh_raytracing_tpu_torch.scene.device import SMALL, SWEEP_MAX_SHARED, WINNER_SLOTS, route
 
 TRACE_OUT_NAMES = (
     "hit", "occ", "px", "py", "pz", "er", "eg", "eb",
@@ -294,20 +298,35 @@ def _check_rows(name, t, n, dtype, device):
 def trace_call(scene, env, carry):
     """TRACE over the carry's flat (n,) ray and state tensors and the RGBE
     environment `env`; returns the outputs by TRACE_OUT_NAMES. CPU
-    tensors: trace_plain. CUDA tensors: the kernel, which reads the alias
-    and quad rows itself."""
-    state = carry["state"]
-    if state.device.type == "cpu":
-        return trace_plain(scene, env, carry)
-    if state.device.type != "cuda":
-        raise ValueError(f"trace_call: unsupported device {state.device}")
-    if scene.num_lanes > MAX_UNROLL_PRIMS:
-        raise ValueError(
-            f"trace_call: {scene.num_lanes} primitive lanes is past the unroll budget "
-            f"({MAX_UNROLL_PRIMS}); such scenes take the chunked route"
-        )
+    tensors (and RT_DISABLE_PALLAS=1): trace_plain. CUDA tensors: the
+    kernel, which reads the alias and quad rows itself, over a SMALL
+    scene's packed table."""
+    if _device.use_plain(carry["state"], "trace_call"):
+        out = trace_plain(scene, env, carry)
+    else:
+        out = _trace_launch(scene, env, carry)
+    return _device.check_nans("TRACE", out)
+
+
+def check_table(scene, what):
+    """The packed table of a SMALL scene, for a sweep kernel's launch;
+    refuses another route, and a table past the shared memory the sweep
+    kernels may ask for (SWEEP_MAX_SHARED, the launchers' own limit)."""
+    if route(scene) != SMALL:
+        raise ValueError(f"{what}: the scene does not take the small route (route {route(scene)})")
+    table = scene.trace_table
+    if table.numel() * 4 > SWEEP_MAX_SHARED:
+        raise NotImplementedError(
+            f"{what}: a packed table of {table.numel() * 4} bytes, past the {SWEEP_MAX_SHARED} "
+            "bytes of shared memory the sweep kernels may ask for")
+    return table
+
+
+def _trace_launch(scene, env, carry):
     from rsoderh_raytracing_tpu_torch.ops import _kernels
 
+    table = check_table(scene, "trace_call")
+    state = carry["state"]
     n = state.shape[0]
     dev = state.device
     env_h, env_w = env.texture_shape
@@ -321,7 +340,6 @@ def trace_call(scene, env, carry):
         for k in TRACE_OUT_NAMES if k != "quad"
     }
     outs["quad"] = torch.empty((n, 4), device=dev, dtype=torch.int32)
-    table = scene.trace_table
     rc = _kernels.library().rt_trace_launch(
         _ptrs(ins + tuple(outs[k] for k in TRACE_OUT_NAMES)),
         table.data_ptr(), table.numel(), n,
@@ -362,14 +380,26 @@ def shade_call(
     scal, iscal,
 ):
     """SHADE; returns (new_carry, active, hitmask). Arguments as in
-    shade_plain. CPU tensors: shade_plain. CUDA tensors: the kernel."""
-    if nee_pmf.device.type == "cpu":
-        return shade_plain(
-            env_w, env_h, width, height, max_bounces, qwords, tr, nee_pmf,
-            carry, pixel_index, pixel_x, pixel_y, base_sample, scal, iscal,
-        )
-    if nee_pmf.device.type != "cuda":
-        raise ValueError(f"shade_call: unsupported device {nee_pmf.device}")
+    shade_plain. CPU tensors (and RT_DISABLE_PALLAS=1): shade_plain. CUDA
+    tensors: the kernel."""
+    args = (env_w, env_h, width, height, max_bounces, qwords, tr, nee_pmf, carry,
+            pixel_index, pixel_x, pixel_y, base_sample, scal, iscal)
+    run = shade_plain if _device.use_plain(nee_pmf, "shade_call") else _shade_launch
+    return _checked_shade("SHADE", run(*args))
+
+
+def _checked_shade(op, result):
+    """A shade wrapper's (new_carry, active, hitmask), its float outputs
+    checked under RT_DEBUG_NANS=1."""
+    _device.check_nans(op, result[0])
+    return result
+
+
+def _shade_launch(
+    env_w, env_h, width, height, max_bounces,
+    qwords, tr, nee_pmf, carry, pixel_index, pixel_x, pixel_y, base_sample,
+    scal, iscal,
+):
     from rsoderh_raytracing_tpu_torch.ops import _kernels
 
     n = nee_pmf.shape[0]
@@ -468,10 +498,15 @@ def big_shade_call(
         scene, env_w, env_h, width, height, max_bounces, qwords, tr, nee_dir, state,
         fu, fv, nee_pmf, carry, pixel_index, pixel_x, pixel_y, base_sample, scal, iscal,
     )
-    if nee_pmf.device.type == "cpu":
-        return big_shade_plain(*args)
-    if nee_pmf.device.type != "cuda":
-        raise ValueError(f"big_shade_call: unsupported device {nee_pmf.device}")
+    run = big_shade_plain if _device.use_plain(nee_pmf, "big_shade_call") else _big_shade_launch
+    return _checked_shade("BIG_SHADE", run(*args))
+
+
+def _big_shade_launch(
+    scene, env_w, env_h, width, height, max_bounces,
+    qwords, tr, nee_dir, state, fu, fv, nee_pmf, carry,
+    pixel_index, pixel_x, pixel_y, base_sample, scal, iscal,
+):
     from rsoderh_raytracing_tpu_torch.ops import _kernels
 
     n = nee_pmf.shape[0]

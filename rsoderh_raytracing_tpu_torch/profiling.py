@@ -107,6 +107,7 @@ import re
 import shutil
 import subprocess
 import time
+import tomllib
 from unittest import mock
 
 import numpy as np
@@ -127,6 +128,7 @@ from rsoderh_raytracing_tpu_torch.render.wavefront import NO_LIMIT, Wavefront, r
 from rsoderh_raytracing_tpu_torch.scene.device import (
     BVH, CHUNKED, TRI_CHUNK, build_device_scene, cluster_triangles, route,
 )
+from rsoderh_raytracing_tpu_torch.scene.toml_loader import build_scene
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIZE = 2048
@@ -165,11 +167,45 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# The generated scenes (--scene; chip_smoke.py phase 17): tiled_house(k)
+# by name. house_tiled16 (256 planes; 8 + 256 + 64 padded lanes, a packed
+# table of 26,112 bytes) takes the small route past the unroll budget;
+# house_tiled64 (4,096 planes; a table of 271,872 bytes, past the sweep
+# kernels' shared memory) no kernel route: the dense route under
+# intersector='sweep', the BVH under 'auto' on the card.
+TILED_SCENES = {"house_tiled16": 16, "house_tiled64": 64}
+HOUSE_GROUND = 60.0  # house.toml's ground: the square [-30, 30]^2 at y = 0
+
+
+def tiled_house(k):
+    """house.toml with its two identical ground planes replaced by a k x k
+    checkerboard of finite planes over the same 60 x 60 square, in the
+    ground and red_plastic materials by turns (a host Scene)."""
+    path = os.path.join(ROOT, "assets", "scenes", "house.toml")
+    with open(path, "rb") as f:
+        descriptor = tomllib.load(f)
+    side = HOUSE_GROUND / k
+    tiles = [{"Plane": {"material": "ground" if (i + j) % 2 == 0 else "red_plastic",
+                        "pos": [-HOUSE_GROUND / 2 + i * side, 0.0, -HOUSE_GROUND / 2 + j * side],
+                        "forward": [0.0, 0.0, side], "right": [side, 0.0, 0.0]}}
+             for i in range(k) for j in range(k)]
+    descriptor["object"] = [o for o in descriptor["object"] if "Plane" not in o] + tiles
+    return build_scene(descriptor, path)
+
+
+def named_scene(name):
+    """The host Scene of assets/scenes/NAME.toml, or of a generated scene
+    of TILED_SCENES."""
+    if name in TILED_SCENES:
+        return tiled_house(TILED_SCENES[name])
+    return load_scene(os.path.join(ROOT, "assets", "scenes", f"{name}.toml"))
+
+
 def scene_setup(name, device, env=None, with_bvh=False):
-    """(device scene, environment, camera) of assets/scenes/NAME.toml
-    under `env` (default procedural_sky(2048, 1024), the bench's sky),
-    built with `with_bvh` (build_device_scene)."""
-    scene = load_scene(os.path.join(ROOT, "assets", "scenes", f"{name}.toml"))
+    """(device scene, environment, camera) of named_scene(NAME) under
+    `env` (default procedural_sky(2048, 1024), the bench's sky), built
+    with `with_bvh` (build_device_scene)."""
+    scene = named_scene(name)
     if env is None:
         env = device_environment(Environment.from_texture("sky", procedural_sky(2048, 1024)), device)
     return (build_device_scene(scene, device, with_bvh=with_bvh), env,
@@ -286,15 +322,15 @@ def bound_ms(n_bytes, n_ops):
 
 
 def sweep_ops(scene):
-    """Operations of one closest sweep of a lane over every primitive of
-    a scene within the unroll budget."""
+    """Operations of one closest sweep of a lane over every row of a small
+    scene's packed table (house_tiled16's 328 as house's 72)."""
     return (scene.sph_radius.shape[0] * OPS_SPHERE + scene.pln_valid.shape[0] * OPS_PLANE
             + scene.tri_valid.shape[0] * OPS_TRIANGLE)
 
 
 def first_hit_ops(scene, rays, extents=None):
     """Operations an occlusion sweep of `rays` (6 (n,) components) needs
-    on a scene within the unroll budget: each lane's primitive tests in
+    on a small scene: each lane's primitive tests in
     sweep order up to and including its first hit, all of them when it
     hits nothing; with `extents` (sphere, plane, triangle rows, as
     DeviceScene.sweep_rows holds them) only the rows below them count. From a
@@ -535,7 +571,7 @@ def scan_main(args, dev, card) -> int:
     """--path scan: the scan integrator's bounce (see the module doc)."""
     ds, env, cam = scene_setup(args.scene, dev)
     sky_host = Environment.from_texture("sky", procedural_sky(2048, 1024))
-    scene = load_scene(os.path.join(ROOT, "assets", "scenes", f"{args.scene}.toml"))
+    scene = named_scene(args.scene)
     renderer = Renderer(scene, SIZE, SIZE, environments=EnvironmentMaps([sky_host]),
                         max_bounces=BOUNCES, device=dev)
     renderer.step()  # build + warm-up
@@ -592,7 +628,7 @@ def scan_image_main(args, dev, card) -> int:
     card against the CPU's (see the module doc). Uses only Renderer and
     render_sample, so it also reads a package of an earlier tree put
     first on PYTHONPATH."""
-    scene = load_scene(os.path.join(ROOT, "assets", "scenes", f"{args.scene}.toml"))
+    scene = named_scene(args.scene)
     sky = EnvironmentMaps([Environment.from_texture("sky", procedural_sky(2048, 1024))])
     res = (IMAGE_SIZE, IMAGE_SIZE)
     images = []
@@ -792,7 +828,7 @@ def cluster_report(name, order, dev, card, env, bounds=True, budget=CLUSTER_BUDG
     launches of CHUNKED_CLOSEST, CHUNKED_ANY and BIG_SHADE in it. Returns
     the numbers by name, or None where the scene in this order does not
     take the chunked route (a ceiling)."""
-    scene = load_scene(os.path.join(ROOT, "assets", "scenes", f"{name}.toml"))
+    scene = named_scene(name)
     with chunk_order(order):
         start = time.perf_counter()
         ds = build_device_scene(scene, dev)
@@ -933,7 +969,8 @@ def main(argv=None) -> int:
                              "card against the CPU's, the split over every card, or the "
                              "chunk orders")
     parser.add_argument("--scene", default=None,
-                        help="a scene of assets/scenes (default house; suzanne_hi for --path cluster)")
+                        help="a scene of assets/scenes or a generated one (house_tiled16, "
+                             "house_tiled64; default house; suzanne_hi for --path cluster)")
     parser.add_argument("--out", default=os.path.join(ROOT, "build", "profile"))
     parser.add_argument("--sass", action="store_true", help="the SASS instruction counts")
     args = parser.parse_args(argv)

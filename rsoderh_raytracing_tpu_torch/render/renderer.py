@@ -47,14 +47,15 @@ class Renderer:
         intersector: str = "auto",
         device=_device.DEFAULT,
     ):
-        """intersector: 'sweep' takes the sweep kernels (unrolled within
-        the unroll budget, chunked past it) and raises NotImplementedError
-        for a scene outside both; 'bvh' builds the SAH BVH and walks it
-        (BVH_CLOSEST, BVH_ANY); 'auto' walks the BVH exactly where no
-        sweep route covers the scene (on the CPU also past the
-        reference's 262,144 triangle lanes; RT_BVH_ABOVE_TRIS=N lowers the
-        crossover: scene/device.auto_bvh). device: the card unless the
-        caller asks for the CPU."""
+        """intersector: 'sweep' takes the sweep kernels (the small route's
+        packed table within a block's shared memory, or the chunked route)
+        and, for a scene that neither covers, the dense sweep in plain
+        PyTorch (the reference's XLA sweep), with a warning; 'bvh' builds
+        the SAH BVH and walks it (BVH_CLOSEST, BVH_ANY); 'auto' walks the
+        BVH on the card exactly where no kernel route covers the scene, and
+        on the CPU by the reference's rule, past 262,144 triangle lanes
+        (RT_BVH_ABOVE_TRIS=N lowers the crossover: scene/device.auto_bvh).
+        device: the card unless the caller asks for the CPU."""
         if intersector not in ("auto", "sweep", "bvh"):
             raise ValueError(f"unknown intersector '{intersector}'")
         self.device = _device.resolve(device)
@@ -64,8 +65,8 @@ class Renderer:
         self.max_bounces = max_bounces
         self.device_scene = build_device_scene(
             scene, self.device, with_bvh={"auto": "auto", "bvh": True, "sweep": False}[intersector])
-        #: the routing decision actually taken ('sweep' or 'bvh'); raises
-        #: for a scene that no route covers
+        #: the routing decision actually taken: 'bvh', or 'sweep' (the
+        #: small, chunked or dense route), as the reference reports it
         self.intersector = "bvh" if route(self.device_scene) == BVH else "sweep"
         self.environments = environments or load_default_environments()
         self.environment_index = 0

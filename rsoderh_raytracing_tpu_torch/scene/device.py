@@ -6,16 +6,28 @@ so every field equals the reference's lane for lane; only the final
 upload differs (torch tensors on the card unless another device is
 asked for).
 
-Scenes past the unroll budget take the chunked route: the chunk
-predicates, ceilings, bounds and window rows below are those of
-rsoderh_raytracing_tpu/ops/pallas_intersect.py (which imports jax).
-Such a scene stores its triangles in the order RT_CHUNK_CLUSTER picks
-(morton, the default, or bvh or treelet: scene/cluster.py), or in the
-host's order under RT_DISABLE_MORTON=1, as the reference does. On the
-card a chunked scene must also fit a block of the chunked kernels'
-shared memory (chunked_shared_bytes, the mirror of csrc/chunked.cu's
-layout); a scene past it is refused (or, under with_bvh="auto", walked
-through its BVH).
+A scene built without a BVH takes one of four routes (``route``):
+
+- SMALL, the sweep kernels over the packed table (TRACE, FUSED, CLOSEST,
+  ANY), within the reference's unroll budget of 192 padded lanes;
+- CHUNKED, the big-mesh kernels, past it where the chunk predicates and
+  ceilings of rsoderh_raytracing_tpu/ops/pallas_intersect.py (which
+  imports jax) cover the scene and, on the card, its chunks fit a block's
+  shared memory (chunked_shared_bytes, the mirror of csrc/chunked.cu's
+  layout);
+- SMALL also past the budget where the chunked route does not take the
+  scene (planes never chunk) and its packed table fits the dynamic shared
+  memory the sweep kernels may ask for (sweep_shared_bytes, the mirror of
+  the launchers' limit): the budget is Mosaic's unroll limit, and the
+  H100's sweep kernels stage the table, whatever its rows;
+- DENSE for the rest, and for every scene built under RT_DISABLE_PALLAS=1:
+  the plain PyTorch sweep of the reference's _sweep_xla, which the
+  reference runs in XLA outside any kernel (ops/intersect.py).
+
+A scene past the unroll budget stores its triangles in the order
+RT_CHUNK_CLUSTER picks (morton, the default, or bvh or treelet:
+scene/cluster.py), or in the host's order under RT_DISABLE_MORTON=1, as
+the reference does, whatever route it takes.
 A scene built with a BVH (``with_bvh``) takes the BVH route whatever its
 size; such a scene keeps the host's triangle order (no reorder),
 because the BVH's leaf slots name host triangles.
@@ -65,6 +77,12 @@ CHUNKED_MAX_SHARED = 232448
 CHUNKED_BATCH = 16
 CHUNKED_BOUND_COLS = 8
 
+# The dynamic shared memory that each of TRACE, FUSED, CLOSEST and ANY may
+# ask for to stage the packed table (csrc/sweep.cu: rt_sweep_max_table_bytes,
+# which asks the card): an H100 block's 232,448 bytes less the 1,056 bytes
+# of CLOSEST's and ANY's lane lists. A table of pack_rows up to this fits.
+SWEEP_MAX_SHARED = 231392
+
 # Window rows of the chunked kernels (pallas_intersect.tri_const_table /
 # sphere_const_table): one 20-float row a primitive.
 WIN_COLS = 20
@@ -73,7 +91,7 @@ WIN_COLS = 20
 SPH_COLS, PLN_COLS, TRI_COLS, MAT_COLS = 8, 16, 36, 8
 WINNER_SLOTS = 20
 
-SMALL, CHUNKED, BVH = "small", "chunked", "bvh"
+SMALL, CHUNKED, BVH, DENSE = "small", "chunked", "bvh", "dense"
 
 # with_bvh="auto" on the CPU: the reference's crossover, past which its
 # CPU renders through the BVH walk (rsoderh_raytracing_tpu/scene/
@@ -171,6 +189,9 @@ class DeviceScene:
     # every primitive (winner_rows) and the material rows (material_rows).
     winner: Optional[torch.Tensor] = dataclasses.field(default=None, repr=False)
     materials: Optional[torch.Tensor] = dataclasses.field(default=None, repr=False)
+    # Why no kernel covers a DENSE scene (lane counts and the limit it
+    # passes), for the dense route's warning; None on the other routes.
+    why_dense: Optional[str] = None
 
     @property
     def device(self) -> torch.device:
@@ -282,13 +303,25 @@ def scene_chunk_count(scene) -> int:
     return c
 
 
-def counts_route(n_sph: int, n_pln: int, n_tri: int) -> Optional[str]:
-    """SMALL or CHUNKED for padded lane counts, None for counts that
-    neither sweep route covers (under the ceilings as they are set now)."""
+def sweep_shared_bytes(n_sph: int, n_pln: int, n_tri: int, n_mat: int) -> int:
+    """Bytes of the packed table (pack_rows) that the sweep kernels stage
+    in a block's dynamic shared memory, for padded lane counts and
+    materials."""
+    return 4 * (n_sph * SPH_COLS + n_pln * PLN_COLS + n_tri * TRI_COLS + n_mat * MAT_COLS)
+
+
+def counts_route(n_sph: int, n_pln: int, n_tri: int, n_mat: int = 1) -> Optional[str]:
+    """SMALL or CHUNKED for padded lane counts (and materials), None for
+    counts that no sweep kernel covers (under the ceilings as they are set
+    now): SMALL within the unroll budget, CHUNKED past it where the chunk
+    predicates hold, else SMALL where the packed table fits
+    SWEEP_MAX_SHARED."""
     if n_sph + n_pln + n_tri <= MAX_UNROLL_PRIMS:
         return SMALL
     if counts_chunked_applicable(n_sph, n_pln, n_tri):
         return CHUNKED
+    if sweep_shared_bytes(n_sph, n_pln, n_tri, n_mat) <= SWEEP_MAX_SHARED:
+        return SMALL
     return None
 
 
@@ -304,23 +337,43 @@ def shared_overflow(n_sph: int, n_pln: int, n_tri: int, device: torch.device) ->
 
 
 def route(scene) -> str:
-    """The route the scene was built for: BVH for a scene that carries a
-    BVH, else SMALL (every primitive in the unrolled sweep) or CHUNKED, by
-    the kernels' tables it holds (so a ceiling changed after the build
-    does not move it); raises NotImplementedError for a scene that has
-    none of them."""
+    """The route the scene was built for, by the kernels' tables it holds
+    (so a ceiling or a knob changed after the build does not move it):
+    BVH for a scene that carries a BVH, CHUNKED for chunk tables, SMALL
+    for the packed table, DENSE for none of them."""
     if scene.bvh is not None:
         return BVH
     if scene.chunks is not None:
         return CHUNKED
     if scene.trace_table is not None:
         return SMALL
+    return DENSE
+
+
+def _pick(scene, device) -> str:
+    """The route of a scene built without a BVH; a DENSE scene's
+    why_dense says why no kernel covers it."""
     n_sph, n_pln, n_tri = _counts(scene)
-    raise NotImplementedError(
-        f"scene with {n_sph} sphere, {n_pln} plane and {n_tri} triangle lanes "
-        f"is past the unroll budget ({MAX_UNROLL_PRIMS}) and outside the chunked "
-        "route's limits: build it with with_bvh=True or 'auto' (the BVH route)"
-    )
+    n_mat = scene.mat_roughness.shape[0]
+    picked = counts_route(n_sph, n_pln, n_tri, n_mat)
+    lanes = f"{n_sph} sphere, {n_pln} plane and {n_tri} triangle lanes"
+    if not _device.kernels_enabled():
+        scene.why_dense = f"{lanes}: built under RT_DISABLE_PALLAS=1"
+        return DENSE
+    if picked is None:
+        scene.why_dense = (
+            f"{lanes}: past the unroll budget ({MAX_UNROLL_PRIMS}), outside the chunked "
+            f"route's predicates and ceilings, and a packed table of "
+            f"{sweep_shared_bytes(n_sph, n_pln, n_tri, n_mat)} bytes, past the sweep "
+            f"kernels' {SWEEP_MAX_SHARED} of shared memory")
+        return DENSE
+    n_bytes = shared_overflow(n_sph, n_pln, n_tri, device) if picked == CHUNKED else 0
+    if n_bytes:
+        scene.why_dense = (
+            f"{lanes}: the chunked kernels would ask for {n_bytes} bytes of shared memory a "
+            f"block ({scene_chunk_count(scene)} chunks), past the card's {CHUNKED_MAX_SHARED}")
+        return DENSE
+    return picked
 
 
 def chunk_bounds(tri_a, tri_edge0, tri_edge1):
@@ -459,19 +512,24 @@ def _chunk_tables(a: dict, scene: DeviceScene) -> ChunkTables:
     )
 
 
-def auto_bvh(n_sph: int, n_pln: int, n_tri: int, device: torch.device) -> bool:
-    """with_bvh="auto" for padded lane counts. On the CPU the reference's
-    rule, more than CPU_BVH_ABOVE_LANES triangle lanes, and also a scene
-    that no sweep route covers (the reference would sweep it densely in
-    XLA; the port has no such route). On the card exactly the scenes that
-    no kernel route covers: past the ceilings (which RT_MAX_CHUNKED_TRIS
-    and RT_MAX_CHUNKED_SPHERES raise, as the reference's TPU routing
-    follows them) or past a block's shared memory (shared_overflow).
+def auto_bvh(n_sph: int, n_pln: int, n_tri: int, device: torch.device, n_mat: int = 1) -> bool:
+    """with_bvh="auto" for padded lane counts (and materials). On the CPU
+    exactly the reference's rule, more than CPU_BVH_ABOVE_LANES triangle
+    lanes: a scene that no kernel covers then sweeps densely, as the
+    reference's CPU does. On the card exactly the scenes that no kernel
+    route covers (counts_route, as if RT_DISABLE_PALLAS were unset): past
+    the ceilings (which RT_MAX_CHUNKED_TRIS and RT_MAX_CHUNKED_SPHERES
+    raise, as the reference's TPU routing follows them) and past the sweep
+    kernels' shared memory, or past a block's shared memory of the
+    chunked kernels (shared_overflow); so 'auto' never sweeps densely on
+    the card, where the walk runs far ahead of any sweep on big scenes.
     RT_BVH_ABOVE_TRIS=N moves the crossover down to N triangle lanes in
     both cases."""
-    uncovered = (counts_route(n_sph, n_pln, n_tri) is None
-                 or shared_overflow(n_sph, n_pln, n_tri, device) > 0)
-    with_bvh = uncovered or (device.type == "cpu" and n_tri > CPU_BVH_ABOVE_LANES)
+    if device.type == "cpu":
+        with_bvh = n_tri > CPU_BVH_ABOVE_LANES
+    else:
+        with_bvh = (counts_route(n_sph, n_pln, n_tri, n_mat) is None
+                    or shared_overflow(n_sph, n_pln, n_tri, device) > 0)
     thresh = os.environ.get("RT_BVH_ABOVE_TRIS")
     if not with_bvh and thresh and n_tri > int(thresh):
         with_bvh = True
@@ -507,13 +565,14 @@ def build_device_scene(
 
     with_bvh=True also builds the SAH BVH (accel/bvh.py, its native
     builder where g++ is available) and attaches it, so the scene takes
-    the BVH route; "auto" attaches it by auto_bvh, and also where the
-    chunk order leaves more chunks than a block's shared memory holds. A
-    scene with a BVH keeps the host's triangle order (leaf slots name
-    host triangles), as the reference's does; every field still equals
-    the reference's lane for lane. A scene on the card that the chunked
-    route takes past a block's shared memory raises NotImplementedError
-    under with_bvh=False."""
+    the BVH route; "auto" attaches it by auto_bvh, and on the card also
+    where the chunk order leaves more chunks than a block's shared memory
+    holds. A scene with a BVH keeps the host's triangle order (leaf slots
+    name host triangles), as the reference's does; every field still
+    equals the reference's lane for lane. Without a BVH the scene takes
+    the route of device_scene_from_arrays: a kernel route where one
+    covers it, else DENSE (also under RT_DISABLE_PALLAS=1); nothing
+    raises for a scene's size."""
     device = _device.resolve(device)
     _device.warn_ignored_knobs()
     cluster = chunk_cluster()
@@ -576,7 +635,7 @@ def build_device_scene(
     total_small = s_n + p_n + _round_up(len(tris), pad_to)
     tri_pad = pad_to if total_small <= MAX_UNROLL_PRIMS else TRI_CHUNK
     if with_bvh == "auto":
-        with_bvh = auto_bvh(s_n, p_n, _round_up(len(tris), tri_pad), device)
+        with_bvh = auto_bvh(s_n, p_n, _round_up(len(tris), tri_pad), device, m)
     explicit_valid = None
     if (total_small > MAX_UNROLL_PRIMS and len(tris) > 0 and not with_bvh
             and os.environ.get("RT_DISABLE_MORTON") != "1"):
@@ -665,9 +724,11 @@ def device_scene_from_arrays(arrays: dict, device=_device.DEFAULT, bvh=None) -> 
     DeviceScene). Float fields become float32, material ids int32, valid
     masks bool. With `bvh`, a FlatBVH over the arrays' primitive order,
     the scene takes the BVH route and gets its tables (ops/bvh.py).
-    Otherwise a scene within the unroll budget gets the TRACE kernel's
-    table, and one past it that the chunked route covers its chunk
-    tables."""
+    Otherwise the scene gets the tables of its kernel route (counts_route):
+    the packed table of the sweep kernels (SMALL), or the chunk tables
+    (CHUNKED) where, on the card, they fit a block's shared memory; and
+    none (DENSE, with the reason in ``why_dense``) where no kernel route
+    covers it or RT_DISABLE_PALLAS=1 is set."""
     device = _device.resolve(device)
     host = {}
     for name in FIELDS:
@@ -686,14 +747,7 @@ def device_scene_from_arrays(arrays: dict, device=_device.DEFAULT, bvh=None) -> 
     )
     if bvh is not None:
         scene.bvh = device_bvh(bvh, scene)
-    picked = BVH if bvh is not None else counts_route(*_counts(scene))
-    n_bytes = shared_overflow(*_counts(scene), device) if picked == CHUNKED else 0
-    if n_bytes:
-        raise NotImplementedError(
-            f"the chunked kernels would ask for {n_bytes} bytes of shared memory a block on "
-            f"this scene ({scene_chunk_count(scene)} chunks), past the card's limit of "
-            f"{CHUNKED_MAX_SHARED}: build it with with_bvh=True or 'auto' (the BVH route)"
-        )
+    picked = BVH if bvh is not None else _pick(scene, device)
     if picked == SMALL:
         scene.trace_table = pack_rows(scene)
     elif picked == CHUNKED:

@@ -84,6 +84,7 @@ from rsoderh_raytracing_tpu_torch.render.wavefront import render_freerun
 from rsoderh_raytracing_tpu_torch.scene.device import (
     BVH,
     CHUNKED,
+    DENSE,
     FIELDS,
     build_device_scene,
     device_scene_from_arrays,
@@ -579,7 +580,9 @@ def test_auto_routes_past_the_ceiling_to_the_bvh(monkeypatch):
     """A scene of 262,208 triangle lanes (past the reference's CPU
     crossover and the chunked ceiling): "auto" attaches the BVH in both
     packages (the reference's builder stubbed: only its decision is
-    read), and the port's tree keeps the host triangle order."""
+    read), and the port's tree keeps the host triangle order. Without a
+    BVH no kernel covers it (its packed table is past the sweep kernels'
+    shared memory): the dense route, as the reference sweeps it."""
     scene = _grid_scene(262_145)
     monkeypatch.delenv("RT_BVH_ABOVE_TRIS", raising=False)
     built = []
@@ -589,8 +592,8 @@ def test_auto_routes_past_the_ceiling_to_the_bvh(monkeypatch):
     ds = build_device_scene(scene, "cpu", with_bvh="auto")
     assert route(ds) == BVH and ds.tri_valid.shape[0] == 262_208
     np.testing.assert_array_equal(ds.tri_a[:5].numpy(), scene.meshes.vertices[:5])
-    with pytest.raises(NotImplementedError, match="BVH route"):
-        route(build_device_scene(scene, "cpu", with_bvh=False))
+    dense = build_device_scene(scene, "cpu", with_bvh=False)
+    assert route(dense) == DENSE and "262208 triangle lanes" in dense.why_dense
 
 
 def test_auto_keeps_covered_scenes_on_the_sweeps(assets_dir, monkeypatch):

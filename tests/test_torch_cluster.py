@@ -349,9 +349,11 @@ CEILING_COUNTS = [
 @pytest.mark.parametrize("tris_ceiling,spheres_ceiling", [(None, None), ("1048576", None),
                                                           (None, "256"), ("256", "262208")])
 def test_ceilings_move_the_route_as_the_reference(monkeypatch, tris_ceiling, spheres_ceiling):
-    """counts_route against pallas_intersect's predicate with the same
-    ceilings (the reference reads them at import, so they are patched
-    there), and auto_bvh on the card follows the route."""
+    """counts_route's chunked route against pallas_intersect's predicate
+    with the same ceilings (the reference reads them at import, so they
+    are patched there); counts the chunked route does not cover are small
+    exactly where the packed table fits the sweep kernels' shared memory,
+    and auto_bvh on the card takes the BVH exactly where neither covers."""
     _clear_ceilings(monkeypatch)
     for knob, value in (("TRIS", tris_ceiling), ("SPHERES", spheres_ceiling)):
         if value is not None:
@@ -361,7 +363,9 @@ def test_ceilings_move_the_route_as_the_reference(monkeypatch, tris_ceiling, sph
     for counts in CEILING_COUNTS:
         covered = pint._counts_chunked_applicable(*counts)
         assert (counts_route(*counts) == CHUNKED) == covered, counts
-        assert auto_bvh(*counts, cuda) == (not covered), counts
+        fits = t_device.sweep_shared_bytes(*counts, 1) <= t_device.SWEEP_MAX_SHARED
+        assert (counts_route(*counts) == SMALL) == (not covered and fits), counts
+        assert auto_bvh(*counts, cuda) == (not covered and not fits), counts
 
 
 def test_raised_ceiling_routes_suzanne_xxhi_counts(monkeypatch):
@@ -426,13 +430,20 @@ def test_shared_mirror_follows_the_kernel_layout():
 
 def test_scene_keeps_its_route_when_a_ceiling_is_unset(monkeypatch):
     """A scene built under a raised ceiling keeps the chunked route after
-    the knob is unset: the route is the scene's tables'."""
+    the knob is unset: the route is the scene's tables'. Under a ceiling of
+    256 the 300-triangle grid (320 triangle lanes, a packed table of 46,880
+    bytes) is small by the shared-memory mirror, under with_bvh=False and,
+    by the reference's CPU rule (no BVH within 262,144 triangle lanes),
+    under 'auto' on the CPU too; on the card 'auto' keeps it small."""
     _clear_ceilings(monkeypatch)
     scene = _grid(300)
     monkeypatch.setenv("RT_MAX_CHUNKED_TRIS", "256")
-    assert route(build_device_scene(scene, "cpu", with_bvh="auto")) == BVH
-    with pytest.raises(NotImplementedError, match="BVH route"):
-        route(build_device_scene(scene, "cpu"))
+    monkeypatch.setattr(pint, "MAX_CHUNKED_TRIS", 256)
+    auto = build_device_scene(scene, "cpu", with_bvh="auto")
+    assert route(auto) == SMALL and j_build(scene, with_bvh="auto").bvh is None
+    small = build_device_scene(scene, "cpu")
+    assert route(small) == SMALL and small.trace_table.numel() * 4 == 46880
+    assert not auto_bvh(8, 8, 320, torch.device("cuda"))
     monkeypatch.setenv("RT_MAX_CHUNKED_TRIS", "320")
     ds = build_device_scene(scene, "cpu")
     monkeypatch.setenv("RT_MAX_CHUNKED_TRIS", "64")

@@ -37,7 +37,7 @@ from rsoderh_raytracing_tpu_torch.profiling import capture_step, sweep_calls
 from rsoderh_raytracing_tpu_torch.render.integrator import camera_pytree
 from rsoderh_raytracing_tpu_torch.render.renderer import Renderer
 from rsoderh_raytracing_tpu_torch.render.wavefront import NO_LIMIT, Wavefront, render_freerun
-from rsoderh_raytracing_tpu_torch.scene.device import build_device_scene
+from rsoderh_raytracing_tpu_torch.scene.device import SMALL, build_device_scene, route
 from rsoderh_raytracing_tpu_torch.scene.camera import Camera
 from rsoderh_raytracing_tpu_torch.scene.types import Material, PackedMeshes, Plane, Scene, Sphere
 
@@ -344,7 +344,9 @@ def test_card_big_mesh_render_matches_cpu_render(dev):
 
 def test_big_scene_raises_on_the_card(dev):
     """A scene past the unroll budget outside the chunked route's limits
-    (200 plane lanes) raises on the card too."""
+    (200 plane lanes) no longer raises on the card: its packed table fits
+    the sweep kernels' shared memory, so it takes the small route, and
+    TRACE and SHADE render it."""
     scene = load_scene(os.path.join(SCENES, "suzanne.toml"))
     scene = Scene(
         materials=scene.materials, spheres=[],
@@ -356,10 +358,12 @@ def test_big_scene_raises_on_the_card(dev):
         camera=scene.camera,
     )
     ds = build_device_scene(scene, dev)
-    assert ds.num_lanes > 192
+    assert ds.num_lanes > 192 and route(ds) == SMALL
     env = device_environment(Environment.from_texture("s", procedural_sky(32, 16)), dev)
-    with pytest.raises(NotImplementedError, match="BVH route"):
-        render_freerun(ds, env, camera_pytree(scene.camera, dev), 0, (8, 8), 4, 4)
+    cw.reset_launches()
+    img, counts = render_freerun(ds, env, camera_pytree(scene.camera, dev), 0, (8, 8), 4, 4)
+    assert cw.LAUNCHES["trace"] == cw.LAUNCHES["shade"] > 0
+    assert bool(torch.isfinite(img).all()) and int(counts.min()) > 0
 
 
 # -- the chunked kernels on made-up rays ---------------------------------------
@@ -748,6 +752,34 @@ def test_big_mesh_kernels_in_each_order(ordered_state):
     ref_carry, ref_act, ref_hitm = cw.big_shade_plain(*args)
     _compare(dict(carry, active=act, hitmask=hitm), dict(ref_carry, active=ref_act, hitmask=ref_hitm),
              cw.SHADE_INT_NAMES)
+
+
+def test_sweep_shared_mirror_equals_the_card(dev):
+    """The sweep kernels' table limit that scene/device.py mirrors is what
+    the card lets CLOSEST, ANY and FUSED ask for; a table at the limit
+    launches, one material row past it is refused."""
+    import ctypes
+
+    from rsoderh_raytracing_tpu_torch.ops import _kernels
+    from rsoderh_raytracing_tpu_torch.scene.device import SWEEP_MAX_SHARED
+
+    assert ci.sweep_max_table_bytes() == SWEEP_MAX_SHARED
+    # CLOSEST on 32 lanes over a table of material rows alone: every ray
+    # misses, so only the staging reads the table
+    n = 32
+    rays = [torch.zeros(n, device=dev) for _ in range(6)]
+    outs = [torch.empty(n, device=dev, dtype=torch.int32 if k in ci.CLOSEST_INT_NAMES else torch.float32)
+            for k in ci.CLOSEST_OUT_NAMES]
+    ptrs = [t.data_ptr() for t in rays] + [0] + [t.data_ptr() for t in outs]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for floats, launches in ((SWEEP_MAX_SHARED // 4, True), (SWEEP_MAX_SHARED // 4 + 8, False)):
+        table = torch.zeros(floats, device=dev)
+        rc = _kernels.library().rt_closest_launch(
+            (ctypes.c_void_p * len(ptrs))(*ptrs), table.data_ptr(), floats, n, 0, 0, 0, floats // 8,
+            0, 0, 0, stream)
+        assert (rc == 0) == launches, rc
+        torch.cuda.synchronize()
+    assert bool((outs[1] == -1).all())
 
 
 @pytest.mark.parametrize("small_len", [0, 192, 768, 3072])

@@ -35,6 +35,7 @@ from rsoderh_raytracing_tpu_torch.env.hdr_io import procedural_sky, read_hdr
 from rsoderh_raytracing_tpu_torch.ops import tonemap
 from rsoderh_raytracing_tpu_torch.render.film import Film
 from rsoderh_raytracing_tpu_torch.render.renderer import Renderer
+from rsoderh_raytracing_tpu_torch.scene.device import SMALL, route
 from rsoderh_raytracing_tpu_torch.utils.png import read_png
 
 torch.set_num_threads(2)
@@ -197,16 +198,23 @@ def test_render_exact_reaches_spp(house_scene, envs, batch):
 
 @pytest.mark.parametrize("intersector,error", [("bvh", NotImplementedError), ("octree", ValueError)])
 def test_renderer_refuses_intersector(house_scene, envs, intersector, error):
-    """An unknown intersector raises ValueError. 'bvh' is ported now and
-    takes the BVH route; what still raises NotImplementedError is 'sweep'
-    on a scene that no sweep route covers (200 plane lanes)."""
+    """An unknown intersector raises ValueError. 'bvh' is ported and takes
+    the BVH route; and no intersector raises NotImplementedError any
+    more: 'sweep' on a scene past the unroll budget that the chunked route
+    does not cover (200 plane lanes) takes the small route by the
+    shared-memory mirror, renders, and reports 'sweep'."""
     if intersector == "bvh":
         assert make_renderer(house_scene, envs, intersector="bvh").intersector == "bvh"
         plane = type(house_scene.planes[0])
-        house_scene = dataclasses.replace(house_scene, spheres=[], planes=[
+        planes = dataclasses.replace(house_scene, spheres=[], planes=[
             plane(pos=(float(i), -1.0, -4.0), right=(0.5, 0.0, 0.0), forward=(0.0, 0.0, 0.5),
                   material_id=0) for i in range(200)])
-        intersector = "sweep"
+        r = make_renderer(planes, envs, intersector="sweep")
+        assert r.intersector == "sweep" and route(r.device_scene) == SMALL
+        assert r.device_scene.num_lanes > 192
+        r.render(spp=2)
+        assert r.film.sample_count == 2 and np.isfinite(r.film.mean_radiance()).all()
+        return
     with pytest.raises(error):
         make_renderer(house_scene, envs, intersector=intersector)
 

@@ -30,9 +30,11 @@ from rsoderh_raytracing_tpu_torch.scene.device import (
     CHUNKED,
     FIELDS,
     SMALL,
+    SWEEP_MAX_SHARED,
     build_device_scene,
     device_scene_from_arrays,
     route,
+    sweep_shared_bytes,
 )
 
 torch.set_num_threads(2)
@@ -77,7 +79,8 @@ def test_device_scene_from_arrays_round_trip(assets_dir):
 def test_big_scene_route_not_ported(assets_dir):
     """A scene past the unroll budget that the chunked route does not
     cover (here 200 plane lanes: planes never leave the unrolled step)
-    still raises, naming the BVH route."""
+    takes the small route by the shared-memory mirror (its packed table
+    fits the sweep kernels' shared memory) and renders."""
     scene = _scene(assets_dir, "suzanne")
     scene = Scene(
         materials=scene.materials,
@@ -91,9 +94,13 @@ def test_big_scene_route_not_ported(assets_dir):
     )
     ds = build_device_scene(scene, device="cpu")
     assert ds.num_lanes > 192 and ds.chunks is None
+    assert route(ds) == SMALL
+    counts = (ds.sph_radius.shape[0], ds.pln_valid.shape[0], ds.tri_valid.shape[0],
+              ds.mat_roughness.shape[0])
+    assert ds.trace_table.numel() * 4 == sweep_shared_bytes(*counts) <= SWEEP_MAX_SHARED
     env = device_environment(Environment.from_texture("s", procedural_sky(32, 16)), device="cpu")
-    with pytest.raises(NotImplementedError, match="BVH route"):
-        render_freerun(ds, env, camera_pytree(scene.camera, device="cpu"), 0, (8, 8), 4, 4)
+    img, counts = render_freerun(ds, env, camera_pytree(scene.camera, device="cpu"), 0, (8, 8), 4, 4)
+    assert bool(torch.isfinite(img).all()) and int(counts.min()) > 0
 
 
 @pytest.mark.parametrize("name,expected", [("house", SMALL), ("suzanne", CHUNKED),
