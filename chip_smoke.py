@@ -123,12 +123,20 @@ exits non-zero at the first failure. Phases, one line each or more:
    2048x2048, 8 bounces, free-run (TRACE and SHADE only), TRACE and SHADE
    ms with their bounds, Mrays/s beside the BVH route's, and the 256x256
    images of both routes by the flip-aware criteria; house_tiled64 (4,096
-   tiles) under intersector='sweep': the dense route, no kernel launched,
-   its warning once, its 256x256 image against the BVH route's, and one
-   2048x2048 call (seconds, Mrays/s, peak memory); RT_DISABLE_PALLAS=1:
-   house, suzanne_hi and suzanne_xxhi (BVH) at 256x256 with no kernel
-   launched, each image against its kernel route's, and house at
-   2048x2048; RT_DEBUG_NANS=1: the three scenes at 256x256 raise nothing,
+   tiles, a 272 KB table past a block's shared memory, which the sweep
+   kernels read from global memory) under intersector='sweep': the small
+   route with the BVH under 'auto', TRACE, SHADE, FUSED, CLOSEST and ANY
+   against their plain versions at 256x256 (CLOSEST/ANY also on the scan
+   states), the main path at 2048x2048 (TRACE and SHADE only; Mrays/s
+   beside the BVH route's), TRACE ms with its bound, and its 256x256 image
+   against the BVH route's; CHUNKED_CLOSEST and CHUNKED_ANY on suzanne_hi
+   with a block that holds one or three batches' union boxes at a time,
+   bitwise their plain versions; RT_DISABLE_PALLAS=1: on the card house,
+   suzanne_hi and suzanne_xxhi (BVH) refuse to run (RuntimeError, no
+   kernel launched), and the same scene tables copied to the CPU render
+   there with no kernel launched, each image against the card's kernel
+   route by the flip-aware criteria (house 128x128, the others 64x64);
+   RT_DEBUG_NANS=1: the three scenes at 256x256 raise nothing,
    a NaN ray lane handed to CLOSEST raises FloatingPointError naming it,
    and house at 2048x2048 Mrays/s with the knob on and off.
 Each of 13-17 logs its seconds.
@@ -153,7 +161,6 @@ import subprocess
 import sys
 import termios
 import time
-import warnings
 from unittest import mock
 
 import numpy as np
@@ -162,7 +169,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-from rsoderh_raytracing_tpu_torch import _device, cli, load_scene, write_png  # noqa: E402
+from rsoderh_raytracing_tpu_torch import cli, load_scene, write_png  # noqa: E402
 from rsoderh_raytracing_tpu_torch.accel import bvh as accel_bvh  # noqa: E402
 from rsoderh_raytracing_tpu_torch.accel import native as accel_native  # noqa: E402
 from rsoderh_raytracing_tpu_torch.ops import bvh as bvh_ops  # noqa: E402
@@ -193,7 +200,7 @@ from rsoderh_raytracing_tpu_torch.render.wavefront import (  # noqa: E402
     NO_LIMIT, Wavefront, render_freerun, render_spp_sync, render_wavefront,
 )
 from rsoderh_raytracing_tpu_torch.scene.device import (  # noqa: E402
-    BVH, CHUNKED, DENSE, SMALL, SWEEP_MAX_SHARED, TRI_CHUNK, auto_bvh, build_device_scene, route,
+    BVH, CHUNKED, SMALL, SWEEP_MAX_SHARED, TRI_CHUNK, auto_bvh, build_device_scene, route,
     sweep_shared_bytes,
 )
 from rsoderh_raytracing_tpu_torch.utils.png import read_png  # noqa: E402
@@ -1245,13 +1252,14 @@ def cluster_phase(sky, card, dev, max_err, bvh_mrays):
 
 # Phase 17: every scene. The tiled scenes' image checks (size, free-run
 # budget), the BVH route's speed call on house_tiled16, house_tiled64's
-# dense 2048^2 call, and the knobs' 256^2 images (budget by scene) and
-# 2048^2 calls.
+# 2048^2 calls, the union-box caps of the chunked parity, the knobs'
+# scenes (intersector, free-run budget, size of the CPU image under
+# RT_DISABLE_PALLAS) and RT_DEBUG_NANS's 2048^2 calls.
 EVERY_SIZE, EVERY_BUDGET = 256, 8
 TILED_BVH_BUDGET = 64
-DENSE_BUDGET = 1
-KNOB_SCENES = {"house": (False, 8), "suzanne_hi": (False, 4), "suzanne_xxhi": ("auto", 2)}
-KNOB_MAIN_BUDGET = 8
+TILED64_BUDGET = 16
+UNION_CAPS = (1, 3)
+KNOB_SCENES = {"house": (False, 8, 128), "suzanne_hi": (False, 2, 64), "suzanne_xxhi": ("auto", 2, 64)}
 NANS_MAIN_BUDGET = 64
 
 
@@ -1288,9 +1296,10 @@ def freerun_rate(ds, env, cam, budget, dev):
 
 
 def every_scene_phase(sky, card, dev, max_err, paths):
-    """Phase 17: the small route past the unroll budget, the dense route,
-    RT_DISABLE_PALLAS and RT_DEBUG_NANS. Adds house_tiled16's TRACE and
-    SHADE launches to `paths`."""
+    """Phase 17: the small route past the unroll budget, staged and read
+    from global memory, the chunked kernels' union-box restaging,
+    RT_DISABLE_PALLAS and RT_DEBUG_NANS. Adds house_tiled16's and
+    house_tiled64's TRACE and SHADE launches to `paths`."""
     phase_start = time.perf_counter()
     n_pixels = SIZE * SIZE
     with knob_env({"RT_DISABLE_PALLAS": None, "RT_DEBUG_NANS": None}):
@@ -1358,69 +1367,115 @@ def every_scene_phase(sky, card, dev, max_err, paths):
             seconds=f"{time.perf_counter() - start:.1f}", card=repr(card))
         del ds, bvh_ds
 
-        # house_tiled64 under intersector='sweep': the dense route
+        # house_tiled64 under intersector='sweep': the small route, its
+        # table read from global memory
         start = time.perf_counter()
         scene64 = named_scene("house_tiled64")
         cam64 = camera_pytree(scene64.camera, dev)
-        _device._warned.discard("dense")
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            dense = build_device_scene(scene64, dev, with_bvh=False)
-            counts64 = (dense.sph_radius.shape[0], dense.pln_valid.shape[0], dense.tri_valid.shape[0])
-            if route(dense) != DENSE or not auto_bvh(*counts64, dev, dense.mat_roughness.shape[0]):
-                raise AssertionError("house_tiled64 is not dense under 'sweep' and BVH under 'auto'")
-            reset_launches()
-            dense_img = freerun_image(dense, env, cam64, EVERY_SIZE, EVERY_BUDGET)
-            no_launches("house_tiled64 on the dense route")
-        warned = sum("dense sweep" in str(w.message) for w in caught)
-        log("every_scene", scene="house_tiled64", route=route(dense), why=repr(dense.why_dense),
-            dense_warnings=warned)
-        if warned != 1:
-            raise AssertionError(f"the dense route warned {warned} times, not once")
+        big = build_device_scene(scene64, dev, with_bvh=False)
+        counts64 = (big.sph_radius.shape[0], big.pln_valid.shape[0], big.tri_valid.shape[0],
+                    big.mat_roughness.shape[0])
+        table64 = big.trace_table.numel() * 4
+        log("every_scene", scene="house_tiled64", route=route(big), lanes=big.num_lanes, counts=counts64,
+            table_bytes=table64, staged=table64 <= card_max)
+        if route(big) != SMALL or table64 <= SWEEP_MAX_SHARED or not auto_bvh(*counts64[:3], dev,
+                                                                            counts64[3]):
+            raise AssertionError("house_tiled64 is not small under 'sweep' and BVH under 'auto'")
+        state = loop_state(big, env, cam64, 256, 0, 3)
+        trace_parity("house_tiled64", 256 * 256, state["trace"], max_err)
+        keep_worst(max_err, "shade", check_parity(
+            "shade:house_tiled64", 256 * 256, shade_outputs(cw.shade_call(*state["shade"])),
+            shade_outputs(cw.shade_plain(*state["shade"])), cw.SHADE_INT_NAMES))
+        sweep_parity(state["trace"], 256 * 256, max_err)
+        for bounce, scan_state in capture_scan(big, env, cam64, 256, BOUNCES).items():
+            scan_parity(f"house_tiled64_scan{bounce}", 256 * 256, big, scan_state, max_err)
+        del state
+        counted, image, counts, warm = timed_main("house_tiled64", big, env, cam64, card, 1, dev,
+                                                  budget=TILED64_BUDGET)
+        others = {k: counted[k] for k in launches() if k not in ("trace", "shade")}
+        if not counted["trace"] == counted["shade"] == counted["iterations"] or any(others.values()):
+            raise AssertionError(f"the house_tiled64 main path is not TRACE and SHADE alone: {counted}")
+        paths["trace"]["house_tiled64"] = counted["trace"]
+        paths["shade"]["house_tiled64"] = counted["shade"]
+        big_mrays = counted["mrays_per_s"]
+        save_png("house_tiled64", image, counts, warm)
+        del image
+        main_args = loop_state(big, env, cam64, SIZE, 0, 0, kernel_iterations=2)
+        calls, shadow_rays = sweep_calls(main_args["trace"])
+        trace_ops = n_pixels * sweep_ops(big) + first_hit_ops(big, shadow_rays)
+        n_bytes = n_pixels * (4 * len(cw.TRACE_CARRY_IN) + 16 + 16 + 4 * (len(cw.TRACE_OUT_NAMES) - 1) + 16)
+        args = main_args["trace"]
+        ms = (time_ms(lambda: cw.trace_call(*args), 3) + time_ms(lambda: cw.trace_call(*args), 3)) / 2
+        bound = bound_ms(n_bytes + table64, trace_ops)
+        log("timing", kernel="trace", scene="house_tiled64", lanes=n_pixels, ms=f"{ms:.4f}",
+            bound_ms=f"{bound[0]:.4f}", bound_by=bound[1], ops_per_lane=f"{trace_ops / n_pixels:.1f}",
+            card=repr(card))
+        del calls, shadow_rays, main_args, args
+        big_img = freerun_image(big, env, cam64, EVERY_SIZE, EVERY_BUDGET)
         bvh_ds = build_device_scene(scene64, dev, with_bvh="auto")
         if route(bvh_ds) != BVH:
             raise AssertionError("'auto' did not walk house_tiled64's BVH on the card")
-        image_check("house_tiled64_dense_vs_bvh", dense_img,
+        image_check("house_tiled64_small_vs_bvh", big_img,
                     freerun_image(bvh_ds, env, cam64, EVERY_SIZE, EVERY_BUDGET))
-        reset_launches()
-        seconds, mrays, peak = freerun_rate(dense, env, cam64, DENSE_BUDGET, dev)
-        no_launches("house_tiled64's 2048^2 dense call")
-        bvh_seconds, bvh_mrays, _ = freerun_rate(bvh_ds, env, cam64, DENSE_BUDGET, dev)
-        log("every_scene", scene="house_tiled64", size=SIZE, budget=DENSE_BUDGET,
-            dense_seconds=f"{seconds:.3f}", dense_mrays_per_s=f"{mrays:.3f}",
-            dense_peak_allocated_mib=f"{peak:.1f}", bvh_seconds=f"{bvh_seconds:.3f}",
-            bvh_mrays_per_s=f"{bvh_mrays:.2f}", seconds=f"{time.perf_counter() - start:.1f}",
-            card=repr(card))
-        del dense, bvh_ds
+        bvh_counted = timed_main("house_tiled64_bvh", bvh_ds, env, cam64, card, 1, dev,
+                                 budget=TILED64_BUDGET)[0]
+        log("every_scene", scene="house_tiled64", small_mrays_per_s=f"{big_mrays:.2f}",
+            bvh_mrays_per_s=f"{bvh_counted['mrays_per_s']:.2f}",
+            small_over_bvh=f"{big_mrays / bvh_counted['mrays_per_s']:.4f}",
+            seconds=f"{time.perf_counter() - start:.1f}", card=repr(card))
+        del big, bvh_ds
 
-        # RT_DISABLE_PALLAS=1: no kernel on three scenes
+        # the chunked kernels past the union boxes a block holds: a cap of
+        # one or three batches restages them as the walk goes on
         start = time.perf_counter()
-        for name, (with_bvh, budget) in KNOB_SCENES.items():
+        hi = named_scene("suzanne_hi")
+        hi_ds = build_device_scene(hi, dev)
+        state = loop_state(hi_ds, env, camera_pytree(hi.camera, dev), 256, 0, 3)
+        for cap in UNION_CAPS:
+            got = ci.chunked_closest_call(*state["closest"], union_batches=cap)
+            ref = intersect.chunked_closest_plain(*state["closest"])
+            differ = sum(int((_bits(a) != _bits(b)).sum()) for a, b in zip(got, ref))
+            occ = ci.chunked_any_call(*state["occlusion"], union_batches=cap)
+            differ += int((occ != intersect.chunked_any_plain(*state["occlusion"])).sum())
+            log("parity", kernel="chunked_closest+chunked_any:suzanne_hi", lanes=256 * 256,
+                union_batches=cap, chunks=hi_ds.chunks.count, lanes_differ_bitwise=differ)
+            if differ:
+                raise AssertionError(f"the chunked kernels under a union cap of {cap} disagree")
+        log("every_scene", union_caps=repr(UNION_CAPS), seconds=f"{time.perf_counter() - start:.1f}")
+        del hi_ds, state
+
+        # RT_DISABLE_PALLAS=1: refused on the card; the plain path on the CPU
+        start = time.perf_counter()
+        cpu_env = env.to("cpu")
+        for name, (with_bvh, budget, size) in KNOB_SCENES.items():
             scene = named_scene(name)
-            kcam = camera_pytree(scene.camera, dev)
             kernel_ds = build_device_scene(scene, dev, with_bvh=with_bvh)
-            ref = freerun_image(kernel_ds, env, kcam, EVERY_SIZE, budget)
-            del kernel_ds
+            ref = freerun_image(kernel_ds, env, camera_pytree(scene.camera, dev), size, budget)
             with knob_env({"RT_DISABLE_PALLAS": "1"}):
-                plain_ds = build_device_scene(scene, dev, with_bvh=with_bvh)
                 reset_launches()
-                got = freerun_image(plain_ds, env, kcam, EVERY_SIZE, budget)
-                no_launches(f"{name} under RT_DISABLE_PALLAS=1")
-                log("every_scene", scene=name, knob="RT_DISABLE_PALLAS=1", route=route(plain_ds),
-                    budget=budget)
-                if name == "house":
-                    seconds, mrays, peak = freerun_rate(plain_ds, env, kcam, KNOB_MAIN_BUDGET, dev)
-                    no_launches("house at 2048^2 under RT_DISABLE_PALLAS=1")
-                    log("every_scene", scene=name, knob="RT_DISABLE_PALLAS=1", size=SIZE,
-                        budget=KNOB_MAIN_BUDGET, seconds=f"{seconds:.3f}", mrays_per_s=f"{mrays:.2f}",
-                        peak_allocated_mib=f"{peak:.1f}", card=repr(card))
-            del plain_ds
-            image_check(f"{name}_disable_pallas_vs_kernels", got, ref)
+                try:
+                    freerun_image(kernel_ds, env, camera_pytree(scene.camera, dev), size, budget)
+                except RuntimeError as err:
+                    refused = str(err)
+                else:
+                    refused = None
+                no_launches(f"{name} on the card under RT_DISABLE_PALLAS=1")
+                if refused is None or "device='cpu'" not in refused:
+                    raise AssertionError(f"{name}: the card did not refuse RT_DISABLE_PALLAS=1")
+                cpu_start = time.perf_counter()
+                got = freerun_image(kernel_ds.to("cpu"), cpu_env, camera_pytree(scene.camera, "cpu"),
+                                    size, budget)
+                no_launches(f"{name} on the CPU under RT_DISABLE_PALLAS=1")
+                log("every_scene", scene=name, knob="RT_DISABLE_PALLAS=1", route=route(kernel_ds),
+                    card_refused=repr(refused[:60]), cpu_size=size, budget=budget,
+                    cpu_seconds=f"{time.perf_counter() - cpu_start:.1f}")
+            del kernel_ds
+            image_check(f"{name}_disable_pallas_cpu_vs_kernels", got, ref)
         log("every_scene", knob="RT_DISABLE_PALLAS=1", seconds=f"{time.perf_counter() - start:.1f}")
 
         # RT_DEBUG_NANS=1: clean runs raise nothing; a NaN ray lane does
         start = time.perf_counter()
-        for name, (with_bvh, budget) in KNOB_SCENES.items():
+        for name, (with_bvh, budget, _) in KNOB_SCENES.items():
             scene = named_scene(name)
             nds = build_device_scene(scene, dev, with_bvh=with_bvh)
             with knob_env({"RT_DEBUG_NANS": "1"}):

@@ -1,11 +1,13 @@
 """Rules of the port's entry points: the card by default, never a silent
-drop to the CPU; no reference knob ignored without a word; and the two
-reference switches that hold on any device, read at call time:
-RT_DISABLE_PALLAS=1 (``kernels_enabled``: no hand-written kernel runs,
-every wrapper takes its plain twin) and RT_DEBUG_NANS=1 (``debug_nans``:
-every wrapper's float outputs and the wavefront carry are checked for
-NaN, ``check_nans``); and, on the CPU, a first sine and cosine that do
-not depend on being first (``warm_cpu_math``)."""
+drop to the CPU; a wrapper runs its plain twin only on CPU tensors and
+launches its kernel (or raises) on CUDA ones (``use_plain``); no
+reference knob ignored without a word; the reference's two switches,
+read at call time: RT_DISABLE_PALLAS=1 (``kernels_disabled``: the
+wavefront's composed body on the CPU, refused on the card, where the
+port has no plain path) and RT_DEBUG_NANS=1 (``debug_nans``: every
+wrapper's float outputs and the wavefront carry are checked for NaN,
+``check_nans``); and, on the CPU, a first sine and cosine that do not
+depend on being first (``warm_cpu_math``)."""
 
 from __future__ import annotations
 
@@ -46,17 +48,19 @@ def warn_ignored_knobs() -> None:
                             "that the PyTorch port ignores: this run does not take the setting")
 
 
-def kernels_enabled() -> bool:
-    """False under RT_DISABLE_PALLAS=1, the reference's switch that runs
+def kernels_disabled() -> bool:
+    """True under RT_DISABLE_PALLAS=1, the reference's switch that runs
     the estimator without a kernel (rsoderh_raytracing_tpu/ops/
-    pallas_intersect.py:pallas_enabled): a scene built then takes the
-    dense route, the wavefront its composed body, and every wrapper its
-    plain twin on a CUDA tensor too. Read at each call."""
+    pallas_intersect.py:pallas_enabled): on the CPU the wavefront then
+    runs its composed body over the plain versions; on the card every
+    wrapper refuses to run (use_plain), since the port's plain versions
+    run on the CPU only. Read at each call."""
     if os.environ.get("RT_DISABLE_PALLAS") != "1":
-        return True
-    warn_once("RT_DISABLE_PALLAS", "RT_DISABLE_PALLAS=1: no hand-written kernel runs; every "
-                                   "query and shade takes its plain PyTorch version")
-    return False
+        return False
+    warn_once("RT_DISABLE_PALLAS", "RT_DISABLE_PALLAS=1: no hand-written kernel runs; the "
+                                   "wavefront runs its composed body over the plain PyTorch "
+                                   "versions, on the CPU only")
+    return True
 
 
 def debug_nans() -> bool:
@@ -74,13 +78,19 @@ def debug_nans() -> bool:
 
 def use_plain(t: torch.Tensor, what: str) -> bool:
     """Whether a wrapper runs its plain twin for inputs on t's device:
-    on the CPU, and on the card under RT_DISABLE_PALLAS=1; otherwise it
-    launches its kernel. Raises for any other device."""
+    True on the CPU, False on the card, where it launches its kernel.
+    Raises ValueError for any other device, and RuntimeError on the card
+    under RT_DISABLE_PALLAS=1."""
     if t.device.type == "cpu":
         return True
     if t.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {t.device}")
-    return not kernels_enabled()
+    if kernels_disabled():
+        raise RuntimeError(
+            f"{what}: RT_DISABLE_PALLAS=1 asks for no hand-written kernel, and on the card every "
+            "query and shade is one; run with device='cpu' (--device cpu) for the plain path, "
+            "or unset the knob")
+    return False
 
 
 def check_nans(op: str, outputs, names=()):

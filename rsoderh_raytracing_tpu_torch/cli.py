@@ -66,12 +66,12 @@ def build_parser() -> argparse.ArgumentParser:
         "--intersector",
         choices=("auto", "sweep", "bvh"),
         default="auto",
-        help="sweep: the sweep kernels (the packed table within a block's"
-        " shared memory, or chunked past the unroll budget), and the dense"
-        " sweep in plain PyTorch, with a warning, for a scene neither covers."
-        " bvh: build the SAH BVH and walk it. auto: on the card the sweep"
-        " kernels where they cover the scene, else the BVH; on --device cpu"
-        " the reference's rule, the BVH past 262,144 triangle lanes.",
+        help="sweep: the sweep kernels for any scene (chunked where the"
+        " chunked route covers it, else every lane against the packed"
+        " table). bvh: build the SAH BVH and walk it. auto: on the card the"
+        " sweep kernels where the table fits a block's shared memory or the"
+        " scene chunks, else the BVH; on --device cpu the reference's rule,"
+        " the BVH past 262,144 triangle lanes.",
     )
     parser.add_argument("--max-bounces", type=int, default=10)
     parser.add_argument("--output", default="render.png")

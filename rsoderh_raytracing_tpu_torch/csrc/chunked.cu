@@ -72,16 +72,18 @@
 // 32 B a batch for the union boxes (the bounds table itself is staged a
 // batch at a time): 192,416 B on suzanne_hi (242 chunks; its 8 sphere and
 // 8 plane lanes unrolled, 768 B), 222,880 B on suzanne_xxhi (15,488
-// chunks) of the MAX_SHARED = 232,448 B (227 KB) a block may ask for. So
-// the block's shared memory, not a count, limits a scene's chunks: 20,272
-// with suzanne's unrolled rows.
-// scene/device.py mirrors shared_bytes (chunked_shared_bytes) and keeps a
-// scene past the limit off the launchers, which refuse it too
-// (cudaErrorInvalidValue). One block of 512 threads a multiprocessor, at most
+// chunks) of the MAX_SHARED = 232,448 B (227 KB) a block may ask for. A
+// scene with more batches than that holds (past 20,272 chunks with
+// suzanne's unrolled rows) keeps the union boxes of union_batches batches
+// at a time and stages the next group's when the walk reaches it (two
+// barriers a group), so no chunk count is refused. scene/device.py
+// mirrors shared_bytes (chunked_shared_bytes). One block of 512 threads a
+// multiprocessor, at most
 // 128 registers a thread. Every block streams every window from L2:
 // lanes / kTile x the window table a launch (5 GB on suzanne_hi at 4.2M
 // lanes).
 
+#include <algorithm>
 #include <cstdint>
 #include <cstring>
 #include <cuda_runtime.h>
@@ -124,6 +126,7 @@ struct ChunkScene {
   const float* bounds;  // (C, 6) [min xyz, max xyz]
   const float* win;     // (C * CHUNK, WIN_COLS), 16-byte aligned
   int n_tri_chunks, n_chunks;
+  int union_batches;    // batches whose union boxes a block holds at once
 };
 
 // Byte offsets of a block's dynamic shared memory; after OFF_SMALL the
@@ -320,6 +323,30 @@ __device__ __forceinline__ void sweep_pairs(const float4* w, int row, int base,
   }
 }
 
+// The union boxes of batches [first, first + union_batches) into sunion,
+// BOUND_COLS floats each (NaN bounds propagate, so such a batch is never
+// culled). Every thread of the block takes part; the caller's barrier
+// follows.
+__device__ __forceinline__ void stage_unions(float* sunion, const ChunkScene& s, int first) {
+  const int batches = min(s.union_batches, batch_count(s.n_chunks) - first);
+  for (int k = threadIdx.x; k < batches * BOUND_COLS; k += kThreads) {
+    const int c0 = (first + k / BOUND_COLS) * kBatch, col = k % BOUND_COLS;
+    float v = 0.0f;
+    if (col < 6) {
+      // kBatch loads in flight at once; a chunk past the end repeats the last
+      float x[kBatch];
+#pragma unroll
+      for (int c = 0; c < kBatch; ++c) {
+        x[c] = __ldg(s.bounds + (size_t)min(c0 + c, s.n_chunks - 1) * 6 + col);
+      }
+      v = x[0];
+#pragma unroll
+      for (int c = 1; c < kBatch; ++c) v = col < 3 ? minn(v, x[c]) : maxn(v, x[c]);
+    }
+    sunion[k] = v;
+  }
+}
+
 // One block: a tile of kTile lanes against the whole scene. out_a/out_b/
 // out_c: (t, type, index) for kClosest, else out_b is the occluded flag.
 template <bool kClosest>
@@ -342,25 +369,10 @@ __device__ __forceinline__ void chunked_tile(const ChunkArgs& a, const ChunkScen
   const int warp = tid >> 5, lane_id = tid & 31;
   const int tile_base = blockIdx.x * kTile;
 
-  // the unrolled primitives; each batch's union box (NaN bounds propagate,
-  // so such a batch is never culled); both sets of counts
+  // the unrolled primitives; the first group's union boxes; both sets of
+  // counts
   for (int k = tid; k < s.small_len; k += kThreads) small[k] = s.small[k];
-  for (int k = tid; k < batch_count(s.n_chunks) * BOUND_COLS; k += kThreads) {
-    const int c0 = k / BOUND_COLS * kBatch, col = k % BOUND_COLS;
-    float v = 0.0f;
-    if (col < 6) {
-      // kBatch loads in flight at once; a chunk past the end repeats the last
-      float x[kBatch];
-#pragma unroll
-      for (int c = 0; c < kBatch; ++c) {
-        x[c] = __ldg(s.bounds + (size_t)min(c0 + c, s.n_chunks - 1) * 6 + col);
-      }
-      v = x[0];
-#pragma unroll
-      for (int c = 1; c < kBatch; ++c) v = col < 3 ? minn(v, x[c]) : maxn(v, x[c]);
-    }
-    sunion[k] = v;
-  }
+  stage_unions(sunion, s, 0);
   if (tid < 2 * COUNT_SLOTS) all_counts[tid] = 0;
   __syncthreads();
 
@@ -409,6 +421,11 @@ __device__ __forceinline__ void chunked_tile(const ChunkArgs& a, const ChunkScen
     // this batch's counts: [0, kBatch) the chunks' queues, [kBatch] the
     // candidates; zero since the sweep before last
     int* counts = all_counts + (batch & 1) * COUNT_SLOTS;
+    if (batch > 0 && batch % s.union_batches == 0) {  // the next group's union boxes
+      __syncthreads();
+      stage_unions(sunion, s, batch);
+      __syncthreads();
+    }
 
     // 2. the batch's windows start towards shared memory, and its bounds;
     // meanwhile each lane whose ray passes the batch's union box becomes a
@@ -420,7 +437,8 @@ __device__ __forceinline__ void chunked_tile(const ChunkArgs& a, const ChunkScen
     const float4* src = reinterpret_cast<const float4*>(s.win + (size_t)c0 * WIN_FLOATS);
     for (int k = tid; k < nb * (WIN_FLOATS / 4); k += kThreads) cp_async16(swin + k, src + k);
     cp_async_commit();
-    const float4* box = reinterpret_cast<const float4*>(sunion) + batch * (BOUND_COLS / 4);
+    const float4* box =
+        reinterpret_cast<const float4*>(sunion) + batch % s.union_batches * (BOUND_COLS / 4);
 #pragma unroll
     for (int l = 0; l < kLanes; ++l) {
       const int lane = tid + l * kThreads;
@@ -523,9 +541,18 @@ __global__ void __launch_bounds__(kThreads, 1)
   chunked_tile<false>(a, s, nullptr, out_occ, nullptr, n);
 }
 
+// Batches whose union boxes a block holds at once: every batch where they
+// fit MAX_SHARED, else as many as fit; at most `cap` where cap > 0.
+int union_batches(int small_len, int n_chunks, int cap) {
+  const long room = ((long)MAX_SHARED - (long)OFF_SMALL) / (long)sizeof(float) - round_up4(small_len);
+  int b = (int)std::min<long>(batch_count(n_chunks), room / BOUND_COLS);
+  if (cap > 0) b = std::min(b, cap);
+  return b;
+}
+
 // Dynamic shared memory of a block, bytes.
-size_t shared_bytes(int small_len, int n_chunks) {
-  return OFF_SMALL + sizeof(float) * (round_up4(small_len) + (size_t)batch_count(n_chunks) * BOUND_COLS);
+size_t shared_bytes(int small_len, int n_unions) {
+  return OFF_SMALL + sizeof(float) * (round_up4(small_len) + (size_t)n_unions * BOUND_COLS);
 }
 
 // Launch `kernel` over n lanes with the block's shared memory; the CUDA
@@ -536,8 +563,9 @@ int launch(Kernel kernel, void** p, const ChunkScene& s, int n, void* stream, Ou
   ChunkArgs a;
   memcpy(&a, p, sizeof(a));
   if (n <= 0) return 0;
-  const size_t shared = shared_bytes(s.small_len, s.n_chunks);
-  if (shared > MAX_SHARED || s.n_tri_chunks > s.n_chunks) return (int)cudaErrorInvalidValue;
+  const size_t shared = shared_bytes(s.small_len, s.union_batches);
+  if ((s.n_chunks > 0 && s.union_batches < 1) || s.n_tri_chunks > s.n_chunks)
+    return (int)cudaErrorInvalidValue;
   if (reinterpret_cast<uintptr_t>(s.win) % 16 != 0) return (int)cudaErrorMisalignedAddress;
   const cudaError_t rc =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
@@ -552,27 +580,32 @@ extern "C" {
 
 // Shared memory a block of either kernel asks for on such a scene, bytes.
 int rt_chunked_shared_bytes(int small_len, int n_chunks) {
-  return (int)shared_bytes(small_len, n_chunks);
+  return (int)shared_bytes(small_len, union_batches(small_len, n_chunks, 0));
 }
 
 // Chunks a batch: the traversal's one parameter that changes which (lane,
 // chunk) pairs are swept (ops/intersect.chunked_*_model takes it).
 int rt_chunked_batch() { return kBatch; }
 
-// p: 7 device pointers, ChunkArgs field order (ray components, live mask).
+// p: 7 device pointers, ChunkArgs field order (ray components, live mask);
+// max_union_batches > 0 caps the batches whose union boxes a block holds
+// at once (0: as many as fit), which changes no output.
 int rt_chunked_closest_launch(void** p, const float* small, int small_len, int n_sph, int n_pln,
                               const float* bounds, const float* win, int n_tri_chunks,
                               int n_chunks, float* out_t, int32_t* out_type, int32_t* out_idx,
-                              int n, void* stream) {
-  const ChunkScene s{small, small_len, n_sph, n_pln, bounds, win, n_tri_chunks, n_chunks};
+                              int n, int max_union_batches, void* stream) {
+  const ChunkScene s{small, small_len, n_sph, n_pln, bounds, win, n_tri_chunks, n_chunks,
+                     union_batches(small_len, n_chunks, max_union_batches)};
   return launch(chunked_closest_kernel, p, s, n, stream, out_t, out_type, out_idx);
 }
 
-// p: 7 device pointers, ChunkArgs field order (ray components, hit mask).
+// p: 7 device pointers, ChunkArgs field order (ray components, hit mask);
+// max_union_batches as for CHUNKED_CLOSEST.
 int rt_chunked_any_launch(void** p, const float* small, int small_len, int n_sph, int n_pln,
                           const float* bounds, const float* win, int n_tri_chunks, int n_chunks,
-                          int32_t* out_occ, int n, void* stream) {
-  const ChunkScene s{small, small_len, n_sph, n_pln, bounds, win, n_tri_chunks, n_chunks};
+                          int32_t* out_occ, int n, int max_union_batches, void* stream) {
+  const ChunkScene s{small, small_len, n_sph, n_pln, bounds, win, n_tri_chunks, n_chunks,
+                     union_batches(small_len, n_chunks, max_union_batches)};
   return launch(chunked_any_kernel, p, s, n, stream, out_occ);
 }
 

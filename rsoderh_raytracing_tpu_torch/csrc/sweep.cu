@@ -23,8 +23,9 @@
 // first threads sweep the list, so the sweeping warps are dense and the
 // warps past the list do no sweep; a block with no set lane stages
 // nothing. The block stages the packed scene table (scene/device.py:
-// pack_rows; house 9 KB, house_tiled16's 328 rows 26 KB, at most
-// SWEEP_MAX_TABLE_BYTES) in shared memory, and
+// pack_rows; house 9 KB, house_tiled16's 328 rows 26 KB) in shared memory
+// where it fits (SWEEP_MAX_TABLE_BYTES; a larger one, house_tiled64's
+// 272 KB, is read from global memory: stage_scene), and
 // the threads of a warp read the same row at a time, a broadcast. Each
 // kind's loop stops at its last valid row (the padding is trailing; house
 // sweeps 2 + 2 + 52 of its 8 + 8 + 56 rows); indices stay those of the
@@ -67,10 +68,11 @@ constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 
 // The table staged and cut to the valid rows of each kind.
+template <bool kStaged>
 __device__ __forceinline__ SceneView stage_valid(float* smem, const float* __restrict__ table,
                                                  int table_len, int n_sph, int n_pln, int n_tri,
                                                  int n_mat, const int* rows) {
-  SceneView s = stage_scene(smem, table, table_len, n_sph, n_pln, n_tri, n_mat);
+  SceneView s = stage_scene<kStaged>(smem, table, table_len, n_sph, n_pln, n_tri, n_mat);
   s.n_sph = rows[0];
   s.n_pln = rows[1];
   s.n_tri = rows[2];
@@ -126,6 +128,7 @@ struct ClosestArgs {
   float* mat[MAT_COLS];
 };
 
+template <bool kStaged>
 __global__ void __launch_bounds__(kThreads) closest_kernel(ClosestArgs a, const float* __restrict__ table,
                                                            int table_len, int n, int n_sph, int n_pln,
                                                            int n_tri, int n_mat, Rows rows) {
@@ -146,7 +149,8 @@ __global__ void __launch_bounds__(kThreads) closest_kernel(ClosestArgs a, const 
     for (int c = 0; c < MAT_COLS; ++c) a.mat[c][i] = 0.0f;
   }
   if (live == 0) return;  // block-uniform, so no thread misses the staging barrier
-  const SceneView s = stage_valid(smem, table, table_len, n_sph, n_pln, n_tri, n_mat, rows.n);
+  const SceneView s =
+      stage_valid<kStaged>(smem, table, table_len, n_sph, n_pln, n_tri, n_mat, rows.n);
   if ((int)threadIdx.x >= live) return;  // whole warps past the list do no sweep
   const int j = list[threadIdx.x];
   const HitAttrs h = closest_attrs(s, load_ray(a.r, j));
@@ -170,6 +174,7 @@ struct AnyArgs {
   int32_t* hit;
 };
 
+template <bool kStaged>
 __global__ void __launch_bounds__(kThreads) any_kernel(AnyArgs a, const float* __restrict__ table,
                                                        int table_len, int n, int n_sph, int n_pln,
                                                        int n_tri, Rows rows) {
@@ -181,7 +186,7 @@ __global__ void __launch_bounds__(kThreads) any_kernel(AnyArgs a, const float* _
   const int masked = compact_block(a.mask, i, n, list, counts, set);
   if (i < n && !set) a.hit[i] = 0;
   if (masked == 0) return;
-  const SceneView s = stage_valid(smem, table, table_len, n_sph, n_pln, n_tri, 0, rows.n);
+  const SceneView s = stage_valid<kStaged>(smem, table, table_len, n_sph, n_pln, n_tri, 0, rows.n);
   if ((int)threadIdx.x >= masked) return;
   const int j = list[threadIdx.x];
   float best_t;
@@ -198,10 +203,11 @@ struct FusedArgs {
   int32_t* occ;
 };
 
+template <bool kStaged>
 __global__ void fused_kernel(FusedArgs a, const float* __restrict__ table, int table_len, int n,
                              int n_sph, int n_pln, int n_tri, int n_mat) {
   extern __shared__ float smem[];
-  const SceneView s = stage_scene(smem, table, table_len, n_sph, n_pln, n_tri, n_mat);
+  const SceneView s = stage_scene<kStaged>(smem, table, table_len, n_sph, n_pln, n_tri, n_mat);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const TraceAttrs t = trace_attrs(s, load_ray(a.r, i), V3{a.sx[i], a.sy[i], a.sz[i]});
@@ -237,11 +243,9 @@ int rt_closest_launch(void** p, const float* table, int table_len, int n, int n_
   ClosestArgs a;
   memcpy(&a, p, sizeof(a));
   if (n <= 0) return 0;
-  const size_t smem = (size_t)table_len * sizeof(float);
-  if (int err = reserve_table(closest_kernel, smem)) return err;
-  closest_kernel<<<(n + kThreads - 1) / kThreads, kThreads, smem, (cudaStream_t)stream>>>(
-      a, table, table_len, n, n_sph, n_pln, n_tri, n_mat, Rows{{rows_sph, rows_pln, rows_tri}});
-  return (int)cudaGetLastError();
+  return launch_sweep(closest_kernel<true>, closest_kernel<false>, table_len, n, kThreads, stream, a,
+                      table, table_len, n, n_sph, n_pln, n_tri, n_mat,
+                      Rows{{rows_sph, rows_pln, rows_tri}});
 }
 
 // p: 8 device pointers, AnyArgs field order (6 f32 ray inputs, the i32
@@ -252,11 +256,8 @@ int rt_any_launch(void** p, const float* table, int table_len, int n, int n_sph,
   AnyArgs a;
   memcpy(&a, p, sizeof(a));
   if (n <= 0) return 0;
-  const size_t smem = (size_t)table_len * sizeof(float);
-  if (int err = reserve_table(any_kernel, smem)) return err;
-  any_kernel<<<(n + kThreads - 1) / kThreads, kThreads, smem, (cudaStream_t)stream>>>(
-      a, table, table_len, n, n_sph, n_pln, n_tri, Rows{{rows_sph, rows_pln, rows_tri}});
-  return (int)cudaGetLastError();
+  return launch_sweep(any_kernel<true>, any_kernel<false>, table_len, n, kThreads, stream, a, table,
+                      table_len, n, n_sph, n_pln, n_tri, Rows{{rows_sph, rows_pln, rows_tri}});
 }
 
 // The dynamic shared memory that each of CLOSEST, ANY and FUSED can ask
@@ -268,8 +269,8 @@ int rt_sweep_max_table_bytes() {
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
     return -1;
-  const void* kernels[] = {(const void*)closest_kernel, (const void*)any_kernel,
-                           (const void*)fused_kernel};
+  const void* kernels[] = {(const void*)closest_kernel<true>, (const void*)any_kernel<true>,
+                           (const void*)fused_kernel<true>};
   size_t fixed = 0;
   for (const void* k : kernels) {
     cudaFuncAttributes attr;
@@ -287,11 +288,8 @@ int rt_fused_launch(void** p, const float* table, int table_len, int n, int n_sp
   FusedArgs a;
   memcpy(&a, p, sizeof(a));
   if (n <= 0) return 0;
-  const size_t smem = (size_t)table_len * sizeof(float);
-  if (int err = reserve_table(fused_kernel, smem)) return err;
-  fused_kernel<<<(n + kThreads - 1) / kThreads, kThreads, smem, (cudaStream_t)stream>>>(
-      a, table, table_len, n, n_sph, n_pln, n_tri, n_mat);
-  return (int)cudaGetLastError();
+  return launch_sweep(fused_kernel<true>, fused_kernel<false>, table_len, n, kThreads, stream, a,
+                      table, table_len, n, n_sph, n_pln, n_tri, n_mat);
 }
 
 }  // extern "C"

@@ -26,9 +26,10 @@
 // block, ragged tail masked). The (32,128) tiles, SMEM windows and the
 // hi/lo u32->f32 split of the Pallas version only served Mosaic. TRACE
 // stages the packed scene table (house: 72 primitives + 8 materials,
-// 9 KB; house_tiled16: 328 primitives, 26 KB; any table up to
-// SWEEP_MAX_TABLE_BYTES, past Mosaic's 192-lane unroll budget) in shared
-// memory at block start; every
+// 9 KB; house_tiled16, past Mosaic's 192-lane unroll budget: 328
+// primitives, 26 KB) in shared memory at block start where it fits
+// (SWEEP_MAX_TABLE_BYTES) and reads a larger table (house_tiled64: 272 KB)
+// from global memory (stage_scene); every
 // thread of a warp then reads the same primitive, a broadcast. SHADE and
 // BIG_SHADE share shade_core (wavefront_common.cuh), so they cannot drift
 // apart.
@@ -90,11 +91,12 @@ constexpr float INV_PI_F = (float)(1.0 / PI_D);
 // Six blocks of 256 a multiprocessor cap TRACE at 40 registers (69
 // unbounded): it spills some 136 bytes a thread, yet at the occupancy this
 // buys it ran 5.7% faster on an H100 (PERF.md, PR 5).
+template <bool kStaged>
 __global__ void __launch_bounds__(kThreads, 6)
     trace_kernel(TraceArgs a, const float* __restrict__ table, int table_len, int n, int n_sph,
                  int n_pln, int n_tri, int n_mat, EnvRows env) {
   extern __shared__ float smem[];
-  const SceneView s = stage_scene(smem, table, table_len, n_sph, n_pln, n_tri, n_mat);
+  const SceneView s = stage_scene<kStaged>(smem, table, table_len, n_sph, n_pln, n_tri, n_mat);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
 
@@ -348,12 +350,9 @@ int rt_trace_launch(void** p, const float* table, int table_len, int n, int n_sp
   TraceArgs a;
   memcpy(&a, p, sizeof(a));
   if (n <= 0) return 0;
-  const size_t smem = (size_t)table_len * sizeof(float);
-  if (int err = reserve_table(trace_kernel, smem)) return err;
   const EnvRows env{(const float4*)alias, (const uint4*)quad, env_w, env_h};
-  trace_kernel<<<(n + kThreads - 1) / kThreads, kThreads, smem, (cudaStream_t)stream>>>(
-      a, table, table_len, n, n_sph, n_pln, n_tri, n_mat, env);
-  return (int)cudaGetLastError();
+  return launch_sweep(trace_kernel<true>, trace_kernel<false>, table_len, n, kThreads, stream, a,
+                      table, table_len, n, n_sph, n_pln, n_tri, n_mat, env);
 }
 
 // p: 73 device pointers, ShadeArgs field order.

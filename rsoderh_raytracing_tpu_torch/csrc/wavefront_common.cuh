@@ -347,8 +347,9 @@ __device__ __forceinline__ bool tri_occluded(const RayTerms& k, const float* p) 
          (un + vn <= adet) && (tn >= TRI_T_EPS * adet) && (col<kLdg>(p, 19) > 0.0f);
 }
 
-// The packed scene table (scene/device.py:pack_rows), here in shared
-// memory: sphere, plane, triangle and material rows.
+// The packed scene table (scene/device.py:pack_rows), in shared memory
+// or, past SWEEP_MAX_TABLE_BYTES, in global memory (stage_scene): sphere,
+// plane, triangle and material rows.
 struct SceneView {
   const float* sph;
   const float* pln;
@@ -518,31 +519,53 @@ __device__ __forceinline__ const float* material_row(const float* mat, int n_mat
 // The most dynamic shared memory a sweep kernel (TRACE, FUSED, CLOSEST,
 // ANY) asks for to stage the packed table: a block's 232,448 bytes (227 KB,
 // the H100's opt-in limit) less the 1,056 bytes of CLOSEST's and ANY's
-// static lane list (sweep.cu). The table has no row cap besides: past
-// 48 KB a launcher opts in (reserve_table), past this it refuses the
-// launch. scene/device.py mirrors it (SWEEP_MAX_SHARED) and routes a
-// larger table elsewhere; rt_sweep_max_table_bytes asks the card.
+// static lane list (sweep.cu). The table has no row cap: past 48 KB a
+// launcher opts in (launch_sweep), and a table past this limit is not
+// staged at all: every thread reads its rows from global memory, where the
+// threads of a warp still read the same row at a time, through L1 and L2.
+// scene/device.py mirrors the limit (SWEEP_MAX_SHARED);
+// rt_sweep_max_table_bytes asks the card.
 constexpr size_t SWEEP_MAX_TABLE_BYTES = 232448 - 1056;
 
-// Bytes of dynamic shared memory for a table of table_len floats, after
-// the kernel's opt-in past 48 KB; a CUDA error code, cudaErrorInvalidValue
-// past SWEEP_MAX_TABLE_BYTES.
-template <class Kernel>
-int reserve_table(Kernel kernel, size_t smem) {
-  if (smem > SWEEP_MAX_TABLE_BYTES) return (int)cudaErrorInvalidValue;
-  if (smem <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+__host__ __device__ __forceinline__ bool table_staged(int table_len) {
+  return (size_t)table_len * sizeof(float) <= SWEEP_MAX_TABLE_BYTES;
 }
 
-// Stage the packed scene table in shared memory (every thread of the block
-// takes part, then a barrier) and return its rows' view.
+// Launch the sweep kernel `kernel<true>` (the table staged) or
+// `kernel<false>` (read from global memory) as table_staged says, with the
+// dynamic shared memory that staging asks for (the kernel opts in past
+// 48 KB); a CUDA error code. Two instantiations, so that the staged one's
+// rows stay shared-memory loads.
+template <class Kernel, class... Args>
+int launch_sweep(Kernel staged, Kernel unstaged, int table_len, int n, int threads, void* stream,
+                 Args... args) {
+  const bool fits = table_staged(table_len);
+  const Kernel kernel = fits ? staged : unstaged;
+  const size_t smem = fits ? (size_t)table_len * sizeof(float) : 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<(n + threads - 1) / threads, threads, smem, (cudaStream_t)stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+// The packed scene table's rows: with kStaged staged in shared memory
+// (every thread of the block takes part, then a barrier), else read where
+// it lies in global memory.
+template <bool kStaged>
 __device__ __forceinline__ SceneView stage_scene(float* smem, const float* __restrict__ table,
                                                  int table_len, int n_sph, int n_pln, int n_tri,
                                                  int n_mat) {
-  for (int k = threadIdx.x; k < table_len; k += blockDim.x) smem[k] = table[k];
-  __syncthreads();
+  const float* rows = table;
+  if (kStaged) {
+    for (int k = threadIdx.x; k < table_len; k += blockDim.x) smem[k] = table[k];
+    __syncthreads();
+    rows = smem;
+  }
   SceneView s;
-  s.sph = smem;
+  s.sph = rows;
   s.pln = s.sph + n_sph * SPH_COLS;
   s.tri = s.pln + n_pln * PLN_COLS;
   s.mat = s.tri + n_tri * TRI_COLS;

@@ -119,8 +119,8 @@ def load(flags=NVCC_FLAGS):
         "rt_trace_launch": [vp, vp, i, i, i, i, i, i, vp, vp, i, i, vp],
         "rt_shade_launch": [vp, i, i, i, i, i, i, u, u, u, u, u, vp],
         "rt_big_shade_launch": [vp, vp, vp, i, i, i, i, i, i, i, i, i, u, u, u, u, u, vp],
-        "rt_chunked_closest_launch": [vp, vp, i, i, i, vp, vp, i, i, vp, vp, vp, i, vp],
-        "rt_chunked_any_launch": [vp, vp, i, i, i, vp, vp, i, i, vp, i, vp],
+        "rt_chunked_closest_launch": [vp, vp, i, i, i, vp, vp, i, i, vp, vp, vp, i, i, vp],
+        "rt_chunked_any_launch": [vp, vp, i, i, i, vp, vp, i, i, vp, i, i, vp],
         "rt_chunked_shared_bytes": [i, i],
         "rt_chunked_batch": [],
         "rt_sweep_max_table_bytes": [],

@@ -1,18 +1,19 @@
 """The sweep kernels' wrappers: CHUNKED_CLOSEST and CHUNKED_ANY (the
-big-mesh route), CLOSEST, ANY and FUSED (the small route: a packed table
-within a block's shared memory, SWEEP_MAX_SHARED), and the BVH route's
+big-mesh route), CLOSEST, ANY and FUSED (the small route, over a packed
+table of any size: staged in a block's shared memory up to
+SWEEP_MAX_SHARED, read from global memory past it), and the BVH route's
 walks, BVH_CLOSEST and BVH_ANY.
 
 Counterpart of rsoderh_raytracing_tpu/ops/pallas_intersect.py's entry
 points (``chunked_closest_tiles``, ``chunked_any_tiles``,
 ``closest_sweep``, ``any_sweep``, ``fused_trace``). The wrappers take
 flat (n,) tensors: ray components as 3-tuples and an int32 lane mask
-(optional for CLOSEST and ANY). For CPU tensors, and for CUDA tensors under
-RT_DISABLE_PALLAS=1 (``_device.use_plain``), they run the plain versions
-(``intersect.chunked_closest_plain`` / ``chunked_any_plain`` /
-``closest_record`` / ``any_sweep`` / ``trace_attrs``); otherwise they
-launch the kernels in ``csrc/chunked.cu``, ``csrc/sweep.cu`` and
-``csrc/bvh.cu`` or raise. ``LAUNCHES`` counts the kernel launches of each
+(optional for CLOSEST and ANY). For CPU tensors they run the plain
+versions (``intersect.chunked_closest_plain`` / ``chunked_any_plain`` /
+``closest_record`` / ``any_sweep`` / ``trace_attrs``); for CUDA tensors
+they launch the kernels in ``csrc/chunked.cu``, ``csrc/sweep.cu`` and
+``csrc/bvh.cu`` or raise (also under RT_DISABLE_PALLAS=1:
+``_device.use_plain``). ``LAUNCHES`` counts the kernel launches of each
 wrapper. The BVH wrappers' plain versions are ``bvh.closest_plain`` and
 ``bvh.any_plain`` (ops/bvh.py), and their tables the scene's DeviceBVH.
 Under RT_DEBUG_NANS=1 every wrapper checks its float outputs, whichever
@@ -33,9 +34,7 @@ from rsoderh_raytracing_tpu_torch import _device
 from rsoderh_raytracing_tpu_torch.ops import bvh as bvh_ops
 from rsoderh_raytracing_tpu_torch.ops import cuda_wavefront as cw
 from rsoderh_raytracing_tpu_torch.ops import intersect
-from rsoderh_raytracing_tpu_torch.scene.device import (
-    BVH, CHUNKED, CHUNKED_MAX_SHARED, DENSE, route,
-)
+from rsoderh_raytracing_tpu_torch.scene.device import BVH, CHUNKED, route
 from rsoderh_raytracing_tpu_torch.scene.device import chunked_shared_bytes as mirror_shared_bytes
 
 # Kernel launches of each wrapper (CUDA tensors only).
@@ -58,12 +57,6 @@ def _launch_args(scene, rays, mask, what):
         cw._check(f"{what} ray input {i}", t, n, torch.float32, dev)
     cw._check(f"{what} lane mask", mask, n, torch.int32, dev)
     ch = scene.chunks
-    n_bytes = chunked_shared_bytes_of(scene)
-    if n_bytes > CHUNKED_MAX_SHARED:
-        raise NotImplementedError(
-            f"{what}: {ch.count} chunks ask for {n_bytes} bytes of shared memory a block, past "
-            f"the card's limit of {CHUNKED_MAX_SHARED}"
-        )
     n_sph = 0 if ch.n_sph_chunks else scene.sph_radius.shape[0]
     scene_args = (
         ch.small.data_ptr(), ch.small.numel(), n_sph, scene.pln_valid.shape[0],
@@ -97,18 +90,21 @@ def chunked_batch() -> int:
     return _kernels.library().rt_chunked_batch()
 
 
-def chunked_closest_call(scene, ro, rd, live):
+def chunked_closest_call(scene, ro, rd, live, union_batches=0):
     """Closest hit of rays (ro, rd) over the whole scene for lanes with
     live != 0, over the unrolled primitives only for the others.
-    Returns (t f32, type i32, index i32); type -1 is a miss."""
+    Returns (t f32, type i32, index i32); type -1 is a miss.
+    union_batches > 0 caps the batches whose union boxes a block of the
+    kernel holds at once (0: as many as its shared memory holds), which
+    changes no output: a check drives the kernel's restaging with it."""
     if _device.use_plain(live, "chunked_closest_call"):
         out = intersect.chunked_closest_plain(scene, ro, rd, live)
     else:
-        out = _chunked_closest_launch(scene, ro, rd, live)
+        out = _chunked_closest_launch(scene, ro, rd, live, union_batches)
     return _device.check_nans("CHUNKED_CLOSEST", out, ("t", "type", "index"))
 
 
-def _chunked_closest_launch(scene, ro, rd, live):
+def _chunked_closest_launch(scene, ro, rd, live, union_batches):
     from rsoderh_raytracing_tpu_torch.ops import _kernels
 
     n, dev, ptrs, scene_args = _launch_args(scene, (*ro, *rd), live, "chunked_closest_call")
@@ -116,7 +112,7 @@ def _chunked_closest_launch(scene, ro, rd, live):
     ptype = torch.empty(n, device=dev, dtype=torch.int32)
     pidx = torch.empty(n, device=dev, dtype=torch.int32)
     rc = _kernels.library().rt_chunked_closest_launch(
-        ptrs, *scene_args, t.data_ptr(), ptype.data_ptr(), pidx.data_ptr(), n,
+        ptrs, *scene_args, t.data_ptr(), ptype.data_ptr(), pidx.data_ptr(), n, union_batches,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     cw._raise_on(rc, "CHUNKED_CLOSEST")
@@ -124,9 +120,10 @@ def _chunked_closest_launch(scene, ro, rd, live):
     return t, ptype, pidx
 
 
-def chunked_any_call(scene, p, d, mask):
+def chunked_any_call(scene, p, d, mask, union_batches=0):
     """Occlusion (i32 0/1) of rays from p along d by any primitive, the
-    chunked ones only for lanes with mask != 0."""
+    chunked ones only for lanes with mask != 0; union_batches as for
+    chunked_closest_call."""
     if _device.use_plain(mask, "chunked_any_call"):
         return intersect.chunked_any_plain(scene, p, d, mask)
     from rsoderh_raytracing_tpu_torch.ops import _kernels
@@ -134,7 +131,8 @@ def chunked_any_call(scene, p, d, mask):
     n, dev, ptrs, scene_args = _launch_args(scene, (*p, *d), mask, "chunked_any_call")
     occ = torch.empty(n, device=dev, dtype=torch.int32)
     rc = _kernels.library().rt_chunked_any_launch(
-        ptrs, *scene_args, occ.data_ptr(), n, torch.cuda.current_stream(dev).cuda_stream,
+        ptrs, *scene_args, occ.data_ptr(), n, union_batches,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     cw._raise_on(rc, "CHUNKED_ANY")
     LAUNCHES["chunked_any"] += 1
@@ -358,17 +356,12 @@ def bvh_any_call(scene, p, d, mask):
     return occ
 
 
-# The closest and occlusion queries of the routes that answer (t, type,
-# index) and an int32 occlusion, each with its plain version, by
-# Wavefront.step keyword: what intersect.closest_hit and any_hit call on
-# each route, what Wavefront.step launches on the big-mesh routes, and what
-# profiling.capture_step wraps. The dense route has no kernel: its queries
-# are their own plain versions.
+# The big-mesh routes' closest and occlusion wrappers, each with its plain
+# version, by Wavefront.step keyword: what Wavefront.step launches on each
+# route, and what profiling.capture_step wraps.
 ROUTE_CALLS = {
     CHUNKED: {"closest": (chunked_closest_call, intersect.chunked_closest_plain),
               "occlusion": (chunked_any_call, intersect.chunked_any_plain)},
     BVH: {"closest": (bvh_closest_call, bvh_ops.closest_plain),
           "occlusion": (bvh_any_call, bvh_ops.any_plain)},
-    DENSE: {"closest": (intersect.dense_closest, intersect.dense_closest),
-            "occlusion": (intersect.dense_any, intersect.dense_any)},
 }

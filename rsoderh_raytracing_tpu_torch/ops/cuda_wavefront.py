@@ -25,10 +25,10 @@ index, plus the NEE pmf and the quad row itself; ``shade_call`` and
 SHADE_OUT_NAMES), as flat (n,) tensors per component; BIG_SHADE takes the
 winner's (type, index) and reads its row itself instead of the Pallas
 call's 19 slot arrays. u32 values (RNG state, sample counts, pixel ids)
-travel as int32 bit patterns. For CPU tensors, and for CUDA tensors under
-RT_DISABLE_PALLAS=1 (``_device.use_plain``), the wrappers run the plain
-versions ``trace_plain`` / ``shade_plain`` / ``big_shade_plain``;
-otherwise they launch the kernels in ``csrc/wavefront.cu`` or raise.
+travel as int32 bit patterns. For CPU tensors the wrappers run the plain
+versions ``trace_plain`` / ``shade_plain`` / ``big_shade_plain``; for
+CUDA tensors they launch the kernels in ``csrc/wavefront.cu`` or raise
+(also under RT_DISABLE_PALLAS=1: ``_device.use_plain``).
 ``LAUNCHES`` counts the kernel launches of each wrapper. Under
 RT_DEBUG_NANS=1 each wrapper checks its float outputs
 (``_device.check_nans``).
@@ -44,7 +44,7 @@ import torch
 from rsoderh_raytracing_tpu_torch import _device
 from rsoderh_raytracing_tpu_torch.ops import bsdf, envmap, intersect, rng
 from rsoderh_raytracing_tpu_torch.render.integrator import THROUGHPUT_CUTOFF
-from rsoderh_raytracing_tpu_torch.scene.device import SMALL, SWEEP_MAX_SHARED, WINNER_SLOTS, route
+from rsoderh_raytracing_tpu_torch.scene.device import SMALL, WINNER_SLOTS, route
 
 TRACE_OUT_NAMES = (
     "hit", "occ", "px", "py", "pz", "er", "eg", "eb",
@@ -298,9 +298,8 @@ def _check_rows(name, t, n, dtype, device):
 def trace_call(scene, env, carry):
     """TRACE over the carry's flat (n,) ray and state tensors and the RGBE
     environment `env`; returns the outputs by TRACE_OUT_NAMES. CPU
-    tensors (and RT_DISABLE_PALLAS=1): trace_plain. CUDA tensors: the
-    kernel, which reads the alias and quad rows itself, over a SMALL
-    scene's packed table."""
+    tensors: trace_plain. CUDA tensors: the kernel, which reads the alias
+    and quad rows itself, over a SMALL scene's packed table."""
     if _device.use_plain(carry["state"], "trace_call"):
         out = trace_plain(scene, env, carry)
     else:
@@ -309,17 +308,12 @@ def trace_call(scene, env, carry):
 
 
 def check_table(scene, what):
-    """The packed table of a SMALL scene, for a sweep kernel's launch;
-    refuses another route, and a table past the shared memory the sweep
-    kernels may ask for (SWEEP_MAX_SHARED, the launchers' own limit)."""
+    """The packed table of a SMALL scene, for a sweep kernel's launch (any
+    size: the kernels stage it in shared memory where it fits and read it
+    from global memory otherwise); refuses another route."""
     if route(scene) != SMALL:
         raise ValueError(f"{what}: the scene does not take the small route (route {route(scene)})")
-    table = scene.trace_table
-    if table.numel() * 4 > SWEEP_MAX_SHARED:
-        raise NotImplementedError(
-            f"{what}: a packed table of {table.numel() * 4} bytes, past the {SWEEP_MAX_SHARED} "
-            "bytes of shared memory the sweep kernels may ask for")
-    return table
+    return scene.trace_table
 
 
 def _trace_launch(scene, env, carry):
@@ -380,8 +374,7 @@ def shade_call(
     scal, iscal,
 ):
     """SHADE; returns (new_carry, active, hitmask). Arguments as in
-    shade_plain. CPU tensors (and RT_DISABLE_PALLAS=1): shade_plain. CUDA
-    tensors: the kernel."""
+    shade_plain. CPU tensors: shade_plain. CUDA tensors: the kernel."""
     args = (env_w, env_h, width, height, max_bounces, qwords, tr, nee_pmf, carry,
             pixel_index, pixel_x, pixel_y, base_sample, scal, iscal)
     run = shade_plain if _device.use_plain(nee_pmf, "shade_call") else _shade_launch

@@ -24,25 +24,14 @@ kernels reach through a packed (t, kind, index) winner key.
 ``chunked_closest_model`` and ``chunked_any_model`` walk the chunks as the
 CUDA kernels do and count what they sweep; only tests and timing lines
 call them.
-
-The dense route (scene/device.py: DENSE, a scene that no kernel covers
-or one built under RT_DISABLE_PALLAS=1) is the port of the reference's
-``_sweep_xla`` (rsoderh_raytracing_tpu/ops/intersect.py), which the
-reference runs in XLA outside any kernel: ``dense_closest`` and
-``dense_any`` run ``_sweep`` on the card as on the CPU, over the lanes
-that need an answer. There is no kernel to hold them to; they warn once
-a process, naming the lane counts and why no kernel covers the scene.
 """
 
 from __future__ import annotations
 
 import torch
 
-from rsoderh_raytracing_tpu_torch import _device
 from rsoderh_raytracing_tpu_torch.ops.geometry import HitRecord
-from rsoderh_raytracing_tpu_torch.scene.device import (
-    BVH, CHUNKED, DENSE, TRI_CHUNK, chunk_spheres, route,
-)
+from rsoderh_raytracing_tpu_torch.scene.device import BVH, CHUNKED, TRI_CHUNK, chunk_spheres, route
 
 INF = 3.0e38
 SPHERE_EPS = 1.0e-4
@@ -276,51 +265,6 @@ def closest_sweep(scene, ox, oy, oz, dx, dy, dz):
 def any_sweep(scene, ox, oy, oz, dx, dy, dz):
     """(n,) bool: some primitive is hit at t < INF."""
     return closest_sweep(scene, ox, oy, oz, dx, dy, dz)[0] < INF
-
-
-def _warn_dense(scene):
-    """The dense route's warning, once a process; none for a scene built
-    under RT_DISABLE_PALLAS=1, which warned when it was read."""
-    why = scene.why_dense or ""
-    if "RT_DISABLE_PALLAS" not in why:
-        _device.warn_once(
-            "dense", f"no kernel covers this scene ({why}); it renders through the dense sweep "
-                     "in plain PyTorch, every lane against every primitive: build it with "
-                     "intersector='auto' or 'bvh' for the BVH walk")
-
-
-def _live_lanes(rays, live):
-    """Indices of the lanes with live != 0 and those lanes' rays."""
-    sel = torch.nonzero(live != 0).squeeze(1)
-    return sel, tuple(c.index_select(0, sel) for c in rays)
-
-
-def dense_closest(scene, ro, rd, live):
-    """The dense route's closest query (the reference's _sweep_xla) of
-    rays (ro, rd) on the lanes with live != 0; every other lane holds the
-    miss (3e38, -1, 0). Returns (t f32, type i32, index i32)."""
-    _warn_dense(scene)
-    n = live.shape[0]
-    dev = live.device
-    t = torch.full((n,), INF, device=dev)
-    ptype = torch.full((n,), -1, device=dev, dtype=torch.int32)
-    pidx = torch.zeros((n,), device=dev, dtype=torch.int32)
-    sel, rays = _live_lanes((*ro, *rd), live)
-    if sel.numel():
-        for full, part in zip((t, ptype, pidx), _sweep(scene, rays)):
-            full.index_copy_(0, sel, part)
-    return _device.check_nans("DENSE closest", (t, ptype, pidx), ("t", "type", "index"))
-
-
-def dense_any(scene, p, d, mask):
-    """The dense route's occlusion query of rays from p along d on the
-    lanes with mask != 0 (0 on the others). Returns occ i32."""
-    _warn_dense(scene)
-    occ = torch.zeros(mask.shape[0], device=mask.device, dtype=torch.int32)
-    sel, rays = _live_lanes((*p, *d), mask)
-    if sel.numel():
-        occ.index_copy_(0, sel, (_sweep(scene, rays)[0] < INF).to(torch.int32))
-    return occ
 
 
 def _unrolled_kinds(scene):
@@ -668,12 +612,11 @@ def trace_attrs(scene, ox, oy, oz, dx, dy, dz, sx, sy, sz):
 
 
 # -- scene-level queries (rsoderh_raytracing_tpu/ops/intersect.py) ------------
-# Routed by scene/device.route: a SMALL scene takes the CLOSEST, ANY and
-# FUSED kernels (ops/cuda_intersect.py; their plain versions above for CPU
-# tensors and under RT_DISABLE_PALLAS=1), a CHUNKED one the chunked
-# kernels, a scene carrying a BVH the BVH_CLOSEST and BVH_ANY walks (plain
-# versions in ops/bvh.py), and a DENSE one dense_closest and dense_any;
-# the last three by ci.ROUTE_CALLS, with the caller's lane mask (all ones
+# Routed by scene/device.route: a scene within the unroll budget takes the
+# CLOSEST, ANY and FUSED kernels (ops/cuda_intersect.py; their plain
+# versions above for CPU tensors), one past it the chunked kernels, and a
+# scene carrying a BVH the BVH_CLOSEST and BVH_ANY walks (plain versions
+# in ops/bvh.py), the last two with the caller's lane mask (all ones
 # without one).
 
 
@@ -689,16 +632,16 @@ def closest_hit(scene, ro, rd, live=None) -> HitRecord:
     """Closest intersection along each ray, with its material values
     (HitRecord.material). ro, rd: 3-tuples of (n,) f32; live, an optional
     (n,) bool or int mask: only lanes with live != 0 need an answer (the
-    others hold the miss record on the small, BVH and dense routes, what
-    the unrolled primitives alone give on the chunked one). On a small
-    scene this is one CLOSEST launch and no gather."""
+    others hold the miss record on the small and BVH routes, what the
+    unrolled primitives alone give on the chunked one). On a small scene
+    this is one CLOSEST launch and no gather."""
     from rsoderh_raytracing_tpu_torch.ops import cuda_intersect as ci
 
     live = _int_mask(live)
     picked = route(scene)
-    if picked in ci.ROUTE_CALLS:
+    if picked in (CHUNKED, BVH):
         lanes = _all_lanes(ro[0]) if live is None else live
-        call = ci.ROUTE_CALLS[picked]["closest"][0]
+        call = ci.chunked_closest_call if picked == CHUNKED else ci.bvh_closest_call
         hit = _hit_attributes(scene, ro, rd, *call(scene, ro, rd, lanes))
         hit.material = material_values(scene, hit.material_id)
         return hit
@@ -718,30 +661,26 @@ def any_hit(scene, ro, rd, mask=None):
 
     mask = _int_mask(mask)
     picked = route(scene)
-    if picked in ci.ROUTE_CALLS:
+    if picked in (CHUNKED, BVH):
         lanes = _all_lanes(ro[0]) if mask is None else mask
-        occ = ci.ROUTE_CALLS[picked]["occlusion"][0](scene, ro, rd, lanes) != 0
+        call = ci.chunked_any_call if picked == CHUNKED else ci.bvh_any_call
+        occ = call(scene, ro, rd, lanes) != 0
         return occ if mask is None else occ & (mask != 0)
     return ci.any_call(scene, ro, rd, mask)
 
 
-def trace_nee(scene, ro, rd, nee_dir, live=None):
+def trace_nee(scene, ro, rd, nee_dir):
     """One path segment for the composed wavefront body: closest hit,
     shading attributes, material values and the NEE occlusion from the
     hit point along nee_dir; the FUSED kernel on a small scene, composed
-    from closest_hit, the material rows and any_hit on a chunked, BVH or
-    dense one. `live`, an optional (n,) int mask, limits the dense route's
-    sweeps to the lanes with live != 0 (the others read as misses); the
-    other routes answer every lane.
+    from closest_hit, the material rows and any_hit on a chunked or BVH
+    one.
     Returns (did_hit, point, normal, color, roughness, metallic,
     emission, occluded): 3-tuples of (n,) tensors, (n,) f32 and bool."""
-    picked = route(scene)
-    if picked in (CHUNKED, BVH, DENSE):
-        lanes = live if picked == DENSE else None
-        hit = closest_hit(scene, ro, rd, lanes)
+    if route(scene) in (CHUNKED, BVH):
+        hit = closest_hit(scene, ro, rd)
         cr, cg, cb, rough, metal, er, eg, eb = hit.material
-        shadow = None if lanes is None else (lanes != 0) & hit.did_hit
-        occ = any_hit(scene, hit.point, nee_dir, shadow)
+        occ = any_hit(scene, hit.point, nee_dir)
         return hit.did_hit, hit.point, hit.normal, (cr, cg, cb), rough, metal, (er, eg, eb), occ
     from rsoderh_raytracing_tpu_torch.ops import cuda_intersect as ci
 

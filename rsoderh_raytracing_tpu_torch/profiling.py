@@ -170,9 +170,9 @@ def card_line() -> str:
 # The generated scenes (--scene; chip_smoke.py phase 17): tiled_house(k)
 # by name. house_tiled16 (256 planes; 8 + 256 + 64 padded lanes, a packed
 # table of 26,112 bytes) takes the small route past the unroll budget;
-# house_tiled64 (4,096 planes; a table of 271,872 bytes, past the sweep
-# kernels' shared memory) no kernel route: the dense route under
-# intersector='sweep', the BVH under 'auto' on the card.
+# house_tiled64 (4,096 planes; a table of 271,872 bytes, past a block's
+# shared memory, so the sweep kernels read it from global memory) the small
+# route under intersector='sweep', the BVH under 'auto' on the card.
 TILED_SCENES = {"house_tiled16": 16, "house_tiled64": 64}
 HOUSE_GROUND = 60.0  # house.toml's ground: the square [-30, 30]^2 at y = 0
 

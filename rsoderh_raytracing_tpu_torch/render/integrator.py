@@ -7,9 +7,7 @@ runs the closest-hit query on the live lanes and the NEE occlusion query
 on the live lanes that hit (``ops/intersect.py``: the CLOSEST and ANY
 kernels on the card for a small scene, CLOSEST writing the hit record and
 material values itself; the chunked kernels or the BVH walks and a row
-gather on a big one; the dense sweep in plain PyTorch over the live lanes
-on a scene that no kernel covers or under RT_DISABLE_PALLAS=1) between
-plain PyTorch glue. Every later use of
+gather on a big one) between plain PyTorch glue. Every later use of
 their answers is masked by the same lanes, so a dead lane's record
 changes nothing. The RNG
 of every lane advances every bounce, dead lanes too: four draws for the

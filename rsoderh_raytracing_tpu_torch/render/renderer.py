@@ -47,15 +47,17 @@ class Renderer:
         intersector: str = "auto",
         device=_device.DEFAULT,
     ):
-        """intersector: 'sweep' takes the sweep kernels (the small route's
-        packed table within a block's shared memory, or the chunked route)
-        and, for a scene that neither covers, the dense sweep in plain
-        PyTorch (the reference's XLA sweep), with a warning; 'bvh' builds
-        the SAH BVH and walks it (BVH_CLOSEST, BVH_ANY); 'auto' walks the
-        BVH on the card exactly where no kernel route covers the scene, and
-        on the CPU by the reference's rule, past 262,144 triangle lanes
-        (RT_BVH_ABOVE_TRIS=N lowers the crossover: scene/device.auto_bvh).
-        device: the card unless the caller asks for the CPU."""
+        """intersector: 'sweep' takes the sweep kernels, whatever the
+        scene: the chunked route where it covers the scene, else the small
+        route's packed table (staged in a block's shared memory where it
+        fits, read from global memory otherwise), where the reference
+        sweeps densely in XLA; 'bvh' builds the SAH BVH and walks it
+        (BVH_CLOSEST, BVH_ANY); 'auto' walks the BVH on the card exactly
+        where the small route's table would not fit a block's shared
+        memory, and on the CPU by the reference's rule, past 262,144
+        triangle lanes (RT_BVH_ABOVE_TRIS=N lowers the crossover:
+        scene/device.auto_bvh). device: the card unless the caller asks
+        for the CPU."""
         if intersector not in ("auto", "sweep", "bvh"):
             raise ValueError(f"unknown intersector '{intersector}'")
         self.device = _device.resolve(device)
@@ -66,7 +68,7 @@ class Renderer:
         self.device_scene = build_device_scene(
             scene, self.device, with_bvh={"auto": "auto", "bvh": True, "sweep": False}[intersector])
         #: the routing decision actually taken: 'bvh', or 'sweep' (the
-        #: small, chunked or dense route), as the reference reports it
+        #: small or chunked route), as the reference reports it
         self.intersector = "bvh" if route(self.device_scene) == BVH else "sweep"
         self.environments = environments or load_default_environments()
         self.environment_index = 0

@@ -19,13 +19,12 @@ loop runs, by the scene's route (scene/device.route):
   renders such scenes through its composed body; BIG_SHADE computes the
   same shade from (type, index).
 
-With a legacy float32 / bfloat16 environment, with
-RT_DISABLE_WFKERNELS=1 or RT_DISABLE_PALLAS=1, or on a dense scene (one
-that no kernel covers), the composed body runs: the glue,
-``intersect.trace_nee`` (the FUSED kernel on a small scene; the chunked
-or BVH kernels over every lane on a big mesh; the dense sweep over the
-lanes in a path; each wrapper's plain twin under RT_DISABLE_PALLAS=1),
-then the bounce sample, one quad-row gather and the shading step as
+With a legacy float32 / bfloat16 environment, or with
+RT_DISABLE_WFKERNELS=1 or RT_DISABLE_PALLAS=1 (the latter on the CPU
+only: on the card every wrapper refuses it), the composed body runs: the
+glue, ``intersect.trace_nee`` (the FUSED kernel on a small scene; the
+chunked or BVH kernels over every lane on a big mesh), then the bounce
+sample, one quad-row gather and the shading step as
 tensor code. That tensor code is the one the TRACE and SHADE kernels'
 plain versions are made of (``envmap.trace_glue``,
 ``bsdf.trace_epilogue``, ``cuda_wavefront.shade_plain``), so on CPU
@@ -67,19 +66,19 @@ from rsoderh_raytracing_tpu_torch.ops import cuda_intersect as ci
 from rsoderh_raytracing_tpu_torch.ops import cuda_wavefront as cw
 from rsoderh_raytracing_tpu_torch.ops import bsdf, envmap, intersect, rng
 from rsoderh_raytracing_tpu_torch.render.integrator import MAX_BOUNCES, generate_camera_rays
-from rsoderh_raytracing_tpu_torch.scene.device import BVH, CHUNKED, DENSE, route
+from rsoderh_raytracing_tpu_torch.scene.device import BVH, CHUNKED, route
 
 NO_LIMIT = 0xFFFFFFFF
 EXACT_CHECK_EVERY = 16
 
 
-def kernel_loop_enabled(env, scene=None) -> bool:
+def kernel_loop_enabled(env) -> bool:
     """The kernel loop serves RGBE environments unless
     RT_DISABLE_WFKERNELS=1 (the reference's switch: keep the sweep
     kernels, drop the two-kernel loop) or RT_DISABLE_PALLAS=1 (no kernel
-    at all), and not a dense scene; otherwise the composed body runs."""
+    at all); otherwise the composed body runs."""
     return (env.quad.dtype == torch.int32 and os.environ.get("RT_DISABLE_WFKERNELS") != "1"
-            and _device.kernels_enabled() and (scene is None or route(scene) != DENSE))
+            and not _device.kernels_disabled())
 
 
 def u32_tensor(value, device) -> torch.Tensor:
@@ -118,7 +117,7 @@ class Wavefront:
     def __init__(self, scene, env, camera, base_sample, resolution, spp, budget, max_bounces,
                  row0=0, rows=None, sample_stride=1, sample_offset=0):
         self.route = route(scene)
-        self.composed = not kernel_loop_enabled(env, scene)
+        self.composed = not kernel_loop_enabled(env)
         device = scene.device
         self.scene, self.env = scene, env
         self.width, self.height = resolution
@@ -207,7 +206,7 @@ class Wavefront:
                 rng.from_bits(c["state"]), self.env, *rd)
             mark("trace_nee")
             did_hit, p, normal, color, rough, metal, emission, occ = intersect.trace_nee(
-                self.scene, ro, rd, nd, c["in_path"])
+                self.scene, ro, rd, nd)
             mark("glue")
             (
                 cos_theta, nee_scatter, nee_pdf_b, state, bdir, bscat, bpdf, bzero, cos_bounce,
@@ -262,7 +261,8 @@ class Wavefront:
                 tr["quad"], tr, tr["nee_pmf"], c, *lanes,
             )
         mark(None)
-        _device.check_nans(f"wavefront iteration {it}: carry", self.carry)
+        if _device.debug_nans():
+            _device.check_nans(f"wavefront iteration {it}: carry", self.carry)
         if marks is not None:
             profile.setdefault("marks", []).append(marks)
         n_act = act.sum(dtype=torch.int64)

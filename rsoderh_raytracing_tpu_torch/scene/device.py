@@ -6,23 +6,22 @@ so every field equals the reference's lane for lane; only the final
 upload differs (torch tensors on the card unless another device is
 asked for).
 
-A scene built without a BVH takes one of four routes (``route``):
+A scene built without a BVH takes one of two routes (``route``):
 
+- CHUNKED, the big-mesh kernels, past the reference's unroll budget of
+  192 padded lanes where the chunk predicates and ceilings of
+  rsoderh_raytracing_tpu/ops/pallas_intersect.py (which imports jax)
+  cover the scene, whatever its chunk count (csrc/chunked.cu keeps the
+  union boxes of as many batches as a block's shared memory holds at a
+  time: chunked_shared_bytes mirrors its layout);
 - SMALL, the sweep kernels over the packed table (TRACE, FUSED, CLOSEST,
-  ANY), within the reference's unroll budget of 192 padded lanes;
-- CHUNKED, the big-mesh kernels, past it where the chunk predicates and
-  ceilings of rsoderh_raytracing_tpu/ops/pallas_intersect.py (which
-  imports jax) cover the scene and, on the card, its chunks fit a block's
-  shared memory (chunked_shared_bytes, the mirror of csrc/chunked.cu's
-  layout);
-- SMALL also past the budget where the chunked route does not take the
-  scene (planes never chunk) and its packed table fits the dynamic shared
-  memory the sweep kernels may ask for (sweep_shared_bytes, the mirror of
-  the launchers' limit): the budget is Mosaic's unroll limit, and the
-  H100's sweep kernels stage the table, whatever its rows;
-- DENSE for the rest, and for every scene built under RT_DISABLE_PALLAS=1:
-  the plain PyTorch sweep of the reference's _sweep_xla, which the
-  reference runs in XLA outside any kernel (ops/intersect.py).
+  ANY), for every other scene: within the budget, and past it where the
+  chunked route does not take the scene (planes never chunk). The budget
+  is Mosaic's unroll limit; the H100's sweep kernels stage the table in
+  a block's shared memory where it fits (sweep_shared_bytes, the mirror
+  of the kernels' SWEEP_MAX_TABLE_BYTES) and read a larger one from
+  global memory, where the reference sweeps densely in XLA
+  (_sweep_xla). So no scene is refused.
 
 A scene past the unroll budget stores its triangles in the order
 RT_CHUNK_CLUSTER picks (morton, the default, or bvh or treelet:
@@ -67,20 +66,22 @@ MAX_CHUNKED_SPHERES = 262144
 CLUSTER_ORDERS = ("morton", "bvh", "treelet")
 
 # A block's dynamic shared memory in the chunked kernels (csrc/chunked.cu:
-# shared_bytes, OFF_SMALL, MAX_SHARED): the fixed tables, then the
-# unrolled primitive rows rounded up to a quad of floats, then a union box
-# of CHUNKED_BOUND_COLS floats for every batch of CHUNKED_BATCH chunks. A
-# block may ask for at most CHUNKED_MAX_SHARED bytes, so that, and not a
-# count, limits the chunks of a scene on the card.
+# shared_bytes, union_batches, OFF_SMALL, MAX_SHARED): the fixed tables,
+# then the unrolled primitive rows rounded up to a quad of floats, then a
+# union box of CHUNKED_BOUND_COLS floats for every batch of CHUNKED_BATCH
+# chunks, or for as many batches as fit CHUNKED_MAX_SHARED, the most a
+# block may ask for (the kernels then stage the boxes a group at a time).
 CHUNKED_OFF_SMALL = 191136
 CHUNKED_MAX_SHARED = 232448
 CHUNKED_BATCH = 16
 CHUNKED_BOUND_COLS = 8
 
 # The dynamic shared memory that each of TRACE, FUSED, CLOSEST and ANY may
-# ask for to stage the packed table (csrc/sweep.cu: rt_sweep_max_table_bytes,
-# which asks the card): an H100 block's 232,448 bytes less the 1,056 bytes
-# of CLOSEST's and ANY's lane lists. A table of pack_rows up to this fits.
+# ask for to stage the packed table (csrc/wavefront_common.cuh:
+# SWEEP_MAX_TABLE_BYTES; csrc/sweep.cu: rt_sweep_max_table_bytes asks the
+# card): an H100 block's 232,448 bytes less the 1,056 bytes of CLOSEST's
+# and ANY's lane lists. A table of pack_rows up to this is staged; the
+# kernels read a larger one from global memory.
 SWEEP_MAX_SHARED = 231392
 
 # Window rows of the chunked kernels (pallas_intersect.tri_const_table /
@@ -91,7 +92,7 @@ WIN_COLS = 20
 SPH_COLS, PLN_COLS, TRI_COLS, MAT_COLS = 8, 16, 36, 8
 WINNER_SLOTS = 20
 
-SMALL, CHUNKED, BVH, DENSE = "small", "chunked", "bvh", "dense"
+SMALL, CHUNKED, BVH = "small", "chunked", "bvh"
 
 # with_bvh="auto" on the CPU: the reference's crossover, past which its
 # CPU renders through the BVH walk (rsoderh_raytracing_tpu/scene/
@@ -189,9 +190,6 @@ class DeviceScene:
     # every primitive (winner_rows) and the material rows (material_rows).
     winner: Optional[torch.Tensor] = dataclasses.field(default=None, repr=False)
     materials: Optional[torch.Tensor] = dataclasses.field(default=None, repr=False)
-    # Why no kernel covers a DENSE scene (lane counts and the limit it
-    # passes), for the dense route's warning; None on the other routes.
-    why_dense: Optional[str] = None
 
     @property
     def device(self) -> torch.device:
@@ -262,13 +260,22 @@ def counts_chunked_applicable(n_sph: int, n_pln: int, n_tri: int) -> bool:
     return counts_chunk_spheres(n_sph, n_pln)
 
 
+def chunked_union_batches(small_len: int, n_chunks: int) -> int:
+    """Batches whose union boxes a block of the chunked kernels holds at
+    once (csrc/chunked.cu: union_batches): every batch where they fit
+    CHUNKED_MAX_SHARED, else as many as fit; small_len is the unrolled
+    rows' floats."""
+    quads = -(-small_len // 4) * 4
+    room = (CHUNKED_MAX_SHARED - CHUNKED_OFF_SMALL) // 4 - quads
+    return min(-(-n_chunks // CHUNKED_BATCH), room // CHUNKED_BOUND_COLS)
+
+
 def chunked_shared_bytes(small_len: int, n_chunks: int) -> int:
     """Dynamic shared memory a block of the chunked kernels asks for, bytes
-    (csrc/chunked.cu: shared_bytes); small_len is the unrolled rows'
-    floats."""
+    (csrc/chunked.cu: shared_bytes), at most CHUNKED_MAX_SHARED."""
     quads = -(-small_len // 4) * 4
-    batches = -(-n_chunks // CHUNKED_BATCH)
-    return CHUNKED_OFF_SMALL + 4 * (quads + batches * CHUNKED_BOUND_COLS)
+    return CHUNKED_OFF_SMALL + 4 * (quads + chunked_union_batches(small_len, n_chunks)
+                                    * CHUNKED_BOUND_COLS)
 
 
 def counts_shared_bytes(n_sph: int, n_pln: int, n_tri: int) -> int:
@@ -304,76 +311,32 @@ def scene_chunk_count(scene) -> int:
 
 
 def sweep_shared_bytes(n_sph: int, n_pln: int, n_tri: int, n_mat: int) -> int:
-    """Bytes of the packed table (pack_rows) that the sweep kernels stage
-    in a block's dynamic shared memory, for padded lane counts and
-    materials."""
+    """Bytes of the packed table (pack_rows) for padded lane counts and
+    materials: the sweep kernels stage it in a block's dynamic shared
+    memory up to SWEEP_MAX_SHARED and read it from global memory past
+    that."""
     return 4 * (n_sph * SPH_COLS + n_pln * PLN_COLS + n_tri * TRI_COLS + n_mat * MAT_COLS)
 
 
-def counts_route(n_sph: int, n_pln: int, n_tri: int, n_mat: int = 1) -> Optional[str]:
-    """SMALL or CHUNKED for padded lane counts (and materials), None for
-    counts that no sweep kernel covers (under the ceilings as they are set
-    now): SMALL within the unroll budget, CHUNKED past it where the chunk
-    predicates hold, else SMALL where the packed table fits
-    SWEEP_MAX_SHARED."""
-    if n_sph + n_pln + n_tri <= MAX_UNROLL_PRIMS:
-        return SMALL
-    if counts_chunked_applicable(n_sph, n_pln, n_tri):
+def counts_route(n_sph: int, n_pln: int, n_tri: int) -> str:
+    """SMALL or CHUNKED for padded lane counts (under the ceilings as they
+    are set now): CHUNKED past the unroll budget where the chunk
+    predicates hold, SMALL otherwise."""
+    if n_sph + n_pln + n_tri > MAX_UNROLL_PRIMS and counts_chunked_applicable(n_sph, n_pln, n_tri):
         return CHUNKED
-    if sweep_shared_bytes(n_sph, n_pln, n_tri, n_mat) <= SWEEP_MAX_SHARED:
-        return SMALL
-    return None
-
-
-def shared_overflow(n_sph: int, n_pln: int, n_tri: int, device: torch.device) -> int:
-    """The bytes a block of the chunked kernels would ask for, where a
-    scene of these padded lane counts takes the chunked route on the card
-    and they pass CHUNKED_MAX_SHARED; else 0 (the plain versions on the
-    CPU have no such limit)."""
-    if device.type != "cuda" or counts_route(n_sph, n_pln, n_tri) != CHUNKED:
-        return 0
-    n_bytes = counts_shared_bytes(n_sph, n_pln, n_tri)
-    return n_bytes if n_bytes > CHUNKED_MAX_SHARED else 0
+    return SMALL
 
 
 def route(scene) -> str:
     """The route the scene was built for, by the kernels' tables it holds
     (so a ceiling or a knob changed after the build does not move it):
     BVH for a scene that carries a BVH, CHUNKED for chunk tables, SMALL
-    for the packed table, DENSE for none of them."""
+    for the packed table."""
     if scene.bvh is not None:
         return BVH
     if scene.chunks is not None:
         return CHUNKED
-    if scene.trace_table is not None:
-        return SMALL
-    return DENSE
-
-
-def _pick(scene, device) -> str:
-    """The route of a scene built without a BVH; a DENSE scene's
-    why_dense says why no kernel covers it."""
-    n_sph, n_pln, n_tri = _counts(scene)
-    n_mat = scene.mat_roughness.shape[0]
-    picked = counts_route(n_sph, n_pln, n_tri, n_mat)
-    lanes = f"{n_sph} sphere, {n_pln} plane and {n_tri} triangle lanes"
-    if not _device.kernels_enabled():
-        scene.why_dense = f"{lanes}: built under RT_DISABLE_PALLAS=1"
-        return DENSE
-    if picked is None:
-        scene.why_dense = (
-            f"{lanes}: past the unroll budget ({MAX_UNROLL_PRIMS}), outside the chunked "
-            f"route's predicates and ceilings, and a packed table of "
-            f"{sweep_shared_bytes(n_sph, n_pln, n_tri, n_mat)} bytes, past the sweep "
-            f"kernels' {SWEEP_MAX_SHARED} of shared memory")
-        return DENSE
-    n_bytes = shared_overflow(n_sph, n_pln, n_tri, device) if picked == CHUNKED else 0
-    if n_bytes:
-        scene.why_dense = (
-            f"{lanes}: the chunked kernels would ask for {n_bytes} bytes of shared memory a "
-            f"block ({scene_chunk_count(scene)} chunks), past the card's {CHUNKED_MAX_SHARED}")
-        return DENSE
-    return picked
+    return SMALL
 
 
 def chunk_bounds(tri_a, tri_edge0, tri_edge1):
@@ -515,21 +478,20 @@ def _chunk_tables(a: dict, scene: DeviceScene) -> ChunkTables:
 def auto_bvh(n_sph: int, n_pln: int, n_tri: int, device: torch.device, n_mat: int = 1) -> bool:
     """with_bvh="auto" for padded lane counts (and materials). On the CPU
     exactly the reference's rule, more than CPU_BVH_ABOVE_LANES triangle
-    lanes: a scene that no kernel covers then sweeps densely, as the
-    reference's CPU does. On the card exactly the scenes that no kernel
-    route covers (counts_route, as if RT_DISABLE_PALLAS were unset): past
-    the ceilings (which RT_MAX_CHUNKED_TRIS and RT_MAX_CHUNKED_SPHERES
-    raise, as the reference's TPU routing follows them) and past the sweep
-    kernels' shared memory, or past a block's shared memory of the
-    chunked kernels (shared_overflow); so 'auto' never sweeps densely on
-    the card, where the walk runs far ahead of any sweep on big scenes.
-    RT_BVH_ABOVE_TRIS=N moves the crossover down to N triangle lanes in
-    both cases."""
+    lanes: a scene past the unroll budget that does not chunk then sweeps
+    every row, as the reference's CPU does. On the card exactly the
+    scenes whose small route would read a packed table past a block's
+    shared memory (SWEEP_MAX_SHARED) from global memory: past the unroll
+    budget and outside the chunked route's predicates and ceilings (which
+    RT_MAX_CHUNKED_TRIS and RT_MAX_CHUNKED_SPHERES raise, as the
+    reference's TPU routing follows them), where the walk runs far ahead
+    of a sweep over every row. RT_BVH_ABOVE_TRIS=N moves the crossover down
+    to N triangle lanes in both cases."""
     if device.type == "cpu":
         with_bvh = n_tri > CPU_BVH_ABOVE_LANES
     else:
-        with_bvh = (counts_route(n_sph, n_pln, n_tri, n_mat) is None
-                    or shared_overflow(n_sph, n_pln, n_tri, device) > 0)
+        with_bvh = (counts_route(n_sph, n_pln, n_tri) == SMALL
+                    and sweep_shared_bytes(n_sph, n_pln, n_tri, n_mat) > SWEEP_MAX_SHARED)
     thresh = os.environ.get("RT_BVH_ABOVE_TRIS")
     if not with_bvh and thresh and n_tri > int(thresh):
         with_bvh = True
@@ -565,18 +527,15 @@ def build_device_scene(
 
     with_bvh=True also builds the SAH BVH (accel/bvh.py, its native
     builder where g++ is available) and attaches it, so the scene takes
-    the BVH route; "auto" attaches it by auto_bvh, and on the card also
-    where the chunk order leaves more chunks than a block's shared memory
-    holds. A scene with a BVH keeps the host's triangle order (leaf slots
-    name host triangles), as the reference's does; every field still
-    equals the reference's lane for lane. Without a BVH the scene takes
-    the route of device_scene_from_arrays: a kernel route where one
-    covers it, else DENSE (also under RT_DISABLE_PALLAS=1); nothing
-    raises for a scene's size."""
+    the BVH route; "auto" attaches it by auto_bvh. A scene with a BVH
+    keeps the host's triangle order (leaf slots name host triangles), as
+    the reference's does; every field still equals the reference's lane
+    for lane. Without a BVH the scene takes the route of
+    device_scene_from_arrays, CHUNKED or SMALL; nothing raises for a
+    scene's size."""
     device = _device.resolve(device)
     _device.warn_ignored_knobs()
     cluster = chunk_cluster()
-    asked = with_bvh
     materials = scene.materials or []
     m = max(1, len(materials))
     mat_color = np.zeros((m, 3), np.float32)
@@ -706,9 +665,6 @@ def build_device_scene(
         tri_adotn=tri_adotn,
     )
     if not with_bvh:
-        if asked == "auto" and shared_overflow(s_n, p_n, t_n, device):
-            # the chunk order left more chunks than a block holds
-            return build_device_scene(scene, device, pad_to, with_bvh=True)
         return device_scene_from_arrays(arrays, device)
     start = time.perf_counter()
     flat = build_bvh(scene)
@@ -724,11 +680,9 @@ def device_scene_from_arrays(arrays: dict, device=_device.DEFAULT, bvh=None) -> 
     DeviceScene). Float fields become float32, material ids int32, valid
     masks bool. With `bvh`, a FlatBVH over the arrays' primitive order,
     the scene takes the BVH route and gets its tables (ops/bvh.py).
-    Otherwise the scene gets the tables of its kernel route (counts_route):
-    the packed table of the sweep kernels (SMALL), or the chunk tables
-    (CHUNKED) where, on the card, they fit a block's shared memory; and
-    none (DENSE, with the reason in ``why_dense``) where no kernel route
-    covers it or RT_DISABLE_PALLAS=1 is set."""
+    Otherwise the scene gets the tables of its route (counts_route): the
+    chunk tables (CHUNKED) or the packed table of the sweep kernels
+    (SMALL)."""
     device = _device.resolve(device)
     host = {}
     for name in FIELDS:
@@ -747,7 +701,7 @@ def device_scene_from_arrays(arrays: dict, device=_device.DEFAULT, bvh=None) -> 
     )
     if bvh is not None:
         scene.bvh = device_bvh(bvh, scene)
-    picked = BVH if bvh is not None else _pick(scene, device)
+    picked = BVH if bvh is not None else counts_route(*_counts(scene))
     if picked == SMALL:
         scene.trace_table = pack_rows(scene)
     elif picked == CHUNKED:

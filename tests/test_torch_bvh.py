@@ -84,8 +84,9 @@ from rsoderh_raytracing_tpu_torch.render.wavefront import render_freerun
 from rsoderh_raytracing_tpu_torch.scene.device import (
     BVH,
     CHUNKED,
-    DENSE,
     FIELDS,
+    SMALL,
+    SWEEP_MAX_SHARED,
     build_device_scene,
     device_scene_from_arrays,
     route,
@@ -581,8 +582,9 @@ def test_auto_routes_past_the_ceiling_to_the_bvh(monkeypatch):
     crossover and the chunked ceiling): "auto" attaches the BVH in both
     packages (the reference's builder stubbed: only its decision is
     read), and the port's tree keeps the host triangle order. Without a
-    BVH no kernel covers it (its packed table is past the sweep kernels'
-    shared memory): the dense route, as the reference sweeps it."""
+    BVH it takes the small route, where the reference sweeps it densely:
+    its packed table is past a block's shared memory, so on the card the
+    sweep kernels read it from global memory."""
     scene = _grid_scene(262_145)
     monkeypatch.delenv("RT_BVH_ABOVE_TRIS", raising=False)
     built = []
@@ -592,8 +594,8 @@ def test_auto_routes_past_the_ceiling_to_the_bvh(monkeypatch):
     ds = build_device_scene(scene, "cpu", with_bvh="auto")
     assert route(ds) == BVH and ds.tri_valid.shape[0] == 262_208
     np.testing.assert_array_equal(ds.tri_a[:5].numpy(), scene.meshes.vertices[:5])
-    dense = build_device_scene(scene, "cpu", with_bvh=False)
-    assert route(dense) == DENSE and "262208 triangle lanes" in dense.why_dense
+    swept = build_device_scene(scene, "cpu", with_bvh=False)
+    assert route(swept) == SMALL and swept.trace_table.numel() * 4 > SWEEP_MAX_SHARED
 
 
 def test_auto_keeps_covered_scenes_on_the_sweeps(assets_dir, monkeypatch):

@@ -32,8 +32,9 @@ refuses a chunk smaller than a BVH leaf, its numpy sweeps equal the
 reference's node-by-node loops, and it builds one BVH a call; the
 ceilings RT_MAX_CHUNKED_TRIS and RT_MAX_CHUNKED_SPHERES move the route
 as the reference's do; the mirror of the chunked kernels' shared memory
-(scene/device.chunked_shared_bytes) follows csrc/chunked.cu's layout and
-keeps a scene past a block's limit off the chunked route on the card.
+(scene/device.chunked_shared_bytes) follows csrc/chunked.cu's layout,
+and past a block's limit counts the union boxes it holds at a time
+instead of refusing the scene.
 """
 
 import os
@@ -351,9 +352,9 @@ CEILING_COUNTS = [
 def test_ceilings_move_the_route_as_the_reference(monkeypatch, tris_ceiling, spheres_ceiling):
     """counts_route's chunked route against pallas_intersect's predicate
     with the same ceilings (the reference reads them at import, so they
-    are patched there); counts the chunked route does not cover are small
-    exactly where the packed table fits the sweep kernels' shared memory,
-    and auto_bvh on the card takes the BVH exactly where neither covers."""
+    are patched there); counts the chunked route does not cover are small,
+    and auto_bvh on the card takes the BVH exactly where their packed
+    table would not fit a block's shared memory."""
     _clear_ceilings(monkeypatch)
     for knob, value in (("TRIS", tris_ceiling), ("SPHERES", spheres_ceiling)):
         if value is not None:
@@ -364,7 +365,7 @@ def test_ceilings_move_the_route_as_the_reference(monkeypatch, tris_ceiling, sph
         covered = pint._counts_chunked_applicable(*counts)
         assert (counts_route(*counts) == CHUNKED) == covered, counts
         fits = t_device.sweep_shared_bytes(*counts, 1) <= t_device.SWEEP_MAX_SHARED
-        assert (counts_route(*counts) == SMALL) == (not covered and fits), counts
+        assert (counts_route(*counts) == SMALL) == (not covered), counts
         assert auto_bvh(*counts, cuda) == (not covered and not fits), counts
 
 
@@ -377,32 +378,33 @@ def test_raised_ceiling_routes_suzanne_xxhi_counts(monkeypatch):
     _clear_ceilings(monkeypatch)
     xxhi = (8, 8, 991232)
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
-    assert counts_route(*xxhi) is None and auto_bvh(*xxhi, cuda) and auto_bvh(*xxhi, cpu)
+    assert counts_route(*xxhi) == SMALL and auto_bvh(*xxhi, cuda) and auto_bvh(*xxhi, cpu)
     monkeypatch.setenv("RT_MAX_CHUNKED_TRIS", "1048576")
     assert counts_route(*xxhi) == CHUNKED
     assert t_device.counts_shared_bytes(*xxhi) == 222880
-    assert t_device.shared_overflow(*xxhi, cuda) == 0
     assert not auto_bvh(*xxhi, cuda) and auto_bvh(*xxhi, cpu)
     monkeypatch.delenv("RT_MAX_CHUNKED_TRIS")
-    assert counts_route(*xxhi) is None and auto_bvh(*xxhi, cuda)
+    assert counts_route(*xxhi) == SMALL and auto_bvh(*xxhi, cuda)
 
 
-def test_shared_mirror_refuses_past_the_limit(monkeypatch):
-    """A synthetic count past a block's shared memory: the route covers it
-    under a raised ceiling, but not on the card, where auto takes the BVH;
-    the CPU's plain versions have no such limit."""
+def test_shared_mirror_restages_union_boxes_past_the_limit(monkeypatch):
+    """A synthetic count past a block's shared memory under a raised
+    ceiling: the chunked route covers it on the card too, whose block then
+    holds as many batches' union boxes as fit and asks for no more than
+    the limit, so 'auto' keeps the sweep there (the CPU follows the
+    reference's crossover)."""
     _clear_ceilings(monkeypatch)
     monkeypatch.setenv("RT_MAX_CHUNKED_TRIS", str(1 << 22))
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     limit = t_device.CHUNKED_MAX_SHARED
     # one plane (8 lanes, 512 bytes of rows): 1,275 batches of 16 chunks fit
     fits, past = (0, 8, 1275 * 16 * 64), (0, 8, (1275 * 16 + 1) * 64)
-    assert t_device.counts_shared_bytes(*fits) == limit
-    assert t_device.counts_shared_bytes(*past) == limit + 32
-    assert t_device.shared_overflow(*fits, cuda) == 0 and not auto_bvh(*fits, cuda)
-    assert t_device.shared_overflow(*past, cuda) == limit + 32 and auto_bvh(*past, cuda)
-    assert t_device.shared_overflow(*past, cpu) == 0
-    assert counts_route(*past) == CHUNKED
+    assert t_device.counts_shared_bytes(*fits) == t_device.counts_shared_bytes(*past) == limit
+    assert t_device.chunked_union_batches(8 * t_device.PLN_COLS, 1275 * 16) == 1275
+    assert t_device.chunked_union_batches(8 * t_device.PLN_COLS, 1275 * 16 + 1) == 1275
+    assert t_device.chunked_union_batches(8 * t_device.PLN_COLS, 242) == 16
+    assert counts_route(*fits) == counts_route(*past) == CHUNKED
+    assert not auto_bvh(*fits, cuda) and not auto_bvh(*past, cuda) and auto_bvh(*past, cpu)
 
 
 def _cu_constants():

@@ -1,8 +1,8 @@
 """RT_DEBUG_NANS=1 on the port: the reference raises FloatingPointError
 where an op makes a NaN (jax_debug_nans, tests/test_debug_nans.py); the
 card cannot check every op, so the port checks every wrapper's float
-outputs, the dense sweep's, and the wavefront carry once an iteration,
-whichever ran (kernel or plain twin). Here on the CPU each check is
+outputs and the wavefront carry once an iteration, whichever ran (kernel
+or plain twin). Here on the CPU each check is
 reached through a plain twin that is patched to put one NaN in one
 output: with the knob set it raises, naming the op and the output; unset,
 the NaN passes through unchecked. Clean renders under the knob, on every
@@ -26,7 +26,7 @@ from rsoderh_raytracing_tpu_torch.profiling import capture_step, tiled_house
 from rsoderh_raytracing_tpu_torch.render.integrator import camera_pytree
 from rsoderh_raytracing_tpu_torch.render.renderer import Renderer
 from rsoderh_raytracing_tpu_torch.render.wavefront import NO_LIMIT, Wavefront, render_freerun
-from rsoderh_raytracing_tpu_torch.scene.device import BVH, CHUNKED, DENSE, SMALL, build_device_scene, route
+from rsoderh_raytracing_tpu_torch.scene.device import BVH, CHUNKED, SMALL, build_device_scene, route
 
 torch.set_num_threads(2)
 
@@ -63,12 +63,10 @@ def states(sky):
     small = build_device_scene(house, "cpu")
     big = build_device_scene(suzanne, "cpu")
     walk = build_device_scene(house, "cpu", with_bvh=True)
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("RT_DISABLE_PALLAS", "1")
-        dense = build_device_scene(house, "cpu")
-    assert (route(small), route(big), route(walk), route(dense)) == (SMALL, CHUNKED, BVH, DENSE)
+    tiled = build_device_scene(tiled_house(64), "cpu")
+    assert (route(small), route(big), route(walk), route(tiled)) == (SMALL, CHUNKED, BVH, SMALL)
     out = {"small": _captured(small, sky, house), "chunked": _captured(big, sky, suzanne),
-           "bvh": _captured(walk, sky, house), "scene": small, "dense": dense}
+           "bvh": _captured(walk, sky, house), "scene": small, "tiled": tiled}
     scene, env, carry = out["small"]["trace"]
     out["rays"] = (tuple(carry[k] for k in ("ro0", "ro1", "ro2")),
                    tuple(carry[k] for k in ("rd0", "rd1", "rd2")))
@@ -103,13 +101,13 @@ def _call(states, case):
         "CHUNKED_CLOSEST": lambda: ci.chunked_closest_call(*states["chunked"]["closest"]),
         "BIG_SHADE": lambda: cw.big_shade_call(*states["chunked"]["big_shade"]),
         "BVH_CLOSEST": lambda: ci.bvh_closest_call(*states["bvh"]["closest"]),
-        "DENSE closest": lambda: intersect.dense_closest(states["dense"], ro, rd,
-                                                         torch.ones_like(ro[0], dtype=torch.int32)),
+        "CLOSEST house_tiled64": lambda: ci.closest_call(states["tiled"], ro, rd),
     }
     return calls[case]()
 
 
-# op: (module, plain twin patched, output holding the NaN, its name in the error)
+# case (the op, and the scene where it is not house's): (module, plain twin
+# patched, output holding the NaN, its name in the error)
 INJECT = {
     "TRACE": (cw, "trace_plain", "ct", "ct"),
     "SHADE": (cw, "shade_plain", "tp0", "tp0"),
@@ -118,7 +116,7 @@ INJECT = {
     "CHUNKED_CLOSEST": (intersect, "chunked_closest_plain", 0, "t"),
     "BIG_SHADE": (cw, "big_shade_plain", "film0", "film0"),
     "BVH_CLOSEST": (bvh_ops, "closest_plain", 0, "t"),
-    "DENSE closest": (intersect, "_sweep", 0, "t"),
+    "CLOSEST house_tiled64": (intersect, "closest_record", "t", "t"),
 }
 
 
@@ -132,7 +130,8 @@ def _inject(monkeypatch, case):
 def test_nan_in_an_output_raises_naming_it(states, monkeypatch, case):
     _inject(monkeypatch, case)
     monkeypatch.setenv("RT_DEBUG_NANS", "1")
-    with pytest.raises(FloatingPointError, match=f"{case} output '{INJECT[case][3]}'"):
+    op = case.split()[0]
+    with pytest.raises(FloatingPointError, match=f"{op} output '{INJECT[case][3]}'"):
         _call(states, case)
 
 
@@ -157,7 +156,7 @@ def test_nan_in_the_carry_raises_naming_the_iteration(sky, monkeypatch):
 
 
 @pytest.mark.parametrize("name,with_bvh,expected", [
-    ("house", False, SMALL), ("house", True, BVH), ("suzanne", False, CHUNKED), ("house_tiled64", False, DENSE),
+    ("house", False, SMALL), ("house", True, BVH), ("suzanne", False, CHUNKED), ("house_tiled64", False, SMALL),
 ])
 def test_clean_renders_raise_nothing(sky, monkeypatch, name, with_bvh, expected):
     """A 16x16 free-run render (8 x 8 for the big scenes) under the knob

@@ -1,12 +1,13 @@
-"""Scenes that no kernel route of Mosaic's budget covers: the small route
-past 192 lanes, the dense route, and RT_DISABLE_PALLAS.
+"""Scenes past Mosaic's unroll budget that the chunked route does not
+take, where the reference sweeps densely in XLA: the small route over a
+packed table of any size, and RT_DISABLE_PALLAS.
 
 The scenes are profiling.tiled_house(16) (house with a 16 x 16
 checkerboard of ground planes: 8 + 256 + 64 padded lanes, a packed table
-of 26,112 bytes, so the small route past the unroll budget),
-tiled_house(64) (4,096 planes, a table of 271,872 bytes past the sweep
-kernels' shared memory: the dense route) and the 200-plane scene of
-test_torch_scene.py (small past the budget).
+of 26,112 bytes, which the sweep kernels stage in shared memory),
+tiled_house(64) (4,096 planes, a table of 271,872 bytes, past a block's
+shared memory: the kernels read it from global memory, and 'auto' walks
+the BVH on the card) and the 200-plane scene of test_torch_scene.py.
 
 closest_hit and any_hit are held to the JAX package's on the CPU, where
 the reference runs its XLA sweep (_sweep_xla, no Pallas), on 256 seeded
@@ -15,6 +16,9 @@ outputs equal on >= 99.9% of lanes, floats isclose(1e-4, 1e-5) on
 >= 99.5%. Measured here: every output on 100% of the lanes of both
 scenes.
 """
+
+import types
+import warnings
 
 import numpy as np
 import pytest
@@ -37,7 +41,7 @@ from rsoderh_raytracing_tpu_torch.render.integrator import camera_pytree
 from rsoderh_raytracing_tpu_torch.render.renderer import Renderer
 from rsoderh_raytracing_tpu_torch.render.wavefront import kernel_loop_enabled, render_freerun
 from rsoderh_raytracing_tpu_torch.scene.device import (
-    BVH, DENSE, SMALL, SWEEP_MAX_SHARED, auto_bvh, build_device_scene, route, sweep_shared_bytes,
+    BVH, SMALL, SWEEP_MAX_SHARED, auto_bvh, build_device_scene, route, sweep_shared_bytes,
 )
 from rsoderh_raytracing_tpu_torch.scene.types import Plane
 from test_torch_sweep import seeded_rays
@@ -66,7 +70,7 @@ SCENES = {"house_tiled16": lambda: tiled_house(16), "house_tiled64": lambda: til
 # The route of each scene on the CPU under each intersector.
 ROUTES = {
     "house_tiled16": {"sweep": SMALL, "auto": SMALL, "bvh": BVH},
-    "house_tiled64": {"sweep": DENSE, "auto": DENSE, "bvh": BVH},
+    "house_tiled64": {"sweep": SMALL, "auto": SMALL, "bvh": BVH},
     "planes_200": {"sweep": SMALL, "auto": SMALL, "bvh": BVH},
 }
 WITH_BVH = {"sweep": False, "auto": "auto", "bvh": True}
@@ -94,31 +98,31 @@ def test_route_by_intersector(scenes, name, intersector):
     ds = build_device_scene(scenes[name], "cpu", with_bvh=WITH_BVH[intersector])
     assert route(ds) == ROUTES[name][intersector]
     if route(ds) == SMALL:
-        assert ds.trace_table.numel() * 4 == sweep_shared_bytes(*_counts(ds)) <= SWEEP_MAX_SHARED
-    if route(ds) == DENSE:
-        assert ds.trace_table is None and ds.chunks is None and "plane and" in ds.why_dense
+        assert ds.trace_table.numel() * 4 == sweep_shared_bytes(*_counts(ds)) and ds.chunks is None
 
 
 def test_tiled_scenes_lanes(scenes):
     """house_tiled16: 8 + 256 + 64 lanes (triangles pad to a chunk past the
     budget, as the reference pads them), 26,112 bytes; house_tiled64 past
-    the sweep kernels' shared memory."""
+    a block's shared memory."""
     small = build_device_scene(scenes["house_tiled16"], "cpu")
     assert _counts(small)[:3] == (8, 256, 64) and small.num_lanes == 328
     assert sweep_shared_bytes(*_counts(small)) == 26112
-    dense = build_device_scene(scenes["house_tiled64"], "cpu")
-    assert _counts(dense)[:3] == (8, 4096, 64)
-    assert sweep_shared_bytes(*_counts(dense)) == 271872 > SWEEP_MAX_SHARED
+    big = build_device_scene(scenes["house_tiled64"], "cpu")
+    assert _counts(big)[:3] == (8, 4096, 64)
+    assert sweep_shared_bytes(*_counts(big)) == 271872 > SWEEP_MAX_SHARED
     # the small table's kinds: CLOSEST and ANY sweep the valid rows
     assert small.sweep_rows == (2, 256, 52)
 
 
 @pytest.mark.parametrize("name", list(SCENES))
-def test_card_auto_takes_the_bvh_only_where_no_kernel_covers(scenes, name):
-    """On the card 'auto' never sweeps densely: the BVH exactly where no
-    kernel route covers the scene."""
+def test_card_auto_takes_the_bvh_only_past_a_blocks_shared_memory(scenes, name):
+    """On the card 'auto' walks the BVH exactly where the small route's
+    table would not fit a block's shared memory (house_tiled64)."""
     ds = build_device_scene(scenes[name], "cpu")
-    assert auto_bvh(*_counts(ds)[:3], torch.device("cuda"), _counts(ds)[3]) == (route(ds) == DENSE)
+    past = sweep_shared_bytes(*_counts(ds)) > SWEEP_MAX_SHARED
+    assert auto_bvh(*_counts(ds)[:3], torch.device("cuda"), _counts(ds)[3]) == past
+    assert past == (name == "house_tiled64")
 
 
 @pytest.mark.parametrize("name", list(SCENES))
@@ -199,9 +203,9 @@ def sky():
 
 @pytest.mark.parametrize("name", ["house_tiled16", "house_tiled64"])
 def test_render_against_the_bvh_route(scenes, sky, name):
-    """A 16x16 free-run render through the scene's sweep route (small or
-    dense) against the BVH route's, by the anchors' flip-aware criteria;
-    the sample counts are equal."""
+    """A 16x16 free-run render through the scene's sweep route (small)
+    against the BVH route's, by the anchors' flip-aware criteria; the
+    sample counts are equal."""
     scene = scenes[name]
     swept = build_device_scene(scene, "cpu")
     assert route(swept) == ROUTES[name]["sweep"]
@@ -214,43 +218,46 @@ def test_render_against_the_bvh_route(scenes, sky, name):
     assert flipped.mean() < FLIPPED_MAX and rel < UNFLIPPED_REL_RMSE_MAX, (flipped.mean(), rel)
 
 
-def test_dense_route_warns_once_and_renders_as_sweep(scenes, monkeypatch):
-    """Renderer(intersector='sweep') on house_tiled64: the dense route,
-    reported as 'sweep' as the reference reports it, one warning naming
-    the lane counts; the scan integrator's sample is finite."""
+def test_big_table_renders_as_sweep_without_a_warning(scenes, monkeypatch):
+    """Renderer(intersector='sweep') on house_tiled64: the small route,
+    reported as 'sweep' as the reference reports it, and no warning: no
+    plain version stands in for a kernel; the scan integrator's sample is
+    finite."""
     monkeypatch.setattr(_device, "_warned", set())
-    with pytest.warns(RuntimeWarning, match="4096 plane and 64 triangle lanes") as caught:
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
         r = Renderer(scenes["house_tiled64"], 12, 8, max_bounces=3, intersector="sweep", device="cpu")
-        assert route(r.device_scene) == DENSE and r.intersector == "sweep"
+        assert route(r.device_scene) == SMALL and r.intersector == "sweep"
         r.step()
         r.step()
-    assert sum("dense sweep" in str(w.message) for w in caught) == 1
     assert np.isfinite(r.film.mean_radiance()).all()
 
 
-def test_dense_queries_answer_only_masked_lanes(scenes):
-    """dense_closest and dense_any sweep the lanes of their mask: each of
-    those equals the full sweep's answer, every other lane is a miss."""
+def test_small_queries_answer_only_masked_lanes(scenes):
+    """CLOSEST and ANY over house_tiled64's table answer the lanes of their
+    mask: each of those equals the full sweep's answer, every other lane
+    is a miss."""
     ds = build_device_scene(scenes["house_tiled64"], "cpu")
     ro, rd, _ = seeded_rays(7, n=200, spread=0.5, origin=scenes["house_tiled64"].camera.pos)
     rd[1] = -np.abs(rd[1])
     ro, rd = (tuple(torch.from_numpy(np.ascontiguousarray(c)) for c in x) for x in (ro, rd))
     mask = torch.from_numpy((np.arange(200) % 3 != 0).astype(np.int32))
-    t, ptype, pidx = intersect.dense_closest(ds, ro, rd, mask)
+    rec = ci.closest_call(ds, ro, rd, mask)
+    t, ptype, pidx = rec["t"], rec["type"], rec["index"]
     full = intersect.closest_sweep(ds, *ro, *rd)
     on = mask != 0
     for got, ref in zip((t, ptype, pidx), full):
         assert torch.equal(got[on], ref[on])
     assert (t[~on] == intersect.INF).all() and (ptype[~on] == -1).all() and (pidx[~on] == 0).all()
-    occ = intersect.dense_any(ds, ro, rd, mask)
-    assert torch.equal(occ[on] != 0, intersect.any_sweep(ds, *ro, *rd)[on]) and not occ[~on].any()
+    occ = ci.any_call(ds, ro, rd, mask)
+    assert torch.equal(occ[on], intersect.any_sweep(ds, *ro, *rd)[on]) and not occ[~on].any()
 
 
-def test_disable_pallas_routes_every_scene_to_plain_code(scenes, sky, monkeypatch, assets_dir):
-    """RT_DISABLE_PALLAS=1: a scene built then is dense (house too), the
-    wavefront takes its composed body, every wrapper its plain twin, and
-    the knob warns once. house renders bitwise the small route's image;
-    unset again, a new build is small."""
+def test_disable_pallas_takes_the_composed_body_on_the_cpu(scenes, sky, monkeypatch, assets_dir):
+    """RT_DISABLE_PALLAS=1, read at call time, on the CPU: the wavefront
+    takes its composed body, the routes stay, no kernel launches, and the
+    knob warns once. house renders bitwise the kernel loop's image (both
+    plain on the CPU); unset again, the kernel loop serves."""
     import os
 
     from rsoderh_raytracing_tpu_torch import load_scene
@@ -261,18 +268,31 @@ def test_disable_pallas_routes_every_scene_to_plain_code(scenes, sky, monkeypatc
     monkeypatch.setattr(_device, "_warned", set())
     monkeypatch.setenv("RT_DISABLE_PALLAS", "1")
     with pytest.warns(RuntimeWarning, match="RT_DISABLE_PALLAS=1: no hand-written kernel"):
-        assert not _device.kernels_enabled()
-    dense = build_device_scene(house, "cpu")
-    assert route(dense) == DENSE and "RT_DISABLE_PALLAS" in dense.why_dense
-    assert not kernel_loop_enabled(sky, small) and not kernel_loop_enabled(sky)
+        assert _device.kernels_disabled()
+    assert not kernel_loop_enabled(sky)
     assert _device.use_plain(small.sph_pos, "test")
-    assert route(build_device_scene(scenes["house_tiled16"], "cpu")) == DENSE
+    assert route(build_device_scene(house, "cpu")) == SMALL
+    assert route(build_device_scene(scenes["house_tiled16"], "cpu")) == SMALL
     assert route(build_device_scene(scenes["house_tiled16"], "cpu", with_bvh=True)) == BVH
     cw.reset_launches()
     ci.reset_launches()
-    img, counts = _freerun_mean(dense, house, sky)
+    img, counts = _freerun_mean(small, house, sky)
     assert set(cw.LAUNCHES.values()) == set(ci.LAUNCHES.values()) == {0}
     assert (counts == ref_counts).all() and np.array_equal(img, ref)
     monkeypatch.delenv("RT_DISABLE_PALLAS")
-    assert _device.kernels_enabled() and kernel_loop_enabled(sky, small)
-    assert route(build_device_scene(house, "cpu")) == SMALL
+    assert not _device.kernels_disabled() and kernel_loop_enabled(sky)
+
+
+def test_disable_pallas_is_refused_on_the_card(monkeypatch):
+    """On a CUDA tensor a wrapper launches its kernel: under
+    RT_DISABLE_PALLAS=1 it raises instead of running its plain version
+    there, naming the knob and device='cpu'; unset, it launches."""
+    card = types.SimpleNamespace(device=torch.device("cuda"))
+    monkeypatch.setattr(_device, "_warned", set())
+    monkeypatch.setenv("RT_DISABLE_PALLAS", "1")
+    with pytest.warns(RuntimeWarning), pytest.raises(RuntimeError, match="device='cpu'"):
+        _device.use_plain(card, "closest_call")
+    monkeypatch.delenv("RT_DISABLE_PALLAS")
+    assert not _device.use_plain(card, "closest_call")
+    with pytest.raises(ValueError, match="unsupported device"):
+        _device.use_plain(types.SimpleNamespace(device=torch.device("meta")), "closest_call")

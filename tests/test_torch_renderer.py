@@ -196,27 +196,26 @@ def test_render_exact_reaches_spp(house_scene, envs, batch):
     assert torch.equal(r.film.cumulative, before)
 
 
-@pytest.mark.parametrize("intersector,error", [("bvh", NotImplementedError), ("octree", ValueError)])
-def test_renderer_refuses_intersector(house_scene, envs, intersector, error):
-    """An unknown intersector raises ValueError. 'bvh' is ported and takes
-    the BVH route; and no intersector raises NotImplementedError any
-    more: 'sweep' on a scene past the unroll budget that the chunked route
-    does not cover (200 plane lanes) takes the small route by the
-    shared-memory mirror, renders, and reports 'sweep'."""
-    if intersector == "bvh":
-        assert make_renderer(house_scene, envs, intersector="bvh").intersector == "bvh"
-        plane = type(house_scene.planes[0])
-        planes = dataclasses.replace(house_scene, spheres=[], planes=[
-            plane(pos=(float(i), -1.0, -4.0), right=(0.5, 0.0, 0.0), forward=(0.0, 0.0, 0.5),
-                  material_id=0) for i in range(200)])
-        r = make_renderer(planes, envs, intersector="sweep")
-        assert r.intersector == "sweep" and route(r.device_scene) == SMALL
-        assert r.device_scene.num_lanes > 192
-        r.render(spp=2)
-        assert r.film.sample_count == 2 and np.isfinite(r.film.mean_radiance()).all()
-        return
-    with pytest.raises(error):
-        make_renderer(house_scene, envs, intersector=intersector)
+def test_renderer_takes_bvh_and_sweep_past_the_budget(house_scene, envs):
+    """'bvh' is ported and takes the BVH route; 'sweep' on a scene past the
+    unroll budget that the chunked route does not cover (200 plane lanes)
+    takes the small route, renders, and reports 'sweep'."""
+    assert make_renderer(house_scene, envs, intersector="bvh").intersector == "bvh"
+    plane = type(house_scene.planes[0])
+    planes = dataclasses.replace(house_scene, spheres=[], planes=[
+        plane(pos=(float(i), -1.0, -4.0), right=(0.5, 0.0, 0.0), forward=(0.0, 0.0, 0.5),
+              material_id=0) for i in range(200)])
+    r = make_renderer(planes, envs, intersector="sweep")
+    assert r.intersector == "sweep" and route(r.device_scene) == SMALL
+    assert r.device_scene.num_lanes > 192
+    r.render(spp=2)
+    assert r.film.sample_count == 2 and np.isfinite(r.film.mean_radiance()).all()
+
+
+def test_renderer_refuses_intersector(house_scene, envs):
+    """An unknown intersector raises ValueError."""
+    with pytest.raises(ValueError):
+        make_renderer(house_scene, envs, intersector="octree")
 
 
 def test_renderer_defaults_to_the_card(house_scene, envs):

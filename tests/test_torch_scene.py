@@ -76,11 +76,11 @@ def test_device_scene_from_arrays_round_trip(assets_dir):
         )
 
 
-def test_big_scene_route_not_ported(assets_dir):
+def test_big_plane_scene_takes_the_small_route(assets_dir):
     """A scene past the unroll budget that the chunked route does not
     cover (here 200 plane lanes: planes never leave the unrolled step)
-    takes the small route by the shared-memory mirror (its packed table
-    fits the sweep kernels' shared memory) and renders."""
+    takes the small route (its packed table fits a block's shared memory,
+    so the sweep kernels stage it) and renders."""
     scene = _scene(assets_dir, "suzanne")
     scene = Scene(
         materials=scene.materials,
