@@ -138,8 +138,22 @@ exits non-zero at the first failure. Phases, one line each or more:
    route by the flip-aware criteria (house 128x128, the others 64x64);
    RT_DEBUG_NANS=1: the three scenes at 256x256 raise nothing,
    a NaN ray lane handed to CLOSEST raises FloatingPointError naming it,
-   and house at 2048x2048 Mrays/s with the knob on and off.
-Each of 13-17 logs its seconds.
+   and house at 2048x2048 Mrays/s with the knob on and off;
+18. the lane layout (render/wavefront.lane_order, compact_every): at
+   2048x2048, 8 bounces, free-run, from counts 0, each setting a warm-up
+   call then three calls in turns (Mrays/s median and spread, the
+   permutations a call), every call's image, counts and stats bitwise the
+   first's: house block-major (the default) against
+   RT_DISABLE_BLOCK_REMAP=1; suzanne_hi and suzanne_xhi at K = 0, the
+   reference's default cadence (2 and 1) and K = 4, and the card's default
+   beside them; on a loop state without and with a permutation,
+   CHUNKED_CLOSEST and CHUNKED_ANY ms and the batch model's pairs,
+   candidates and busy (block, batch) pairs, the three big-mesh kernels'
+   permuted outputs the unpermuted ones moved with the lanes; one
+   permutation's key, sort, gather and whole ms at 4.2M lanes; suzanne_hi
+   at 256x256 under each RT_COMPACT_KEY bitwise K = 0; spheres' default
+   permutes nothing.
+Each of 13-18 logs its seconds.
 
 Then the run's seconds, a JSON line with each of the ten kernels' launches, largest absolute and
 relative errors (and the outputs that hold them), times and bound, the
@@ -195,6 +209,7 @@ from rsoderh_raytracing_tpu_torch.profiling import (  # noqa: E402
 from rsoderh_raytracing_tpu_torch.render.integrator import (  # noqa: E402
     MAX_BOUNCES, camera_pytree, render_sample,
 )
+from rsoderh_raytracing_tpu_torch.render import wavefront as wf  # noqa: E402
 from rsoderh_raytracing_tpu_torch.render.renderer import Renderer  # noqa: E402
 from rsoderh_raytracing_tpu_torch.render.wavefront import (  # noqa: E402
     NO_LIMIT, Wavefront, render_freerun, render_spp_sync, render_wavefront,
@@ -1513,6 +1528,168 @@ def every_scene_phase(sky, card, dev, max_err, paths):
     log("every_scene_phase", seconds=f"{time.perf_counter() - phase_start:.1f}")
 
 
+# Phase 18: the lane layout. The 2048^2 free-run budget by scene, the
+# calls of each setting (in turns, after a warm-up call each), the
+# cadence compared beside K = 0 and the reference's default, and the
+# size and budget of the key modes' images.
+LANES_BUDGET = {"house": 64, "suzanne_hi": 32, "suzanne_xhi": 16, "spheres": 16}
+LANES_CALLS = 3
+LANES_K = 4
+LANES_MODES_SIZE, LANES_MODES_BUDGET = 256, 16
+
+
+@contextlib.contextmanager
+def counted_permutations():
+    """A list that gains one entry each time Wavefront.permute runs."""
+    calls, real = [], Wavefront.permute
+
+    def permute(self):
+        calls.append(1)
+        return real(self)
+
+    with mock.patch.object(Wavefront, "permute", permute):
+        yield calls
+
+
+def same_render(a, b):
+    """Whether two (image, counts, stats) are bitwise the same."""
+    return (torch.equal(a[0].view(torch.int32), b[0].view(torch.int32)) and torch.equal(a[1], b[1])
+            and all(int(a[2][k]) == int(b[2][k]) for k in a[2]))
+
+
+def lane_calls(label, ds, env, cam, size, budget, settings, calls, card):
+    """Each setting (name, knobs, compact_every): a warm-up call, then
+    `calls` free-run calls at size^2 from counts 0, the settings in turns;
+    every call's image, counts and stats must be bitwise the first's.
+    Logs and returns {name: (median Mrays/s, spread)}."""
+    res = (size, size)
+    rates, perms, ref = {name: [] for name, _, _ in settings}, {}, None
+    for turn in range(calls + 1):
+        for name, knobs, every in settings:
+            with knob_env(knobs), counted_permutations() as permuted:
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                out = render_freerun(ds, env, cam, 0, res, budget, BOUNCES, with_stats=True,
+                                     compact_every=every)
+                rays = int(out[2]["closest_rays"] + out[2]["shadow_rays"])  # synchronizes
+                seconds = time.perf_counter() - start
+            ref = out if ref is None else ref
+            if not same_render(out, ref):
+                raise AssertionError(f"{label}: {name} is not bitwise {settings[0][0]}'s render")
+            perms[name] = len(permuted)
+            if turn:
+                rates[name].append(rays / seconds / 1e6)
+    got = {}
+    for name, _, every in settings:
+        r = sorted(rates[name])
+        got[name] = (r[len(r) // 2], r[-1] - r[0])
+        log("lanes", scene=label, size=size, budget=budget, setting=name, compact_every=every,
+            permutations_a_call=perms[name], bitwise=True, mrays_per_s=f"{got[name][0]:.2f}",
+            spread=f"{got[name][1]:.2f}", per_call=",".join(f"{x:.2f}" for x in rates[name]),
+            card=repr(card))
+    return got
+
+
+def permuted_state(ds, env, cam, compact_every):
+    """(wave, the chunked kernels' arguments at iteration 2) of a 2048^2
+    free-run loop state; compact_every=2 permutes the lanes before it."""
+    wave = Wavefront(ds, env, cam, 0, (SIZE, SIZE), NO_LIMIT, 64, BOUNCES, compact_every=compact_every)
+    for it in range(2):
+        wave.step(it)
+    return wave, capture_step(wave, 2)
+
+
+def lane_kernels(label, ds, env, cam, card):
+    """CHUNKED_CLOSEST and CHUNKED_ANY on a 2048^2 loop state without and
+    with a permutation: ms a launch, the batch model's pairs, candidates
+    and busy (block, batch) pairs; the permuted outputs must be the
+    unpermuted ones moved with the lanes (closest on live lanes, occlusion
+    on masked lanes, BIG_SHADE on every lane). Then one permutation's ms:
+    key, stable sort, gather, and the whole."""
+    (plain_wave, plain), (wave, permuted) = (permuted_state(ds, env, cam, k) for k in (0, 2))
+    home = wave.carry["home"].to(torch.int64)
+    if torch.equal(home, torch.arange(home.shape[0], device=home.device)):
+        raise AssertionError(f"{label}: the loop state was not permuted")
+    for key in BIG_KERNELS:
+        kfn = KERNELS[key][0]
+        outs = {}
+        for name, state in (("unpermuted", plain), ("permuted", permuted)):
+            outs[name] = kfn(*state[key])
+            if key == "big_shade":
+                continue
+            model = intersect.chunked_closest_model if key == "closest" else intersect.chunked_any_model
+            walked = {}
+            model(*state[key], ci.chunked_batch(), counts=walked)
+            log("lanes_kernel", scene=label, kernel=BIG_KERNELS[key], state=name, lanes=SIZE * SIZE,
+                ms=f"{time_ms(lambda: kfn(*state[key]), 5):.4f}",
+                **{f"model_{k}": v for k, v in walked.items()}, card=repr(card))
+        got = outs["permuted"]
+        ref = outs["unpermuted"]
+        if key == "closest":
+            where = permuted[key][3] != 0
+            pairs = zip(got, ref)
+        elif key == "occlusion":
+            where = permuted[key][3] != 0
+            pairs = [(got, ref)]
+        else:
+            where = torch.ones_like(home, dtype=torch.bool)
+            pairs = [(got[0][k], ref[0][k]) for k in cw.CARRY_NAMES] + [(got[1], ref[1]), (got[2], ref[2])]
+        differ = sum(int((_bits(a) != _bits(b.index_select(0, home)))[where].sum()) for a, b in pairs)
+        log("lanes_kernel", scene=label, kernel=BIG_KERNELS[key], compared=int(where.sum()),
+            lanes_differ_after_permutation=differ)
+        if differ:
+            raise AssertionError(f"{label}: {BIG_KERNELS[key]} does not move with its lanes")
+    key = wf.compact_key(wave.carry, *wave.grid, wave.key_bits, wave.key_mode)
+    order = torch.argsort(key, stable=True)
+    log("lanes_permutation", scene=label, lanes=SIZE * SIZE, columns=len(wave.carry),
+        key_ms=f"{time_ms(lambda: wf.compact_key(wave.carry, *wave.grid, wave.key_bits, wave.key_mode), 5):.4f}",
+        sort_ms=f"{time_ms(lambda: torch.argsort(key, stable=True), 5):.4f}",
+        gather_ms=f"{time_ms(lambda: wf.permute_carry(wave.carry, order), 5):.4f}",
+        permute_ms=f"{time_ms(wave.permute, 5):.4f}", card=repr(card))
+    del plain_wave, wave, plain, permuted
+
+
+def lanes_phase(sky, card, dev):
+    """Phase 18: block-major lanes and lane compaction."""
+    phase_start = time.perf_counter()
+    # house: block-major (the default) against row-major lanes
+    ds, env, cam = scene_setup("house", dev, sky)
+    lane_calls("house", ds, env, cam, SIZE, LANES_BUDGET["house"],
+               [("block", {}, None), ("row", {"RT_DISABLE_BLOCK_REMAP": "1"}, None)], LANES_CALLS, card)
+    del ds
+    generated_mesh("suzanne_xhi.obj")
+    decision = {}
+    for name in ("suzanne_hi", "suzanne_xhi"):
+        ds, env, cam = scene_setup(name, dev, sky)
+        ref_k = wf.reference_cadence(ds)
+        if route(ds) != CHUNKED or ref_k == 0:
+            raise AssertionError(f"{name} does not take the chunked route with a compacting default")
+        got = lane_calls(name, ds, env, cam, SIZE, LANES_BUDGET[name],
+                         [("K0", {}, 0), ("reference", {}, ref_k), (f"K{LANES_K}", {}, LANES_K)],
+                         LANES_CALLS, card)
+        decision[name] = got["reference"][0] / got["K0"][0]
+        log("lanes_default", scene=name, chunks=ds.chunks.count, reference_k=ref_k,
+            card_default_k=wf.compact_every_default(ds),
+            reference_over_k0=f"{decision[name]:.4f}", card=repr(card))
+        lane_kernels(name, ds, env, cam, card)
+        if name == "suzanne_hi":
+            modes = [("K0", {}, 0)] + [(mode, {"RT_COMPACT_KEY": mode}, 1) for mode in wf.COMPACT_KEYS]
+            lane_calls(name, ds, env, cam, LANES_MODES_SIZE, LANES_MODES_BUDGET, modes, 1, card)
+        del ds
+    # spheres (16 chunks): the default compacts nothing
+    ds, env, cam = scene_setup("spheres", dev, sky)
+    with counted_permutations() as permuted:
+        render_freerun(ds, env, cam, 0, (SIZE, SIZE), LANES_BUDGET["spheres"], BOUNCES)
+        torch.cuda.synchronize()
+    log("lanes_default", scene="spheres", chunks=ds.chunks.count, card_default_k=wf.compact_every_default(ds),
+        permutations=len(permuted))
+    if permuted:
+        raise AssertionError("spheres' default permuted its lanes")
+    del ds
+    log("lanes_phase", seconds=f"{time.perf_counter() - phase_start:.1f}",
+        reference_over_k0=",".join(f"{k}:{v:.4f}" for k, v in decision.items()))
+
+
 def main() -> int:
     smoke_start = time.perf_counter()
     # 1. device
@@ -1753,6 +1930,8 @@ def main() -> int:
         ("closest", "house_scan"), ("any", "house_scan"), ("bvh_closest", "suzanne_xxhi"),
         ("bvh_any", "suzanne_xxhi"))}
     every_scene_phase(sky, card, dev, max_err, paths)
+    # 18. the lane layout
+    lanes_phase(sky, card, dev)
     kernels = [
         {"name": name, "route": "cuda",
          "source": sources[name],

@@ -1,7 +1,7 @@
 """Rules of the port's entry points: the card by default, never a silent
 drop to the CPU; a wrapper runs its plain twin only on CPU tensors and
-launches its kernel (or raises) on CUDA ones (``use_plain``); no
-reference knob ignored without a word; the reference's two switches,
+launches its kernel (or raises) on CUDA ones (``use_plain``); the
+reference's two switches,
 read at call time: RT_DISABLE_PALLAS=1 (``kernels_disabled``: the
 wavefront's composed body on the CPU, refused on the card, where the
 port has no plain path) and RT_DEBUG_NANS=1 (``debug_nans``: every
@@ -18,16 +18,6 @@ import warnings
 import torch
 
 DEFAULT = "cuda"
-
-# Environment knobs of the reference (rsoderh_raytracing_tpu) that the
-# port does not honour: the compaction cadence, which is TPU grid
-# machinery. A run that sets one measures something else than it claims,
-# so the port says so, once a knob. (The chunked route's ceilings and
-# chunk orders, RT_MAX_CHUNKED_TRIS, RT_MAX_CHUNKED_SPHERES,
-# RT_CHUNK_CLUSTER and RT_DISABLE_MORTON, and the BVH crossover,
-# RT_BVH_ABOVE_TRIS, are honoured: scene/device.py; RT_DISABLE_PALLAS and
-# RT_DEBUG_NANS below.)
-IGNORED_KNOBS = ("RT_COMPACT_EVERY",)
 _warned: set = set()
 
 
@@ -37,15 +27,6 @@ def warn_once(key: str, message: str) -> None:
     if key not in _warned:
         _warned.add(key)
         warnings.warn(message, RuntimeWarning, stacklevel=4)
-
-
-def warn_ignored_knobs() -> None:
-    """A RuntimeWarning naming each IGNORED_KNOBS variable that is set,
-    the first time this process sees it set."""
-    for knob in IGNORED_KNOBS:
-        if knob in os.environ:
-            warn_once(knob, f"{knob}={os.environ[knob]!r} is a knob of rsoderh_raytracing_tpu "
-                            "that the PyTorch port ignores: this run does not take the setting")
 
 
 def kernels_disabled() -> bool:

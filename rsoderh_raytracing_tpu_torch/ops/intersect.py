@@ -31,7 +31,7 @@ from __future__ import annotations
 import torch
 
 from rsoderh_raytracing_tpu_torch.ops.geometry import HitRecord
-from rsoderh_raytracing_tpu_torch.scene.device import BVH, CHUNKED, TRI_CHUNK, chunk_spheres, route
+from rsoderh_raytracing_tpu_torch.scene.device import BVH, CHUNKED, CHUNKED_TILE, TRI_CHUNK, chunk_spheres, route
 
 INF = 3.0e38
 SPHERE_EPS = 1.0e-4
@@ -375,12 +375,17 @@ def _model_walk(scene, rays, lanes, batch, visit, bound):
     pairs a call: visit(lanes, their ray terms, kind, rows), rows the
     (pairs, TRI_CHUNK) index tensor of each pair's chunk rows among its
     kind (a lane may come more than once). Returns the counts: pairs
-    visited, candidates, slab tests."""
+    visited, candidates, slab tests, and block_batches, the (block of
+    CHUNKED_TILE consecutive lanes, batch) pairs with a candidate: the
+    batches a block of the kernels cannot skip."""
     ch = scene.chunks
     group = _MODEL_LANES.get(rays[0].device.type, _MODEL_LANES["cpu"])
     block = max(1, _PAIRS.get(rays[0].device.type, _PAIRS["cpu"]) // TRI_CHUNK)
     rows = torch.arange(TRI_CHUNK, device=lanes.device)
     counts = dict(pairs=0, candidates=0, slab_tests=0)
+    n_batches = -(-ch.count // batch)
+    busy = torch.zeros(-(-rays[0].shape[0] // CHUNKED_TILE) * n_batches, dtype=torch.bool,
+                       device=lanes.device)
     for s in range(0, lanes.shape[0], group):
         sel = lanes[s:s + group]
         sub = tuple(c.index_select(0, sel) for c in rays)
@@ -394,6 +399,7 @@ def _model_walk(scene, rays, lanes, batch, visit, bound):
             if cand.numel() == 0:
                 continue
             cand_sel = sel[cand]
+            busy[cand_sel // CHUNKED_TILE * n_batches + c0 // batch] = True
             cand_rays = tuple(x.index_select(0, cand) for x in sub)
             passes, t0 = slab_entry(boxes, cand_rays)
             passes &= bound(cand_sel, t0)
@@ -409,6 +415,7 @@ def _model_walk(scene, rays, lanes, batch, visit, bound):
                     terms = _ray_terms(*(x.index_select(0, lane_part) for x in cand_rays))
                     visit(cand_sel.index_select(0, lane_part), terms, kind,
                           first[:, None] * TRI_CHUNK + rows[None, :])
+    counts["block_batches"] = int(busy.sum())
     return counts
 
 

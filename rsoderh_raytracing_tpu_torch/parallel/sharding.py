@@ -180,7 +180,7 @@ def render_spp_sharded(
 
 def render_freerun_sharded(
     scene, env, camera, base_counts, mesh: Mesh, resolution, iterations,
-    max_bounces: int = MAX_BOUNCES, with_stats: bool = False,
+    max_bounces: int = MAX_BOUNCES, with_stats: bool = False, compact_every: int | None = None,
 ):
     """Free-run wavefront across the mesh.
 
@@ -204,7 +204,9 @@ def render_freerun_sharded(
     SHARDED freerun completes non-prefix sets (slots finish unequal
     counts per pixel), so resuming one from totals would re-render some
     sample indices and skip others: always feed its shard_counts back
-    instead. scene, env and camera may be Replicas.
+    instead. scene, env and camera may be Replicas. Each slot's
+    Wavefront lays out and compacts its own row block's lanes
+    (compact_every as in render/wavefront.Wavefront).
     """
     width, height = resolution
     rows = _rows_of(height, mesh)
@@ -238,6 +240,7 @@ def render_freerun_sharded(
                     scenes[slot], envs[slot], cams[slot], local.to(slot), resolution,
                     NO_LIMIT, iterations, max_bounces,
                     row0=t * rows, rows=rows, sample_stride=s_n, sample_offset=s,
+                    compact_every=compact_every,
                 )
             slots.append((t, s, slot, local, wave))
 
@@ -380,7 +383,7 @@ class ShardedRenderer:
         inner.film.add_samples(summed.to(inner.film.device), self.mesh.shape["sample"])
         return inner.film.sample_count
 
-    def step_freerun(self, iterations: int) -> int:
+    def step_freerun(self, iterations: int, compact_every: int | None = None) -> int:
         """Sharded free-run step (render_freerun_sharded); returns the
         minimum per-pixel sample count, ``last_stats`` the rays traced."""
         inner = self.inner
@@ -391,6 +394,7 @@ class ShardedRenderer:
         summed, counts, shard_counts, stats = render_freerun_sharded(
             self._scenes, self._env(), self._camera(), base, self.mesh,
             (inner.width, inner.height), iterations, inner.max_bounces, with_stats=True,
+            compact_every=compact_every,
         )
         self._shard_counts = shard_counts
         inner.film.add_freerun(summed.to(inner.film.device), counts.to(inner.film.device))

@@ -143,8 +143,8 @@ class Renderer:
         """Run the iteration-budget wavefront: every lane stays busy for
         `iterations` path segments, so the per-pixel sample count varies.
         Returns the minimum per-pixel sample count; ``last_stats`` holds
-        the rays traced in this step. compact_every is the reference's
-        argument and has no effect here (render_freerun)."""
+        the rays traced in this step. compact_every is the chunked route's
+        lane compaction cadence (render_freerun; None: its default)."""
         self._reset_if_changed()
         summed, counts, stats = render_freerun(
             self.device_scene, self._device_env(), self._camera(),

@@ -75,6 +75,8 @@ CHUNKED_OFF_SMALL = 191136
 CHUNKED_MAX_SHARED = 232448
 CHUNKED_BATCH = 16
 CHUNKED_BOUND_COLS = 8
+# The consecutive lanes a block of the chunked kernels owns (kTile).
+CHUNKED_TILE = 1024
 
 # The dynamic shared memory that each of TRACE, FUSED, CLOSEST and ANY may
 # ask for to stage the packed table (csrc/wavefront_common.cuh:
@@ -534,7 +536,6 @@ def build_device_scene(
     device_scene_from_arrays, CHUNKED or SMALL; nothing raises for a
     scene's size."""
     device = _device.resolve(device)
-    _device.warn_ignored_knobs()
     cluster = chunk_cluster()
     materials = scene.materials or []
     m = max(1, len(materials))

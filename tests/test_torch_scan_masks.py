@@ -1,7 +1,7 @@
 """The scan integrator's masked queries: CLOSEST with its hit record and
 ANY under a lane mask, their plain versions against the Pallas kernels,
-and the repaired reference API (compact_every, the ignored RT_* knobs,
-the parity report's output names).
+and the repaired reference API (compact_every, the parity report's
+output names).
 
 The Pallas kernels (pallas_intersect.closest_sweep, any_sweep) run in
 interpret mode on the CPU (RT_PALLAS_INTERPRET=1) on test_torch_trace.py's
@@ -17,8 +17,6 @@ material_values, and render_sample with the masks against render_sample
 without them.
 """
 
-import warnings
-
 import numpy as np
 import pytest
 import torch
@@ -31,7 +29,6 @@ from rsoderh_raytracing_tpu.scene.device import build_device_scene as j_build
 from rsoderh_raytracing_tpu.env.environment import Environment as JEnvironment
 from rsoderh_raytracing_tpu.env.environment import EnvironmentMaps as JEnvironmentMaps
 from rsoderh_raytracing_tpu.env.hdr_io import procedural_sky
-from rsoderh_raytracing_tpu_torch import _device
 from rsoderh_raytracing_tpu_torch.env.environment import Environment, EnvironmentMaps, device_environment
 from rsoderh_raytracing_tpu_torch.ops import cuda_intersect as ci
 from rsoderh_raytracing_tpu_torch.ops import cuda_wavefront as cw
@@ -196,26 +193,6 @@ def test_compact_every_is_accepted_and_changes_nothing(house_scene):
     a = render_freerun(scene, env, cam, 0, (8, 8), 6, 3, compact_every=1)
     b = render_freerun(scene, env, cam, 0, (8, 8), 6, 3)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
-
-
-@pytest.mark.parametrize("knob", _device.IGNORED_KNOBS)
-def test_ignored_reference_knob_warns_once(house_scene, monkeypatch, knob):
-    monkeypatch.setattr(_device, "_warned", set())
-    monkeypatch.setenv(knob, "1")
-    with pytest.warns(RuntimeWarning, match=knob):
-        build_device_scene(house_scene, device="cpu")
-    with warnings.catch_warnings():
-        warnings.simplefilter("error")
-        build_device_scene(house_scene, device="cpu")
-
-
-def test_no_warning_without_knobs(house_scene, monkeypatch):
-    monkeypatch.setattr(_device, "_warned", set())
-    for knob in _device.IGNORED_KNOBS:
-        monkeypatch.delenv(knob, raising=False)
-    with warnings.catch_warnings():
-        warnings.simplefilter("error")
-        build_device_scene(house_scene, device="cpu")
 
 
 def test_parity_names_the_outputs_of_the_largest_differences():
