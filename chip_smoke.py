@@ -37,7 +37,10 @@ exits non-zero at the first failure. Phases, one line each or more:
    suzanne_hi at 2048^2;
 7. goldens: render_wavefront through the kernels against
    tests/goldens/{default,house}_64_8spp.npy and the oracle anchors
-   suzanne_hi_anchor_24_2spp.npy and spheres_anchor_32_4spp.npy;
+   suzanne_hi_anchor_24_2spp.npy and spheres_anchor_32_4spp.npy, and
+   suzanne_xhi_anchor_16_2spp.npy through the chunked and the BVH routes
+   (suzanne_xhi generated as in phase 12), each by the flip-aware
+   criteria;
 8. the sweep kernels (CLOSEST, ANY, FUSED; within phase 3, on the house
    loop states at 256x256 and 2048x2048): parity with their plain
    versions, then each one's time beside its plain version's and its
@@ -72,9 +75,15 @@ exits non-zero at the first failure. Phases, one line each or more:
    each walk's ptxas registers and stack and the lanes it walks (masked
    lanes whose ray enters the root's box);
    compares suzanne_hi at 256x256 through the BVH and the chunked routes
-   (the anchors' flip-aware criteria); and logs the Mrays/s of the sweep
-   route and of the BVH route on house, spheres, suzanne_hi and suzanne_xhi
-   (the crossover). Its seconds on a line of their own;
+   (the anchors' flip-aware criteria); then the crossover: house, spheres,
+   and suzanne at 968, 3,872, 15,488, 61,952 and 247,808 triangles (levels
+   1 and 3 generated under build/chip_smoke/), each through its sweep
+   route and through the BVH, the routes in turns, a warm-up call then
+   three calls a route (Mrays/s median and spread, each route's kernels
+   only); a Renderer with the default intersector on each scene reports
+   the route of auto_bvh's rule (the BVH past CUDA_BVH_ABOVE_LANES sphere
+   and triangle lanes), and suzanne_xhi through 'auto' runs the BVH
+   route's kernels at its rate. Its seconds on a line of their own;
 13. sync rounds (render_spp_sync): at 256x256 on house against
    render_wavefront(spp=2) (counts equal everywhere, the bit-equal share,
    the anchors' flip-aware criteria: SHADE regenerates render_wavefront's
@@ -96,7 +105,9 @@ exits non-zero at the first failure. Phases, one line each or more:
 15. viewer: the CLI's --view on house at 256x144 on a pseudo-terminal of
    120x40 cells, frames watched for 10 s, then 'p', a key, dev views 2, 3
    and 1, and 'q'; exit code 0, frames a second, the last spp= and the
-   fitted resolution;
+   fitted resolution; then python -m rsoderh_raytracing_tpu_torch.viewer.fps
+   on default and house at 256x144, 60 frames: frames a second with the
+   camera still and moving, platform gpu, each above 0;
 16. chunk orders (RT_CHUNK_CLUSTER=morton|bvh|treelet, and the OBJ order
    of RT_DISABLE_MORTON=1, each set and unset by the phase): suzanne_hi
    in the bvh and treelet orders, CHUNKED_CLOSEST, CHUNKED_ANY and
@@ -110,10 +121,10 @@ exits non-zero at the first failure. Phases, one line each or more:
    free-run call) for suzanne_hi and suzanne_xhi in every order,
    suzanne_xhi under RT_MAX_CHUNKED_TRIS=1048576 (its treelet order
    passes the default ceiling); then suzanne_xxhi under that ceiling:
-   'auto' takes the chunked route, the shared-memory mirror equals the
-   kernels' figure, parity at 256x256, the three kernels' ms at 2048^2
-   and one short 2048^2 call (budget 16) beside phase 12's BVH-route
-   Mrays/s; with the default ceiling 'auto' takes the BVH again;
+   'sweep' takes the chunked route ('auto' walks its BVH under either
+   ceiling), the shared-memory mirror equals the kernels' figure, parity
+   at 256x256, the three kernels' ms at 2048^2 and one short 2048^2 call
+   (budget 16) beside phase 12's BVH-route Mrays/s;
 17. every scene (profiling.tiled_house; the phase sets and unsets its
    knobs): house_tiled16 (256 ground tiles, 328 padded lanes, a 26 KB
    table: the small route past Mosaic's 192-lane budget) with the sweep
@@ -175,6 +186,7 @@ import subprocess
 import sys
 import termios
 import time
+import tomllib
 from unittest import mock
 
 import numpy as np
@@ -215,9 +227,10 @@ from rsoderh_raytracing_tpu_torch.render.wavefront import (  # noqa: E402
     NO_LIMIT, Wavefront, render_freerun, render_spp_sync, render_wavefront,
 )
 from rsoderh_raytracing_tpu_torch.scene.device import (  # noqa: E402
-    BVH, CHUNKED, SMALL, SWEEP_MAX_SHARED, TRI_CHUNK, auto_bvh, build_device_scene, route,
-    sweep_shared_bytes,
+    BVH, CHUNKED, CUDA_BVH_ABOVE_LANES, SMALL, SWEEP_MAX_SHARED, TRI_CHUNK, auto_bvh,
+    build_device_scene, route, sweep_shared_bytes,
 )
+from rsoderh_raytracing_tpu_torch.scene.toml_loader import build_scene  # noqa: E402
 from rsoderh_raytracing_tpu_torch.utils.png import read_png  # noqa: E402
 
 # Kernel against plain version on the same card, output by output: an
@@ -246,9 +259,18 @@ SRC_BVH = "rsoderh_raytracing_tpu_torch/csrc/bvh.cu"
 # The generated meshes of the BVH phase: subdivision level by file.
 GENERATED_MESHES = {"suzanne_xxhi.obj": 5, "suzanne_xhi.obj": 4}
 # The BVH phase's crossover runs: the scenes, each through its sweep route
-# and through the BVH, and the iterations a call (a warm-up call first).
-CROSSOVER_SCENES = ("house", "spheres", "suzanne_hi", "suzanne_xhi")
-CROSSOVER_BUDGET = 64
+# and through the BVH at SIZE^2, BOUNCES, the routes in turns: a warm-up
+# call each (16 iterations), then CROSSOVER_CALLS calls of CROSSOVER_BUDGET
+# iterations.
+# suzanne_lN is suzanne.toml with its mesh subdivided N times
+# (scripts/subdivide_obj.py N; suzanne_hi is level 2, suzanne_xhi 4).
+CROSSOVER_SCENES = ("house", "spheres", "suzanne", "suzanne_l1", "suzanne_hi", "suzanne_l3",
+                    "suzanne_xhi")
+CROSSOVER_LEVELS = {"suzanne_l1": 1, "suzanne_l3": 3}
+CROSSOVER_BUDGET = 32
+CROSSOVER_CALLS = 3
+# 'auto' timed on suzanne_xhi through a Renderer: step_freerun's budget.
+AUTO_BUDGET = 64
 # suzanne_hi through the BVH and the chunked routes at 256x256: the leaf
 # tests round apart, so a few paths flip; the suzanne_hi anchor's
 # flip-aware criteria (tests/test_reference_estimator.py) hold the rest.
@@ -268,6 +290,9 @@ SCAN_CPU_SPP = 16
 OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
 # The big-mesh kernels by Wavefront.step keyword.
 BIG_KERNELS = {"closest": "chunked_closest", "occlusion": "chunked_any", "big_shade": "big_shade"}
+# The kernels a free-run iteration launches, by route.
+ROUTE_LAUNCHES = {SMALL: {"trace", "shade"}, CHUNKED: set(BIG_KERNELS.values()),
+                  BVH: {"bvh_closest", "bvh_any", "big_shade"}}
 
 
 def log(phase, **fields):
@@ -485,12 +510,14 @@ def time_kernel(kfn, pfn, args):
     return ((k1 + k2) / 2, (time.perf_counter() - start) * 1e3), ref
 
 
-def anchor(name, size, spp, env, dev):
-    """The oracle anchor golden through the kernels, with the reference's
-    flip-aware criteria (tests/test_reference_estimator.py)."""
+def anchor(name, size, spp, env, dev, with_bvh=False):
+    """The oracle anchor golden through the kernels of the sweep route (or
+    of the BVH route, `with_bvh`), with the reference's flip-aware
+    criteria (tests/test_reference_estimator.py; the meshes' for
+    suzanne_xhi too)."""
     scene = load_scene(os.path.join(ROOT, "assets", "scenes", f"{name}.toml"))
-    img = render_wavefront(build_device_scene(scene, dev), env, camera_pytree(scene.camera, dev),
-                           0, (size, size), spp, MAX_BOUNCES)
+    ds = build_device_scene(scene, dev, with_bvh=with_bvh)
+    img = render_wavefront(ds, env, camera_pytree(scene.camera, dev), 0, (size, size), spp, MAX_BOUNCES)
     ours = img.cpu().numpy() / spp
     ref = np.load(os.path.join(ROOT, "tests", "goldens", f"{name}_anchor_{size}_{spp}spp.npy"))
     diff = ours - ref
@@ -500,9 +527,10 @@ def anchor(name, size, spp, env, dev):
     rel = float(np.sqrt((diff[keep] ** 2).mean()) / np.sqrt((ref[keep] ** 2).mean()))
     mrel = abs(float(ours.mean()) - float(ref.mean())) / float(ref.mean())
     within = float((ad < 1e-4).mean())
-    log("golden", scene=f"{name}_anchor", flipped=f"{flipped.mean():.4f}", within_1e4=f"{within:.4f}",
-        rel_rmse_unflipped=f"{rel:.3e}", image_mean_rel=f"{mrel:.3e}")
-    if name == "suzanne_hi":
+    log("golden", scene=f"{name}_anchor", route=route(ds), size=size, spp=spp,
+        flipped=f"{flipped.mean():.4f}", within_1e4=f"{within:.4f}", rel_rmse_unflipped=f"{rel:.3e}",
+        image_mean_rel=f"{mrel:.3e}")
+    if name in ("suzanne_hi", "suzanne_xhi"):
         ok = flipped.mean() < 0.03 and within > 0.95 and rel < 0.005
     else:
         ok = within > 0.45 and rel < 0.005 and mrel < 0.05
@@ -735,6 +763,116 @@ def generated_mesh(name):
     return path
 
 
+def crossover_scene(name):
+    """The host Scene of a crossover scene: assets/scenes/NAME.toml, or
+    suzanne.toml with its mesh subdivided CROSSOVER_LEVELS[name] times
+    (written under OUT_DIR when absent)."""
+    if name not in CROSSOVER_LEVELS:
+        return load_scene(os.path.join(ROOT, "assets", "scenes", f"{name}.toml"))
+    level = CROSSOVER_LEVELS[name]
+    mesh = os.path.join(OUT_DIR, f"{name}.obj")
+    if not os.path.exists(mesh):
+        os.makedirs(OUT_DIR, exist_ok=True)
+        subprocess.run([sys.executable, os.path.join(ROOT, "scripts", "subdivide_obj.py"), str(level), mesh],
+                       check=True, cwd=ROOT, timeout=600, stdout=subprocess.DEVNULL)
+    path = os.path.join(ROOT, "assets", "scenes", "suzanne.toml")
+    with open(path, "rb") as f:
+        descriptor = tomllib.load(f)
+    for obj in descriptor["object"]:
+        if "Mesh" in obj:
+            obj["Mesh"]["path"] = mesh
+    return build_scene(descriptor, path)
+
+
+def route_calls(label, routes, env, cam, card):
+    """Each route's scene (name -> DeviceScene): a warm-up call of 16
+    iterations, then CROSSOVER_CALLS free-run calls at SIZE^2, BOUNCES, CROSSOVER_BUDGET
+    iterations from counts 0, the routes in turns; each route must launch
+    its own kernels and no other route's. Logs and returns
+    {name: (median Mrays/s, spread)}."""
+    res = (SIZE, SIZE)
+    rates = {name: [] for name in routes}
+    for turn in range(CROSSOVER_CALLS + 1):
+        for name, ds in routes.items():
+            reset_launches()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            image, counts, stats = render_freerun(ds, env, cam, 0, res, CROSSOVER_BUDGET if turn else 16,
+                                                  BOUNCES, with_stats=True)
+            rays = int(stats["closest_rays"] + stats["shadow_rays"])  # synchronizes
+            seconds = time.perf_counter() - start
+            ran = {k for k, v in launches().items() if v}
+            if ran != ROUTE_LAUNCHES[route(ds)] or int(counts.min()) <= 0:
+                raise AssertionError(f"{label} on the {name} route launched {sorted(ran)}, expected "
+                                     f"{sorted(ROUTE_LAUNCHES[route(ds)])}, or left a pixel unsampled")
+            if turn:
+                rates[name].append(rays / seconds / 1e6)
+            if not bool(torch.isfinite(image).all()):
+                raise AssertionError(f"{label} on the {name} route: non-finite pixels")
+    got = {}
+    for name in routes:
+        r = sorted(rates[name])
+        got[name] = (r[len(r) // 2], r[-1] - r[0])
+        log("crossover", scene=label, route=name, sphere_lanes=routes[name].sph_radius.shape[0],
+            triangle_lanes=routes[name].tri_valid.shape[0],
+            size=SIZE, bounces=BOUNCES, budget=CROSSOVER_BUDGET, mrays_per_s=f"{got[name][0]:.2f}",
+            spread=f"{got[name][1]:.2f}", per_call=",".join(f"{x:.2f}" for x in rates[name]),
+            card=repr(card))
+    return got
+
+
+def crossover(sky_host, sky, card, dev):
+    """The sweep/BVH crossover (phase 12): Mrays/s of each crossover scene
+    through its sweep route and through the BVH, median and spread; then
+    a Renderer with the default intersector on each scene must report the
+    route auto_bvh's rule names, and suzanne_xhi through 'auto' must run at
+    the BVH route's rate."""
+    start = time.perf_counter()
+    medians, lanes = {}, {}
+    for name in CROSSOVER_SCENES:
+        sc = crossover_scene(name)
+        routes = {"sweep": build_device_scene(sc, dev, with_bvh=False),
+                  "bvh": build_device_scene(sc, dev, with_bvh=True)}
+        lanes[name] = (routes["sweep"].sph_radius.shape[0], routes["sweep"].tri_valid.shape[0])
+        medians[name] = route_calls(name, routes, sky, camera_pytree(sc.camera, dev), card)
+        del routes
+    measured_s = time.perf_counter() - start
+    envs = EnvironmentMaps([sky_host])
+    for name in CROSSOVER_SCENES:
+        sc = crossover_scene(name)
+        renderer = Renderer(sc, SIZE, SIZE, environments=envs, max_bounces=BOUNCES, device=dev)
+        expect = "bvh" if sum(lanes[name]) > CUDA_BVH_ABOVE_LANES else "sweep"
+        sweep, bvh = medians[name]["sweep"], medians[name]["bvh"]
+        log("auto", scene=name, sphere_lanes=lanes[name][0], triangle_lanes=lanes[name][1],
+            above_lanes=CUDA_BVH_ABOVE_LANES,
+            intersector=renderer.intersector, expected=expect,
+            faster="bvh" if bvh[0] > sweep[0] else "sweep", card=repr(card))
+        if renderer.intersector != expect:
+            raise AssertionError(f"'auto' took the {renderer.intersector} route on {name}, "
+                                 f"the rule names {expect}")
+        if name != "suzanne_xhi":
+            del renderer
+            continue
+        renderer.step_freerun(16)  # warm-up
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        renderer.step_freerun(AUTO_BUDGET)
+        rays = renderer.last_stats["closest_rays"] + renderer.last_stats["shadow_rays"]
+        torch.cuda.synchronize()
+        rate = rays / (time.perf_counter() - t0) / 1e6
+        ran = {k for k, v in launches().items() if v}
+        log("auto", scene=name, size=SIZE, bounces=BOUNCES, budget=AUTO_BUDGET,
+            intersector=renderer.intersector, mrays_per_s=f"{rate:.2f}",
+            bvh_route_mrays_per_s=f"{bvh[0]:.2f}", sweep_route_mrays_per_s=f"{sweep[0]:.2f}",
+            launched=",".join(sorted(ran)), card=repr(card))
+        if ran != ROUTE_LAUNCHES[BVH] or abs(rate - bvh[0]) > abs(rate - sweep[0]):
+            raise AssertionError(f"suzanne_xhi through 'auto' ran {sorted(ran)} at {rate:.2f} Mrays/s, "
+                                 f"not the BVH route's {bvh[0]:.2f}")
+        del renderer
+    log("crossover", seconds=f"{time.perf_counter() - start:.1f}", measured_s=f"{measured_s:.1f}")
+
+
 def bvh_parity(label, lanes, state, max_err):
     """BVH_CLOSEST and BVH_ANY on a loop state (capture_step's arguments)
     against their plain twins: every output by check_parity, then t, type,
@@ -783,7 +921,7 @@ def image_of(ds, env, cam, size, spp):
     return img.cpu().numpy() / spp
 
 
-def bvh_phase(sky, card, dev, max_err, times, bounds):
+def bvh_phase(sky_host, sky, card, dev, max_err, times, bounds):
     """The BVH route (phase 12). Returns the launch counts of the
     suzanne_xxhi main run."""
     phase_start = time.perf_counter()
@@ -868,15 +1006,7 @@ def bvh_phase(sky, card, dev, max_err, times, bounds):
     if not (flipped.mean() < FLIPPED_MAX and rel < UNFLIPPED_REL_RMSE_MAX):
         raise AssertionError("suzanne_hi through the BVH route is not the chunked route's image")
 
-    # the crossover: Mrays/s of the sweep route (small or chunked) and of
-    # the BVH route on each scene, one call each after a warm-up
-    for name in CROSSOVER_SCENES:
-        sc = load_scene(os.path.join(ROOT, "assets", "scenes", f"{name}.toml"))
-        sc_cam = camera_pytree(sc.camera, dev)
-        for with_bvh in (False, True):
-            ds = build_device_scene(sc, dev, with_bvh=with_bvh)
-            timed_main(f"{name}_{route(ds)}", ds, sky, sc_cam, card, 1, dev, budget=CROSSOVER_BUDGET)
-            del ds
+    crossover(sky_host, sky, card, dev)
     log("bvh_phase", seconds=f"{time.perf_counter() - phase_start:.1f}")
     return counted
 
@@ -893,6 +1023,11 @@ SPLIT_BUDGET = 512
 VIEW_ROWS, VIEW_COLS = 40, 120
 VIEW_WATCH_SECONDS = 10.0
 VIEW_STATUS = re.compile(rb"(\d+)x(\d+) spp=(\d+) env=\d+ dev=(\d)")
+# Phase 15: the viewer frame-rate tool (viewer/fps.py) by scene, its
+# resolution and frames, and the keys of its lines (scripts/viewer_fps.py's).
+FPS_SCENES = ("default", "house")
+FPS_ARGS = ("256", "144", "60")
+FPS_KEYS = {"metric", "scene", "resolution", "platform", "value", "unit", "ms_per_frame"}
 
 
 def flip_criteria(got, ref):
@@ -1146,6 +1281,33 @@ def viewer_phase(card, dev):
     if rc != 0 or sorted({f[4] for f in frames}) != [1, 2, 3] or last[3] < 1:
         raise AssertionError(f"viewer: rc {rc}, dev views {sorted({f[4] for f in frames})}, "
                              f"last spp {last[3]}")
+    viewer_fps(card, dev)
+
+
+def viewer_fps(card, dev):
+    """python -m rsoderh_raytracing_tpu_torch.viewer.fps on each of
+    FPS_SCENES: one JSON line a scenario with the reference script's keys,
+    platform gpu and frames/s above 0."""
+    for scene in FPS_SCENES:
+        start = time.perf_counter()
+        cmd = [sys.executable, "-m", "rsoderh_raytracing_tpu_torch.viewer.fps", scene, *FPS_ARGS]
+        if dev.type != "cuda":
+            cmd += ["--device", dev.type]
+        out = subprocess.run(cmd, cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
+                             text=True, timeout=600)
+        records = [json.loads(ln) for ln in out.stdout.splitlines() if ln.startswith("{")]
+        got = {r.get("metric"): r for r in records}
+        for r in records:
+            log("viewer_fps", scene=r.get("scene"), scenario=r.get("metric"), resolution=r.get("resolution"),
+                frames=FPS_ARGS[2], platform=r.get("platform"), frames_per_s=r.get("value"),
+                ms_per_frame=r.get("ms_per_frame"), device=repr(r.get("device")), card=repr(card))
+        log("viewer_fps", scene=scene, rc=out.returncode, seconds=f"{time.perf_counter() - start:.1f}")
+        want = {"viewer_fps_converge", "viewer_fps_moving"}
+        if (out.returncode != 0 or set(got) != want
+                or any(not FPS_KEYS <= set(r) or r["platform"] != dev.type.replace("cuda", "gpu")
+                       or not r["value"] > 0 for r in records)):
+            raise AssertionError(f"viewer.fps on {scene}: rc {out.returncode}, {out.stdout[-600:]!r} "
+                                 f"{out.stderr[-1200:]!r}")
 
 
 # Phase 16: the chunk orders (profiling.CLUSTER_ORDERS), the scenes of the
@@ -1233,10 +1395,14 @@ def cluster_phase(sky, card, dev, max_err, bvh_mrays):
     xx_cam = camera_pytree(xx.camera, dev)
     with knob_env({"RT_MAX_CHUNKED_TRIS": RAISED_TRIS}):
         start = time.perf_counter()
-        ds = build_device_scene(xx, dev, with_bvh="auto")
+        ds = build_device_scene(xx, dev, with_bvh=False)
         build_s = time.perf_counter() - start
         if route(ds) != CHUNKED:
             raise AssertionError("RT_MAX_CHUNKED_TRIS=1048576 did not route suzanne_xxhi to the chunked route")
+        counts_xx = (ds.sph_radius.shape[0], ds.pln_valid.shape[0], ds.tri_valid.shape[0])
+        # past CUDA_BVH_ABOVE_LANES 'auto' walks the BVH under any ceiling
+        if not auto_bvh(*counts_xx, dev):
+            raise AssertionError("under the raised ceiling 'auto' does not route suzanne_xxhi to the BVH")
     mirror, built = ci.chunked_shared_bytes_of(ds), ci.chunked_shared_bytes(ds)
     log("cluster_ceiling", scene="suzanne_xxhi", max_chunked_tris=RAISED_TRIS, chunks=ds.chunks.count,
         seconds=f"{build_s:.3f}", shared_bytes=built, shared_mirror=mirror,
@@ -1257,7 +1423,6 @@ def cluster_phase(sky, card, dev, max_err, bvh_mrays):
     log("cluster_ceiling", scene="suzanne_xxhi", chunked_mrays_per_s=f"{counted['mrays_per_s']:.2f}",
         bvh_mrays_per_s=f"{bvh_mrays:.2f}", chunked_over_bvh=f"{counted['mrays_per_s'] / bvh_mrays:.4f}",
         card=repr(card))
-    counts_xx = (ds.sph_radius.shape[0], ds.pln_valid.shape[0], ds.tri_valid.shape[0])
     del ds, image
     if not auto_bvh(*counts_xx, dev):
         raise AssertionError("with the default ceiling 'auto' does not route suzanne_xxhi to the BVH")
@@ -1891,9 +2056,12 @@ def main() -> int:
     env0 = device_environment(load_default_environments()[0], dev)
     anchor("suzanne_hi", 24, 2, env0, dev)
     anchor("spheres", 32, 4, env0, dev)
+    generated_mesh("suzanne_xhi.obj")
+    for with_bvh in (False, True):
+        anchor("suzanne_xhi", 16, 2, env0, dev, with_bvh)
 
     # 12. the BVH route
-    bvh_launches = bvh_phase(sky, card, dev, max_err, times, bounds)
+    bvh_launches = bvh_phase(sky_host, sky, card, dev, max_err, times, bounds)
 
     # 13. sync rounds, 14. the multi-device split, 15. the viewer, 16. the
     # chunk orders, 17. every scene

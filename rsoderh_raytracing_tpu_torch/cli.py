@@ -68,10 +68,13 @@ def build_parser() -> argparse.ArgumentParser:
         default="auto",
         help="sweep: the sweep kernels for any scene (chunked where the"
         " chunked route covers it, else every lane against the packed"
-        " table). bvh: build the SAH BVH and walk it. auto: on the card the"
-        " sweep kernels where the table fits a block's shared memory or the"
-        " scene chunks, else the BVH; on --device cpu the reference's rule,"
-        " the BVH past 262,144 triangle lanes.",
+        " table). bvh: build the SAH BVH and walk it. auto: the route this"
+        " device measures as fastest: on the card the BVH past"
+        " CUDA_BVH_ABOVE_LANES (192) padded sphere and triangle lanes, where"
+        " the walks overtake the chunked kernels, or where the table would"
+        " not fit a block's shared memory, else the sweep kernels; on"
+        " --device cpu the reference's rule, the BVH past 262,144 triangle"
+        " lanes (scene/device.py auto_bvh).",
     )
     parser.add_argument("--max-bounces", type=int, default=10)
     parser.add_argument("--output", default="render.png")

@@ -1,12 +1,15 @@
 """Where the main path's device time goes, on a GPU.
 
     python -m rsoderh_raytracing_tpu_torch.profiling [--path loop|scan|scan-image|split|cluster]
-                                                    [--scene NAME] [--out DIR] [--sass]
+                                                    [--scene NAME] [--intersector auto|sweep|bvh]
+                                                    [--out DIR] [--sass]
 
 Runs assets/scenes/NAME.toml (default house) at 2048x2048, 8 bounces,
 procedural_sky(2048, 1024), as chip_smoke.py does, and prints one line
 per measurement. With ``--path loop`` (the default), the free-run kernel
-loop:
+loop on the route ``--intersector`` picks (as the CLI's; 'sweep' keeps
+a mesh past the card's crossover, such as suzanne_hi, on the chunked
+route):
 
 - ``card``: name and power limit as nvidia-smi reports them;
 - ``kernel``: one free-run call of budget 16 under torch.profiler; device
@@ -21,8 +24,8 @@ loop:
   the slab tests and the (lane, chunk) pairs that pass the cull of each
   chunked kernel, from a plain pass (``cull_counts``), and the bound
   they give;
-- ``walk`` (BVH route: a scene past the kernel ceilings, such as
-  suzanne_xxhi, which chip_smoke.py generates): on the loop state of the
+- ``walk`` (BVH route: a mesh past the card's crossover under 'auto',
+  such as suzanne_xxhi, which chip_smoke.py generates): on the loop state of the
   third iteration, BVH_CLOSEST and BVH_ANY ms, the node visits, box tests
   and leaf tests of the plain walk, and the bound they give
   (``bvh_bound``);
@@ -971,6 +974,9 @@ def main(argv=None) -> int:
     parser.add_argument("--scene", default=None,
                         help="a scene of assets/scenes or a generated one (house_tiled16, "
                              "house_tiled64; default house; suzanne_hi for --path cluster)")
+    parser.add_argument("--intersector", choices=("auto", "sweep", "bvh"), default="auto",
+                        help="the route of the default path, as the CLI's --intersector "
+                             "(sweep: the small or chunked route, whatever the scene's size)")
     parser.add_argument("--out", default=os.path.join(ROOT, "build", "profile"))
     parser.add_argument("--sass", action="store_true", help="the SASS instruction counts")
     args = parser.parse_args(argv)
@@ -999,7 +1005,8 @@ def main(argv=None) -> int:
         return split_main(dev, card)
     if args.path == "cluster":
         return cluster_main(args, dev, card)
-    ds, env, cam = scene_setup(args.scene, dev, with_bvh="auto")
+    ds, env, cam = scene_setup(args.scene, dev,
+                               with_bvh={"auto": "auto", "sweep": False, "bvh": True}[args.intersector])
     res = (SIZE, SIZE)
     zeros = np.zeros(res, np.uint32)
 

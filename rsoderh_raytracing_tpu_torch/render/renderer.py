@@ -52,10 +52,12 @@ class Renderer:
         route's packed table (staged in a block's shared memory where it
         fits, read from global memory otherwise), where the reference
         sweeps densely in XLA; 'bvh' builds the SAH BVH and walks it
-        (BVH_CLOSEST, BVH_ANY); 'auto' walks the BVH on the card exactly
-        where the small route's table would not fit a block's shared
-        memory, and on the CPU by the reference's rule, past 262,144
-        triangle lanes (RT_BVH_ABOVE_TRIS=N lowers the crossover:
+        (BVH_CLOSEST, BVH_ANY); 'auto' takes the route the device
+        measures as fastest: on the card the BVH past CUDA_BVH_ABOVE_LANES
+        (192) padded sphere and triangle lanes, where the walks overtake
+        the chunked kernels, or where the small route's table would not
+        fit a block's shared memory; on the CPU the reference's rule, past
+        262,144 triangle lanes (RT_BVH_ABOVE_TRIS=N lowers the crossover:
         scene/device.auto_bvh). device: the card unless the caller asks
         for the CPU."""
         if intersector not in ("auto", "sweep", "bvh"):

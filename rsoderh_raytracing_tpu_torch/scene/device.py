@@ -100,6 +100,21 @@ SMALL, CHUNKED, BVH = "small", "chunked", "bvh"
 # CPU renders through the BVH walk (rsoderh_raytracing_tpu/scene/
 # device.py: CPU_BVH_ABOVE_LANES, padded triangle lanes).
 CPU_BVH_ABOVE_LANES = 262144
+# with_bvh="auto" on the card: the BVH past this many padded sphere and
+# triangle lanes. The crossover measured on an NVIDIA H100 80GB HBM3,
+# 700.00 W (chip_smoke.py phase 12: 2048^2, 8 bounces, free-run calls of
+# 32 iterations, median Mrays/s of three calls, spread in brackets, sweep
+# route against BVH): house (8 + 56 lanes, the small route) 2,743.19
+# (14.04) against 627.73 (0.91); from suzanne (8 + 1,024, the chunked
+# route) up the BVH wins by far more than the spreads: 457.05 (1.03)
+# against 547.98 (0.38), level 1 (3,904) 428.90 against 537.20,
+# suzanne_hi (15,488) 378.82 against 523.81, level 3 (61,952) 286.98
+# against 508.76, suzanne_xhi (247,808) 154.82 against 490.83; spheres
+# (1,024 + 64) 381.30 (1.06) against 389.02 (2.72). So the constant lies
+# between 64 and 1,032 lanes: the unroll budget, which every scene of the
+# small route within it stays under, and which the chunked route's
+# scenes pass.
+CUDA_BVH_ABOVE_LANES = 192
 
 FIELDS = (
     "mat_color", "mat_roughness", "mat_metallic", "mat_emission",
@@ -478,22 +493,23 @@ def _chunk_tables(a: dict, scene: DeviceScene) -> ChunkTables:
 
 
 def auto_bvh(n_sph: int, n_pln: int, n_tri: int, device: torch.device, n_mat: int = 1) -> bool:
-    """with_bvh="auto" for padded lane counts (and materials). On the CPU
-    exactly the reference's rule, more than CPU_BVH_ABOVE_LANES triangle
-    lanes: a scene past the unroll budget that does not chunk then sweeps
-    every row, as the reference's CPU does. On the card exactly the
-    scenes whose small route would read a packed table past a block's
-    shared memory (SWEEP_MAX_SHARED) from global memory: past the unroll
-    budget and outside the chunked route's predicates and ceilings (which
-    RT_MAX_CHUNKED_TRIS and RT_MAX_CHUNKED_SPHERES raise, as the
-    reference's TPU routing follows them), where the walk runs far ahead
-    of a sweep over every row. RT_BVH_ABOVE_TRIS=N moves the crossover down
-    to N triangle lanes in both cases."""
+    """with_bvh="auto" for padded lane counts (and materials): the route
+    this backend measures as fastest, as the reference picks it. On the
+    CPU exactly the reference's rule, more than CPU_BVH_ABOVE_LANES
+    triangle lanes: a scene past the unroll budget that does not chunk
+    then sweeps every row, as the reference's CPU does. On the card more
+    than CUDA_BVH_ABOVE_LANES sphere and triangle lanes, where the walks
+    run ahead of the chunked kernels (planes stay with the sweep), or a
+    scene whose small route would read a packed table past a block's
+    shared memory (SWEEP_MAX_SHARED) from global memory.
+    RT_BVH_ABOVE_TRIS=N moves the crossover down to N triangle lanes on
+    both."""
     if device.type == "cpu":
         with_bvh = n_tri > CPU_BVH_ABOVE_LANES
     else:
-        with_bvh = (counts_route(n_sph, n_pln, n_tri) == SMALL
-                    and sweep_shared_bytes(n_sph, n_pln, n_tri, n_mat) > SWEEP_MAX_SHARED)
+        with_bvh = (n_sph + n_tri > CUDA_BVH_ABOVE_LANES
+                    or (counts_route(n_sph, n_pln, n_tri) == SMALL
+                        and sweep_shared_bytes(n_sph, n_pln, n_tri, n_mat) > SWEEP_MAX_SHARED))
     thresh = os.environ.get("RT_BVH_ABOVE_TRIS")
     if not with_bvh and thresh and n_tri > int(thresh):
         with_bvh = True

@@ -343,7 +343,7 @@ def _clear_ceilings(mp):
 
 CEILING_COUNTS = [
     (0, 8, 262144), (0, 8, 262208), (0, 8, 991232), (0, 8, 1048576), (0, 8, 1048640),
-    (262144, 8, 64), (262208, 8, 64), (512, 8, 0),
+    (262144, 8, 64), (262208, 8, 64), (512, 8, 0), (64, 8, 128), (8, 256, 64), (8, 4096, 64),
 ]
 
 
@@ -353,8 +353,10 @@ def test_ceilings_move_the_route_as_the_reference(monkeypatch, tris_ceiling, sph
     """counts_route's chunked route against pallas_intersect's predicate
     with the same ceilings (the reference reads them at import, so they
     are patched there); counts the chunked route does not cover are small,
-    and auto_bvh on the card takes the BVH exactly where their packed
-    table would not fit a block's shared memory."""
+    and auto_bvh on the card takes the BVH exactly past
+    CUDA_BVH_ABOVE_LANES sphere and triangle lanes, whatever the ceilings,
+    and where the small route's packed table would not fit a block's
+    shared memory."""
     _clear_ceilings(monkeypatch)
     for knob, value in (("TRIS", tris_ceiling), ("SPHERES", spheres_ceiling)):
         if value is not None:
@@ -366,15 +368,17 @@ def test_ceilings_move_the_route_as_the_reference(monkeypatch, tris_ceiling, sph
         assert (counts_route(*counts) == CHUNKED) == covered, counts
         fits = t_device.sweep_shared_bytes(*counts, 1) <= t_device.SWEEP_MAX_SHARED
         assert (counts_route(*counts) == SMALL) == (not covered), counts
-        assert auto_bvh(*counts, cuda) == (not covered and not fits), counts
+        past = counts[0] + counts[2] > t_device.CUDA_BVH_ABOVE_LANES
+        assert auto_bvh(*counts, cuda) == (past or (not covered and not fits)), counts
 
 
 def test_raised_ceiling_routes_suzanne_xxhi_counts(monkeypatch):
     """suzanne_xxhi's lanes (991,232 triangles, 15,488 chunks, 8 sphere
     and 8 plane lanes): the BVH under the default ceiling; the chunked
-    route on the card under RT_MAX_CHUNKED_TRIS=1048576, whose block asks
-    for 222,880 bytes; the CPU keeps the reference's 262,144-lane
-    crossover; unset, the default again."""
+    route (with_bvh=False) under RT_MAX_CHUNKED_TRIS=1048576, whose block
+    asks for 222,880 bytes, while 'auto' still walks the BVH on the card
+    (past CUDA_BVH_ABOVE_LANES) and on the CPU (the reference's
+    262,144-lane crossover); unset, the default again."""
     _clear_ceilings(monkeypatch)
     xxhi = (8, 8, 991232)
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
@@ -382,7 +386,7 @@ def test_raised_ceiling_routes_suzanne_xxhi_counts(monkeypatch):
     monkeypatch.setenv("RT_MAX_CHUNKED_TRIS", "1048576")
     assert counts_route(*xxhi) == CHUNKED
     assert t_device.counts_shared_bytes(*xxhi) == 222880
-    assert not auto_bvh(*xxhi, cuda) and auto_bvh(*xxhi, cpu)
+    assert auto_bvh(*xxhi, cuda) and auto_bvh(*xxhi, cpu)
     monkeypatch.delenv("RT_MAX_CHUNKED_TRIS")
     assert counts_route(*xxhi) == SMALL and auto_bvh(*xxhi, cuda)
 
@@ -391,8 +395,9 @@ def test_shared_mirror_restages_union_boxes_past_the_limit(monkeypatch):
     """A synthetic count past a block's shared memory under a raised
     ceiling: the chunked route covers it on the card too, whose block then
     holds as many batches' union boxes as fit and asks for no more than
-    the limit, so 'auto' keeps the sweep there (the CPU follows the
-    reference's crossover)."""
+    the limit, so 'sweep' runs it there; 'auto' walks the BVH on the card
+    past CUDA_BVH_ABOVE_LANES (the CPU follows the reference's
+    crossover)."""
     _clear_ceilings(monkeypatch)
     monkeypatch.setenv("RT_MAX_CHUNKED_TRIS", str(1 << 22))
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
@@ -404,7 +409,68 @@ def test_shared_mirror_restages_union_boxes_past_the_limit(monkeypatch):
     assert t_device.chunked_union_batches(8 * t_device.PLN_COLS, 1275 * 16 + 1) == 1275
     assert t_device.chunked_union_batches(8 * t_device.PLN_COLS, 242) == 16
     assert counts_route(*fits) == counts_route(*past) == CHUNKED
-    assert not auto_bvh(*fits, cuda) and not auto_bvh(*past, cuda) and auto_bvh(*past, cpu)
+    assert auto_bvh(*fits, cuda) and auto_bvh(*past, cuda) and auto_bvh(*past, cpu)
+
+
+CARD_LANES = t_device.CUDA_BVH_ABOVE_LANES
+
+
+@pytest.mark.parametrize("counts,card,cpu", [
+    # sphere and triangle lanes below, at and above the card's crossover
+    ((0, 8, CARD_LANES - 64), False, False),
+    ((0, 8, CARD_LANES), False, False),
+    ((0, 8, CARD_LANES + 64), True, False),
+    ((CARD_LANES, 8, 0), False, False),
+    ((CARD_LANES + 64, 8, 0), True, False),
+    ((64, 8, CARD_LANES - 64), False, False),
+    ((64, 8, CARD_LANES), True, False),
+    # planes stay with the sweep until the table passes shared memory
+    ((8, 256, 64), False, False),
+    ((8, 4096, 64), True, False),
+    # the CPU's crossover is the reference's, 262,144 triangle lanes
+    ((0, 8, 262144), True, False),
+    ((0, 8, 262208), True, True),
+    ((262208, 8, 0), True, False),
+])
+def test_auto_bvh_by_device(monkeypatch, counts, card, cpu):
+    """auto_bvh on the card (by device type alone, so testable here) and
+    on the CPU on both sides of each crossover."""
+    _clear_ceilings(monkeypatch)
+    assert auto_bvh(*counts, torch.device("cuda")) == card
+    assert auto_bvh(*counts, torch.device("cpu")) == cpu
+    assert t_device.CPU_BVH_ABOVE_LANES == 262144
+
+
+@pytest.mark.parametrize("thresh,counts,card,cpu", [
+    # RT_BVH_ABOVE_TRIS moves both crossovers down to its triangle lanes
+    ("64", (0, 8, 64), False, False),
+    ("64", (0, 8, 128), True, True),
+    ("64", (CARD_LANES + 64, 8, 0), True, False),
+    # and never up
+    ("1048576", (0, 8, CARD_LANES + 64), True, False),
+    ("1048576", (0, 8, 262208), True, True),
+    ("1048576", (8, 4096, 64), True, False),
+])
+def test_rt_bvh_above_tris_moves_the_crossover_down(monkeypatch, thresh, counts, card, cpu):
+    _clear_ceilings(monkeypatch)
+    monkeypatch.setenv("RT_BVH_ABOVE_TRIS", thresh)
+    assert auto_bvh(*counts, torch.device("cuda")) == card
+    assert auto_bvh(*counts, torch.device("cpu")) == cpu
+
+
+@pytest.mark.parametrize("name,card", [("house", False), ("spheres", True), ("suzanne", True),
+                                       ("suzanne_hi", True)])
+def test_card_auto_on_the_crossover_scenes(assets_dir, name, card, monkeypatch):
+    """The lanes of the scenes chip_smoke.py measures the crossover on:
+    on the card 'auto' keeps house on the small route and walks the BVH on
+    spheres and the meshes, where the walks were measured faster; the CPU
+    keeps the reference's decision (no BVH within 262,144 lanes)."""
+    _clear_ceilings(monkeypatch)
+    monkeypatch.delenv("RT_CHUNK_CLUSTER", raising=False)
+    ds = build_device_scene(load_scene(os.path.join(assets_dir, "scenes", f"{name}.toml")), "cpu")
+    counts = (ds.sph_radius.shape[0], ds.pln_valid.shape[0], ds.tri_valid.shape[0])
+    assert auto_bvh(*counts, torch.device("cuda")) == card
+    assert not auto_bvh(*counts, torch.device("cpu"))
 
 
 def _cu_constants():
@@ -436,7 +502,8 @@ def test_scene_keeps_its_route_when_a_ceiling_is_unset(monkeypatch):
     256 the 300-triangle grid (320 triangle lanes, a packed table of 46,880
     bytes) is small by the shared-memory mirror, under with_bvh=False and,
     by the reference's CPU rule (no BVH within 262,144 triangle lanes),
-    under 'auto' on the CPU too; on the card 'auto' keeps it small."""
+    under 'auto' on the CPU too; on the card 'auto' walks the BVH (328
+    sphere and triangle lanes, past CUDA_BVH_ABOVE_LANES)."""
     _clear_ceilings(monkeypatch)
     scene = _grid(300)
     monkeypatch.setenv("RT_MAX_CHUNKED_TRIS", "256")
@@ -445,7 +512,7 @@ def test_scene_keeps_its_route_when_a_ceiling_is_unset(monkeypatch):
     assert route(auto) == SMALL and j_build(scene, with_bvh="auto").bvh is None
     small = build_device_scene(scene, "cpu")
     assert route(small) == SMALL and small.trace_table.numel() * 4 == 46880
-    assert not auto_bvh(8, 8, 320, torch.device("cuda"))
+    assert auto_bvh(8, 8, 320, torch.device("cuda"))
     monkeypatch.setenv("RT_MAX_CHUNKED_TRIS", "320")
     ds = build_device_scene(scene, "cpu")
     monkeypatch.setenv("RT_MAX_CHUNKED_TRIS", "64")

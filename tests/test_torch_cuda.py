@@ -803,9 +803,10 @@ def test_shared_mirror_equals_the_kernels(dev, small_len):
 
 def test_raised_ceiling_sixteen_thousand_chunks(dev, monkeypatch):
     """A seeded grid of 1,048,576 small triangles (16,384 chunks) under
-    RT_MAX_CHUNKED_TRIS=1048576: the chunked route on the card, both
-    kernels bitwise their plain versions on 4,096 lanes, t included; with
-    the default ceiling 'auto' takes the BVH route's decision."""
+    RT_MAX_CHUNKED_TRIS=1048576: the chunked route on the card (under
+    with_bvh=False: past CUDA_BVH_ABOVE_LANES 'auto' walks the BVH under
+    either ceiling), both kernels bitwise their plain versions on 4,096
+    lanes, t included."""
     from rsoderh_raytracing_tpu_torch.scene.device import CHUNKED, auto_bvh, route
 
     n_tri = 1 << 20
@@ -823,8 +824,8 @@ def test_raised_ceiling_sixteen_thousand_chunks(dev, monkeypatch):
                   camera=Camera(pos=[5.0, 5.0, 3.0], yaw=0, pitch=0, fov_y=1.0))
     monkeypatch.delenv("RT_CHUNK_CLUSTER", raising=False)
     monkeypatch.setenv("RT_MAX_CHUNKED_TRIS", "1048576")
-    ds = build_device_scene(scene, dev, with_bvh="auto")
-    assert route(ds) == CHUNKED and ds.chunks.count == 16384
+    ds = build_device_scene(scene, dev, with_bvh=False)
+    assert route(ds) == CHUNKED and ds.chunks.count == 16384 and auto_bvh(8, 8, n_tri, dev)
     n = 4096
     o = np.concatenate([g.uniform(0.0, 10.24, (n, 2)), g.uniform(0.5, 3.0, (n, 1))], axis=1)
     d = np.concatenate([g.uniform(0.0, 10.24, (n, 2)), np.zeros((n, 1))], axis=1) - o

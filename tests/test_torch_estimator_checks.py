@@ -5,6 +5,10 @@ reference's own bounds:
   the independent numpy transcription scripts/reference_estimator.py):
   relative RMSE < 0.5% and >= 98% of values within 1e-3
   (tests/test_reference_estimator.py:test_anchor_derived_golden);
+- the suzanne_xhi anchor golden (tests/goldens/suzanne_xhi_anchor_16_2spp.npy,
+  the same transcription on 247,808 triangles, which the CPU sweeps on
+  the chunked route), by the mesh anchors' flip-aware criteria
+  (tests/test_reference_estimator.py:test_suzanne_hi_anchor_golden);
 - the white furnace and Monte Carlo convergence (tests/test_golden.py);
 - the empty scene's closed form, sky radiance times the power heuristic
   against the environment pdf, recomputed through the JAX package's
@@ -68,6 +72,44 @@ def test_house_anchor_golden():
     rel = float(np.sqrt((diff ** 2).mean()) / np.sqrt((ref ** 2).mean()))
     assert rel < 0.005, f"anchored-golden relative RMSE {rel:.4%}"
     assert (np.abs(diff) < 1e-3).mean() > 0.98
+
+
+def test_suzanne_xhi_anchor_golden(tmp_path):
+    """Renderer.step_batch(2) on suzanne_xhi (scripts/subdivide_obj.py 4,
+    written here) at 16x16 against the transcription's image, made by
+    `python scripts/reference_estimator.py --scene
+    assets/scenes/suzanne_xhi.toml --size 16 --spp 2 --out
+    tests/goldens/suzanne_xhi_anchor_16_2spp.npy`: under 3% of pixels
+    flipped (a channel apart by more than 1e-2), more than 95% within
+    1e-4, relative RMSE of the rest < 0.5%."""
+    import subprocess
+    import sys
+    import tomllib
+
+    from rsoderh_raytracing_tpu_torch.scene.toml_loader import build_scene
+
+    mesh = str(tmp_path / "suzanne_xhi.obj")
+    subprocess.run([sys.executable, os.path.join(REPO, "scripts", "subdivide_obj.py"), "4", mesh],
+                   check=True, stdout=subprocess.DEVNULL)
+    path = os.path.join(REPO, "assets", "scenes", "suzanne_xhi.toml")
+    with open(path, "rb") as f:
+        descriptor = tomllib.load(f)
+    for obj in descriptor["object"]:
+        if "Mesh" in obj:
+            obj["Mesh"]["path"] = mesh
+    ref = np.load(os.path.join(REPO, "tests", "goldens", "suzanne_xhi_anchor_16_2spp.npy"))
+    renderer = Renderer(build_scene(descriptor, path), 16, 16, environments=load_default_environments(),
+                        device="cpu")
+    assert len(renderer.scene.meshes.triangles) == 247808 and renderer.intersector == "sweep"
+    renderer.step_batch(2)
+    ours = renderer.film.mean_radiance()
+    diff = np.abs(ours - ref).max(-1)
+    flipped = diff > 1e-2
+    assert flipped.mean() < 0.03, f"{flipped.sum()} flipped pixels"
+    assert (diff < 1e-4).mean() > 0.95
+    keep = ~flipped
+    rel = float(np.sqrt(((ours - ref)[keep] ** 2).mean()) / np.sqrt((ref[keep] ** 2).mean()))
+    assert rel < 0.005, f"non-flipped relative RMSE {rel:.4%}"
 
 
 def test_furnace_reflectance_bounded(uniform_env):
