@@ -195,7 +195,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-from rsoderh_raytracing_tpu_torch import cli, load_scene, write_png  # noqa: E402
+from rsoderh_raytracing_tpu_torch import cli, load_scene, tracing, write_png  # noqa: E402
 from rsoderh_raytracing_tpu_torch.accel import bvh as accel_bvh  # noqa: E402
 from rsoderh_raytracing_tpu_torch.accel import native as accel_native  # noqa: E402
 from rsoderh_raytracing_tpu_torch.ops import bvh as bvh_ops  # noqa: E402
@@ -440,15 +440,20 @@ def timed_main(label, ds, env, cam, card, calls, dev, budget=None):
 
 
 def split(label, ds, env, cam, counts, card):
-    """Device ms per iteration of each part of a short profiled call."""
-    profile = {}
-    render_freerun(ds, env, cam, counts, (SIZE, SIZE), 8, BOUNCES, profile=profile)
-    torch.cuda.synchronize()
+    """Device ms per iteration of each part of a short call, from the CUDA
+    events of Wavefront.step's part spans (tracing.py)."""
+    tracing.enable(device_events=True)
+    try:
+        render_freerun(ds, env, cam, counts, (SIZE, SIZE), 8, BOUNCES)
+        spans = tracing.take()["spans"]
+    finally:
+        tracing.disable()
     parts = {}
-    for marks in profile["marks"]:
-        for (part, ev), (_, nxt) in zip(marks, marks[1:]):
-            parts[part] = parts.get(part, 0.0) + ev.elapsed_time(nxt)
-    n = len(profile["marks"])
+    for sp in spans:
+        if sp["name"].startswith("step."):
+            part = sp["name"][len("step."):]
+            parts[part] = parts.get(part, 0.0) + sp["device_ms"]
+    n = sum(1 for sp in spans if sp["name"] == "wavefront.step")
     log("split", scene=label, iterations=n,
         **{f"{k}_ms": f"{v / n:.4f}" for k, v in parts.items()}, card=repr(card))
 

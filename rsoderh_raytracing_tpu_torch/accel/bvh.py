@@ -26,6 +26,7 @@ import dataclasses
 
 import numpy as np
 
+from rsoderh_raytracing_tpu_torch import tracing
 from rsoderh_raytracing_tpu_torch.scene.types import Scene
 
 MAX_PRIMITIVES_PER_LEAF = 5  # src/bvh.rs:219
@@ -107,6 +108,7 @@ def scene_primitive_bounds(scene: Scene):
     )
 
 
+@tracing.traced("bvh.build")
 def build_bvh(scene: Scene) -> FlatBVH:
     mins, maxs, types, indices = scene_primitive_bounds(scene)
     bvh = build_bvh_from_bounds(mins, maxs, types, indices)

@@ -17,7 +17,7 @@ from typing import List
 import numpy as np
 import torch
 
-from rsoderh_raytracing_tpu_torch import _device
+from rsoderh_raytracing_tpu_torch import _device, tracing
 from rsoderh_raytracing_tpu_torch.env import hdr_io
 from rsoderh_raytracing_tpu_torch.env.alias_table import (
     AliasTable,
@@ -48,6 +48,7 @@ class Environment:
         return self.texture.shape[0]
 
     @staticmethod
+    @tracing.traced("env.build")
     def from_texture(name: str, texture: np.ndarray) -> "Environment":
         texture = hdr_io.rgbe_quantize(np.asarray(texture, np.float32))
         weights = build_weights_by_luminance(texture)
@@ -126,6 +127,7 @@ def bfloat16_bits(x: np.ndarray) -> np.ndarray:
     return ((bits + 0x7FFF + ((bits >> 16) & 1)) >> 16).astype(np.uint16)
 
 
+@tracing.traced("env.upload")
 def device_environment(
     env: Environment, device=_device.DEFAULT, radiance_dtype: str = "rgbe"
 ) -> DeviceEnvironment:

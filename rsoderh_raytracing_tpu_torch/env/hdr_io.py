@@ -21,6 +21,8 @@ import os
 
 import numpy as np
 
+from rsoderh_raytracing_tpu_torch import tracing
+
 
 # -- Radiance RGBE (.hdr) -----------------------------------------------------
 
@@ -195,6 +197,7 @@ def write_hdr(path: str, rgb: np.ndarray, rle: bool = True) -> None:
 # -- generic loading ----------------------------------------------------------
 
 
+@tracing.traced("hdr.load")
 def load_image(path: str) -> np.ndarray:
     """Load an HDRI as (H, W, 3) float32 from .hdr/.npy/.npz."""
     ext = os.path.splitext(path)[1].lower()

@@ -33,6 +33,8 @@ import subprocess
 import threading
 import time
 
+from rsoderh_raytracing_tpu_torch import tracing
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build", "kernels")
@@ -146,7 +148,8 @@ def library():
         return _lib
     with _lock:
         if _lib is None:
-            _lib = load()
+            with tracing.span("kernels.load"):
+                _lib = load()
     return _lib
 
 

@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import torch
 
+from rsoderh_raytracing_tpu_torch import tracing
+
 # WGSL mat3x3 constructors are column-major; rows here are transposed
 # accordingly so that (M @ v) matches (m * v) in the shader.
 _M1 = (
@@ -21,7 +23,9 @@ _M2 = (
 
 def aces_tonemap(hdr: torch.Tensor) -> torch.Tensor:
     """(..., 3) linear HDR -> (..., 3) in [0, 1]; negative pixels are
-    painted magenta, as in the reference."""
+    painted magenta, as in the reference. Its three constant uploads are
+    host syncs on the card (sync.tonemap)."""
+    tracing.count("sync.tonemap", 3)
     m1 = torch.tensor(_M1, dtype=hdr.dtype, device=hdr.device)
     m2 = torch.tensor(_M2, dtype=hdr.dtype, device=hdr.device)
     negative = (hdr < 0.0).any(dim=-1, keepdim=True)

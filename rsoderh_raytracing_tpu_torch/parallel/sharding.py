@@ -33,7 +33,7 @@ import time
 import numpy as np
 import torch
 
-from rsoderh_raytracing_tpu_torch import _device
+from rsoderh_raytracing_tpu_torch import _device, tracing
 from rsoderh_raytracing_tpu_torch.ops import rng
 from rsoderh_raytracing_tpu_torch.render.integrator import (
     MAX_BOUNCES,
@@ -41,6 +41,7 @@ from rsoderh_raytracing_tpu_torch.render.integrator import (
     generate_camera_rays,
     trace_rays,
 )
+from rsoderh_raytracing_tpu_torch.render.renderer import host_stats
 from rsoderh_raytracing_tpu_torch.render.wavefront import (
     NO_LIMIT,
     Wavefront,
@@ -358,7 +359,8 @@ class ShardedRenderer:
         inner = self.inner
         state_hash = inner._state_hash()
         if state_hash != inner._last_state_hash:
-            inner.film.reset()
+            with tracing.span("renderer.reset"):
+                inner.film.reset()
             self._shard_counts = None
             inner._last_state_hash = state_hash
 
@@ -383,9 +385,12 @@ class ShardedRenderer:
         inner.film.add_samples(summed.to(inner.film.device), self.mesh.shape["sample"])
         return inner.film.sample_count
 
+    @tracing.traced("renderer.step_freerun")
     def step_freerun(self, iterations: int, compact_every: int | None = None) -> int:
         """Sharded free-run step (render_freerun_sharded); returns the
-        minimum per-pixel sample count, ``last_stats`` the rays traced."""
+        minimum per-pixel sample count, ``last_stats`` the rays traced.
+        Traced as the root span of a call, each slot's wavefront.step
+        tagged with its slot."""
         inner = self.inner
         self._reset_if_changed()
         # Per-shard stream positions when we have them (exact resume);
@@ -398,11 +403,7 @@ class ShardedRenderer:
         )
         self._shard_counts = shard_counts
         inner.film.add_freerun(summed.to(inner.film.device), counts.to(inner.film.device))
-        self.last_stats = {
-            "closest_rays": float(stats["closest_rays"]),
-            "shadow_rays": float(stats["shadow_rays"]),
-            "iterations": int(stats["iterations"]),
-        }
+        self.last_stats = host_stats(stats)
         return inner.film.sample_count
 
     def render(self, spp: int = 16, progress: bool = False, batch: int | None = None,

@@ -1,6 +1,6 @@
 """Where the main path's device time goes, on a GPU.
 
-    python -m rsoderh_raytracing_tpu_torch.profiling [--path loop|scan|scan-image|split|cluster]
+    python -m rsoderh_raytracing_tpu_torch.profiling [--path loop|scan|scan-image|split|cluster|spans]
                                                     [--scene NAME] [--intersector auto|sweep|bvh]
                                                     [--out DIR] [--sass]
 
@@ -90,6 +90,15 @@ and CHUNKED_ANY's ms, the pairs, candidates and slab tests of the
 kernels' batch model and the bound of ``chunked_bound`` with its cull's
 pairs; and the Mrays/s of one free-run call of 64 iterations.
 
+With ``--path spans``, the port's spans and counters (tracing.py) over
+NAME at 2048x2048: ``tracing_cost``, the median host ms of a
+step_freerun(64) call with tracing off and on (six calls each, by turns);
+``spans``, one call profiled with the card's activity alone and tracing
+on, through ``span_report``: host enqueue ms and launches an iteration,
+the device-idle ms a call put down to the innermost span open at each
+gap's start, syncs a call, and the share of the step kernels' launches
+that lie inside their ``wavefront.step`` span on the profiler's clock.
+
 ``--sass`` prints, for each kernel of the built library, the SASS
 instruction count by opcode and each loop's (backward branch's) body,
 from ``cuobjdump -sass``; the dump goes under DIR.
@@ -101,6 +110,7 @@ Needs one CUDA device; imports nothing of jax.
 from __future__ import annotations
 
 import argparse
+import bisect
 import collections
 import contextlib
 import dataclasses
@@ -964,13 +974,210 @@ def split_main(dev, card) -> int:
     return 0
 
 
+# --path spans: the port's spans and counters (tracing.py) laid over a
+# torch.profiler trace of the same calls.
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
+# The kernels an iteration launches inside its wavefront.step span on each
+# route: TRACE, SHADE and BIG_SHADE ("shade_kernel" names both), the walks
+# and BVH_CLOSEST's fallback.
+STEP_KERNELS = ("trace_kernel", "shade_kernel", "walk_kernel", "fallback_kernel")
+SPANS_CALLS = 6  # --path spans: calls a side of the tracing-cost comparison
+SPANS_ITERATIONS = 64
+
+
+def chrome_events(path):
+    """(device operations [(name, device, start, end, correlation)], CUDA
+    runtime calls [(name, start, end, correlation)], annotations {name:
+    (start, end)}) of a torch.profiler Chrome trace, in wall-clock
+    nanoseconds (ts * 1000 + baseTimeNanoseconds): the clock of the spans
+    of tracing.take()."""
+    with open(path) as f:
+        trace = json.load(f)
+    base = int(trace.get("baseTimeNanoseconds", 0))
+    ops, runtime, notes = [], [], {}
+    for e in trace["traceEvents"]:
+        if e.get("ph") != "X":
+            continue
+        start = base + round(e["ts"] * 1000.0)
+        end = start + round(e.get("dur", 0) * 1000.0)
+        cat, args = e.get("cat", ""), e.get("args", {})
+        if cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+            ops.append((e["name"], int(args.get("device", 0)), start, end, args.get("correlation")))
+        elif cat == "cuda_runtime" or cat == "cuda_driver":
+            runtime.append((e["name"], start, end, args.get("correlation")))
+        elif cat == "user_annotation":
+            notes[e["name"]] = (start, end)
+    return ops, runtime, notes
+
+
+def _innermost(spans, points):
+    """The name of the innermost span open at each of `points` (sorted),
+    None where none is: spans of one thread nest, so a sweep with a stack
+    finds it."""
+    order = sorted(spans, key=lambda sp: (sp["start"], -sp["end"]))
+    stack, names, i = [], [], 0
+    for t in points:
+        while i < len(order) and order[i]["start"] <= t:
+            while stack and stack[-1]["end"] <= order[i]["start"]:
+                stack.pop()
+            stack.append(order[i])
+            i += 1
+        while stack and stack[-1]["end"] <= t:
+            stack.pop()
+        names.append(stack[-1]["name"] if stack else None)
+    return names
+
+
+def _idle_gaps(ops, window):
+    """The stretches of `window` (start, end) in which a device ran
+    nothing: [(start, end)], over each device in turn."""
+    lo, hi = window
+    gaps = []
+    for dev in sorted({o[1] for o in ops}):
+        cursor = lo
+        for _, _, s, e, _ in sorted((o for o in ops if o[1] == dev), key=lambda o: o[2]):
+            if e <= lo or s >= hi:
+                continue
+            if s > cursor:
+                gaps.append((cursor, s))
+            cursor = max(cursor, e)
+        if hi > cursor:
+            gaps.append((cursor, hi))
+    return sorted(gaps)
+
+
+def span_report(spans, counters, ops, runtime, window) -> dict:
+    """The tracing metrics of one profiled stretch `window` (start, end in
+    wall-clock ns) of calls or frames, from tracing.take()'s spans and
+    counters and chrome_events' operations and runtime calls:
+
+    - enqueue_ms_per_iter: host ms inside each wavefront.step span less
+      the time inside CUDA runtime calls within it (a launch that blocks
+      on a full queue is not enqueue cost), over the step spans;
+    - launches_per_iter: device operations whose runtime call (by
+      correlation) starts inside a wavefront.step span, over those spans;
+    - stall_ms: device-idle ms a call (renderer.step_freerun span) whose
+      gap starts inside a program span; idle_ms: {innermost span at the
+      gap's start, or "outside": ms a call}; inside_share: stall over all
+      idle time;
+    - syncs_per_call: the sync.* counters summed, a call;
+    - clock_share: the share of the launches of STEP_KERNELS whose
+      runtime call lies inside a wavefront.step span, and clock_max_ms
+      the farthest such call lies outside every one."""
+    lo, hi = window
+    inside = [sp for sp in spans if sp["end"] > lo and sp["start"] < hi]
+    steps = sorted((sp for sp in inside if sp["name"] == "wavefront.step"), key=lambda sp: sp["start"])
+    calls = sum(1 for sp in inside if sp["name"] == "renderer.step_freerun") or 1
+    n = len(steps) or 1
+    bounds = [(sp["start"], sp["end"]) for sp in steps]
+    starts = [b[0] for b in bounds]
+
+    def outside(t0, t1):
+        """0 where a step span holds [t0, t1], else the ns by which it
+        pokes out of the nearest one."""
+        k = bisect.bisect_right(starts, t0) - 1
+        near = [j for j in (k, k + 1) if 0 <= j < len(bounds)]
+        return min((max(0, bounds[j][0] - t0) + max(0, t1 - bounds[j][1]) for j in near),
+                   default=float("inf"))
+
+    enqueue = 0
+    for s0, s1 in bounds:
+        inner = sorted((max(r[1], s0), min(r[2], s1)) for r in runtime if r[2] > s0 and r[1] < s1)
+        busy, cur = 0, None
+        for a, b in inner:
+            if cur is None or a > cur[1]:
+                busy += 0 if cur is None else cur[1] - cur[0]
+                cur = [a, b]
+            else:
+                cur[1] = max(cur[1], b)
+        busy += 0 if cur is None else cur[1] - cur[0]
+        enqueue += (s1 - s0) - busy
+    launch_at = {r[3]: (r[0], r[1], r[2]) for r in runtime if r[3] is not None}
+    launched, own, own_inside, worst = 0, 0, 0, 0
+    for name, _, _, _, corr in ops:
+        call = launch_at.get(corr)
+        if call is None:
+            continue
+        if outside(call[1], call[1]) == 0:
+            launched += 1
+        if call[0] in LAUNCH_CALLS and any(key in name for key in STEP_KERNELS):
+            own += 1
+            off = outside(call[1], call[2])
+            own_inside += off == 0
+            worst = max(worst, off)
+    gaps = _idle_gaps(ops, window)
+    idle = collections.Counter()
+    for (g0, g1), name in zip(gaps, _innermost(inside, [g[0] for g in gaps])):
+        idle[name or "outside"] += g1 - g0
+    total = sum(idle.values())
+    stall = total - idle["outside"]
+    syncs = sum(v for k, v in counters.items() if k.startswith("sync."))
+    return dict(
+        calls=calls, steps=len(steps),
+        enqueue_ms_per_iter=enqueue / n / 1e6,
+        launches_per_iter=launched / n,
+        stall_ms=stall / calls / 1e6,
+        idle_ms={k: v / calls / 1e6 for k, v in idle.most_common()},
+        inside_share=stall / total if total else 0.0,
+        syncs_per_call=syncs / calls,
+        clock_share=own_inside / own if own else None,
+        clock_max_ms=worst / 1e6,
+    )
+
+
+def spans_main(args, dev, card) -> int:
+    """--path spans: SPANS_CALLS calls of step_freerun(SPANS_ITERATIONS)
+    with tracing off and on by turns (their host seconds: the cost of
+    tracing), then one call profiled (the card's activity alone) with
+    tracing on, reported by span_report."""
+    from rsoderh_raytracing_tpu_torch import tracing
+
+    scene = named_scene(args.scene)
+    env = Environment.from_texture("sky", procedural_sky(2048, 1024))
+    renderer = Renderer(scene, SIZE, SIZE, environments=EnvironmentMaps([env]), max_bounces=BOUNCES,
+                        intersector=args.intersector, device=dev)
+    renderer.step_freerun(SPANS_ITERATIONS)  # build + warm-up
+    seconds = {False: [], True: []}
+    for on in [False, True, True, False] * (SPANS_CALLS // 2):
+        if on:
+            tracing.enable()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        renderer.step_freerun(SPANS_ITERATIONS)
+        torch.cuda.synchronize()
+        seconds[on].append(time.perf_counter() - start)
+        tracing.disable()
+        tracing.take()
+    off, on = (sorted(seconds[k])[len(seconds[k]) // 2] for k in (False, True))
+    print(f"[tracing_cost] scene={args.scene} size={SIZE} iterations={SPANS_ITERATIONS} "
+          f"off_ms={off * 1e3:.3f} on_ms={on * 1e3:.3f} on_over_off={on / off:.5f} card={card!r}",
+          flush=True)
+    tracing.enable()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        with torch.profiler.record_function("spans"):
+            renderer.step_freerun(SPANS_ITERATIONS)
+            torch.cuda.synchronize()
+    tracing.disable()
+    rec = tracing.take()
+    path = os.path.join(args.out, f"{args.scene}_spans_trace.json")
+    prof.export_chrome_trace(path)
+    ops, runtime, notes = chrome_events(path)
+    # a profile of the card's activity alone holds no host annotation: the
+    # stretch runs from its first runtime call to its last operation's end
+    window = notes.get("spans") or (min(r[1] for r in runtime), max(o[3] for o in ops))
+    report = span_report(rec["spans"], rec["counters"], ops, runtime, window)
+    print(f"[spans] scene={args.scene} {json.dumps(report)} card={card!r}", flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--path", choices=("loop", "scan", "scan-image", "split", "cluster"),
+    parser.add_argument("--path", choices=("loop", "scan", "scan-image", "split", "cluster", "spans"),
                         default="loop",
                         help="the free-run kernel loop, the scan integrator, its image on the "
-                             "card against the CPU's, the split over every card, or the "
-                             "chunk orders")
+                             "card against the CPU's, the split over every card, the "
+                             "chunk orders, or the port's spans over a profile")
     parser.add_argument("--scene", default=None,
                         help="a scene of assets/scenes or a generated one (house_tiled16, "
                              "house_tiled64; default house; suzanne_hi for --path cluster)")
@@ -1005,6 +1212,8 @@ def main(argv=None) -> int:
         return split_main(dev, card)
     if args.path == "cluster":
         return cluster_main(args, dev, card)
+    if args.path == "spans":
+        return spans_main(args, dev, card)
     ds, env, cam = scene_setup(args.scene, dev,
                                with_bvh={"auto": "auto", "sweep": False, "bvh": True}[args.intersector])
     res = (SIZE, SIZE)

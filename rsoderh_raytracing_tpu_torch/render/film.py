@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from rsoderh_raytracing_tpu_torch import _device
+from rsoderh_raytracing_tpu_torch import _device, tracing
 from rsoderh_raytracing_tpu_torch.ops.tonemap import aces_tonemap, linear_to_srgb
 
 
@@ -60,7 +60,9 @@ class Film:
         if self._min_cache is None:
             if self._min_dev is None:
                 self._min_dev = self.counts.min()
-            self._min_cache = int(self._min_dev)
+            with tracing.span("film.min_count"):
+                tracing.count("sync.min_count")
+                self._min_cache = int(self._min_dev)
         return self._min_cache
 
     @property
@@ -74,6 +76,7 @@ class Film:
         """Add ONE uniform sample for every pixel."""
         self.add_samples(sample, 1)
 
+    @tracing.traced("film.add")
     def add_samples(self, summed, count: int) -> None:
         """Add the SUM of `count` uniform samples per pixel."""
         self.cumulative = self.cumulative + summed
@@ -84,6 +87,7 @@ class Film:
             self._min_dev = self.counts.min()
             self._min_cache = None
 
+    @tracing.traced("film.add")
     def add_freerun(self, summed, counts) -> None:
         """Add a free-run result: per-pixel sums and per-pixel counts."""
         self.cumulative = self.cumulative + summed
@@ -94,21 +98,29 @@ class Film:
 
     def mean_radiance(self) -> np.ndarray:
         counts = torch.clamp_min(self.counts.to(torch.float32), 1.0)[..., None]
+        tracing.count("sync.readback")
         return (self.cumulative / counts).cpu().numpy()
 
     def tonemapped(self) -> np.ndarray:
-        """ACES display image, linear [0, 1]."""
-        return _display(self.cumulative, self.counts).cpu().numpy()
+        """ACES display image, linear [0, 1]: the spans film.tonemap and
+        film.readback (a host sync on the card, sync.readback)."""
+        with tracing.span("film.tonemap"):
+            image = _display(self.cumulative, self.counts)
+        with tracing.span("film.readback"):
+            tracing.count("sync.readback")
+            return image.cpu().numpy()
 
     def srgb8(self) -> np.ndarray:
         """8-bit sRGB image for PNG output."""
         srgb = linear_to_srgb(_display(self.cumulative, self.counts))
+        tracing.count("sync.readback")
         return torch.clamp(srgb * 255.0 + 0.5, 0, 255).to(torch.uint8).cpu().numpy()
 
     def save_checkpoint(self, path: str, **extra) -> None:
         """Save the raw accumulation state; `extra` arrays (the
         renderer's state stamp) ride in the same .npz, and loaders ignore
         keys they do not know."""
+        tracing.count("sync.checkpoint_save", 2)
         np.savez(
             path,
             cumulative=self.cumulative.cpu().numpy(),
@@ -117,7 +129,11 @@ class Film:
             **extra,
         )
 
+    @tracing.traced("film.load_checkpoint")
     def load_checkpoint(self, path: str) -> None:
+        """Load a checkpoint: two uploads, host syncs on the card
+        (sync.checkpoint_load)."""
+        tracing.count("sync.checkpoint_load", 2)
         with np.load(path) as z:
             cumulative = z["cumulative"]
             if cumulative.shape != (self.height, self.width, 3):

@@ -23,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from rsoderh_raytracing_tpu_torch import _device
+from rsoderh_raytracing_tpu_torch import _device, tracing
 from rsoderh_raytracing_tpu_torch.ops import bsdf, envmap, intersect, rng
 
 MAX_BOUNCES = 10  # shader.wgsl:232
@@ -151,8 +151,10 @@ def render_sample(scene, env, camera, sample_index, resolution,
 
 def camera_pytree(camera, device=_device.DEFAULT) -> dict:
     """Host Camera -> dict of f32 tensors on `device`: 'pos' (3,),
-    'rot' (3, 3), 'fov_y' ()."""
+    'rot' (3, 3), 'fov_y' (): three uploads, each a host sync on the
+    card (sync.camera)."""
     device = _device.resolve(device)
+    tracing.count("sync.camera", 3)
     return {
         "pos": torch.tensor(np.asarray(camera.pos, np.float32), device=device),
         "rot": torch.tensor(

@@ -16,7 +16,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from rsoderh_raytracing_tpu_torch import _device
+from rsoderh_raytracing_tpu_torch import _device, tracing
 from rsoderh_raytracing_tpu_torch.env.environment import (
     EnvironmentMaps,
     device_environment,
@@ -34,6 +34,18 @@ from rsoderh_raytracing_tpu_torch.render.wavefront import render_freerun, render
 from rsoderh_raytracing_tpu_torch.scene.device import BVH, build_device_scene, route
 from rsoderh_raytracing_tpu_torch.scene.types import Scene
 from rsoderh_raytracing_tpu_torch.utils.png import write_png
+
+
+def host_stats(stats) -> dict:
+    """A call's device counters (rays traced, iterations run) on the host:
+    three syncs on the card (the span renderer.stats, sync.stats)."""
+    with tracing.span("renderer.stats"):
+        tracing.count("sync.stats", 3)
+        return {
+            "closest_rays": float(stats["closest_rays"]),
+            "shadow_rays": float(stats["shadow_rays"]),
+            "iterations": int(stats["iterations"]),
+        }
 
 
 class Renderer:
@@ -94,7 +106,8 @@ class Renderer:
     def _reset_if_changed(self) -> None:
         state_hash = self._state_hash()
         if state_hash != self._last_state_hash:
-            self.film.reset()
+            with tracing.span("renderer.reset"):
+                self.film.reset()
             self._last_state_hash = state_hash
 
     def _device_env(self):
@@ -141,12 +154,14 @@ class Renderer:
         self.film.add_samples(summed, spp)
         return self.film.sample_count
 
+    @tracing.traced("renderer.step_freerun")
     def step_freerun(self, iterations: int, compact_every: int | None = None) -> int:
         """Run the iteration-budget wavefront: every lane stays busy for
         `iterations` path segments, so the per-pixel sample count varies.
         Returns the minimum per-pixel sample count; ``last_stats`` holds
         the rays traced in this step. compact_every is the chunked route's
-        lane compaction cadence (render_freerun; None: its default)."""
+        lane compaction cadence (render_freerun; None: its default).
+        Traced as the root span of a call (tracing.py)."""
         self._reset_if_changed()
         summed, counts, stats = render_freerun(
             self.device_scene, self._device_env(), self._camera(),
@@ -155,11 +170,7 @@ class Renderer:
             compact_every=compact_every,
         )
         self.film.add_freerun(summed, counts)
-        self.last_stats = {
-            "closest_rays": float(stats["closest_rays"]),
-            "shadow_rays": float(stats["shadow_rays"]),
-            "iterations": int(stats["iterations"]),
-        }
+        self.last_stats = host_stats(stats)
         return self.film.sample_count
 
     def render(

@@ -72,7 +72,7 @@ import os
 import numpy as np
 import torch
 
-from rsoderh_raytracing_tpu_torch import _device
+from rsoderh_raytracing_tpu_torch import _device, tracing
 from rsoderh_raytracing_tpu_torch.ops import cuda_intersect as ci
 from rsoderh_raytracing_tpu_torch.ops import cuda_wavefront as cw
 from rsoderh_raytracing_tpu_torch.ops import bsdf, envmap, intersect, rng
@@ -283,6 +283,7 @@ class Wavefront:
     route and a scene built with a BVH never compact); None takes
     compact_every_default."""
 
+    @tracing.traced("wavefront.setup")
     def __init__(self, scene, env, camera, base_sample, resolution, spp, budget, max_bounces,
                  row0=0, rows=None, sample_stride=1, sample_offset=0, compact_every=None):
         self.route = route(scene)
@@ -299,6 +300,10 @@ class Wavefront:
         self.stride = int(sample_stride) & rng.MASK
         self.offset = int(sample_offset) & rng.MASK
         n = self.width * self.rows
+        # the (tile, sample) slot of a split render (parallel/sharding.py)
+        self.slot = (row0 // self.rows, self.offset)
+        self.cuda = device.type == "cuda"
+        self.device_name = str(device)
 
         pixel_x, local_y, to_lanes, self.from_lanes = lane_order(self.width, self.rows, device)
         pixel_y = local_y + row0
@@ -307,6 +312,7 @@ class Wavefront:
 
         state0 = rng.seed(pixel_index, (base * self.stride + self.offset) & rng.MASK)
         state0, o0, d0 = generate_camera_rays(state0, pixel_x, pixel_y, camera, resolution)
+        tracing.count("sync.wavefront_setup")  # the aspect ratio's upload
         self.scal = torch.cat(
             [
                 torch.sin(camera["fov_y"] / 2.0).reshape(1),
@@ -356,28 +362,24 @@ class Wavefront:
 
     def step(
         self, it, trace=cw.trace_call, shade=cw.shade_call,
-        closest=None, occlusion=None, big_shade=cw.big_shade_call, profile=None,
+        closest=None, occlusion=None, big_shade=cw.big_shade_call,
     ):
         """One iteration (number `it`, from 0). The kernel arguments
         default to the wrappers (closest and occlusion to the route's in
         ci.ROUTE_CALLS: the chunked kernels', or the BVH walks'; the
-        composed body takes none of them); `profile`, if a dict, collects in profile["marks"]
-        one list per iteration of (part, CUDA event) pairs, each event
-        starting the named part and the last one (part None) ending the
-        iteration."""
+        composed body takes none of them). Traced as the span
+        wavefront.step (it, slot, device), whose parts step.<part> cover
+        the stretches of the iteration (tracing.py)."""
         calls = ci.ROUTE_CALLS.get(self.route, ci.ROUTE_CALLS[CHUNKED])
         closest = closest or calls["closest"][0]
         occlusion = occlusion or calls["occlusion"][0]
-        marks = [] if profile is not None else None
+        with tracing.span("wavefront.step", self.cuda, it=it, slot=self.slot,
+                          device=self.device_name) as span:
+            self._step(it, span.part, trace, shade, closest, occlusion, big_shade)
 
-        def mark(part):
-            if marks is not None:
-                ev = torch.cuda.Event(enable_timing=True)
-                ev.record()
-                marks.append((part, ev))
-
+    def _step(self, it, mark, trace, shade, closest, occlusion, big_shade):
         if self.compact_every > 0 and it > 0 and it % self.compact_every == 0:
-            mark("compact")
+            mark("step.compact")
             self.permute()
         c = self.carry
         env_h, env_w = self.env.texture_shape
@@ -386,21 +388,21 @@ class Wavefront:
         lanes = (c["pixidx"], c["pixx"], c["pixy"], c["base"], self.scal,
                  (it + 1, self.spp, self.budget, self.stride, self.offset))
         if self.composed:
-            mark("glue")
+            mark("step.glue")
             state, nee_u, nee_v, nee_pmf, nd, mu, mv = envmap.trace_glue(
                 rng.from_bits(c["state"]), self.env, *rd)
-            mark("trace_nee")
+            mark("step.trace_nee")
             did_hit, p, normal, color, rough, metal, emission, occ = intersect.trace_nee(
                 self.scene, ro, rd, nd)
-            mark("glue")
+            mark("step.glue")
             (
                 cos_theta, nee_scatter, nee_pdf_b, state, bdir, bscat, bpdf, bzero, cos_bounce,
             ) = bsdf.trace_epilogue(rd, nd, normal, color, rough, metal, state)
             fu = torch.where(did_hit, nee_u, mu)
             fv = torch.where(did_hit, nee_v, mv)
-            mark("gather")
+            mark("step.gather")
             q = self.env.quad.index_select(0, envmap.quad_index(fu, fv, env_w, env_h))
-            mark("shade")
+            mark("step.shade")
             tr = dict(
                 hit=did_hit, occ=occ, px=p[0], py=p[1], pz=p[2],
                 er=emission[0], eg=emission[1], eb=emission[2],
@@ -414,23 +416,23 @@ class Wavefront:
                 q, tr, nee_pmf, c, *lanes,
             )
         elif self.route in (CHUNKED, BVH):
-            mark("glue")
+            mark("step.glue")
             state, nee_u, nee_v, nee_pmf, nd, mu, mv = envmap.trace_glue(
                 rng.from_bits(c["state"]), self.env, *rd)
-            mark("closest")
+            mark("step.closest")
             t, btype, bidx = closest(self.scene, ro, rd, c["in_path"])
-            mark("glue")
+            mark("step.glue")
             did_hit = btype >= 0
             t_safe = torch.where(did_hit, t, 0.0)
             p = tuple(ro[k] + rd[k] * t_safe for k in range(3))
             hit_mask = (did_hit & (c["in_path"] != 0)).to(torch.int32)
-            mark("occlusion")
+            mark("step.occlusion")
             occ = occlusion(self.scene, p, nd, hit_mask)
-            mark("gather")
+            mark("step.gather")
             fu = torch.where(did_hit, nee_u, mu)
             fv = torch.where(did_hit, nee_v, mv)
             qw = self.env.quad.index_select(0, envmap.quad_index(fu, fv, env_w, env_h))
-            mark("big_shade")
+            mark("step.big_shade")
             tr = dict(hit=did_hit.to(torch.int32), occ=occ, btype=btype, bidx=bidx,
                       px=p[0], py=p[1], pz=p[2])
             self.carry, act, hitm = big_shade(
@@ -438,9 +440,9 @@ class Wavefront:
                 qw, tr, nd, rng.to_bits(state), fu, fv, nee_pmf, c, *lanes,
             )
         else:
-            mark("trace")
+            mark("step.trace")
             tr = trace(self.scene, self.env, c)
-            mark("shade")
+            mark("step.shade")
             self.carry, act, hitm = shade(
                 env_w, env_h, self.width, self.height, self.max_bounces,
                 tr["quad"], tr, tr["nee_pmf"], c, *lanes,
@@ -450,8 +452,6 @@ class Wavefront:
         self.carry.update((k, c[k]) for k in LANE_NAMES)
         if _device.debug_nans():
             _device.check_nans(f"wavefront iteration {it}: carry", self.carry)
-        if marks is not None:
-            profile.setdefault("marks", []).append(marks)
         n_act = act.sum(dtype=torch.int64)
         self.closest = self.closest + n_act
         self.shadow = self.shadow + hitm.sum(dtype=torch.int64)
@@ -466,10 +466,10 @@ class Wavefront:
         """A device bool: some lane is still in a path."""
         return self.carry["in_path"].any()
 
-    def run(self, profile=None):
+    def run(self):
         if self.budget != NO_LIMIT:
             for it in range(self.drain_iterations()):
-                self.step(it, profile=profile)
+                self.step(it)
             check_drained([self.in_path()])
         else:
             # a check costs a host sync on the card, nothing on the CPU
@@ -477,11 +477,13 @@ class Wavefront:
             it = 0
             while True:
                 for _ in range(every):
-                    self.step(it, profile=profile)
+                    self.step(it)
                     it += 1
+                tracing.count("sync.exact_check")
                 if not bool(self.carry["in_path"].any()):
                     break
 
+    @tracing.traced("wavefront.results")
     def results(self):
         """(film (n, 3), counts (n,) int64, stats) in pixel order: after a
         compacting loop each slot's film and count go back to their lane's
@@ -504,16 +506,21 @@ class Wavefront:
 
 def check_drained(flags):
     """Raise if one of the device bools `flags` (Wavefront.in_path) is
-    set; read after every loop of a call has been enqueued."""
-    if any(bool(f) for f in flags):
-        raise RuntimeError("wavefront: lanes still in a path after the drain")
+    set; read after every loop of a call has been enqueued. Each read is
+    a host sync on the card (the span wavefront.drain_check, the counter
+    sync.drain)."""
+    with tracing.span("wavefront.drain_check"):
+        for f in flags:
+            tracing.count("sync.drain")
+            if bool(f):
+                raise RuntimeError("wavefront: lanes still in a path after the drain")
 
 
-def _loop(scene, env, camera, base_sample, resolution, spp, budget, max_bounces, profile=None,
+def _loop(scene, env, camera, base_sample, resolution, spp, budget, max_bounces,
           compact_every=None):
     wave = Wavefront(scene, env, camera, base_sample, resolution, spp, budget, max_bounces,
                      compact_every=compact_every)
-    wave.run(profile=profile)
+    wave.run()
     return wave.results()
 
 
@@ -537,7 +544,7 @@ def render_wavefront(
 
 def render_freerun(
     scene, env, camera, base_counts, resolution, iterations,
-    max_bounces: int = MAX_BOUNCES, with_stats: bool = False, profile=None,
+    max_bounces: int = MAX_BOUNCES, with_stats: bool = False,
     compact_every: int | None = None,
 ):
     """Iteration-budget rendering: every lane stays busy for `iterations`
@@ -553,7 +560,7 @@ def render_freerun(
     width, height = resolution
     film, counts, stats = _loop(
         scene, env, camera, base_counts, resolution, NO_LIMIT, iterations,
-        max_bounces, profile=profile, compact_every=compact_every,
+        max_bounces, compact_every=compact_every,
     )
     image = film.reshape(height, width, 3)
     counts = counts.reshape(height, width)

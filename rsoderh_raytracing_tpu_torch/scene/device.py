@@ -47,7 +47,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from rsoderh_raytracing_tpu_torch import _device
+from rsoderh_raytracing_tpu_torch import _device, tracing
 from rsoderh_raytracing_tpu_torch.accel.bvh import build_bvh
 from rsoderh_raytracing_tpu_torch.ops.bvh import device_bvh
 from rsoderh_raytracing_tpu_torch.scene.types import Scene
@@ -538,6 +538,7 @@ def cluster_triangles(vertices, tris, cluster):
     return orders.treelet_pack(vertices, tris, TRI_CHUNK)
 
 
+@tracing.traced("scene.build")
 def build_device_scene(
     scene: Scene, device=_device.DEFAULT, pad_to: int = 8, with_bvh: "bool | str" = False
 ) -> DeviceScene:
