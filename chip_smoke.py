@@ -18,16 +18,18 @@ exits non-zero at the first failure. Phases, one line each or more:
    no row gather); parity again on a 2048^2 loop state (TRACE's NEE pmf,
    quad row and NEE uv bitwise), then each kernel's time beside its plain
    version's;
-4. big-mesh parity (CHUNKED_CLOSEST, CHUNKED_ANY, BIG_SHADE): suzanne_hi
-   and spheres at 256x256 lanes after 3 plain iterations, spheres and
-   suzanne at 2048x2048 lanes; the closest hit compared on live lanes,
-   occlusion on masked lanes, BIG_SHADE output by output;
+4. big-mesh parity (ENV_DRAW, CHUNKED_CLOSEST, CHUNKED_ANY, BIG_SHADE):
+   suzanne_hi and spheres at 256x256 lanes after 3 plain iterations,
+   spheres and suzanne at 2048x2048 lanes; ENV_DRAW output by output and
+   its state, NEE uv and pmf bitwise on every lane, the closest hit
+   compared on live lanes, occlusion on masked lanes, BIG_SHADE (its quad
+   row read at the fused uv) output by output;
 5. big-mesh main path: suzanne_hi (15,488 triangles, 242 chunks) at
    2048x2048, 8 bounces, a warm-up call then timed calls carrying counts,
-   as the reference's bench runs it with BENCH_SCENE=suzanne_hi; the three
-   new kernels must have launched and TRACE/SHADE not; the
-   glue/closest/occlusion/gather/BIG_SHADE split; then a short spheres run
-   at 2048x2048;
+   as the reference's bench runs it with BENCH_SCENE=suzanne_hi; the four
+   big-mesh kernels must have launched and TRACE/SHADE not; the
+   env_draw/closest/glue/occlusion/big_shade split; then a short spheres
+   run at 2048x2048;
 6. timing: each big-mesh kernel against its plain version on a
    suzanne_hi 2048^2 loop state, with its bound from the inputs' cull
    counts (profiling.chunked_bound), and beside it the pairs, candidates
@@ -63,7 +65,7 @@ exits non-zero at the first failure. Phases, one line each or more:
 11. command line: cli.main on house at 256x256, 8 spp, exact and freerun
    to PNG, .hdr with --save-checkpoint, and --checkpoint resume; the files
    are read back (under build/chip_smoke/);
-12. the BVH route (BVH_CLOSEST, BVH_ANY, BIG_SHADE): generates
+12. the BVH route (ENV_DRAW, BVH_CLOSEST, BVH_ANY, BIG_SHADE): generates
    assets/suzanne_xxhi.obj (991,232 triangles, past the chunked route's
    ceilings) and assets/suzanne_xhi.obj with scripts/subdivide_obj.py when
    they are absent; builds suzanne_xxhi's BVH (seconds, the native
@@ -73,7 +75,9 @@ exits non-zero at the first failure. Phases, one line each or more:
    a 256x256 and a 2048x2048 loop state, then times them beside the plain
    twins and the bound of their walks' counts (profiling.bvh_bound), with
    each walk's ptxas registers and stack and the lanes it walks (masked
-   lanes whose ray enters the root's box);
+   lanes whose ray enters the root's box); ENV_DRAW and BIG_SHADE (its
+   quad row read at the fused uv) against their plain twins on both loop
+   states, as in phase 4;
    compares suzanne_hi at 256x256 through the BVH and the chunked routes
    (the anchors' flip-aware criteria); then the crossover: house, spheres,
    and suzanne at 968, 3,872, 15,488, 61,952 and 247,808 triangles (levels
@@ -166,7 +170,7 @@ exits non-zero at the first failure. Phases, one line each or more:
    permutes nothing.
 Each of 13-18 logs its seconds.
 
-Then the run's seconds, a JSON line with each of the ten kernels' launches, largest absolute and
+Then the run's seconds, a JSON line with each of the eleven kernels' launches, largest absolute and
 relative errors (and the outputs that hold them), times and bound, the
 card line again, and last {"ok": true, "device": {...}}. Imports nothing
 of JAX or of the JAX package.
@@ -289,10 +293,14 @@ SCAN_STEPS = 3
 SCAN_CPU_SPP = 16
 OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
 # The big-mesh kernels by Wavefront.step keyword.
-BIG_KERNELS = {"closest": "chunked_closest", "occlusion": "chunked_any", "big_shade": "big_shade"}
+BIG_KERNELS = {"env_draw": "env_draw", "closest": "chunked_closest", "occlusion": "chunked_any",
+               "big_shade": "big_shade"}
 # The kernels a free-run iteration launches, by route.
 ROUTE_LAUNCHES = {SMALL: {"trace", "shade"}, CHUNKED: set(BIG_KERNELS.values()),
-                  BVH: {"bvh_closest", "bvh_any", "big_shade"}}
+                  BVH: {"env_draw", "bvh_closest", "bvh_any", "big_shade"}}
+# ENV_DRAW's outputs that are exact by construction (the alias index, its
+# jitter and pmf, the state after four draws): bitwise on every lane.
+ENV_DRAW_EXACT = ("state", "nee_u", "nee_v", "nee_pmf")
 
 
 def log(phase, **fields):
@@ -356,11 +364,20 @@ def kernel_parity(key, label, args, lanes, max_err, ref=None):
     """The big-mesh kernel of Wavefront.step keyword `key` on `args`
     against its plain version's outputs on them (`ref`, computed here
     when not given): CHUNKED_CLOSEST on live lanes, CHUNKED_ANY on masked
-    lanes, BIG_SHADE output by output on every lane."""
+    lanes, ENV_DRAW and BIG_SHADE output by output on every lane, and
+    ENV_DRAW_EXACT bitwise."""
     kfn, pfn = KERNELS[key]
     got = kfn(*args)
     ref = pfn(*args) if ref is None else ref
-    if key == "closest":
+    if key == "env_draw":
+        differ = {k: int((_bits(got[k]) != _bits(ref[k])).sum()) for k in ENV_DRAW_EXACT}
+        log("parity", kernel=f"env_draw:{label}", lanes=lanes,
+            **{f"{k}_lanes_differ": v for k, v in differ.items()})
+        if any(differ.values()):
+            raise AssertionError(f"ENV_DRAW's draw is not bitwise its plain version's on {label}: {differ}")
+        ints = {"state"}
+        where = None
+    elif key == "closest":
         names = ("t", "type", "index")
         got, ref, ints, where = dict(zip(names, got)), dict(zip(names, ref)), {"type", "index"}, args[3] != 0
     elif key == "occlusion":
@@ -611,7 +628,7 @@ def scan_path(scene, sky_host, sky, card, dev):
     if counted["closest"] != expected or counted["any"] != expected:
         raise AssertionError(f"the scan path launched CLOSEST {counted['closest']} and ANY "
                              f"{counted['any']} times, expected {expected}")
-    if any(counted[k] for k in ("trace", "shade", "fused", "big_shade")):
+    if any(counted[k] for k in ("trace", "shade", "fused", "env_draw", "big_shade")):
         raise AssertionError("the scan path launched a wavefront kernel")
     image = renderer.film.mean_radiance()
     if renderer.film.sample_count != SCAN_STEPS + 1 or not np.isfinite(image).all():
@@ -951,10 +968,17 @@ def bvh_phase(sky_host, sky, card, dev, max_err, times, bounds):
         leaf_mib=f"{b.prims.numel() * 4 / 2**20:.1f}")
     cam = camera_pytree(scene.camera, dev)
 
-    # parity of both walks with their twins at 256^2 and at 2048^2
-    bvh_parity("suzanne_xxhi", 256 * 256, loop_state(xx_ds, sky, cam, 256, 0, 3), max_err)
+    # parity of both walks with their twins at 256^2 and at 2048^2, and of
+    # ENV_DRAW and BIG_SHADE (its quad row read at the fused uv) on the
+    # same states
+    small = loop_state(xx_ds, sky, cam, 256, 0, 3)
+    bvh_parity("suzanne_xxhi", 256 * 256, small, max_err)
     state = loop_state(xx_ds, sky, cam, SIZE, 0, 0, kernel_iterations=2)
     plain = bvh_parity("suzanne_xxhi", SIZE * SIZE, state, max_err)
+    for key in ("env_draw", "big_shade"):
+        kernel_parity(key, "suzanne_xxhi", small[key], 256 * 256, max_err)
+        kernel_parity(key, "suzanne_xxhi", state[key], SIZE * SIZE, max_err)
+    del small
     ptxas = [ln.split("ptxas info    : ")[-1] for ln in _kernels.BUILD_INFO.get("ptxas", [])]
     for key, name, closest in (("closest", "bvh_closest", True), ("occlusion", "bvh_any", False)):
         kfn = ci.bvh_closest_call if closest else ci.bvh_any_call
@@ -986,7 +1010,7 @@ def bvh_phase(sky_host, sky, card, dev, max_err, times, bounds):
 
     # the main path: suzanne_xxhi at 2048^2, 8 bounces, free-run
     counted, image, counts, warm = timed_main("suzanne_xxhi_bvh", xx_ds, sky, cam, card, 1, dev)
-    for k in ("bvh_closest", "bvh_any", "big_shade"):
+    for k in ("env_draw", "bvh_closest", "bvh_any", "big_shade"):
         if counted[k] <= 0:
             raise AssertionError(f"the suzanne_xxhi main path did not launch {k}")
     if any(counted[k] for k in ("trace", "shade", "chunked_closest", "chunked_any")):
@@ -1100,8 +1124,8 @@ def sync_phase(sky, card, dev):
         counted, rate = timed_sync(name, ds, sky, cam, card, rounds, dev)
         free, _, _, _ = timed_main(f"{name}_freerun_beside_sync", ds, sky, cam, card, 1, dev)
         iterations = SYNC_CALLS * rounds * BOUNCES
-        kernels = ("trace", "shade") if name == "house" else ("chunked_closest", "chunked_any",
-                                                               "big_shade")
+        kernels = ("trace", "shade") if name == "house" else ("env_draw", "chunked_closest",
+                                                               "chunked_any", "big_shade")
         if any(counted[k] != iterations for k in kernels) or any(
                 v for k, v in counted.items() if k not in kernels):
             raise AssertionError(f"{name}: the sync calls launched {counted}, expected "
@@ -1326,15 +1350,16 @@ RAISED_BUDGET = 16
 
 
 def chunked_parity(label, lanes, state, max_err):
-    """CHUNKED_CLOSEST, CHUNKED_ANY and BIG_SHADE on a loop state against
-    their plain versions: each by kernel_parity, then CHUNKED_CLOSEST's t,
-    type and index and CHUNKED_ANY's occlusion bitwise on every lane."""
+    """ENV_DRAW, CHUNKED_CLOSEST, CHUNKED_ANY and BIG_SHADE on a loop state
+    against their plain versions: each by kernel_parity, then
+    CHUNKED_CLOSEST's t, type and index and CHUNKED_ANY's occlusion
+    bitwise on every lane."""
     for key in BIG_KERNELS:
         kfn, pfn = KERNELS[key]
         args = state[key]
         got, ref = kfn(*args), pfn(*args)
         kernel_parity(key, label, args, lanes, max_err, ref)
-        if key == "big_shade":
+        if key in ("env_draw", "big_shade"):
             continue
         got, ref = (got, ref) if key == "closest" else ((got,), (ref,))
         differ = sum(int((_bits(a) != _bits(b)).sum()) for a, b in zip(got, ref))
@@ -1785,7 +1810,7 @@ def lane_kernels(label, ds, env, cam, card):
         outs = {}
         for name, state in (("unpermuted", plain), ("permuted", permuted)):
             outs[name] = kfn(*state[key])
-            if key == "big_shade":
+            if key in ("env_draw", "big_shade"):
                 continue
             model = intersect.chunked_closest_model if key == "closest" else intersect.chunked_any_model
             walked = {}
@@ -1801,6 +1826,9 @@ def lane_kernels(label, ds, env, cam, card):
         elif key == "occlusion":
             where = permuted[key][3] != 0
             pairs = [(got, ref)]
+        elif key == "env_draw":
+            where = torch.ones_like(home, dtype=torch.bool)
+            pairs = [(got[k], ref[k]) for k in cw.ENV_DRAW_OUT_NAMES]
         else:
             where = torch.ones_like(home, dtype=torch.bool)
             pairs = [(got[0][k], ref[0][k]) for k in cw.CARRY_NAMES] + [(got[1], ref[1]), (got[2], ref[2])]
@@ -2006,7 +2034,7 @@ def main() -> int:
     # 5. big-mesh main path: suzanne_hi, then a short spheres run
     big_launches, image, counts, warm = timed_main("suzanne_hi", hi_ds, sky, hi_cam, card,
                                                    TIMED_CALLS, dev)
-    for k in ("chunked_closest", "chunked_any", "big_shade"):
+    for k in ("env_draw", "chunked_closest", "chunked_any", "big_shade"):
         if big_launches[k] <= 0:
             raise AssertionError(f"the suzanne_hi main path did not launch {k}")
     if big_launches["trace"] or big_launches["shade"]:
@@ -2030,6 +2058,10 @@ def main() -> int:
             n_bytes = (n_pixels * 4 * (len(cw.BIG_SHADE_IN) + 4 + len(cw.SHADE_OUT_NAMES))
                        + 4 * (hi_ds.winner.numel() + hi_ds.materials.numel()))
             bounds[name] = bound_ms(n_bytes, 0) + ({},)
+            walked = {}
+        elif key == "env_draw":
+            # the state in, the 4-word alias row, 7 outputs
+            bounds[name] = bound_ms(n_pixels * 4 * (1 + 4 + len(cw.ENV_DRAW_OUT_NAMES)), 0) + ({},)
             walked = {}
         else:
             bounds[name] = chunked_bound(hi_ds, state[key], key == "closest")
@@ -2081,6 +2113,8 @@ def main() -> int:
         "chunked_closest": "rsoderh_raytracing_tpu/ops/pallas_intersect.py:1524",
         "chunked_any": "rsoderh_raytracing_tpu/ops/pallas_intersect.py:1524",
         "big_shade": "rsoderh_raytracing_tpu/ops/pallas_wavefront.py:1042",
+        # not a Pallas kernel: the reference's XLA glue before its sweeps
+        "env_draw": "rsoderh_raytracing_tpu/render/wavefront.py:928",
         "fused": "rsoderh_raytracing_tpu/ops/pallas_intersect.py:1964",
         "closest": "rsoderh_raytracing_tpu/ops/pallas_intersect.py:1624",
         "any": "rsoderh_raytracing_tpu/ops/pallas_intersect.py:1624",
@@ -2089,17 +2123,19 @@ def main() -> int:
         "bvh_any": "rsoderh_raytracing_tpu/ops/bvh_traverse.py:468",
     }
     sources = {"trace": SRC_WAVEFRONT, "shade": SRC_WAVEFRONT, "chunked_closest": SRC_CHUNKED,
-               "chunked_any": SRC_CHUNKED, "big_shade": SRC_WAVEFRONT, "fused": SRC_SWEEP,
+               "chunked_any": SRC_CHUNKED, "big_shade": SRC_WAVEFRONT, "env_draw": SRC_WAVEFRONT,
+               "fused": SRC_SWEEP,
                "closest": SRC_SWEEP, "any": SRC_SWEEP, "bvh_closest": SRC_BVH, "bvh_any": SRC_BVH}
     counted = {**{k: house_launches[k] for k in ("trace", "shade")},
-               **{k: big_launches[k] for k in ("chunked_closest", "chunked_any", "big_shade")},
+               **{k: big_launches[k] for k in ("env_draw", "chunked_closest", "chunked_any", "big_shade")},
                "fused": composed_launches["fused"],
                **{k: scan_launches[k] for k in ("closest", "any")},
                **{k: bvh_launches[k] for k in ("bvh_closest", "bvh_any")}}
     # each kernel's launches by the main path that counted them
     paths = {k: {path: counted[k]} for k, path in (
         ("trace", "house"), ("shade", "house"), ("chunked_closest", "suzanne_hi"),
-        ("chunked_any", "suzanne_hi"), ("big_shade", "suzanne_hi"), ("fused", "house_composed"),
+        ("chunked_any", "suzanne_hi"), ("big_shade", "suzanne_hi"), ("env_draw", "suzanne_hi"),
+        ("fused", "house_composed"),
         ("closest", "house_scan"), ("any", "house_scan"), ("bvh_closest", "suzanne_xxhi"),
         ("bvh_any", "suzanne_xxhi"))}
     every_scene_phase(sky, card, dev, max_err, paths)

@@ -1,5 +1,5 @@
-// TRACE, SHADE and BIG_SHADE: the per-lane kernels of one free-run
-// wavefront iteration.
+// TRACE, SHADE, ENV_DRAW and BIG_SHADE: the per-lane kernels of one
+// free-run wavefront iteration.
 //
 // TRACE replaces the Pallas kernel rsoderh_raytracing_tpu/ops/
 // pallas_wavefront.py:_trace_kernel (trace_call, pallas_call at :775)
@@ -20,7 +20,12 @@
 // pallas_call at :1042), the big-mesh route's shade: the winner's row of
 // the 20-float union table (read here at the winner's global index, so the
 // 19 slot arrays of the Pallas call are never written), its normal and
-// material, trace_epilogue, then the same SHADE core.
+// material, trace_epilogue, then the same SHADE core. It also computes the
+// fused uv (TRACE's arithmetic) and reads the quad row there itself.
+// ENV_DRAW is the big-mesh routes' share of that XLA glue: TRACE's alias
+// draw and NEE direction (env_sample, wavefront_common.cuh), for every lane,
+// before the closest walk. So no row of the environment goes through a
+// PyTorch gather on any route.
 //
 // Design. One thread per lane over flat n-lane arrays (256 threads a
 // block, ragged tail masked). The (32,128) tiles, SMEM windows and the
@@ -41,13 +46,15 @@
 // it is bound by operations; the shared sweep rejects a primitive by a
 // division-free pre-test before its divisions (wavefront_common.cuh).
 // SHADE reads 53 and writes 22 (300 B) with little arithmetic, so it is
-// bound by device memory bandwidth. BIG_SHADE reads 43 four-byte values,
-// the 16-byte quad row and one 80-byte winner row (a random row of a table
-// that sits in L2) and writes 22: about 340 B a lane, also bound by
-// bandwidth. The kernels are built with -fmad=false so their float
+// bound by device memory bandwidth. BIG_SHADE reads 37 four-byte values,
+// one 16-byte quad row and one 80-byte winner row (random rows of tables
+// that sit in L2) and writes 22: about 340 B a lane, also bound by
+// bandwidth. ENV_DRAW reads 4 bytes and a random 16-byte alias row and
+// writes 28 bytes a lane, bound by bandwidth too. The kernels are built with -fmad=false so their float
 // results follow the same roundings as the unfused PyTorch ops of their
 // plain twins (ops/cuda_wavefront.py); TRACE's alias index, NEE pmf and
-// quad row are bitwise its plain version's.
+// quad row are bitwise its plain version's, and so are ENV_DRAW's state,
+// NEE uv and pmf.
 
 #include <cstdint>
 #include <cstring>
@@ -75,19 +82,6 @@ struct TraceArgs {
   uint4* quad_out;
 };
 
-// The environment TRACE reads: (W*H) alias rows [probability,
-// alias_index bits, pmf_self, pmf_alias] and RGBE quad rows, 16 bytes each.
-struct EnvRows {
-  const float4* alias;
-  const uint4* quad;
-  int w, h;
-};
-
-// ops/envmap.py:direction_to_equirect_uv and equirect_uv_to_direction, with
-// the reference shader's truncated PI.
-constexpr float INV_PI_HALF = (float)((1.0 / PI_D) * 0.5);
-constexpr float INV_PI_F = (float)(1.0 / PI_D);
-
 // Six blocks of 256 a multiprocessor cap TRACE at 40 registers (69
 // unbounded): it spills some 136 bytes a thread, yet at the occupancy this
 // buys it ran 5.7% faster on an H100 (PERF.md, PR 5).
@@ -100,25 +94,10 @@ __global__ void __launch_bounds__(kThreads, 6)
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
 
-  // The alias draw (envmap.sample_alias_index): index, accept, jitter x,
-  // jitter y. Column 1 of the alias row holds the alias index's bits.
+  // the alias draw of the NEE texel and the NEE direction
   uint32_t state = a.state[i];
-  const int length = env.w * env.h;
-  int index = min(__float2int_rz(rng_uniform(state) * (float)length), length - 1);
-  const float u_accept = rng_uniform(state);
-  const float4 pair = __ldg(env.alias + index);
-  const bool keep = u_accept < pair.x;
-  index = keep ? index : __float_as_int(pair.y);
-  const float nee_pmf = keep ? pair.z : pair.w;
-  const float jitter_x = rng_uniform(state);
-  const float jitter_y = rng_uniform(state);
-  const float nu = ((float)(index % env.w) + jitter_x) / (float)env.w;
-  const float nv = ((float)(index / env.w) + jitter_y) / (float)env.h;
-  // the NEE direction at (nu, nv)
-  const float phi = (2.0f * nu - 1.0f) * PI_F;
-  const float theta = PI_F * nv;
-  const float sin_theta = sinf(theta);
-  const V3 nee{sin_theta * cosf(phi), cosf(theta), sin_theta * sinf(phi)};
+  const EnvSample draw = env_sample(state, env);
+  const V3 nee = draw.dir;
 
   const Ray r{a.ox[i], a.oy[i], a.oz[i], a.dx[i], a.dy[i], a.dz[i]};
   const V3 rd{r.dx, r.dy, r.dz};
@@ -132,9 +111,9 @@ __global__ void __launch_bounds__(kThreads, 6)
 
   // the fused uv: the NEE sample's on a hit, the escaped ray's on a miss;
   // then its quad row
-  const float fu = did_hit ? nu : atan2f(r.dz, r.dx) * INV_PI_HALF + 0.5f;
-  const float fv = did_hit ? nv : 0.5f - asinf(minn(maxn(r.dy, -1.0f), 1.0f)) * INV_PI_F;
-  a.quad_out[i] = __ldg(env.quad + quad_x0(fv, env.h) * env.w + quad_x0(fu, env.w));
+  const float fu = did_hit ? draw.u : miss_u(r.dx, r.dz);
+  const float fv = did_hit ? draw.v : miss_v(r.dy);
+  a.quad_out[i] = quad_row(env, fu, fv);
 
   a.hit[i] = did_hit ? 1 : 0;
   a.occ[i] = t.occ ? 1 : 0;
@@ -161,7 +140,31 @@ __global__ void __launch_bounds__(kThreads, 6)
   a.state_out[i] = state;
   a.fu[i] = fu;
   a.fv[i] = fv;
-  a.nee_pmf[i] = nee_pmf;
+  a.nee_pmf[i] = draw.pmf;
+}
+
+// ENV_DRAW's lanes (ENV_DRAW_OUT_NAMES): the u32 state in; the state after
+// the draw, the NEE uv and pmf and the NEE direction out.
+struct EnvDrawArgs {
+  const uint32_t* state;
+  uint32_t* state_out;
+  float *nee_u, *nee_v, *nee_pmf, *nd0, *nd1, *nd2;
+};
+
+// The big-mesh routes' alias draw, TRACE's first lines alone: 4 bytes and
+// one 16-byte alias row in, 28 bytes out a lane.
+__global__ void __launch_bounds__(kThreads) env_draw_kernel(EnvDrawArgs a, EnvRows env, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  uint32_t state = a.state[i];
+  const EnvSample draw = env_sample(state, env);
+  a.state_out[i] = state;
+  a.nee_u[i] = draw.u;
+  a.nee_v[i] = draw.v;
+  a.nee_pmf[i] = draw.pmf;
+  a.nd0[i] = draw.dir.x;
+  a.nd1[i] = draw.dir.y;
+  a.nd2[i] = draw.dir.z;
 }
 
 // The carry and loop-invariant lanes SHADE and BIG_SHADE read; field
@@ -248,26 +251,27 @@ __global__ void shade_kernel(ShadeArgs a, ShadeScalars k) {
 }
 
 struct BigShadeArgs {
-  const uint4* quad;  // (n, 4) RGBE words at the fused uv's quad row
   const int32_t *hit, *occ, *btype, *bidx;
   const float *px, *py, *pz;
-  const float *sx, *sy, *sz;  // NEE direction
-  const uint32_t* state;      // after the alias draw
-  const float *fu, *fv, *npmf;
+  const float *sx, *sy, *sz;    // NEE direction
+  const uint32_t* state;        // after the alias draw
+  const float *nu, *nv, *npmf;  // NEE uv and pmf
   CarryPtrs c;
   ShadeOut o;
 };
 
-// BIG_SHADE's inputs: the trace products computed in the kernel, the
-// hit point, hit and occlusion flags, fused uv and NEE pmf from device
-// memory.
+// BIG_SHADE's inputs: the trace products, the fused uv and its quad row
+// computed in the kernel; the hit point, hit and occlusion flags and NEE
+// pmf from device memory.
 struct BigShadeIn : CarryIn {
   const BigShadeArgs& a;
   V3 emission, nee_scatter, bdir, bscat;
-  float cos_theta, nee_pdf, bpdf_, cos_bounce;
+  float cos_theta, nee_pdf, bpdf_, cos_bounce, fu_, fv_;
   bool bzero;
   uint32_t state_;
-  __device__ BigShadeIn(const BigShadeArgs& args, int lane) : CarryIn{args.c, args.quad, lane}, a(args) {}
+  uint4 quad_;
+  __device__ BigShadeIn(const BigShadeArgs& args, int lane) : CarryIn{args.c, nullptr, lane}, a(args) {}
+  __device__ uint4 quad() const { return quad_; }
   __device__ bool hit() const { return a.hit[i] != 0; }
   __device__ bool occ() const { return a.occ[i] != 0; }
   __device__ float px() const { return a.px[i]; }
@@ -285,20 +289,27 @@ struct BigShadeIn : CarryIn {
   __device__ bool bz() const { return bzero; }
   __device__ float cb() const { return cos_bounce; }
   __device__ uint32_t state() const { return state_; }
-  __device__ float fu() const { return a.fu[i]; }
-  __device__ float fv() const { return a.fv[i]; }
+  __device__ float fu() const { return fu_; }
+  __device__ float fv() const { return fv_; }
   __device__ float npmf() const { return a.npmf[i]; }
 };
 
 // wtable: (n_sph + n_pln + n_tri, WINNER_SLOTS) union rows
-// (scene/device.py:winner_rows); mat: MAT_COLS material rows.
+// (scene/device.py:winner_rows); mat: MAT_COLS material rows; env: the
+// quad rows (no alias rows).
 __global__ void big_shade_kernel(BigShadeArgs a, const float* __restrict__ wtable,
                                  const float* __restrict__ mat, int n_mat, int n_sph, int n_pln,
-                                 ShadeScalars k) {
+                                 EnvRows env, ShadeScalars k) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= k.n) return;
   BigShadeIn in(a, i);
   const Ray r{in.ro(0), in.ro(1), in.ro(2), in.rd(0), in.rd(1), in.rd(2)};
+  // the fused uv: the NEE sample's on a hit, the escaped ray's on a miss
+  // (TRACE's arithmetic); then its quad row
+  const bool hit = in.hit();
+  in.fu_ = hit ? a.nu[i] : miss_u(r.dx, r.dz);
+  in.fv_ = hit ? a.nv[i] : miss_v(r.dy);
+  in.quad_ = quad_row(env, in.fu_, in.fv_);
   const int btype = a.btype[i], bidx = a.bidx[i];
   // global winner index; a miss reads row 0 (wavefront.py:1003-1009)
   const int gidx = btype == 0 ? bidx : (btype == 1 ? n_sph + bidx : (btype == 2 ? n_sph + n_pln + bidx : 0));
@@ -368,18 +379,32 @@ int rt_shade_launch(void** p, int n, int env_w, int env_h, int width, int height
   return (int)cudaGetLastError();
 }
 
-// p: 61 device pointers, BigShadeArgs field order.
+// p: 60 device pointers, BigShadeArgs field order; quad: the environment's
+// (env_w * env_h, 4) RGBE rows.
 int rt_big_shade_launch(void** p, const float* wtable, const float* mat, int n_mat, int n_sph,
-                        int n_pln, int n, int env_w, int env_h, int width, int height,
-                        int max_bounces, uint32_t it_next, uint32_t spp, uint32_t budget,
-                        uint32_t stride, uint32_t offset, void* stream) {
-  static_assert(sizeof(BigShadeArgs) == 61 * sizeof(void*), "BigShadeArgs layout");
+                        int n_pln, const void* quad, int n, int env_w, int env_h, int width,
+                        int height, int max_bounces, uint32_t it_next, uint32_t spp,
+                        uint32_t budget, uint32_t stride, uint32_t offset, void* stream) {
+  static_assert(sizeof(BigShadeArgs) == 60 * sizeof(void*), "BigShadeArgs layout");
   BigShadeArgs a;
   memcpy(&a, p, sizeof(a));
   if (n <= 0) return 0;
+  const EnvRows env{nullptr, (const uint4*)quad, env_w, env_h};
   ShadeScalars k{n, env_w, env_h, width, height, max_bounces, it_next, spp, budget, stride, offset};
   big_shade_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
-      a, wtable, mat, n_mat, n_sph, n_pln, k);
+      a, wtable, mat, n_mat, n_sph, n_pln, env, k);
+  return (int)cudaGetLastError();
+}
+
+// p: 8 device pointers, EnvDrawArgs field order; alias: the environment's
+// (env_w * env_h, 4) alias rows.
+int rt_env_draw_launch(void** p, const void* alias, int env_w, int env_h, int n, void* stream) {
+  static_assert(sizeof(EnvDrawArgs) == 8 * sizeof(void*), "EnvDrawArgs layout");
+  EnvDrawArgs a;
+  memcpy(&a, p, sizeof(a));
+  if (n <= 0) return 0;
+  const EnvRows env{(const float4*)alias, nullptr, env_w, env_h};
+  env_draw_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(a, env, n);
   return (int)cudaGetLastError();
 }
 

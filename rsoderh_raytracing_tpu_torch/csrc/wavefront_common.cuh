@@ -1,6 +1,6 @@
-// Device functions shared by the kernels: TRACE, SHADE and BIG_SHADE
-// (wavefront.cu), CHUNKED_CLOSEST and CHUNKED_ANY (chunked.cu), CLOSEST,
-// ANY and FUSED (sweep.cu).
+// Device functions shared by the kernels: TRACE, SHADE, ENV_DRAW and
+// BIG_SHADE (wavefront.cu), CHUNKED_CLOSEST and CHUNKED_ANY (chunked.cu),
+// CLOSEST, ANY and FUSED (sweep.cu).
 //
 // Every formula follows rsoderh_raytracing_tpu/ops/pallas_wavefront.py
 // and ops/pallas_intersect.py operand for operand. Constants that the
@@ -261,6 +261,63 @@ __device__ __forceinline__ BsdfSample bsdf_sample(uint32_t& state, V3 rd, V3 n, 
 // like XLA's f32 -> i32 conversion.
 __device__ __forceinline__ int quad_x0(float u, int w) {
   return clampi(__float2int_rz(floorf(u * (float)w - 0.5f)), 0, w - 1);
+}
+
+// -- the environment's rows (ops/envmap.py) ----------------------------------
+
+// (W*H) alias rows [probability, alias_index bits, pmf_self, pmf_alias] and
+// RGBE quad rows [c00 c10 c01 c11], 16 bytes each.
+struct EnvRows {
+  const float4* alias;
+  const uint4* quad;
+  int w, h;
+};
+
+// envmap.direction_to_equirect_uv and equirect_uv_to_direction, with the
+// reference shader's truncated PI.
+constexpr float INV_PI_HALF = (float)((1.0 / PI_D) * 0.5);
+constexpr float INV_PI_F = (float)(1.0 / PI_D);
+
+struct EnvSample {
+  float u, v, pmf;
+  V3 dir;
+};
+
+// The alias draw of the NEE texel (envmap.sample_alias_index): index,
+// accept, jitter x, jitter y on `state`, one 16-byte alias row (column 1
+// holds the alias index's bits); then the NEE direction at its jittered uv.
+// TRACE and ENV_DRAW both draw through it.
+__device__ __forceinline__ EnvSample env_sample(uint32_t& state, const EnvRows& env) {
+  const int length = env.w * env.h;
+  int index = min(__float2int_rz(rng_uniform(state) * (float)length), length - 1);
+  const float u_accept = rng_uniform(state);
+  const float4 pair = __ldg(env.alias + index);
+  const bool keep = u_accept < pair.x;
+  index = keep ? index : __float_as_int(pair.y);
+  EnvSample s;
+  s.pmf = keep ? pair.z : pair.w;
+  const float jitter_x = rng_uniform(state);
+  const float jitter_y = rng_uniform(state);
+  s.u = ((float)(index % env.w) + jitter_x) / (float)env.w;
+  s.v = ((float)(index / env.w) + jitter_y) / (float)env.h;
+  const float phi = (2.0f * s.u - 1.0f) * PI_F;
+  const float theta = PI_F * s.v;
+  const float sin_theta = sinf(theta);
+  s.dir = V3{sin_theta * cosf(phi), cosf(theta), sin_theta * sinf(phi)};
+  return s;
+}
+
+// The uv of a ray that escapes along (dx, dy, dz).
+__device__ __forceinline__ float miss_u(float dx, float dz) {
+  return atan2f(dz, dx) * INV_PI_HALF + 0.5f;
+}
+__device__ __forceinline__ float miss_v(float dy) {
+  return 0.5f - asinf(minn(maxn(dy, -1.0f), 1.0f)) * INV_PI_F;
+}
+
+// The quad row that serves uv (envmap.quad_index): one 32-byte sector.
+__device__ __forceinline__ uint4 quad_row(const EnvRows& env, float u, float v) {
+  return __ldg(env.quad + quad_x0(v, env.h) * env.w + quad_x0(u, env.w));
 }
 
 // -- primitive tests (pallas_intersect._sweep_body, one lane) ---------------

@@ -1,7 +1,7 @@
 """Build and bind the CUDA kernels in ``csrc/``.
 
 At first use, ``nvcc`` compiles every ``csrc/*.cu`` (``wavefront.cu``:
-TRACE, SHADE, BIG_SHADE; ``chunked.cu``: CHUNKED_CLOSEST, CHUNKED_ANY;
+TRACE, SHADE, ENV_DRAW, BIG_SHADE; ``chunked.cu``: CHUNKED_CLOSEST, CHUNKED_ANY;
 ``sweep.cu``: CLOSEST, ANY, FUSED; ``bvh.cu``: BVH_CLOSEST, BVH_ANY), one
 process a source, all started
 together, and links them into one
@@ -120,7 +120,8 @@ def load(flags=NVCC_FLAGS):
     signatures = {
         "rt_trace_launch": [vp, vp, i, i, i, i, i, i, vp, vp, i, i, vp],
         "rt_shade_launch": [vp, i, i, i, i, i, i, u, u, u, u, u, vp],
-        "rt_big_shade_launch": [vp, vp, vp, i, i, i, i, i, i, i, i, i, u, u, u, u, u, vp],
+        "rt_big_shade_launch": [vp, vp, vp, i, i, i, vp, i, i, i, i, i, i, u, u, u, u, u, vp],
+        "rt_env_draw_launch": [vp, vp, i, i, i, vp],
         "rt_chunked_closest_launch": [vp, vp, i, i, i, vp, vp, i, i, vp, vp, vp, i, i, vp],
         "rt_chunked_any_launch": [vp, vp, i, i, i, vp, vp, i, i, vp, i, i, vp],
         "rt_chunked_shared_bytes": [i, i],

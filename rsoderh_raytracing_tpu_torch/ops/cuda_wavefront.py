@@ -1,5 +1,5 @@
-"""TRACE, SHADE and BIG_SHADE: the per-lane kernels of one wavefront
-iteration.
+"""TRACE, SHADE, ENV_DRAW and BIG_SHADE: the per-lane kernels of one
+wavefront iteration.
 
 Counterpart of rsoderh_raytracing_tpu/ops/pallas_wavefront.py. One
 iteration of the small-scene path is
@@ -13,22 +13,28 @@ iteration of the small-scene path is
 
 and of the big-mesh path (render/wavefront.py)
 
-  [glue: alias draw, NEE and miss uv] [CHUNKED_CLOSEST] [glue: hit point]
-  [CHUNKED_ANY] [glue: fused uv, ONE quad-row gather]
+  [ENV_DRAW kernel: alias draw of the NEE texel (one 16-byte alias row),
+        NEE uv, pmf and direction] [CHUNKED_CLOSEST] [glue: hit point]
+  [CHUNKED_ANY]
   [BIG_SHADE kernel: the winner's union row (scene.winner), its normal
-        and material, trace_epilogue, the SHADE core]
+        and material, trace_epilogue, the fused uv and the 16-byte quad
+        row there, the SHADE core]
 
 ``trace_call`` takes the carried ray and RNG state and the environment and
 returns the Pallas twin's outputs (TRACE_OUT_NAMES) without its quad-row
-index, plus the NEE pmf and the quad row itself; ``shade_call`` and
-``big_shade_call`` keep the Pallas twins' inputs and outputs (the 22
-SHADE_OUT_NAMES), as flat (n,) tensors per component; BIG_SHADE takes the
-winner's (type, index) and reads its row itself instead of the Pallas
-call's 19 slot arrays. u32 values (RNG state, sample counts, pixel ids)
-travel as int32 bit patterns. For CPU tensors the wrappers run the plain
-versions ``trace_plain`` / ``shade_plain`` / ``big_shade_plain``; for
-CUDA tensors they launch the kernels in ``csrc/wavefront.cu`` or raise
-(also under RT_DISABLE_PALLAS=1: ``_device.use_plain``).
+index, plus the NEE pmf and the quad row itself; ``env_draw_call`` takes
+the carried RNG state and returns what the reference's XLA glue draws
+before its sweeps (ENV_DRAW_OUT_NAMES); ``shade_call`` and
+``big_shade_call`` keep the Pallas twins' outputs (the 22
+SHADE_OUT_NAMES), as flat (n,) tensors per component. BIG_SHADE takes the
+winner's (type, index), the NEE uv and the quad table, and reads the
+winner's row and the quad row itself instead of the Pallas call's 19 slot
+arrays and gathered quad row. u32 values (RNG state, sample counts, pixel
+ids) travel as int32 bit patterns. For CPU tensors the wrappers run the
+plain versions ``trace_plain`` / ``env_draw_plain`` / ``shade_plain`` /
+``big_shade_plain``; for CUDA tensors they launch the kernels in
+``csrc/wavefront.cu`` or raise (also under RT_DISABLE_PALLAS=1:
+``_device.use_plain``).
 ``LAUNCHES`` counts the kernel launches of each wrapper. Under
 RT_DEBUG_NANS=1 each wrapper checks its float outputs
 (``_device.check_nans``).
@@ -66,7 +72,7 @@ SHADE_INT_NAMES = ("state", "bounce", "sample", "in_path", "active", "hitmask")
 CARRY_NAMES = SHADE_OUT_NAMES[:-2]
 
 # Kernel launches of each wrapper (CUDA tensors only).
-LAUNCHES = {"trace": 0, "shade": 0, "big_shade": 0}
+LAUNCHES = {"trace": 0, "shade": 0, "env_draw": 0, "big_shade": 0}
 
 
 def reset_launches():
@@ -112,6 +118,20 @@ def trace_plain(scene, env, carry):
         state=rng.to_bits(st), fu=fu, fv=fv, nee_pmf=nee_pmf,
         quad=env.quad.index_select(0, envmap.quad_index(fu, fv, env_w, env_h)),
     )
+    return {k: v.contiguous() for k, v in out.items()}
+
+
+ENV_DRAW_OUT_NAMES = ("state", "nee_u", "nee_v", "nee_pmf", "nd0", "nd1", "nd2")
+
+
+def env_draw_plain(env, state):
+    """Plain PyTorch ENV_DRAW: envmap.env_draw (envmap.trace_glue without
+    the miss uv) on int32 ``state`` bits. Returns the outputs by
+    ENV_DRAW_OUT_NAMES: the state after the draw (int32 bits), the NEE uv
+    and pmf and the NEE direction, (n,) tensors."""
+    st, nee_u, nee_v, nee_pmf, nd = envmap.env_draw(rng.from_bits(state), env)
+    out = dict(state=rng.to_bits(st), nee_u=nee_u, nee_v=nee_v, nee_pmf=nee_pmf,
+               nd0=nd[0], nd1=nd[1], nd2=nd[2])
     return {k: v.contiguous() for k, v in out.items()}
 
 
@@ -347,6 +367,38 @@ def _trace_launch(scene, env, carry):
     return outs
 
 
+def env_draw_call(env, state):
+    """ENV_DRAW over the (n,) int32 RNG state bits and the RGBE
+    environment `env`; returns the outputs by ENV_DRAW_OUT_NAMES. CPU
+    tensors: env_draw_plain. CUDA tensors: the kernel, which reads each
+    lane's alias row itself."""
+    if _device.use_plain(state, "env_draw_call"):
+        out = env_draw_plain(env, state)
+    else:
+        out = _env_draw_launch(env, state)
+    return _device.check_nans("ENV_DRAW", out)
+
+
+def _env_draw_launch(env, state):
+    from rsoderh_raytracing_tpu_torch.ops import _kernels
+
+    n = state.shape[0]
+    dev = state.device
+    env_h, env_w = env.texture_shape
+    _check_rows("env.alias_pair", env.alias_pair, env_w * env_h, torch.float32, dev)
+    _check("state", state, n, torch.int32, dev)
+    outs = {k: torch.empty(n, device=dev, dtype=torch.int32 if k == "state" else torch.float32)
+            for k in ENV_DRAW_OUT_NAMES}
+    rc = _kernels.library().rt_env_draw_launch(
+        _ptrs([state] + [outs[k] for k in ENV_DRAW_OUT_NAMES]),
+        env.alias_pair.data_ptr(), env_w, env_h, n,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(rc, "ENV_DRAW")
+    LAUNCHES["env_draw"] += 1
+    return outs
+
+
 _SHADE_TRACE_IN = (
     "hit", "occ", "px", "py", "pz", "er", "eg", "eb",
     "ct", "ns0", "ns1", "ns2", "npdf",
@@ -397,7 +449,8 @@ def _shade_launch(
 
     n = nee_pmf.shape[0]
     dev = nee_pmf.device
-    _shade_lane_checks(n, dev, qwords, scal)
+    _check_rows("qwords", qwords, n, torch.int32, dev)
+    _check_scal(scal, dev)
     named = list(zip(SHADE_IN, (
         *(tr[k] for k in _SHADE_TRACE_IN), nee_pmf, *(carry[k] for k in _SHADE_CARRY_IN),
         pixel_index, pixel_x, pixel_y, base_sample,
@@ -422,31 +475,53 @@ def _shade_launch(
     return new_carry, outs["active"], outs["hitmask"]
 
 
-def _shade_lane_checks(n, dev, qwords, scal):
-    _check_rows("qwords", qwords, n, torch.int32, dev)
+def _check_scal(scal, dev):
     if scal.shape != (16,) or scal.dtype != torch.float32 or scal.device != dev:
         raise ValueError("scal: expected (16,) float32 on the device")
 
 
 BIG_TRACE_IN = ("hit", "occ", "btype", "bidx", "px", "py", "pz")
 # The per-lane inputs of the BIG_SHADE kernel, in launch order, 4 bytes
-# each (besides the 4-word quad row).
+# each (besides the 4-word quad row it reads).
 BIG_SHADE_IN = (
-    *BIG_TRACE_IN, "sx", "sy", "sz", "state", "fu", "fv", "nee_pmf", *_SHADE_CARRY_IN, *_PIXEL_IN,
+    *BIG_TRACE_IN, "sx", "sy", "sz", "state", "nee_u", "nee_v", "nee_pmf", *_SHADE_CARRY_IN,
+    *_PIXEL_IN,
 )
 
 
 def big_shade_plain(
     scene, env_w, env_h, width, height, max_bounces,
+    quad, tr, nee_dir, state, nee_u, nee_v, nee_pmf, carry,
+    pixel_index, pixel_x, pixel_y, base_sample, scal, iscal,
+):
+    """Plain PyTorch BIG_SHADE (pallas_wavefront._big_shade_kernel and the
+    fused uv's quad-row gather before it).
+
+    quad: the environment's (env_w * env_h, 4) int32 RGBE rows; tr:
+    hit/occ/btype/bidx (int32) and px/py/pz of the big-mesh sweeps;
+    nee_dir: 3-tuple; state: int32 u32 bits after the alias draw; nee_u,
+    nee_v, nee_pmf: the draw's (env_draw_call); the other arguments as in
+    shade_plain. Returns (new_carry, active, hitmask)."""
+    # the fused uv: the NEE sample's on a hit, the carried ray's miss uv on
+    # the others; then its quad row
+    miss_u, miss_v = envmap.direction_to_equirect_uv(carry["rd0"], carry["rd1"], carry["rd2"])
+    hit = tr["hit"] != 0
+    fu = torch.where(hit, nee_u, miss_u)
+    fv = torch.where(hit, nee_v, miss_v)
+    qwords = quad.index_select(0, envmap.quad_index(fu, fv, env_w, env_h))
+    return big_shade_body(
+        scene, env_w, env_h, width, height, max_bounces, qwords, tr, nee_dir, state, fu, fv,
+        nee_pmf, carry, pixel_index, pixel_x, pixel_y, base_sample, scal, iscal,
+    )
+
+
+def big_shade_body(
+    scene, env_w, env_h, width, height, max_bounces,
     qwords, tr, nee_dir, state, fu, fv, nee_pmf, carry,
     pixel_index, pixel_x, pixel_y, base_sample, scal, iscal,
 ):
-    """Plain PyTorch BIG_SHADE (pallas_wavefront._big_shade_kernel).
-
-    tr: hit/occ/btype/bidx (int32) and px/py/pz of the chunked sweeps;
-    nee_dir: 3-tuple; state: int32 u32 bits after the alias draw; the
-    other arguments as in shade_plain. Returns (new_carry, active,
-    hitmask)."""
+    """BIG_SHADE's shade from gathered quad rows `qwords` at the fused uv
+    (fu, fv): the Pallas kernel's body; arguments as in big_shade_plain."""
     ro = (carry["ro0"], carry["ro1"], carry["ro2"])
     rd = (carry["rd0"], carry["rd1"], carry["rd2"])
     px, py, pz = tr["px"], tr["py"], tr["pz"]
@@ -481,15 +556,16 @@ def big_shade_plain(
 
 def big_shade_call(
     scene, env_w, env_h, width, height, max_bounces,
-    qwords, tr, nee_dir, state, fu, fv, nee_pmf, carry,
+    quad, tr, nee_dir, state, nee_u, nee_v, nee_pmf, carry,
     pixel_index, pixel_x, pixel_y, base_sample, scal, iscal,
 ):
     """BIG_SHADE; returns (new_carry, active, hitmask). Arguments as in
     big_shade_plain. CPU tensors: big_shade_plain. CUDA tensors: the
-    kernel, which reads the winner's row of scene.winner itself."""
+    kernel, which reads the winner's row of scene.winner and the quad row
+    at the fused uv itself."""
     args = (
-        scene, env_w, env_h, width, height, max_bounces, qwords, tr, nee_dir, state,
-        fu, fv, nee_pmf, carry, pixel_index, pixel_x, pixel_y, base_sample, scal, iscal,
+        scene, env_w, env_h, width, height, max_bounces, quad, tr, nee_dir, state,
+        nee_u, nee_v, nee_pmf, carry, pixel_index, pixel_x, pixel_y, base_sample, scal, iscal,
     )
     run = big_shade_plain if _device.use_plain(nee_pmf, "big_shade_call") else _big_shade_launch
     return _checked_shade("BIG_SHADE", run(*args))
@@ -497,16 +573,17 @@ def big_shade_call(
 
 def _big_shade_launch(
     scene, env_w, env_h, width, height, max_bounces,
-    qwords, tr, nee_dir, state, fu, fv, nee_pmf, carry,
+    quad, tr, nee_dir, state, nee_u, nee_v, nee_pmf, carry,
     pixel_index, pixel_x, pixel_y, base_sample, scal, iscal,
 ):
     from rsoderh_raytracing_tpu_torch.ops import _kernels
 
     n = nee_pmf.shape[0]
     dev = nee_pmf.device
-    _shade_lane_checks(n, dev, qwords, scal)
+    _check_rows("quad (the RGBE layout)", quad, env_w * env_h, torch.int32, dev)
+    _check_scal(scal, dev)
     named = list(zip(BIG_SHADE_IN, (
-        *(tr[k] for k in BIG_TRACE_IN), *nee_dir, state, fu, fv, nee_pmf,
+        *(tr[k] for k in BIG_TRACE_IN), *nee_dir, state, nee_u, nee_v, nee_pmf,
         *(carry[k] for k in _SHADE_CARRY_IN), pixel_index, pixel_x, pixel_y, base_sample,
     )))
     ints = _SHADE_INT_IN | {"btype", "bidx"}
@@ -519,9 +596,9 @@ def _big_shade_launch(
     table, mat = scene.winner, scene.materials
     it_next, spp, budget, stride, offset = (int(x) & 0xFFFFFFFF for x in iscal)
     rc = _kernels.library().rt_big_shade_launch(
-        _ptrs([qwords] + [t for _, t in named] + [scal] + [outs[k] for k in SHADE_OUT_NAMES]),
+        _ptrs([t for _, t in named] + [scal] + [outs[k] for k in SHADE_OUT_NAMES]),
         table.data_ptr(), mat.data_ptr(), mat.shape[0],
-        scene.sph_radius.shape[0], scene.pln_valid.shape[0],
+        scene.sph_radius.shape[0], scene.pln_valid.shape[0], quad.data_ptr(),
         n, env_w, env_h, width, height, max_bounces,
         it_next, spp, budget, stride, offset,
         torch.cuda.current_stream(dev).cuda_stream,

@@ -85,14 +85,21 @@ def sample_alias_index(state: torch.Tensor, env: DeviceEnvironment):
     return state, index, u, v, pmf
 
 
+def env_draw(state: torch.Tensor, env: DeviceEnvironment):
+    """The alias draw from int64 ``state`` and its NEE direction: the
+    plain twin of the ENV_DRAW kernel (ops/cuda_wavefront.py). Returns
+    (state, nee_u, nee_v, nee_pmf, nee_dir)."""
+    state, _, nee_u, nee_v, nee_pmf = sample_alias_index(state, env)
+    return state, nee_u, nee_v, nee_pmf, equirect_uv_to_direction(nee_u, nee_v)
+
+
 def trace_glue(state: torch.Tensor, env: DeviceEnvironment, dx, dy, dz):
     """What one wavefront iteration computes from the environment before
     its sweeps (reference render/wavefront.py:928-938): the alias draw
-    from int64 ``state``, its NEE uv and direction, and the uv of the ray
-    (dx, dy, dz) should it escape. Returns (state, nee_u, nee_v, nee_pmf,
-    nee_dir, miss_u, miss_v)."""
-    state, _, nee_u, nee_v, nee_pmf = sample_alias_index(state, env)
-    nee_dir = equirect_uv_to_direction(nee_u, nee_v)
+    from int64 ``state``, its NEE uv and direction (env_draw), and the uv
+    of the ray (dx, dy, dz) should it escape. Returns (state, nee_u,
+    nee_v, nee_pmf, nee_dir, miss_u, miss_v)."""
+    state, nee_u, nee_v, nee_pmf, nee_dir = env_draw(state, env)
     miss_u, miss_v = direction_to_equirect_uv(dx, dy, dz)
     return state, nee_u, nee_v, nee_pmf, nee_dir, miss_u, miss_v
 

@@ -14,8 +14,9 @@ route):
 - ``card``: name and power limit as nvidia-smi reports them;
 - ``kernel``: one free-run call of budget 16 under torch.profiler; device
   ms per iteration for each kernel name (the 12 largest), then a
-  ``group`` line for the kernels (TRACE and SHADE, or CHUNKED_CLOSEST,
-  CHUNKED_ANY and BIG_SHADE on the big-mesh route), the row gathers
+  ``group`` line for the kernels (TRACE and SHADE, or ENV_DRAW,
+  CHUNKED_CLOSEST, CHUNKED_ANY and BIG_SHADE on the big-mesh route), the
+  row gathers
   (index_select) and the other glue, kernel launches per iteration, and
   the device busy share: the union of device intervals over the window
   from the first one's start to the last one's end (the window holds the
@@ -231,6 +232,7 @@ def scene_setup(name, device, env=None, with_bvh=False):
 KERNELS = {
     "trace": (cw.trace_call, cw.trace_plain),
     "shade": (cw.shade_call, cw.shade_plain),
+    "env_draw": (cw.env_draw_call, cw.env_draw_plain),
     **ci.ROUTE_CALLS[CHUNKED],
     "big_shade": (cw.big_shade_call, cw.big_shade_plain),
 }
@@ -272,7 +274,7 @@ def sweep_calls(trace_args):
     scene, env, carry = trace_args
     ro = (carry["ro0"], carry["ro1"], carry["ro2"])
     rd = (carry["rd0"], carry["rd1"], carry["rd2"])
-    nd = tuple(c.contiguous() for c in envmap.trace_glue(rng.from_bits(carry["state"]), env, *rd)[4])
+    nd = tuple(c.contiguous() for c in envmap.env_draw(rng.from_bits(carry["state"]), env)[4])
     hit = intersect.closest_sweep(scene, *ro, *rd)
     t_safe = torch.where(hit[1] >= 0, hit[0], 0.0)
     p = tuple((ro[k] + rd[k] * t_safe).contiguous() for k in range(3))
@@ -438,7 +440,8 @@ def _bvh_group(name):
 def _scan_group(name):
     if _bvh_group(name):
         return _bvh_group(name)
-    for kernel in ("chunked_closest_kernel", "chunked_any_kernel", "closest_kernel", "any_kernel"):
+    for kernel in ("env_draw_kernel", "chunked_closest_kernel", "chunked_any_kernel",
+                   "closest_kernel", "any_kernel"):
         if kernel in name:
             return kernel[: -len("_kernel")]
     if "gather" in name or "indexselect" in name.lower():
@@ -451,8 +454,8 @@ def _scan_group(name):
 def _group(name):
     if _bvh_group(name):
         return _bvh_group(name)
-    for kernel in ("trace_kernel", "big_shade_kernel", "chunked_closest_kernel",
-                   "chunked_any_kernel", "shade_kernel"):
+    for kernel in ("trace_kernel", "env_draw_kernel", "big_shade_kernel",
+                   "chunked_closest_kernel", "chunked_any_kernel", "shade_kernel"):
         if kernel in name:
             return kernel[: -len("_kernel")]
     # index_select's kernel (vectorized_gather_kernel, or indexSelect* in
@@ -887,7 +890,7 @@ def cluster_report(name, order, dev, card, env, bounds=True, budget=CLUSTER_BUDG
     out["mrays_per_s"] = rays / (time.perf_counter() - start) / 1e6
     after = {**ci.LAUNCHES, **cw.LAUNCHES}
     out["launches"] = "/".join(str(after[k] - before[k])
-                               for k in ("chunked_closest", "chunked_any", "big_shade"))
+                               for k in ("env_draw", "chunked_closest", "chunked_any", "big_shade"))
     print(f"[{label}] scene={name} order={order} size={SIZE} budget={budget} "
           + " ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}" for k, v in out.items())
           + f" card={card!r}", flush=True)
@@ -978,9 +981,9 @@ def split_main(dev, card) -> int:
 # torch.profiler trace of the same calls.
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
 # The kernels an iteration launches inside its wavefront.step span on each
-# route: TRACE, SHADE and BIG_SHADE ("shade_kernel" names both), the walks
-# and BVH_CLOSEST's fallback.
-STEP_KERNELS = ("trace_kernel", "shade_kernel", "walk_kernel", "fallback_kernel")
+# route: TRACE, SHADE and BIG_SHADE ("shade_kernel" names both), ENV_DRAW,
+# the walks and BVH_CLOSEST's fallback.
+STEP_KERNELS = ("trace_kernel", "shade_kernel", "env_draw_kernel", "walk_kernel", "fallback_kernel")
 SPANS_CALLS = 6  # --path spans: calls a side of the tracing-cost comparison
 SPANS_ITERATIONS = 64
 

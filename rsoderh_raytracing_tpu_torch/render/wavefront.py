@@ -10,10 +10,11 @@ loop runs, by the scene's route (scene/device.route):
 
 - small scenes: the TRACE kernel (the alias draw, NEE and miss uv and the
   quad-row read inside it) and the SHADE kernel (ops/cuda_wavefront.py);
-- the big-mesh route: the same glue as tensor code (``envmap.trace_glue``),
-  CHUNKED_CLOSEST over live lanes, the hit point, CHUNKED_ANY over live
-  hit lanes (ops/cuda_intersect.py), the fused uv and one quad-row
-  gather, and BIG_SHADE, which reads the winner's union row itself;
+- the big-mesh route: the ENV_DRAW kernel (the alias draw and the NEE
+  direction, TRACE's first lines alone), CHUNKED_CLOSEST over live
+  lanes, the hit point, CHUNKED_ANY over live hit lanes
+  (ops/cuda_intersect.py), and BIG_SHADE, which reads the winner's union
+  row and the quad row at the fused uv itself;
 - the BVH route (a scene built with a BVH): the same iteration with
   BVH_CLOSEST and BVH_ANY in place of the chunked kernels. The reference
   renders such scenes through its composed body; BIG_SHADE computes the
@@ -361,13 +362,14 @@ class Wavefront:
         self.carry = permute_carry(self.carry, torch.argsort(key, stable=True))
 
     def step(
-        self, it, trace=cw.trace_call, shade=cw.shade_call,
+        self, it, trace=cw.trace_call, shade=cw.shade_call, env_draw=cw.env_draw_call,
         closest=None, occlusion=None, big_shade=cw.big_shade_call,
     ):
         """One iteration (number `it`, from 0). The kernel arguments
         default to the wrappers (closest and occlusion to the route's in
         ci.ROUTE_CALLS: the chunked kernels', or the BVH walks'; the
-        composed body takes none of them). Traced as the span
+        composed body takes none of them; the small route takes trace and
+        shade, the big-mesh routes the other four). Traced as the span
         wavefront.step (it, slot, device), whose parts step.<part> cover
         the stretches of the iteration (tracing.py)."""
         calls = ci.ROUTE_CALLS.get(self.route, ci.ROUTE_CALLS[CHUNKED])
@@ -375,9 +377,9 @@ class Wavefront:
         occlusion = occlusion or calls["occlusion"][0]
         with tracing.span("wavefront.step", self.cuda, it=it, slot=self.slot,
                           device=self.device_name) as span:
-            self._step(it, span.part, trace, shade, closest, occlusion, big_shade)
+            self._step(it, span.part, trace, shade, env_draw, closest, occlusion, big_shade)
 
-    def _step(self, it, mark, trace, shade, closest, occlusion, big_shade):
+    def _step(self, it, mark, trace, shade, env_draw, closest, occlusion, big_shade):
         if self.compact_every > 0 and it > 0 and it % self.compact_every == 0:
             mark("step.compact")
             self.permute()
@@ -416,9 +418,9 @@ class Wavefront:
                 q, tr, nee_pmf, c, *lanes,
             )
         elif self.route in (CHUNKED, BVH):
-            mark("step.glue")
-            state, nee_u, nee_v, nee_pmf, nd, mu, mv = envmap.trace_glue(
-                rng.from_bits(c["state"]), self.env, *rd)
+            mark("step.env_draw")
+            draw = env_draw(self.env, c["state"])
+            nd = (draw["nd0"], draw["nd1"], draw["nd2"])
             mark("step.closest")
             t, btype, bidx = closest(self.scene, ro, rd, c["in_path"])
             mark("step.glue")
@@ -428,16 +430,13 @@ class Wavefront:
             hit_mask = (did_hit & (c["in_path"] != 0)).to(torch.int32)
             mark("step.occlusion")
             occ = occlusion(self.scene, p, nd, hit_mask)
-            mark("step.gather")
-            fu = torch.where(did_hit, nee_u, mu)
-            fv = torch.where(did_hit, nee_v, mv)
-            qw = self.env.quad.index_select(0, envmap.quad_index(fu, fv, env_w, env_h))
             mark("step.big_shade")
             tr = dict(hit=did_hit.to(torch.int32), occ=occ, btype=btype, bidx=bidx,
                       px=p[0], py=p[1], pz=p[2])
             self.carry, act, hitm = big_shade(
                 self.scene, env_w, env_h, self.width, self.height, self.max_bounces,
-                qw, tr, nd, rng.to_bits(state), fu, fv, nee_pmf, c, *lanes,
+                self.env.quad, tr, nd, draw["state"], draw["nee_u"], draw["nee_v"],
+                draw["nee_pmf"], c, *lanes,
             )
         else:
             mark("step.trace")

@@ -4,11 +4,18 @@ tile over the big-mesh scene of conftest's big_tri_scene (200 triangles
 in 4 chunks, one sphere, one plane: every winner type).
 
 Both sides get one host scene and one seeded numpy input: winner (type,
-index) pairs with misses, hit points, NEE directions, RNG states, fused
-uvs with their real quad rows, and the carry. The Pallas twin takes the
-19 slot tiles of JAX's winner_table rows at the global winner index
-(render/wavefront.py:1003-1010 of the reference); the port takes the
-(type, index) pairs and reads its own union rows (scene.winner).
+index) pairs with misses, hit points, NEE directions and uvs, RNG states
+and the carry. The Pallas twin takes the 19 slot tiles of JAX's
+winner_table rows at the global winner index (render/wavefront.py:
+1003-1010 of the reference) and the fused uv (the NEE uv on hit lanes,
+the carried ray's miss uv on the others) with its gathered quad rows;
+the port takes the (type, index) pairs, the NEE uv and the quad table,
+and reads its own union rows (scene.winner) and quad rows. The NEE uvs
+of the first four hit lanes lie on and just past the texture's edges.
+
+big_shade_plain, which computes the fused uv and gathers its quad row
+itself, is held bitwise to that composition spelled out (the fused uv,
+envmap.quad_index, one index_select, then big_shade_body).
 
 Tolerances as in tests/test_torch_shade.py and test_torch_trace.py:
 torch and XLA round sqrt, sin and cos differently and XLA contracts
@@ -67,14 +74,18 @@ def seeded_inputs(js, env):
     bidx = np.array([g.integers(0, real[t]) if t >= 0 else 0 for t in btype], np.int32)
     gidx = np.where(btype == 0, bidx, np.where(btype == 1, n_sph + bidx,
                                                np.where(btype == 2, n_sph + n_pln + bidx, 0)))
-    fu = g.random(N, dtype=np.float32)
-    fv = g.random(N, dtype=np.float32)
-    fu[:4] = [0.0, 1.0, -8.4e-7, 1.0000008]
-    fv[:4] = [0.0, 1.0, 0.5, 0.5]
-    qidx = envmap.quad_index(torch.from_numpy(fu), torch.from_numpy(fv), env_w, env_h).numpy()
+    nee_u = g.random(N, dtype=np.float32)
+    nee_v = g.random(N, dtype=np.float32)
+    edges = np.flatnonzero(btype >= 0)[:4]
+    nee_u[edges] = [0.0, 1.0, -8.4e-7, 1.0000008]
+    nee_v[edges] = [0.0, 1.0, 0.5, 0.5]
     rd = -unit(N)
     rd[2] = -np.abs(rd[2])
     rd /= np.linalg.norm(rd, axis=0)
+    miss_u, miss_v = (t.numpy() for t in envmap.direction_to_equirect_uv(*torch.from_numpy(rd)))
+    fu = np.where(btype >= 0, nee_u, miss_u)
+    fv = np.where(btype >= 0, nee_v, miss_v)
+    qidx = envmap.quad_index(torch.from_numpy(fu), torch.from_numpy(fv), env_w, env_h).numpy()
     carry = dict(
         tp0=f32(g.random(N)), tp1=f32(g.random(N)), tp2=f32(g.random(N)),
         inc0=f32(g.random(N)), inc1=f32(g.random(N)), inc2=f32(g.random(N)),
@@ -111,19 +122,41 @@ def seeded_inputs(js, env):
     return dict(
         gidx=gidx, quad=np.asarray(env.quad)[qidx], tr=tr, carry=carry, pix=pix, scal=scal,
         nee=nee, state=g.integers(0, 2**32, N, dtype=np.uint64).astype(np.uint32),
-        fu=fu, fv=fv, npmf=f32(g.exponential(1.0 / (env_w * env_h), N)),
+        fu=fu, fv=fv, nee_u=nee_u, nee_v=nee_v, npmf=f32(g.exponential(1.0 / (env_w * env_h), N)),
     )
 
 
 @pytest.fixture(scope="module")
-def big_shade_pair(big_tri_scene):
+def big_shade_inputs(big_tri_scene):
+    """(JAX scene, port scene, JAX environment, seeded inputs)."""
     js = j_build(big_tri_scene)
     ts = device_scene_from_arrays({f: np.asarray(getattr(js, f)) for f in FIELDS}, device="cpu")
     env = j_device_environment(
         JEnvironment.from_texture("s", procedural_sky(64, 32, sun_intensity=50.0, sun_radius=0.15))
     )
+    return js, ts, env, seeded_inputs(js, env)
+
+
+def port_args(ts, env, x):
+    """big_shade_plain's arguments from the seeded inputs: the quad table
+    and the NEE uv, which it turns into the fused uv's quad rows."""
     env_h, env_w = env.texture_shape
-    x = seeded_inputs(js, env)
+    t = cw.tiles_to_flat
+    quad = torch.from_numpy(np.asarray(env.quad).view(np.int32).copy())
+    return (
+        ts, env_w, env_h, WIDTH, HEIGHT, MAX_BOUNCES, quad, t(x["tr"]),
+        tuple(torch.from_numpy(x["nee"][k].copy()) for k in range(3)),
+        torch.from_numpy(x["state"].view(np.int32).copy()),
+        torch.from_numpy(x["nee_u"]), torch.from_numpy(x["nee_v"]), torch.from_numpy(x["npmf"]),
+        t(x["carry"]), *(t(x["pix"])[k] for k in ("pixel_index", "pixel_x", "pixel_y", "base_sample")),
+        torch.from_numpy(x["scal"]), ISCAL,
+    )
+
+
+@pytest.fixture(scope="module")
+def big_shade_pair(big_shade_inputs):
+    js, ts, env, x = big_shade_inputs
+    env_h, env_w = env.texture_shape
 
     def tile(a):
         return jnp.asarray(np.asarray(a).reshape(ROWS, LANES))
@@ -153,21 +186,31 @@ def big_shade_pair(big_tri_scene):
          "active": np.asarray(act), "hitmask": np.asarray(hitm)}
     )
 
-    t = cw.tiles_to_flat
-    got_carry, got_act, got_hit = cw.big_shade_plain(
-        ts, env_w, env_h, WIDTH, HEIGHT, MAX_BOUNCES,
-        torch.from_numpy(x["quad"].view(np.int32).copy()), t(x["tr"]),
-        tuple(torch.from_numpy(x["nee"][k].copy()) for k in range(3)),
-        torch.from_numpy(x["state"].view(np.int32).copy()),
-        torch.from_numpy(x["fu"]), torch.from_numpy(x["fv"]), torch.from_numpy(x["npmf"]),
-        t(x["carry"]), *(t(x["pix"])[k] for k in ("pixel_index", "pixel_x", "pixel_y", "base_sample")),
-        torch.from_numpy(x["scal"]), ISCAL,
-    )
+    got_carry, got_act, got_hit = cw.big_shade_plain(*port_args(ts, env, x))
     got = {**got_carry, "active": got_act, "hitmask": got_hit}
     rough = np.asarray(js.mat_roughness)
     mat = np.rint(rows[:, 18]).astype(np.int64)
     specular = (x["tr"]["hit"] != 0) & (rough[mat] ** 2 < SPECULAR_ALPHA)
     return ref, got, specular
+
+
+def test_big_shade_plain_equals_the_old_composition(big_shade_inputs):
+    """The fused uv, its quad_index and one index_select of the quad table
+    (what the big-mesh iteration ran as tensor code before BIG_SHADE read
+    its own row), then big_shade_body: bitwise big_shade_plain's outputs."""
+    _, ts, env, x = big_shade_inputs
+    args = port_args(ts, env, x)
+    env_h, env_w = env.texture_shape
+    quad, tr, nee_u, nee_v, carry = args[6], args[7], args[10], args[11], args[13]
+    miss_u, miss_v = envmap.direction_to_equirect_uv(carry["rd0"], carry["rd1"], carry["rd2"])
+    hit = tr["hit"] != 0
+    fu, fv = torch.where(hit, nee_u, miss_u), torch.where(hit, nee_v, miss_v)
+    qwords = quad.index_select(0, envmap.quad_index(fu, fv, env_w, env_h))
+    assert torch.equal(qwords, torch.from_numpy(x["quad"].view(np.int32)))
+    want = cw.big_shade_body(*args[:6], qwords, tr, args[8], args[9], fu, fv, *args[12:])
+    got = cw.big_shade_plain(*args)
+    for a, b in zip((*got[0].values(), got[1], got[2]), (*want[0].values(), want[1], want[2])):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 def test_inputs_take_every_branch(big_shade_pair):

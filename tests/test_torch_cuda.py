@@ -12,7 +12,7 @@ The bounds are chip_smoke.py's: each integer output equal, and each
 float output isclose(1e-4, 1e-5), on at least 99.99% of the lanes.
 TRACE's NEE pmf and quad row are bitwise its plain version's on every
 lane, and so is its NEE uv (the alias draw's texel and jitter) on the
-lanes where both hit. CLOSEST, ANY and FUSED keep hit, occlusion, type,
+lanes where both hit; ENV_DRAW's state, NEE uv and pmf on every lane. CLOSEST, ANY and FUSED keep hit, occlusion, type,
 index and t bitwise their plain versions' through the sweep's
 division-free pre-test.
 """
@@ -630,6 +630,61 @@ def test_bvh_kernels_match_plain_on_a_loop_state(bvh_state):
     args = bvh_state["occlusion"]
     assert torch.equal(ci.bvh_any_call(*args), bvh_ops.any_plain(*args))
     assert int(args[3].sum()) > 0
+
+
+def test_env_draw_kernel_matches_plain_on_a_bvh_loop_state(bvh_state):
+    """ENV_DRAW on the BVH route's loop state against its plain twin: the
+    state, NEE uv and pmf bitwise on every lane, and so the alias index
+    (the uv is the index's texel plus the jitter of the same draws, and
+    two texels' uvs differ by far more than an ulp); the NEE direction at
+    the gates."""
+    args = bvh_state["env_draw"]
+    before = cw.LAUNCHES["env_draw"]
+    got = cw.env_draw_call(*args)
+    assert cw.LAUNCHES["env_draw"] == before + 1
+    ref = cw.env_draw_plain(*args)
+    exact = ("state", "nee_u", "nee_v", "nee_pmf")
+    assert {k: int(_bits_differ(got[k], ref[k]).sum()) for k in exact} == dict.fromkeys(exact, 0)
+    _compare(got, ref, {"state"})
+
+
+def test_big_shade_kernel_matches_plain_on_a_bvh_loop_state(bvh_state):
+    """BIG_SHADE, which reads the quad row at the fused uv itself, against
+    big_shade_plain (the fused uv, one index_select, the shade) output by
+    output."""
+    args = bvh_state["big_shade"]
+    carry, act, hitm = cw.big_shade_call(*args)
+    ref_carry, ref_act, ref_hitm = cw.big_shade_plain(*args)
+    _compare(dict(carry, active=act, hitmask=hitm), dict(ref_carry, active=ref_act, hitmask=ref_hitm),
+             cw.SHADE_INT_NAMES)
+
+
+def test_bvh_step_runs_no_gather_and_one_env_draw(dev, tmp_path):
+    """One BVH-route Wavefront.step under torch.profiler: one ENV_DRAW
+    launch, and no index_select, on the host or as a kernel of the gather
+    group (profiling._group) on the card."""
+    from rsoderh_raytracing_tpu_torch.profiling import kernel_breakdown
+
+    scene = load_scene(os.path.join(SCENES, "suzanne.toml"))
+    ds = build_device_scene(scene, dev, with_bvh=True)
+    env = device_environment(Environment.from_texture("s", procedural_sky(256, 128)), dev)
+    wave = Wavefront(ds, env, camera_pytree(scene.camera, dev), 0, (128, 128), NO_LIMIT, 32, 8)
+    for it in range(3):
+        wave.step(it)
+    torch.cuda.synchronize()
+    before = cw.LAUNCHES["env_draw"]
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        wave.step(3)
+        torch.cuda.synchronize()
+    assert cw.LAUNCHES["env_draw"] == before + 1
+    assert [e.key for e in prof.key_averages() if "index_select" in e.key] == []
+    path = str(tmp_path / "step.json")
+    prof.export_chrome_trace(path)
+    launched = {}
+    per_kernel, groups, _, _ = kernel_breakdown(path, 1, group_launches=launched)
+    assert groups["gather"] == 0.0, per_kernel
+    assert launched["env_draw"] == 1 and launched["big_shade"] == 1
 
 
 def test_card_bvh_render_matches_cpu_render(dev):

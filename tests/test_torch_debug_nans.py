@@ -99,6 +99,7 @@ def _call(states, case):
         "CLOSEST": lambda: ci.closest_call(scene, ro, rd),
         "FUSED": lambda: ci.fused_call(scene, ro, rd, rd),
         "CHUNKED_CLOSEST": lambda: ci.chunked_closest_call(*states["chunked"]["closest"]),
+        "ENV_DRAW": lambda: cw.env_draw_call(*states["chunked"]["env_draw"]),
         "BIG_SHADE": lambda: cw.big_shade_call(*states["chunked"]["big_shade"]),
         "BVH_CLOSEST": lambda: ci.bvh_closest_call(*states["bvh"]["closest"]),
         "CLOSEST house_tiled64": lambda: ci.closest_call(states["tiled"], ro, rd),
@@ -114,6 +115,7 @@ INJECT = {
     "CLOSEST": (intersect, "closest_record", "px", "px"),
     "FUSED": (intersect, "trace_attrs", "nx", "nx"),
     "CHUNKED_CLOSEST": (intersect, "chunked_closest_plain", 0, "t"),
+    "ENV_DRAW": (cw, "env_draw_plain", "nee_u", "nee_u"),
     "BIG_SHADE": (cw, "big_shade_plain", "film0", "film0"),
     "BVH_CLOSEST": (bvh_ops, "closest_plain", 0, "t"),
     "CLOSEST house_tiled64": (intersect, "closest_record", "t", "t"),

@@ -244,7 +244,7 @@ def test_wrappers_on_cpu_run_plain_and_count_nothing(trace_pair):
     env, carry = port_inputs(0)
     cw.reset_launches()
     out = cw.trace_call(port_scene(jscene), env, carry)
-    assert cw.LAUNCHES == {"trace": 0, "shade": 0, "big_shade": 0}
+    assert cw.LAUNCHES == {"trace": 0, "shade": 0, "env_draw": 0, "big_shade": 0}
     assert out.keys() == got.keys()
     assert all(torch.equal(out[k], got[k]) for k in out)
     equal = out["hit"].numpy() == ref["hit"].numpy()

@@ -36,6 +36,7 @@ spheres 53.7% within 1e-4, non-flipped relative RMSE 8.2e-4, image mean
 3.2% from the oracle's.
 """
 
+import collections
 import os
 
 import numpy as np
@@ -181,6 +182,78 @@ def test_small_route_runs_no_glue_outside_trace(house_scene, monkeypatch):
     for it in range(3):
         wave.step(it, trace=trace)
     assert calls == {"inside": 3, "outside": 0}
+
+
+def test_env_draw_call_on_cpu_is_trace_glue(house_scene):
+    """ENV_DRAW's wrapper on CPU tensors runs its plain twin, launches
+    nothing, and gives trace_glue's state, NEE uv, pmf and direction bit
+    for bit, on states that span the u32 range."""
+    from rsoderh_raytracing_tpu_torch.ops import cuda_wavefront as cw
+    from rsoderh_raytracing_tpu_torch.ops import envmap, rng
+
+    env = _house_args(house_scene)[1]
+    bits = np.random.default_rng(5).integers(-2**31, 2**31, 4096).astype(np.int32)
+    bits[:4] = [0, -1, 2**31 - 1, -2**31]
+    state = torch.from_numpy(bits)
+    before = dict(cw.LAUNCHES)
+    out = cw.env_draw_call(env, state)
+    assert cw.LAUNCHES == before
+    assert tuple(out) == cw.ENV_DRAW_OUT_NAMES
+    rd = torch.zeros(4096)
+    st, nee_u, nee_v, nee_pmf, nd, _, _ = envmap.trace_glue(rng.from_bits(state), env, rd, rd + 1.0, rd)
+    want = dict(state=rng.to_bits(st), nee_u=nee_u, nee_v=nee_v, nee_pmf=nee_pmf,
+                nd0=nd[0], nd1=nd[1], nd2=nd[2])
+    for k in cw.ENV_DRAW_OUT_NAMES:
+        assert out[k].is_contiguous() and out[k].dtype == want[k].dtype, k
+        assert torch.equal(out[k].view(torch.int32), want[k].view(torch.int32)), k
+
+
+@pytest.mark.parametrize("with_bvh", [False, True])
+def test_big_route_reads_environment_rows_only_in_its_kernels(assets_dir, monkeypatch, with_bvh):
+    """An iteration of the big-mesh routes (chunked, and BVH) draws from
+    the alias table only inside ENV_DRAW and reads quad rows only inside
+    BIG_SHADE (whose plain twins hold the draw and the gather): the tensor
+    code between the kernels takes no row of the environment, which on the
+    card would be a PyTorch gather."""
+    from rsoderh_raytracing_tpu_torch.ops import cuda_wavefront as cw
+    from rsoderh_raytracing_tpu_torch.ops import envmap
+    from rsoderh_raytracing_tpu_torch.render.wavefront import NO_LIMIT, Wavefront
+
+    scene = t_load_scene(os.path.join(assets_dir, "scenes", "suzanne.toml"))
+    env = device_environment(Environment.from_texture("s", procedural_sky(64, 32)), device="cpu")
+    tables = {t.untyped_storage().data_ptr(): name for name, t in
+              (("alias", env.alias_pair), ("alias", env.alias_index), ("quad", env.quad))}
+    calls = collections.Counter()
+    where = ["outside"]
+    draw, index_select = envmap.sample_alias_index, torch.Tensor.index_select
+
+    def counted_draw(*args):
+        calls[("draw", where[0])] += 1
+        return draw(*args)
+
+    def counted_index_select(src, *args, **kwargs):
+        name = tables.get(src.untyped_storage().data_ptr())
+        if name:
+            calls[(name, where[0])] += 1
+        return index_select(src, *args, **kwargs)
+
+    def inside(fn):
+        def wrapped(*args):
+            where[0] = "inside"
+            try:
+                return fn(*args)
+            finally:
+                where[0] = "outside"
+        return wrapped
+
+    monkeypatch.setattr(envmap, "sample_alias_index", counted_draw)
+    monkeypatch.setattr(torch.Tensor, "index_select", counted_index_select)
+    ds = build_device_scene(scene, device="cpu", with_bvh=with_bvh)
+    wave = Wavefront(ds, env, camera_pytree(scene.camera, device="cpu"), 0, (16, 8), NO_LIMIT, 4,
+                     BOUNCES)
+    for it in range(3):
+        wave.step(it, env_draw=inside(cw.env_draw_call), big_shade=inside(cw.big_shade_call))
+    assert calls == {("draw", "inside"): 3, ("alias", "inside"): 6, ("quad", "inside"): 3}
 
 
 @pytest.mark.parametrize("name", ["default", "house"])
