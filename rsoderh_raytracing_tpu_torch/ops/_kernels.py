@@ -130,7 +130,7 @@ def load(flags=NVCC_FLAGS):
         "rt_closest_launch": [vp, vp, i, i, i, i, i, i, i, i, i, vp],
         "rt_any_launch": [vp, vp, i, i, i, i, i, i, i, i, vp],
         "rt_fused_launch": [vp, vp, i, i, i, i, i, i, vp],
-        "rt_bvh_closest_launch": [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, vp, i, vp],
+        "rt_bvh_closest_launch": [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, vp, vp, i, vp],
         "rt_bvh_any_launch": [vp, vp, vp, vp, i, i, vp, i, vp],
     }
     for name, argtypes in signatures.items():

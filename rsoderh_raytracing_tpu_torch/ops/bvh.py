@@ -410,11 +410,13 @@ def traverse_any(bvh: DeviceBVH, ro, rd, mask=None, counts=None):
     return _walk(bvh, ro, rd, _lanes(ro, mask), False, _counts(counts))
 
 
-def closest_plain(scene, ro, rd, live, counts=None):
+def closest_plain(scene, ro, rd, live, counts=None, *, fallback_lanes=None):
     """BVH_CLOSEST's plain twin: (t f32, type i32, index i32) of the walk,
     and on a BVH miss of the linear sphere and plane sweep
     (intersect._sweep_bvh) over the valid rows (scene.sweep_rows); lanes
-    with live == 0 hold (3e38, -1, 0)."""
+    with live == 0 hold (3e38, -1, 0). fallback_lanes, an int64 scalar
+    tensor, gets the number of lanes the sweep took added in place, as
+    the kernel's fallback pass adds it."""
     from rsoderh_raytracing_tpu_torch.ops import intersect
 
     bvh = scene.bvh
@@ -426,6 +428,8 @@ def closest_plain(scene, ro, rd, live, counts=None):
     pidx = torch.where(hit, bvh.prim_index.index_select(0, safe), 0).to(torch.int32)
     miss = torch.nonzero(~hit & (live != 0)).squeeze(1)
     counts["fallback_lanes"] += int(miss.numel())
+    if fallback_lanes is not None:
+        fallback_lanes.add_(int(miss.numel()))
     if miss.numel():
         rays = tuple(c.index_select(0, miss) for c in (*ro, *rd))
         fb = intersect._sweep(scene, rays, (intersect.SPHERE, intersect.PLANE), scene.sweep_rows)

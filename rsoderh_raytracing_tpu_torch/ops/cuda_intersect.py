@@ -305,22 +305,29 @@ def _bvh_args(scene, rays, mask, what):
     return n, dev, tree, torch.empty(1, dtype=torch.int32, device=dev)
 
 
-def bvh_closest_call(scene, ro, rd, live):
+def bvh_closest_call(scene, ro, rd, live, *, fallback_lanes=None):
     """BVH_CLOSEST: the closest hit of rays (ro, rd) by the BVH walk, and
     on a BVH miss by the sphere and plane sweep, for lanes with live != 0;
-    (3e38, -1, 0) on the others. Returns (t f32, type i32, index i32)."""
+    (3e38, -1, 0) on the others. Returns (t f32, type i32, index i32).
+    fallback_lanes: an int64 scalar tensor on the lanes' device, which
+    gets the number of lanes the sweep took added in place (None: not
+    counted)."""
     _bvh_depth(scene, "bvh_closest_call")
     if _device.use_plain(live, "bvh_closest_call"):
-        out = bvh_ops.closest_plain(scene, ro, rd, live)
+        out = bvh_ops.closest_plain(scene, ro, rd, live, fallback_lanes=fallback_lanes)
     else:
-        out = _bvh_closest_launch(scene, ro, rd, live)
+        out = _bvh_closest_launch(scene, ro, rd, live, fallback_lanes)
     return _device.check_nans("BVH_CLOSEST", out, ("t", "type", "index"))
 
 
-def _bvh_closest_launch(scene, ro, rd, live):
+def _bvh_closest_launch(scene, ro, rd, live, fallback_lanes):
     from rsoderh_raytracing_tpu_torch.ops import _kernels
 
     n, dev, tree, fetch = _bvh_args(scene, (*ro, *rd), live, "bvh_closest_call")
+    if fallback_lanes is not None and (fallback_lanes.device != dev or fallback_lanes.dtype != torch.int64
+                                       or fallback_lanes.numel() != 1):
+        raise ValueError(f"bvh_closest_call: fallback_lanes must be one int64 on {dev}, got "
+                         f"{tuple(fallback_lanes.shape)} {fallback_lanes.dtype} on {fallback_lanes.device}")
     t = torch.empty(n, device=dev, dtype=torch.float32)
     ptype = torch.empty(n, device=dev, dtype=torch.int32)
     pidx = torch.empty(n, device=dev, dtype=torch.int32)
@@ -328,7 +335,8 @@ def _bvh_closest_launch(scene, ro, rd, live):
     rc = _kernels.library().rt_bvh_closest_launch(
         cw._ptrs((*ro, *rd, live, t, ptype, pidx)), *tree, b.prim_type.data_ptr(),
         b.prim_index.data_ptr(), b.small.data_ptr(), scene.sph_radius.shape[0],
-        *scene.sweep_rows[:2], b.root, b.depth, fetch.data_ptr(), n,
+        *scene.sweep_rows[:2], b.root, b.depth, fetch.data_ptr(),
+        None if fallback_lanes is None else fallback_lanes.data_ptr(), n,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     cw._raise_on(rc, "BVH_CLOSEST")

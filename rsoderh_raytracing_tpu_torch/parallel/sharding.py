@@ -258,7 +258,7 @@ def render_freerun_sharded(
     summed, counts = [None] * len(mesh.grid), [None] * len(mesh.grid)
     shard_counts = torch.empty((s_n, height, width), dtype=torch.int64, device=first)
     zero = torch.zeros((), dtype=torch.int64, device=first)
-    stats = {"closest_rays": zero, "shadow_rays": zero, "iterations": zero}
+    stats = {"closest_rays": zero, "shadow_rays": zero, "iterations": zero, "fallback_lanes": zero}
     for t, s, slot, local, wave in slots:
         with _on(slot):
             film, cnt, st = wave.results()
@@ -269,6 +269,7 @@ def render_freerun_sharded(
         shard_counts[s, t * rows:(t + 1) * rows] = (local + cnt) & rng.MASK
         stats["closest_rays"] = stats["closest_rays"] + st["closest_rays"].to(first)
         stats["shadow_rays"] = stats["shadow_rays"] + st["shadow_rays"].to(first)
+        stats["fallback_lanes"] = stats["fallback_lanes"] + st["fallback_lanes"].to(first)
         stats["iterations"] = torch.maximum(stats["iterations"], st["iterations"].to(first))
     out = (torch.cat(summed, dim=0), torch.cat(counts, dim=0), shard_counts)
     return (*out, stats) if with_stats else out

@@ -251,9 +251,9 @@ def capture_step(wave, it, plain=False):
     captured = {}
 
     def capture(key, fn):
-        def wrapped(*args):
+        def wrapped(*args, **kwargs):
             captured[key] = args
-            return fn(*args)
+            return fn(*args, **kwargs)
         return wrapped
 
     wave.step(it, **{k: capture(k, fns[1] if plain else fns[0])

@@ -37,14 +37,21 @@ from rsoderh_raytracing_tpu_torch.utils.png import write_png
 
 
 def host_stats(stats) -> dict:
-    """A call's device counters (rays traced, iterations run) on the host:
-    three syncs on the card (the span renderer.stats, sync.stats)."""
+    """A call's device counters (rays traced, iterations run, the closest
+    rays BVH_CLOSEST's fallback swept) on the host, in one copy: one sync
+    on the card (the span renderer.stats, sync.stats; the counter
+    bvh.fallback_lanes adds the swept lanes)."""
     with tracing.span("renderer.stats"):
-        tracing.count("sync.stats", 3)
+        tracing.count("sync.stats")
+        keys = ("closest_rays", "shadow_rays", "iterations", "fallback_lanes")
+        closest, shadow, iterations, fallback = torch.stack([stats[k] for k in keys]).cpu().tolist()
+        if fallback:
+            tracing.count("bvh.fallback_lanes", fallback)
         return {
-            "closest_rays": float(stats["closest_rays"]),
-            "shadow_rays": float(stats["shadow_rays"]),
-            "iterations": int(stats["iterations"]),
+            "closest_rays": float(closest),
+            "shadow_rays": float(shadow),
+            "iterations": int(iterations),
+            "fallback_lanes": int(fallback),
         }
 
 

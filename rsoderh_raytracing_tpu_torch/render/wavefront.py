@@ -43,7 +43,10 @@ Differences from the reference's loop:
   nothing that is returned.
 - Ray counters are int64 on the device: closest rays are the active
   lanes, shadow rays the hit lanes. ``iterations`` counts the iterations
-  in which some lane was active.
+  in which some lane was active. ``fallback_lanes`` counts the closest
+  rays that BVH_CLOSEST's walk left to its sweep of every sphere and
+  plane row (the kernel adds them in place; 0 off the BVH route's kernel
+  loop).
 
 The reference's lane layout: lanes map to pixels in BLOCK_H x BLOCK_W
 blocks wherever the rows tile (``lane_order``; RT_DISABLE_BLOCK_REMAP=1
@@ -344,6 +347,7 @@ class Wavefront:
         )
         zero = torch.zeros((), device=device, dtype=torch.int64)
         self.closest, self.shadow, self.iterations = zero, zero, zero
+        self.fallback = torch.zeros((), device=device, dtype=torch.int64)  # added to in place
 
         if compact_every is None:
             compact_every = compact_every_default(scene)
@@ -422,7 +426,8 @@ class Wavefront:
             draw = env_draw(self.env, c["state"])
             nd = (draw["nd0"], draw["nd1"], draw["nd2"])
             mark("step.closest")
-            t, btype, bidx = closest(self.scene, ro, rd, c["in_path"])
+            counted = {"fallback_lanes": self.fallback} if self.route == BVH else {}
+            t, btype, bidx = closest(self.scene, ro, rd, c["in_path"], **counted)
             mark("step.glue")
             did_hit = btype >= 0
             t_safe = torch.where(did_hit, t, 0.0)
@@ -499,6 +504,7 @@ class Wavefront:
             "closest_rays": self.closest,
             "shadow_rays": self.shadow,
             "iterations": self.iterations,
+            "fallback_lanes": self.fallback,
         }
         return self.from_lanes(film).reshape(n, 3), self.from_lanes(counts).reshape(n), stats
 
@@ -600,7 +606,7 @@ def render_spp_sync(
     film = torch.zeros((n, 3), dtype=torch.float32, device=device)
     counts = torch.zeros(n, dtype=torch.int64, device=device)
     zero = torch.zeros((), dtype=torch.int64, device=device)
-    stats = {"closest_rays": zero, "shadow_rays": zero, "iterations": zero}
+    stats = {"closest_rays": zero, "shadow_rays": zero, "iterations": zero, "fallback_lanes": zero}
     flags = []
     for r in range(int(rounds)):
         wave = Wavefront(scene, env, camera, (base + r) & rng.MASK, resolution, 1, NO_LIMIT,

@@ -28,7 +28,7 @@ torch.set_num_threads(2)
 SCENES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "assets", "scenes")
 W, H, BOUNCES, ITERATIONS = 16, 8, 2, 2
 # The sites one CPU step_freerun passes (on the card each is a host sync).
-CALL_SYNCS = {"sync.camera": 3, "sync.wavefront_setup": 1, "sync.drain": 1, "sync.stats": 3,
+CALL_SYNCS = {"sync.camera": 3, "sync.wavefront_setup": 1, "sync.drain": 1, "sync.stats": 1,
               "sync.min_count": 1}
 
 
@@ -171,7 +171,7 @@ def test_sharded_steps_carry_their_slot(house, sky):
     assert sorted(set(slots)) == [(0, 0), (0, 1), (1, 0), (1, 1)]
     assert all(slots.count(s) == iterations for s in set(slots))
     assert [sp["attrs"]["it"] for sp in steps] == [i for i in range(iterations) for _ in range(4)]
-    assert rec["counters"]["sync.drain"] == 4 and rec["counters"]["sync.stats"] == 3
+    assert rec["counters"]["sync.drain"] == 4 and rec["counters"]["sync.stats"] == 1
 
 
 def test_span_report_reads_a_made_up_stretch():
@@ -190,7 +190,7 @@ def test_span_report_reads_a_made_up_stretch():
     ops = [("trace_kernel", 0, 14 * ms, 25 * ms, 1), ("shade_kernel", 0, 25 * ms, 30 * ms, 2),
            ("trace_kernel", 0, 35 * ms, 60 * ms, 3), ("elementwise", 0, 60 * ms, 70 * ms, 4),
            ("memcpy", 0, 100 * ms, 105 * ms, None)]
-    counters = {"sync.drain": 1, "sync.stats": 3, "launch.trace": 2}
+    counters = {"sync.drain": 1, "sync.stats": 1, "launch.trace": 2}
     got = span_report(spans, counters, ops, runtime, (0, 110 * ms))
     assert got["steps"] == 2 and got["calls"] == 1
     assert got["enqueue_ms_per_iter"] == pytest.approx(((10 - 3) + (10 - 1)) / 2)
@@ -201,7 +201,7 @@ def test_span_report_reads_a_made_up_stretch():
                                             "wavefront.drain_check": 30.0, "outside": 5.0})
     assert got["stall_ms"] == pytest.approx(49.0)
     assert got["inside_share"] == pytest.approx(49.0 / 54.0)
-    assert got["syncs_per_call"] == 4
+    assert got["syncs_per_call"] == 2
     assert got["clock_share"] == pytest.approx(1.0) and got["clock_max_ms"] == 0
     late = [r if r[3] != 3 else ("cudaLaunchKernel", 41 * ms, 42 * ms, 3) for r in runtime]
     got = span_report(spans, counters, ops, late, (0, 110 * ms))
