@@ -12,7 +12,8 @@
 //                time and skipped when popped if that entry is past the
 //                best t, leaf slots in slot order with a strict < winner),
 //                then on a miss the sphere and plane sweep over the valid
-//                rows (wavefront_common.cuh:sweep, in fallback_kernel);
+//                rows (wavefront_common.cuh:sweep's arithmetic, in
+//                fallback_kernel);
 //                writes (t, type, index), a miss (3e38, -1, 0), and adds
 //                the lanes the sweep took to the caller's int64 counter;
 //   BVH_ANY      the same walk without a best t, stopping at the first
@@ -49,9 +50,23 @@
 // done, then tests the leaves; which thread walks which ray, and when,
 // changes, each ray's order does not. The stack: 64 entries a thread in
 // local memory, clamped as the reference clamps it (the tree's depth
-// bounds its use; the wrapper raises on a deeper tree). BVH_CLOSEST's
-// fallback sweep is a second pass over the lanes the walk leaves pending,
-// so a 1,000-row sweep never holds up a warp's walks.
+// bounds its use; the wrapper raises on a deeper tree).
+//
+// BVH_CLOSEST's fallback sweep is a second pass (fallback_kernel), so a
+// sweep of hundreds of rows never holds up a warp's walks. The walk marks
+// the lanes it misses pending, scattered among those it answered: one
+// thread a lane in lane order swept rtiow_final's in warps 51% full in
+// the benchmark's captured iteration, 29% in profiling.py's loop state
+// (profiling.fallback_report). So the pass runs as many 256-thread blocks
+// as the SMs hold. Each stages the valid rows in shared memory once (a
+// sphere's (pos c2) word, a plane's four words; over 14,000 spheres it
+// reads them from global memory instead), takes tiles of 1,024 lanes in
+// lane order from a counter, packs each tile's pending lanes into a ring
+// in shared memory (a ballot a warp and a prefix over the tile's 32
+// (step, warp) counts, as sweep.cu's compact_block), and sweeps the ring
+// 256 lanes at a time, so every sweeping warp is full but each block's
+// last. A lane that is not pending is read no further than its type. Each
+// block adds its pending lanes to the caller's counter once, at its end.
 //
 // What bounds them on the H100. The published count is operations (box
 // and leaf tests; profiling.bvh_bound): 0.0839 and 0.0703 ms on a 2048^2
@@ -59,6 +74,19 @@
 // Warps still diverge on box hits and leaf sizes, a box test issues about
 // twice the counted operations (the NaN rule, the near/far selects), and
 // the leaf rows (60.5 MiB) do not fit the 50 MB L2.
+//
+// The fallback pass is bound by operations too: 38 a sphere row and 33 a
+// plane row for each pending lane (profiling.fallback_bound, counted as
+// portbench/counts.py counts them). In rtiow_final.render's captured
+// iteration, 2,152,129 pending lanes over 486 spheres and a plane: 0.5943
+// ms, against 0.7278 ms an iteration in the traced run (82%; 1.9091 ms,
+// 31%, one thread a lane in lane order). What is left is instruction
+// throughput: under -fmad=false a sphere that fails the pre-test, as most
+// do, still costs about 20 f32 instructions, its shared-memory load and
+// the loop's own.
+// suzanne_xhi's pass (one plane row) reads the lanes' types and the
+// pending rays: 0.0622 ms an iteration (0.0600 before), not worth a path
+// of its own.
 //
 // Levers, each timed in one call against the first version's one thread
 // a ray on the node table (2.93 / 2.44 ms), BVH_CLOSEST / BVH_ANY ms
@@ -79,8 +107,26 @@
 // Also tried and removed (no faster): a register cap for 12 or 16 blocks
 // an SM, evict-first leaf reads.
 //
-// Registers (-Xptxas -v): BVH_CLOSEST 45 and a 512-byte stack frame,
-// BVH_ANY 44 and 264 bytes, no spills.
+// The fallback pass's levers, each timed in one call against one thread a
+// lane in lane order (1.9686 / 1.9791 ms; suzanne_xhi 0.0540 / 0.0542), ms
+// a launch on a 2048^2 rtiow_final loop state of profiling.py's (1,099,344
+// pending lanes, 29% warp fill in lane order) and on suzanne_xhi's:
+//   packing alone, the rows read from global memory: 0.7873 / 0.7961
+//     (suzanne_xhi 0.0514 / 0.0509)
+//   staging alone, each tile's pending lanes swept where they lie:
+//     1.8806 / 1.8188 (0.0560 / 0.0560)
+//   both, a staged sphere row as two words (the valid flag read apart):
+//     0.6390 / 0.6374, 56 registers (an earlier call, parent 1.9727 /
+//     1.9742); both, a sphere row as one word: 0.5817 / 0.5925, 48
+//     registers (0.0509 / 0.0509): kept
+//   fixed contiguous ranges of tiles in place of the counter: 1.1411 /
+//     1.1472 (the sky's lanes leave blocks idle at the end): dropped
+//   __launch_bounds__ for 5 or 6 blocks an SM (two-word rows): 0.6492 /
+//     0.6376, 0.6617 / 0.6720: dropped
+//
+// Registers (-Xptxas -v): BVH_CLOSEST's walk 44 and a 512-byte stack
+// frame, BVH_ANY's 46 and 256 bytes, the fallback pass 48 (staged or not)
+// and 8,336 bytes of static shared memory; no spills.
 
 #include <algorithm>
 #include <cstdint>
@@ -285,41 +331,233 @@ struct Closest {
   }
 };
 
-// BVH_CLOSEST's fallback pass, one thread a lane in lane order: the
-// sphere and plane sweep over the valid rows (intersect._sweep_bvh) for
-// each lane the walk left pending. A separate pass, so the sweep runs in
-// warps of the lanes that need it and never holds up a warp's walks.
-// Each block adds its pending lanes to *fallback_lanes in one atomicAdd:
-// one a warp, all on one address, cost suzanne_xhi's short pass 0.06 ms
-// an iteration, twice its sweep (NVIDIA H100 80GB HBM3, 700 W).
-__global__ void __launch_bounds__(kSweepThreads) fallback_kernel(Closest k, int n) {
-  const int i = blockIdx.x * kSweepThreads + threadIdx.x;
-  const bool pending = i < n && k.a.type[i] == kPendingSweep;
-  const int swept = __syncthreads_count(pending);
-  if (k.fallback_lanes != nullptr && threadIdx.x == 0 && swept != 0)
-    atomicAdd(k.fallback_lanes, (unsigned long long)swept);
-  if (!pending) return;
-  SceneView s;
-  s.sph = k.small;
-  s.pln = k.small + k.n_sph * SPH_COLS;
-  s.tri = nullptr;
-  s.mat = nullptr;
-  s.n_sph = k.rows_sph;
-  s.n_pln = k.rows_pln;
-  s.n_tri = 0;
-  s.n_mat = 0;
-  const RayPtrs& r = k.a.r;
-  float t;
-  int type, idx;
-  sweep(s, Ray{r.ox[i], r.oy[i], r.oz[i], r.dx[i], r.dy[i], r.dz[i]}, false, t, type, idx);
-  k.a.t[i] = t;
-  k.a.type[i] = type;
-  k.a.index[i] = idx;
+// -- BVH_CLOSEST's fallback pass --------------------------------------------
+
+// A tile: kTileSteps x kSweepThreads lanes in lane order, dealt from a
+// counter. The block's pending lanes wait in a ring of kRing entries in
+// shared memory: fewer than kSweepThreads carried over, plus a tile.
+constexpr int kSweepWarps = kSweepThreads / 32;
+constexpr int kTileSteps = 4;
+constexpr int kTile = kTileSteps * kSweepThreads;
+constexpr int kRing = 2048;
+static_assert(kRing >= kSweepThreads - 1 + kTile && (kRing & (kRing - 1)) == 0, "the ring");
+
+// A row of the fallback as 16-byte words (SPH_COLS, PLN_COLS): a sphere's
+// (pos c2) and (radius material valid -), a plane's four. Staged, a sphere
+// row is its first word alone, with c2 = +inf where the row is not valid.
+constexpr int kSphWords = SPH_COLS / 4;
+constexpr int kPlnWords = PLN_COLS / 4;
+
+// The pass's static shared memory (16-byte multiple, so the staged rows
+// that follow it start aligned).
+struct FallbackShared {
+  int ring[kRing];                        // pending lanes, [head, tail) mod kRing
+  int counts[kTileSteps * kSweepWarps];   // a tile's pending lanes by (step, warp)
+  int next;                               // the block's next tile
+  int pad[3];
+};
+static_assert(sizeof(FallbackShared) % 16 == 0, "FallbackShared");
+
+// The most row bytes a block stages: the H100's opt-in 232,448 bytes less
+// the static part (scene/device.py: FALLBACK_MAX_SHARED mirrors it;
+// rt_bvh_fallback_max_rows_bytes asks the card). Past it the rows are read
+// from global memory: over 14,000 sphere rows.
+constexpr size_t kFallbackMaxRowsBytes = 232448 - sizeof(FallbackShared);
+
+// The bytes of the staged rows: one word a sphere, four a plane.
+inline size_t fallback_rows_bytes(int rows_sph, int rows_pln) {
+  return sizeof(float4) * ((size_t)rows_sph + (size_t)kPlnWords * rows_pln);
 }
 
-cudaError_t fallback(const Closest& k, int n, cudaStream_t stream) {
-  fallback_kernel<<<(n + kSweepThreads - 1) / kSweepThreads, kSweepThreads, 0, stream>>>(k, n);
+inline bool fallback_staged(int rows_sph, int rows_pln) {
+  return fallback_rows_bytes(rows_sph, rows_pln) <= kFallbackMaxRowsBytes;
+}
+
+// Word w of the rows: staged in shared memory, or through the read-only
+// cache where they lie in global memory.
+template <bool kStaged>
+__device__ __forceinline__ float4 word(const float4* rows, int w) {
+  return kStaged ? rows[w] : __ldg(rows + w);
+}
+
+// wavefront_common.cuh:sweep's sphere and plane loops for one ray
+// (any_only false), expression for expression and in its order (sphere
+// rows, then plane rows, index order, strict <, the same pre-tests), over
+// rows of 16-byte words: a sphere reads its (pos c2) word and, unstaged,
+// its valid flag; a plane its four words. Built with -fmad=false, so t,
+// type and index are bitwise sweep's and ops/bvh.closest_plain's.
+//
+// A staged sphere row that is not valid has c2 = +inf in place of the
+// flag: c is then +inf or NaN, 4 a_q c +inf or NaN (a_q >= 0 or NaN), and
+// disc -inf or NaN, so the pre-test fails as the flag's test would.
+template <bool kStaged>
+__device__ __forceinline__ void sweep_words(const float4* sph, const float4* pln, int n_sph,
+                                            int n_pln, const Ray& r, float& best_t,
+                                            int& best_type, int& best_idx) {
+  const float ox = r.ox, oy = r.oy, oz = r.oz, dx = r.dx, dy = r.dy, dz = r.dz;
+  const float a_q = dx * dx + dy * dy + dz * dz;
+  const float d_dot_o = dx * ox + dy * oy + dz * oz;
+  const float o_dot_o = ox * ox + oy * oy + oz * oz;
+  best_t = INF;
+  best_type = -1;
+  best_idx = 0;
+  for (int i = 0; i < n_sph; ++i) {
+    const float4 p = word<kStaged>(sph, kStaged ? i : kSphWords * i);  // cx cy cz c2
+    const bool valid =
+        kStaged || __ldg(reinterpret_cast<const float*>(sph + kSphWords * i) + 6) > 0.0f;
+    float b = 2.0f * (d_dot_o - (dx * p.x + dy * p.y + dz * p.z));
+    float c = o_dot_o - 2.0f * (ox * p.x + oy * p.y + oz * p.z) + p.w;
+    float disc = b * b - 4.0f * a_q * c;
+    if (!((disc >= 0.0f) && valid)) continue;
+    float sq = sqrtf(maxn(disc, 0.0f));
+    float q = b > 0.0f ? -0.5f * (b + sq) : -0.5f * (b - sq);
+    float t0 = q / a_q;
+    float t1 = c / (q == 0.0f ? 1.0f : q);
+    float t = t0 < SPHERE_EPS ? t1 : (t1 < SPHERE_EPS ? t0 : minn(t0, t1));
+    if (disc == 0.0f) t = -0.5f * b / a_q;
+    if (t >= SPHERE_EPS && t < best_t) {
+      best_t = t;
+      best_type = 0;
+      best_idx = i;
+    }
+  }
+  for (int i = 0; i < n_pln; ++i) {
+    // p[0..3] n ndotp, p[4..7] r0 r2.x, p[8..11] r2.yz r0dotp r2dotp, p[12..13] material valid
+    const float4 w0 = word<kStaged>(pln, kPlnWords * i), w1 = word<kStaged>(pln, kPlnWords * i + 1);
+    const float4 w2 = word<kStaged>(pln, kPlnWords * i + 2), w3 = word<kStaged>(pln, kPlnWords * i + 3);
+    const float nx = w0.x, ny = w0.y, nz = w0.z;
+    float denom = dx * nx + dy * ny + dz * nz;
+    float num = w0.w - (ox * nx + oy * ny + oz * nz);
+    if (!((fabsf(denom) >= PLANE_DENOM_EPS) && (denom > 0.0f ? num > 0.0f : num < 0.0f) &&
+          (w3.y > 0.0f)))
+      continue;
+    float t = num / denom;
+    float px = (ox * w1.x + oy * w1.y + oz * w1.z) + t * (dx * w1.x + dy * w1.y + dz * w1.z) - w2.z;
+    float pz = (ox * w1.w + oy * w2.x + oz * w2.y) + t * (dx * w1.w + dy * w2.x + dz * w2.y) - w2.w;
+    bool hit = (t >= PLANE_T_EPS) && (px >= 0.0f) && (px <= 1.0f) && (pz >= 0.0f) && (pz <= 1.0f);
+    if (hit && t < best_t) {
+      best_t = t;
+      best_type = 1;
+      best_idx = i;
+    }
+  }
+}
+
+// BVH_CLOSEST's fallback pass (see the header): persistent blocks that
+// stage the valid rows once, take tiles of lanes from *deal, pack each
+// tile's pending lanes into the ring (a ballot a warp and a prefix over
+// the tile's (step, warp) counts), and sweep the ring a full block at a
+// time, then once for the rest. Lanes that are not pending are read no
+// further than their type.
+template <bool kStaged>
+__global__ void __launch_bounds__(kSweepThreads) fallback_kernel(Closest k, int* __restrict__ deal,
+                                                                int n) {
+  extern __shared__ float4 staged[];
+  __shared__ FallbackShared sh;
+  const int warp = threadIdx.x >> 5, me = threadIdx.x & 31;
+  const float4* rows_sph = reinterpret_cast<const float4*>(k.small);
+  const float4* rows_pln = rows_sph + kSphWords * k.n_sph;
+  if (kStaged) {
+    const int words = k.rows_sph + kPlnWords * k.rows_pln;
+    for (int w = threadIdx.x; w < words; w += kSweepThreads) {
+      const bool is_sph = w < k.rows_sph;
+      float4 v = __ldg(is_sph ? rows_sph + kSphWords * w : rows_pln + (w - k.rows_sph));
+      if (is_sph && !(__ldg(reinterpret_cast<const float*>(rows_sph + kSphWords * w) + 6) > 0.0f))
+        v.w = INFINITY;
+      staged[w] = v;
+    }
+    __syncthreads();
+  }
+  const float4* sph = kStaged ? staged : rows_sph;
+  const float4* pln = kStaged ? staged + k.rows_sph : rows_pln;
+  const RayPtrs& r = k.a.r;
+  auto sweep_lane = [&](int i) {
+    float t;
+    int type, idx;
+    sweep_words<kStaged>(sph, pln, k.rows_sph, k.rows_pln,
+                         Ray{r.ox[i], r.oy[i], r.oz[i], r.dx[i], r.dy[i], r.dz[i]}, t, type, idx);
+    k.a.t[i] = t;
+    k.a.type[i] = type;
+    k.a.index[i] = idx;
+  };
+
+  unsigned head = 0, tail = 0;  // the ring's pending lanes (the same in every thread)
+  unsigned found = 0;
+  for (int base = blockIdx.x * kTile; base < n;) {
+    bool pending[kTileSteps];
+    unsigned ballot[kTileSteps];
+#pragma unroll
+    for (int s = 0; s < kTileSteps; ++s) {
+      const int i = base + s * kSweepThreads + threadIdx.x;
+      pending[s] = i < n && k.a.type[i] == kPendingSweep;
+    }
+#pragma unroll
+    for (int s = 0; s < kTileSteps; ++s) {
+      ballot[s] = __ballot_sync(kFull, pending[s]);
+      if (me == 0) sh.counts[s * kSweepWarps + warp] = __popc(ballot[s]);
+    }
+    if (threadIdx.x == 0) sh.next = gridDim.x * kTile + atomicAdd(deal, kTile);
+    __syncthreads();
+    unsigned before[kTileSteps], total = 0;
+#pragma unroll
+    for (int c = 0; c < kTileSteps * kSweepWarps; ++c) {
+      if (c % kSweepWarps == warp) before[c / kSweepWarps] = total;
+      total += sh.counts[c];
+    }
+    const unsigned below = (1u << me) - 1u;
+#pragma unroll
+    for (int s = 0; s < kTileSteps; ++s)
+      if (pending[s])
+        sh.ring[(tail + before[s] + __popc(ballot[s] & below)) & (kRing - 1)] =
+            base + s * kSweepThreads + threadIdx.x;
+    tail += total;
+    found += total;
+    base = sh.next;
+    __syncthreads();
+    for (; tail - head >= kSweepThreads; head += kSweepThreads)
+      sweep_lane(sh.ring[(head + threadIdx.x) & (kRing - 1)]);
+  }
+  if (threadIdx.x < tail - head) sweep_lane(sh.ring[(head + threadIdx.x) & (kRing - 1)]);
+  if (k.fallback_lanes != nullptr && threadIdx.x == 0 && found != 0)
+    atomicAdd(k.fallback_lanes, (unsigned long long)found);
+}
+
+// As many blocks as the SMs hold at the pass's occupancy with `smem`
+// bytes of rows (found again when the bytes change), or fewer for a small
+// launch.
+template <bool kStaged>
+cudaError_t launch_fallback(const Closest& k, int* deal, int n, size_t smem, cudaStream_t stream) {
+  static int resident[kMaxDevices];
+  static size_t sized[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (resident[dev] == 0 || sized[dev] != smem) {
+    if (smem > 48 * 1024 &&
+        (err = cudaFuncSetAttribute(fallback_kernel<kStaged>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
+            cudaSuccess)
+      return err;
+    int sms = 0, per_sm = 0;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return err;
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fallback_kernel<kStaged>,
+                                                             kSweepThreads, smem)) != cudaSuccess)
+      return err;
+    resident[dev] = std::max(1, sms * per_sm);
+    sized[dev] = smem;
+  }
+  const int grid = std::min((n + kTile - 1) / kTile, resident[dev]);
+  fallback_kernel<kStaged><<<grid, kSweepThreads, smem, stream>>>(k, deal, n);
   return cudaGetLastError();
+}
+
+// deal: one int32 of scratch at 0, the pass's tile counter.
+cudaError_t fallback(const Closest& k, int* deal, int n, cudaStream_t stream) {
+  if (fallback_staged(k.rows_sph, k.rows_pln))
+    return launch_fallback<true>(k, deal, n, fallback_rows_bytes(k.rows_sph, k.rows_pln), stream);
+  return launch_fallback<false>(k, deal, n, 0, stream);
 }
 
 struct Any {
@@ -333,7 +571,7 @@ struct Any {
   }
 };
 
-cudaError_t fallback(const Any&, int, cudaStream_t) { return cudaSuccess; }
+cudaError_t fallback(const Any&, int*, int, cudaStream_t) { return cudaSuccess; }
 
 // Lane i before its walk: off the mask it gets the miss record (or 0); a
 // ray that misses the root's box gets its finish at once (BVH_CLOSEST:
@@ -510,14 +748,15 @@ cudaError_t launch_walk(const K& k, const Tree& tree, int* fetch, int n, cudaStr
   return cudaGetLastError();
 }
 
-// fetch: one int32 of scratch, the walk's lane counter.
+// fetch: two int32 of scratch, the walk's lane counter and the fallback
+// pass's tile counter.
 template <class K>
 int launch(const K& k, const Tree& tree, int depth, int* fetch, int n, cudaStream_t stream) {
   if (depth > kMaxStack) return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
-  cudaError_t err = cudaMemsetAsync(fetch, 0, sizeof(int), stream);
+  cudaError_t err = cudaMemsetAsync(fetch, 0, 2 * sizeof(int), stream);
   if (err == cudaSuccess) err = launch_walk(k, tree, fetch, n, stream);
-  if (err == cudaSuccess) err = fallback(k, n, stream);
+  if (err == cudaSuccess) err = fallback(k, fetch + 1, n, stream);
   return (int)err;
 }
 
@@ -537,7 +776,7 @@ extern "C" {
 // then the planes); the fallback sweeps the first rows_sph spheres and
 // rows_pln planes (the valid ones: DeviceScene.sweep_rows). root: the
 // root's reference; depth: the tree's (at most 64, the stack's entries);
-// fetch: one int32 of device scratch; fallback_lanes: an int64 on the
+// fetch: two int32 of device scratch; fallback_lanes: an int64 on the
 // device that the fallback pass adds its lane count to, or null.
 int rt_bvh_closest_launch(void** p, const float* nodes, const float* pairs, const float* prims,
                           const int32_t* prim_type, const int32_t* prim_index, const float* small,
@@ -557,13 +796,33 @@ int rt_bvh_closest_launch(void** p, const float* nodes, const float* pairs, cons
 }
 
 // p: 8 device pointers, AnyArgs field order (6 f32 ray inputs, the i32
-// mask or null, occ i32); the rest as for BVH_CLOSEST.
+// mask or null, occ i32); the rest as for BVH_CLOSEST (fetch: two int32).
 int rt_bvh_any_launch(void** p, const float* nodes, const float* pairs, const float* prims,
                       int root, int depth, int* fetch, int n, void* stream) {
   static_assert(sizeof(AnyArgs) == 8 * sizeof(void*), "AnyArgs layout");
   Any k;
   memcpy(&k.a, p, sizeof(k.a));
   return launch(k, tree_of(nodes, pairs, prims, root), depth, fetch, n, (cudaStream_t)stream);
+}
+
+// The dynamic shared memory BVH_CLOSEST's fallback pass asks for with
+// rows_sph sphere and rows_pln plane rows: the rows' bytes where they are
+// staged, else 0 (read from global memory).
+int rt_bvh_fallback_shared_bytes(int rows_sph, int rows_pln) {
+  return fallback_staged(rows_sph, rows_pln) ? (int)fallback_rows_bytes(rows_sph, rows_pln) : 0;
+}
+
+// The most row bytes the pass can stage on the current card: its opt-in
+// limit less the staged kernel's static shared memory (what
+// kFallbackMaxRowsBytes assumes); -1 where the card cannot be asked.
+int rt_bvh_fallback_max_rows_bytes() {
+  int dev = 0, optin = 0;
+  cudaFuncAttributes attr;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess ||
+      cudaFuncGetAttributes(&attr, (const void*)fallback_kernel<true>) != cudaSuccess)
+    return -1;
+  return optin - (int)attr.sharedSizeBytes;
 }
 
 }  // extern "C"

@@ -132,6 +132,8 @@ def load(flags=NVCC_FLAGS):
         "rt_fused_launch": [vp, vp, i, i, i, i, i, i, vp],
         "rt_bvh_closest_launch": [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, vp, vp, i, vp],
         "rt_bvh_any_launch": [vp, vp, vp, vp, i, i, vp, i, vp],
+        "rt_bvh_fallback_shared_bytes": [i, i],
+        "rt_bvh_fallback_max_rows_bytes": [],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

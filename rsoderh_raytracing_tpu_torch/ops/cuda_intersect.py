@@ -291,8 +291,9 @@ def _bvh_depth(scene, what):
 
 def _bvh_args(scene, rays, mask, what):
     """Check the inputs of BVH_CLOSEST or BVH_ANY; returns (lanes, device,
-    the tree's launch arguments, the walk's lane counter: one int32 of
-    scratch, which must outlive the launch call)."""
+    the tree's launch arguments, the counters of the walk's lanes and of the
+    fallback pass's tiles: two int32 of scratch, which must outlive the
+    launch call)."""
     n = mask.shape[0]
     dev = mask.device
     for i, t in enumerate(rays):
@@ -302,7 +303,7 @@ def _bvh_args(scene, rays, mask, what):
     if b.nodes.device != dev:
         raise ValueError(f"{what}: rays on {dev}, BVH on {b.nodes.device}")
     tree = (b.nodes.data_ptr(), b.pairs.data_ptr(), b.prims.data_ptr())
-    return n, dev, tree, torch.empty(1, dtype=torch.int32, device=dev)
+    return n, dev, tree, torch.empty(2, dtype=torch.int32, device=dev)
 
 
 def bvh_closest_call(scene, ro, rd, live, *, fallback_lanes=None):

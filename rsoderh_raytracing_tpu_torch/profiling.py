@@ -29,7 +29,11 @@ route):
   such as suzanne_xxhi, which chip_smoke.py generates): on the loop state of the
   third iteration, BVH_CLOSEST and BVH_ANY ms, the node visits, box tests
   and leaf tests of the plain walk, and the bound they give
-  (``bvh_bound``);
+  (``bvh_bound``); then ``fallback``: on the same state, BVH_CLOSEST's
+  walk and fallback pass apart (device ms a call under torch.profiler),
+  the lanes the walk leaves pending, their warp fill in lane order and
+  the pass's bound (``fallback_report``; ``--scene rtiow_final`` for the
+  sphere scene whose pass it is);
 - ``sweep`` (small route): on the loop state of the third iteration,
   TRACE, CLOSEST, ANY and FUSED ms at 2048^2 lanes (CUDA events), the
   sweeps on TRACE's rays as ``sweep_calls`` builds them;
@@ -133,6 +137,7 @@ from rsoderh_raytracing_tpu_torch.env.environment import (
 )
 from rsoderh_raytracing_tpu_torch.env.hdr_io import procedural_sky
 from rsoderh_raytracing_tpu_torch.ops import _kernels
+from rsoderh_raytracing_tpu_torch.ops import bvh as bvh_ops
 from rsoderh_raytracing_tpu_torch.ops import cuda_intersect as ci
 from rsoderh_raytracing_tpu_torch.ops import cuda_wavefront as cw
 from rsoderh_raytracing_tpu_torch.ops import envmap, intersect, rng
@@ -140,7 +145,7 @@ from rsoderh_raytracing_tpu_torch.render.integrator import camera_pytree, render
 from rsoderh_raytracing_tpu_torch.render.renderer import Renderer
 from rsoderh_raytracing_tpu_torch.render.wavefront import NO_LIMIT, Wavefront, render_freerun
 from rsoderh_raytracing_tpu_torch.scene.device import (
-    BVH, CHUNKED, TRI_CHUNK, build_device_scene, cluster_triangles, route,
+    BVH, CHUNKED, TRI_CHUNK, build_device_scene, cluster_triangles, fallback_shared_bytes, route,
 )
 from rsoderh_raytracing_tpu_torch.scene.toml_loader import build_scene
 
@@ -403,6 +408,48 @@ def bvh_bound(scene, n, counts, closest):
              + counts["fallback_lanes"] * fallback)
     row_bytes = 64 * counts["interior"] + 64 * leaf_tests
     return bound_ms(n_bytes, n_ops) + (dict(counts, leaf_tests=leaf_tests, row_bytes=row_bytes),)
+
+
+def fallback_bound(scene, n, pending):
+    """bound_ms of BVH_CLOSEST's fallback pass over n lanes of which
+    `pending` were left to it by the walk: each lane's type read, a pending
+    lane's 6 ray inputs read and 3 outputs written, the valid sphere and
+    plane rows once; the sweep of those rows for each pending lane."""
+    n_sph, n_pln, _ = scene.sweep_rows
+    n_bytes = 4 * (n + 9 * pending + n_sph * 8 + n_pln * 16)
+    return bound_ms(n_bytes, pending * (n_sph * OPS_SPHERE + n_pln * OPS_PLANE))
+
+
+def fallback_report(scene, args, out_dir, reps=5):
+    """BVH_CLOSEST's fallback pass on one closest query `args` (scene, ro,
+    rd, live) of the BVH route: the walk's and the pass's device ms a call
+    (torch.profiler over `reps` calls), the lanes the walk leaves pending,
+    the warp fill of those lanes in lane order (pending lanes over 32 x the
+    32-lane groups that hold one: what one thread a lane in lane order
+    would run), the bytes of rows it stages (0: read from global memory)
+    and the pass's bound (fallback_bound)."""
+    _, ro, rd, live = args
+    n = live.shape[0]
+    _, slot = bvh_ops.traverse_closest(scene.bvh, ro, rd, live)
+    pending = (live != 0) & (slot < 0)
+    groups = torch.nn.functional.pad(pending, (0, -n % 32)).view(-1, 32)
+    lanes, busy_groups = int(pending.sum()), int(groups.any(1).sum())
+    ci.bvh_closest_call(*args)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            ci.bvh_closest_call(*args)
+        torch.cuda.synchronize()
+    path = os.path.join(out_dir, "fallback_trace.json")
+    prof.export_chrome_trace(path)
+    per_call = kernel_breakdown(path, reps)[0]
+    walk_ms = sum(v for k, v in per_call.items() if "walk_kernel" in k)
+    pass_ms = sum(v for k, v in per_call.items() if "fallback_kernel" in k)
+    ms, by = fallback_bound(scene, n, lanes)
+    rows = scene.sweep_rows[:2]
+    return dict(lanes=n, pending=lanes, rows=rows, staged_bytes=fallback_shared_bytes(*rows),
+                lane_order_fill=lanes / max(32 * busy_groups, 1), walk_ms=walk_ms,
+                fallback_ms=pass_ms, bound_ms=ms, bound_by=by, share=ms / max(pass_ms, 1e-9))
 
 
 def shade_outputs(result):
@@ -1265,6 +1312,10 @@ def main(argv=None) -> int:
                   f"ms={time_ms(lambda: kfn(*captured[key]), 5):.4f} "
                   + " ".join(f"{k}={v}" for k, v in info.items())
                   + f" bound_ms={ms:.4f} bound_by={by} card={card!r}", flush=True)
+        fb = fallback_report(ds, captured["closest"], args.out)
+        print(f"[fallback] scene={args.scene} "
+              + " ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}" for k, v in fb.items())
+              + f" card={card!r}", flush=True)
         return 0
 
     tr_args, sh_args = captured["trace"], captured["shade"]

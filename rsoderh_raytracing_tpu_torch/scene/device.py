@@ -86,6 +86,15 @@ CHUNKED_TILE = 1024
 # kernels read a larger one from global memory.
 SWEEP_MAX_SHARED = 231392
 
+# The row bytes that a block of BVH_CLOSEST's fallback pass may stage
+# (csrc/bvh.cu: kFallbackMaxRowsBytes; rt_bvh_fallback_max_rows_bytes asks
+# the card): 232,448 bytes less the pass's 8,336 static bytes (its ring of
+# pending lanes and the tile's counts). The valid sphere and plane rows
+# are staged up to this (fallback_shared_bytes: 16 bytes a sphere, 64 a
+# plane); past it, over 14,000 spheres, the pass reads them from global
+# memory.
+FALLBACK_MAX_SHARED = 224112
+
 # Window rows of the chunked kernels (pallas_intersect.tri_const_table /
 # sphere_const_table): one 20-float row a primitive.
 WIN_COLS = 20
@@ -333,6 +342,15 @@ def sweep_shared_bytes(n_sph: int, n_pln: int, n_tri: int, n_mat: int) -> int:
     memory up to SWEEP_MAX_SHARED and read it from global memory past
     that."""
     return 4 * (n_sph * SPH_COLS + n_pln * PLN_COLS + n_tri * TRI_COLS + n_mat * MAT_COLS)
+
+
+def fallback_shared_bytes(rows_sph: int, rows_pln: int) -> int:
+    """Dynamic shared memory a block of BVH_CLOSEST's fallback pass asks
+    for over rows_sph sphere and rows_pln plane rows (the valid ones,
+    DeviceScene.sweep_rows): their bytes where they fit
+    FALLBACK_MAX_SHARED, else 0 (the pass reads them from global memory)."""
+    rows = 16 * rows_sph + 4 * PLN_COLS * rows_pln  # a sphere's (pos, c2) word, a plane's row
+    return rows if rows <= FALLBACK_MAX_SHARED else 0
 
 
 def counts_route(n_sph: int, n_pln: int, n_tri: int) -> str:

@@ -708,6 +708,131 @@ def test_card_bvh_render_matches_cpu_render(dev):
     np.testing.assert_allclose(gi.mean(), ci_.mean(), rtol=2e-3)
 
 
+# -- BVH_CLOSEST's fallback pass -------------------------------------------------
+# The packed, staged pass (csrc/bvh.cu: fallback_kernel) against
+# closest_plain: (t, type, index) bitwise on every lane and the lanes it
+# adds to fallback_lanes, on rtiow_final (486 sphere rows and a plane), on a
+# scene of more sphere rows than a block stages, and on suzanne (a plane
+# row alone).
+
+def _rtiow_rays(n, dev, seed=5):
+    """Seeded rays from around rtiow_final's camera towards its spheres'
+    layer and the ground, an eighth of them up into the sky: the walk
+    hits some and leaves the rest to the pass, scattered."""
+    g = np.random.default_rng(seed)
+    o = (np.array([13.0, 2.0, 3.0], np.float32) + g.normal(0.0, 0.5, (n, 3))).astype(np.float32)
+    d = g.uniform((-11.0, 0.0, -11.0), (11.0, 1.5, 11.0), (n, 3)).astype(np.float32) - o
+    d[::8, 1] = np.abs(d[::8, 1]) + 2.0
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return [torch.from_numpy(np.ascontiguousarray(a[:, k])).to(dev) for a in (o, d) for k in range(3)]
+
+
+def _fallback_matches_plain(ds, rays, live):
+    """BVH_CLOSEST against closest_plain on every lane, bitwise, and both
+    fallback_lanes counts; returns the count."""
+    from rsoderh_raytracing_tpu_torch.ops import bvh as bvh_ops
+
+    ro, rd = tuple(rays[:3]), tuple(rays[3:])
+    counted = [torch.zeros((), dtype=torch.int64, device=live.device) for _ in range(2)]
+    got = ci.bvh_closest_call(ds, ro, rd, live, fallback_lanes=counted[0])
+    want = bvh_ops.closest_plain(ds, ro, rd, live, fallback_lanes=counted[1])
+    assert [int(_bits_differ(a, b).sum()) for a, b in zip(got, want)] == [0, 0, 0]
+    assert int(counted[0]) == int(counted[1])
+    return int(counted[0])
+
+
+def _many_spheres_scene(rtiow):
+    """rtiow_final with its spheres replaced by a 120 x 120 grid of small
+    ones (14,400 rows, 230,400 bytes staged: past what a block stages)."""
+    import dataclasses
+
+    spheres = [Sphere(pos=(-30.0 + 0.5 * i, 0.2, -30.0 + 0.5 * j), radius=0.15,
+                      material_id=(i + j) % len(rtiow.materials))
+               for i in range(120) for j in range(120)]
+    return dataclasses.replace(rtiow, spheres=spheres)
+
+
+@pytest.fixture(scope="module")
+def fallback_scenes(dev):
+    rtiow = load_scene(os.path.join(SCENES, "rtiow_final.toml"))
+    return {"rtiow_final": build_device_scene(rtiow, dev, with_bvh=True),
+            "many_spheres": build_device_scene(_many_spheres_scene(rtiow), dev, with_bvh=True),
+            "suzanne": build_device_scene(load_scene(os.path.join(SCENES, "suzanne.toml")), dev,
+                                          with_bvh=True)}
+
+
+def test_fallback_pass_on_an_rtiow_loop_state(dev, fallback_scenes):
+    """A 2048^2 loop state of rtiow_final, the benchmark's size: about
+    four tiles a block, so each block's ring carries lanes from tile to
+    tile and wraps."""
+    ds = fallback_scenes["rtiow_final"]
+    scene = load_scene(os.path.join(SCENES, "rtiow_final.toml"))
+    env = device_environment(Environment.from_texture("sky", procedural_sky(256, 128)), dev)
+    wave = Wavefront(ds, env, camera_pytree(scene.camera, dev), 0, (2048, 2048), NO_LIMIT, 16, 8)
+    for it in range(3):
+        wave.step(it)
+    _, ro, rd, live = capture_step(wave, 3)["closest"]
+    assert _fallback_matches_plain(ds, [*ro, *rd], live) > 0
+
+
+@pytest.mark.parametrize("case", ["scattered", "empty_tiles", "ragged", "no_live_lane"])
+def test_fallback_pass_on_made_up_rays(dev, fallback_scenes, case):
+    """Scattered pending lanes on 2^21 + 333 lanes (several tiles a block,
+    n not a multiple of a tile, a third off the mask); tiles without a
+    pending lane (lanes 1024-2047 aimed at sphere centres, so each walk
+    hits; 2048-3071 off the mask); a short ragged launch; a mask with no
+    live lane."""
+    from rsoderh_raytracing_tpu_torch.ops import bvh as bvh_ops
+
+    ds = fallback_scenes["rtiow_final"]
+    n = {"scattered": 2**21 + 333, "empty_tiles": 4 * 1024 + 5, "ragged": 3 * 1024 + 333,
+         "no_live_lane": 5000}[case]
+    rays = _rtiow_rays(n, dev)
+    live = torch.ones(n, dtype=torch.int32, device=dev)
+    if case == "scattered":
+        live = (torch.arange(n, device=dev) % 3 != 1).to(torch.int32)
+    if case == "no_live_lane":
+        live.zero_()
+    if case == "empty_tiles":
+        centres = ds.sph_pos[torch.arange(1024, device=dev) % ds.sweep_rows[0]].T
+        direction = centres - torch.stack([r[1024:2048] for r in rays[:3]])
+        direction = direction / direction.norm(dim=0)
+        for k in range(3):
+            rays[3 + k][1024:2048] = direction[k]
+        live[2048:3072] = 0
+        _, slot = bvh_ops.traverse_closest(ds.bvh, tuple(rays[:3]), tuple(rays[3:]), live)
+        assert bool((slot[1024:2048] >= 0).all())
+    swept = _fallback_matches_plain(ds, rays, live)
+    assert (swept == 0) == (case == "no_live_lane")
+
+
+@pytest.mark.parametrize("name", ["many_spheres", "suzanne"])
+def test_fallback_pass_staged_or_not(dev, fallback_scenes, name):
+    """More sphere rows than a block stages (read from global memory), and
+    a plane row alone (suzanne's pass), on 65,536 + 7 made-up lanes."""
+    from rsoderh_raytracing_tpu_torch.ops import _kernels
+    from rsoderh_raytracing_tpu_torch.scene.device import fallback_shared_bytes
+
+    ds = fallback_scenes[name]
+    rows = ds.sweep_rows[:2]
+    staged = _kernels.library().rt_bvh_fallback_shared_bytes(*rows)
+    assert staged == fallback_shared_bytes(*rows) == {"many_spheres": 0, "suzanne": 64}[name]
+    rays = _rtiow_rays(65536 + 7, dev) if name == "many_spheres" else _bvh_rays(65536 + 7, dev)
+    assert _fallback_matches_plain(ds, rays, torch.ones(65536 + 7, dtype=torch.int32, device=dev)) > 0
+
+
+def test_fallback_shared_mirror_equals_the_card(dev):
+    """FALLBACK_MAX_SHARED is what the card lets the staged pass ask for,
+    and fallback_shared_bytes is the launcher's choice on both sides of it."""
+    from rsoderh_raytracing_tpu_torch.ops import _kernels
+    from rsoderh_raytracing_tpu_torch.scene.device import FALLBACK_MAX_SHARED, fallback_shared_bytes
+
+    lib = _kernels.library()
+    assert lib.rt_bvh_fallback_max_rows_bytes() == FALLBACK_MAX_SHARED
+    for rows in ((0, 0), (0, 1), (486, 1), (14007, 0), (14003, 1), (14004, 1), (14008, 0), (14400, 1)):
+        assert lib.rt_bvh_fallback_shared_bytes(*rows) == fallback_shared_bytes(*rows)
+
+
 @pytest.fixture(scope="module")
 def house_args(dev, house_scene):
     env = device_environment(Environment.from_texture("s", procedural_sky(256, 128)), dev)

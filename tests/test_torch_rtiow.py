@@ -10,8 +10,10 @@ origin; the port through Renderer on the BVH route at 32x18 against the
 benchmark's plain reference (portbench/reference, its "direct" leaf
 formulas) at every pixel of two step_freerun calls; fallback_lanes
 against bvh.walk_model's misses on a captured iteration, in one stats
-copy a call, summed over a tile split, and 0 on the small route. The
-card case (marked
+copy a call, summed over a tile split, and 0 on the small route; the
+fallback pass's staging choice (scene/device.fallback_shared_bytes) on
+rtiow_final, on suzanne's rows (suzanne_xhi's: one plane) and on a
+scene of more sphere rows than a block stages. The card case (marked
 `cuda`) holds the kernel's count to the plain twin's:
 
     python -m pytest --noconftest -m cuda tests/test_torch_rtiow.py
@@ -227,6 +229,41 @@ def test_fallback_lanes_are_zero_on_the_small_route():
     r = Renderer(house, 16, 8, environments=sky, max_bounces=2, intersector="sweep", device="cpu")
     r.step_freerun(2)
     assert r.last_stats["fallback_lanes"] == 0 and r.last_stats["closest_rays"] > 0
+
+
+def _grid_of_spheres(scene, side):
+    """The scene with its spheres replaced by a side x side grid."""
+    import dataclasses
+
+    from rsoderh_raytracing_tpu_torch.scene.types import Sphere
+
+    spheres = [Sphere(pos=(0.5 * i, 0.2, 0.5 * j), radius=0.15, material_id=0)
+               for i in range(side) for j in range(side)]
+    return dataclasses.replace(scene, spheres=spheres)
+
+
+@pytest.mark.parametrize("name, rows, staged", [
+    ("rtiow_final", (486, 1), 486 * 16 + 64),
+    ("suzanne", (0, 1), 64),
+    ("grid_120", (14400, 1), 0),
+])
+def test_fallback_staging_choice(scene, name, rows, staged):
+    """The bytes BVH_CLOSEST's fallback pass stages for a scene's valid
+    sphere and plane rows (DeviceScene.sweep_rows): all of them up to
+    FALLBACK_MAX_SHARED (16 bytes a sphere, 64 a plane), none past it
+    (csrc/bvh.cu: fallback_staged)."""
+    from rsoderh_raytracing_tpu_torch.scene.device import (
+        FALLBACK_MAX_SHARED, fallback_shared_bytes,
+    )
+
+    host = {"rtiow_final": scene, "grid_120": _grid_of_spheres(scene, 120),
+            "suzanne": load_scene(os.path.join(ROOT, "assets", "scenes", "suzanne.toml"))}[name]
+    ds = build_device_scene(host, "cpu", with_bvh=True)
+    assert ds.sweep_rows[:2] == rows
+    assert fallback_shared_bytes(*rows) == staged
+    assert (staged > 0) == (16 * rows[0] + 64 * rows[1] <= FALLBACK_MAX_SHARED)
+    assert fallback_shared_bytes(FALLBACK_MAX_SHARED // 16, 0) == FALLBACK_MAX_SHARED // 16 * 16
+    assert fallback_shared_bytes(FALLBACK_MAX_SHARED // 16 + 1, 0) == 0
 
 
 @pytest.fixture(scope="module")
