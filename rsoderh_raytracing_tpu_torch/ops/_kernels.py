@@ -18,12 +18,11 @@ round like their unfused plain PyTorch twins. Measured on an H100 (700 W)
 at 4.2M lanes: with contraction TRACE takes 1.63 ms instead of 1.81, but
 its bounce sample then leaves the plain version's rtol 1e-4 on 0.56% of
 the lanes (near-specular GGX amplifies the rounding), so the flag stays
-(``python -m rsoderh_raytracing_tpu_torch.profiling`` repeats the test).
+(PERF.md).
 """
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import glob
 import hashlib
@@ -59,15 +58,14 @@ def _nvcc() -> str:
     return path
 
 
-def build(flags=NVCC_FLAGS) -> str:
-    """Compile the kernels with ``flags`` if needed; returns
-    the library path. Fills BUILD_INFO with the seconds taken and the
-    ptxas report."""
+def build() -> str:
+    """Compile the kernels with NVCC_FLAGS if needed; returns the library
+    path. Fills BUILD_INFO with the seconds taken and the ptxas report."""
     digest = hashlib.sha256()
     for src in _sources():
         with open(src, "rb") as f:
             digest.update(os.path.basename(src).encode() + f.read())
-    digest.update(" ".join(flags).encode())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     tag = digest.hexdigest()[:16]
     lib_path = os.path.join(BUILD_DIR, f"libwavefront_{tag}.so")
     if os.path.exists(lib_path):
@@ -75,8 +73,8 @@ def build(flags=NVCC_FLAGS) -> str:
         return lib_path
     os.makedirs(BUILD_DIR, exist_ok=True)
     cu = [s for s in _sources() if s.endswith(".cu")]
-    compile_flags = [f for f in flags if f != "-shared"]
-    link_flags = [f for f in flags if f not in ("-Xptxas", "-v")]
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    link_flags = [f for f in NVCC_FLAGS if f not in ("-Xptxas", "-v")]
     suffix = f"{tag}.{os.getpid()}"
     objs = [os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{suffix}.o") for src in cu]
     start = time.perf_counter()
@@ -112,9 +110,9 @@ def build(flags=NVCC_FLAGS) -> str:
     return lib_path
 
 
-def load(flags=NVCC_FLAGS):
-    """Build (if needed) and bind a library compiled with ``flags``."""
-    lib = ctypes.CDLL(build(flags))
+def load():
+    """Build (if needed) and bind the library."""
+    lib = ctypes.CDLL(build())
     vp, i = ctypes.c_void_p, ctypes.c_int
     u = ctypes.c_uint32
     signatures = {
@@ -154,19 +152,6 @@ def library():
             with tracing.span("kernels.load"):
                 _lib = load()
     return _lib
-
-
-@contextlib.contextmanager
-def using(lib):
-    """Route the wrappers through another loaded library (from ``load``
-    with other flags) inside the block; for measurements."""
-    global _lib
-    saved = library()
-    _lib = lib
-    try:
-        yield
-    finally:
-        _lib = saved
 
 
 def error_string(code: int) -> str:

@@ -51,13 +51,9 @@ import numpy as np
 import torch
 
 from rsoderh_raytracing_tpu_torch.accel.bvh import TRAVERSAL_STACK_DEPTH, FlatBVH
-
-INF = 3.0e38
-SPHERE_EPS = 1.0e-4
-PLANE_DENOM_EPS = 1.0e-4
-PLANE_T_EPS = 1.0e-3
-TRI_DET_EPS = 1.0e-8
-TRI_T_EPS = 1.0e-5
+from rsoderh_raytracing_tpu_torch.ops.intersect import (
+    INF, PLANE_DENOM_EPS, PLANE_T_EPS, SPHERE_EPS, TRI_DET_EPS, TRI_T_EPS,
+)
 
 NODE_COLS = 12
 PAIR_COLS = 16
@@ -83,7 +79,6 @@ class DeviceBVH:
     depth: int
     pairs: torch.Tensor  # (I, PAIR_COLS) f32 child-pair rows of the interior nodes
     root: int  # the root's reference: pair row 0, or a leaf's packed slots
-    build_seconds: float = 0.0  # the host build's, where build_device_scene built the tree
 
     @property
     def num_nodes(self) -> int:

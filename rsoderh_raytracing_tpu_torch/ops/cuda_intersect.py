@@ -35,7 +35,6 @@ from rsoderh_raytracing_tpu_torch.ops import bvh as bvh_ops
 from rsoderh_raytracing_tpu_torch.ops import cuda_wavefront as cw
 from rsoderh_raytracing_tpu_torch.ops import intersect
 from rsoderh_raytracing_tpu_torch.scene.device import BVH, CHUNKED, route
-from rsoderh_raytracing_tpu_torch.scene.device import chunked_shared_bytes as mirror_shared_bytes
 
 # Kernel launches of each wrapper (CUDA tensors only).
 LAUNCHES = {"chunked_closest": 0, "chunked_any": 0, "closest": 0, "any": 0, "fused": 0,
@@ -63,13 +62,6 @@ def _launch_args(scene, rays, mask, what):
         ch.bounds.data_ptr(), ch.windows.data_ptr(), ch.n_tri_chunks, ch.count,
     )
     return n, dev, cw._ptrs((*rays, mask)), scene_args
-
-
-def chunked_shared_bytes_of(scene) -> int:
-    """Dynamic shared memory a block of the chunked kernels asks for on
-    this scene, bytes, from scene/device.py's mirror of the kernels'
-    layout (chunked_shared_bytes below asks the built kernels)."""
-    return mirror_shared_bytes(scene.chunks.small.numel(), scene.chunks.count)
 
 
 def chunked_shared_bytes(scene) -> int:

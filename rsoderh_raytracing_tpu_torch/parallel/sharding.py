@@ -16,8 +16,8 @@ Lanes are seeded by (global pixel index, global sample index), so a
 sharded render is the unsharded render of the same samples. The scene is
 built once and copied once to each distinct device of the mesh
 (``DeviceScene.to``). A slot may repeat a device where the caller lists
-the devices: the CPU tests run eight slots on the CPU, and chip_smoke.py
-two or four on one card.
+the devices: the CPU tests run eight slots on the CPU, and the card tests
+(tests/test_torch_cuda.py) two or four on one card.
 
 Every slot's tensors and launches run under ``torch.cuda.device(slot)``:
 a kernel launch goes to the current device's stream, and the BVH walk

@@ -1,70 +1,39 @@
-"""Where the main path's device time goes, on a GPU.
+"""Where the main path's device time goes, on a GPU: the per-kernel tool
+beside the benchmark (portbench, which measures end to end).
 
-    python -m rsoderh_raytracing_tpu_torch.profiling [--path loop|scan|scan-image|split|cluster|spans]
+    python -m rsoderh_raytracing_tpu_torch.profiling [--path loop|split|spans]
                                                     [--scene NAME] [--intersector auto|sweep|bvh]
-                                                    [--out DIR] [--sass]
+                                                    [--out DIR]
 
-Runs assets/scenes/NAME.toml (default house) at 2048x2048, 8 bounces,
-procedural_sky(2048, 1024), as chip_smoke.py does, and prints one line
-per measurement. With ``--path loop`` (the default), the free-run kernel
-loop on the route ``--intersector`` picks (as the CLI's; 'sweep' keeps
-a mesh past the card's crossover, such as suzanne_hi, on the chunked
-route):
+Runs assets/scenes/NAME.toml (default house; or a generated scene of
+TILED_SCENES) at 2048x2048, 8 bounces, procedural_sky(2048, 1024), and
+prints one line per measurement, each with the card's name and power
+limit. With ``--path loop`` (the default), the free-run kernel loop on
+the route ``--intersector`` picks (as the CLI's; 'sweep' keeps a mesh
+past the card's crossover, such as suzanne_hi, on the chunked route):
 
-- ``card``: name and power limit as nvidia-smi reports them;
 - ``kernel``: one free-run call of budget 16 under torch.profiler; device
   ms per iteration for each kernel name (the 12 largest), then a
-  ``group`` line for the kernels (TRACE and SHADE, or ENV_DRAW,
-  CHUNKED_CLOSEST, CHUNKED_ANY and BIG_SHADE on the big-mesh route), the
-  row gathers
-  (index_select) and the other glue, kernel launches per iteration, and
-  the device busy share: the union of device intervals over the window
-  from the first one's start to the last one's end (the window holds the
-  call's set-up and its final host check too);
-- ``cull`` (big-mesh route): on the loop state of the third iteration,
-  the slab tests and the (lane, chunk) pairs that pass the cull of each
-  chunked kernel, from a plain pass (``cull_counts``), and the bound
-  they give;
-- ``walk`` (BVH route: a mesh past the card's crossover under 'auto',
-  such as suzanne_xxhi, which chip_smoke.py generates): on the loop state of the
-  third iteration, BVH_CLOSEST and BVH_ANY ms, the node visits, box tests
-  and leaf tests of the plain walk, and the bound they give
-  (``bvh_bound``); then ``fallback``: on the same state, BVH_CLOSEST's
-  walk and fallback pass apart (device ms a call under torch.profiler),
-  the lanes the walk leaves pending, their warp fill in lane order and
-  the pass's bound (``fallback_report``; ``--scene rtiow_final`` for the
-  sphere scene whose pass it is);
+  ``group`` line for the kernels (TRACE and SHADE, or ENV_DRAW, the
+  closest and occlusion pair and BIG_SHADE on the big-mesh routes), the
+  row gathers (index_select) and the other glue, kernel launches per
+  iteration, and the device busy share: the union of device intervals
+  over the window from the first one's start to the last one's end (the
+  window holds the call's set-up and its final host check too);
 - ``sweep`` (small route): on the loop state of the third iteration,
   TRACE, CLOSEST, ANY and FUSED ms at 2048^2 lanes (CUDA events), the
   sweeps on TRACE's rays as ``sweep_calls`` builds them;
-- ``fmad`` (small route): TRACE and SHADE ms at 2048^2 lanes for the
-  library built with the default nvcc flags and for one built with
-  ``-fmad=false`` toggled, in the order default, other, other, default;
-  each one's parity with the plain versions; and Mrays/s of a budget-64
-  free-run call with each.
-
-With ``--path scan``, the scan integrator (``Renderer.step()``):
-
-- ``scan_kernel``/``scan_group``: one step under torch.profiler; device
-  ms and launches a bounce by kernel name and by group (CLOSEST, ANY,
-  index_select, elementwise, the rest), and the busy share;
-- ``scan_gathers``: index_select calls a bounce whose source is a table
-  of the DeviceScene (``scene_gathers``);
-- ``scan``: seconds a sample and Mrays/s over a few steps;
-- ``scan_state``: CLOSEST and ANY ms (CUDA events) on the integrator's
-  own queries at bounces 0 and 3 (``capture_scan``), the live and masked
-  lane counts and the bounds of ``scan_bounds``.
-
-With ``--path scan-image``, ``scan_image``: the relative RMSE of each of
-the first 16 samples of the scan integrator (``render_sample``) at
-256x256, rendered on the card through the kernels, against the same
-sample rendered on the CPU through the plain versions, and of their
-means; then ``scan_stage``: sample 0 bounce by bounce, the closest and
-occlusion queries' inputs on the card against the CPU's (lanes that
-differ bitwise, largest difference), and ``device_math``: the glue's
-transcendental functions on the card against the CPU on the same inputs.
-Run as ``PYTHONPATH=OLD python rsoderh_raytracing_tpu_torch/profiling.py
---path scan-image`` it reads the package of the tree OLD instead.
+- ``cull`` (chunked route): on the same state, the slab tests and the
+  (lane, chunk) pairs that pass the cull of each chunked kernel, from a
+  plain pass (``cull_counts``), and the bound they give;
+- ``walk`` (BVH route: a mesh past the card's crossover under 'auto'):
+  on the same state, BVH_CLOSEST and BVH_ANY ms, the node visits, box
+  tests and leaf tests of the plain walk, and the bound they give
+  (``bvh_bound``); then ``fallback``: BVH_CLOSEST's walk and fallback
+  pass apart (device ms a call under torch.profiler), the lanes the walk
+  leaves pending, their warp fill in lane order and the pass's bound
+  (``fallback_report``; ``--scene rtiow_final`` for the sphere scene
+  whose pass it is).
 
 With ``--path split``, the multi-device split (parallel/sharding.py)
 over every card of the machine, house:
@@ -81,20 +50,6 @@ over every card of the machine, house:
   2048x2048, 8 bounces, for k = 1, 2, 4, ... up to N and back down (one
   call each way), and each k's speed-up over dp:1.
 
-With ``--path cluster``, the chunk orders of the chunked route (default
-scene suzanne_hi; suzanne_xhi and suzanne_xxhi are generated by
-scripts/subdivide_obj.py; an order whose padded lanes pass the ceiling,
-such as suzanne_xhi's treelet order (350,848) or suzanne_xxhi in any
-order, prints ``route=none`` unless RT_MAX_CHUNKED_TRIS=1048576 raises
-it): for RT_CHUNK_CLUSTER=morton, bvh,
-treelet and RT_DISABLE_MORTON=1 (``host``), one ``cluster`` line
-(``cluster_report``): chunks, padded triangle lanes, the chunk boxes'
-total surface area, the host's seconds for the order and for the scene
-build; on the 2048^2 loop state of the third iteration CHUNKED_CLOSEST's
-and CHUNKED_ANY's ms, the pairs, candidates and slab tests of the
-kernels' batch model and the bound of ``chunked_bound`` with its cull's
-pairs; and the Mrays/s of one free-run call of 64 iterations.
-
 With ``--path spans``, the port's spans and counters (tracing.py) over
 NAME at 2048x2048: ``tracing_cost``, the median host ms of a
 step_freerun(64) call with tracing off and on (six calls each, by turns);
@@ -104,12 +59,10 @@ the device-idle ms a call put down to the innermost span open at each
 gap's start, syncs a call, and the share of the step kernels' launches
 that lie inside their ``wavefront.step`` span on the profiler's clock.
 
-``--sass`` prints, for each kernel of the built library, the SASS
-instruction count by opcode and each loop's (backward branch's) body,
-from ``cuobjdump -sass``; the dump goes under DIR.
-
-The Chrome trace is written under DIR (default ``build/profile``).
-Needs one CUDA device; imports nothing of jax.
+The Chrome traces are written under DIR (default ``build/profile``).
+Needs one CUDA device; imports nothing of jax. The helpers that capture
+a loop state or a scan state, build the sweeps' calls, count a cull and
+give a kernel's bound serve chip_smoke.py and the tests as well.
 """
 
 from __future__ import annotations
@@ -117,12 +70,9 @@ from __future__ import annotations
 import argparse
 import bisect
 import collections
-import contextlib
 import dataclasses
 import json
 import os
-import re
-import shutil
 import subprocess
 import time
 import tomllib
@@ -136,7 +86,6 @@ from rsoderh_raytracing_tpu_torch.env.environment import (
     Environment, EnvironmentMaps, device_environment,
 )
 from rsoderh_raytracing_tpu_torch.env.hdr_io import procedural_sky
-from rsoderh_raytracing_tpu_torch.ops import _kernels
 from rsoderh_raytracing_tpu_torch.ops import bvh as bvh_ops
 from rsoderh_raytracing_tpu_torch.ops import cuda_intersect as ci
 from rsoderh_raytracing_tpu_torch.ops import cuda_wavefront as cw
@@ -145,17 +94,13 @@ from rsoderh_raytracing_tpu_torch.render.integrator import camera_pytree, render
 from rsoderh_raytracing_tpu_torch.render.renderer import Renderer
 from rsoderh_raytracing_tpu_torch.render.wavefront import NO_LIMIT, Wavefront, render_freerun
 from rsoderh_raytracing_tpu_torch.scene.device import (
-    BVH, CHUNKED, TRI_CHUNK, build_device_scene, cluster_triangles, fallback_shared_bytes, route,
+    BVH, CHUNKED, TRI_CHUNK, build_device_scene, fallback_shared_bytes, route,
 )
 from rsoderh_raytracing_tpu_torch.scene.toml_loader import build_scene
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIZE = 2048
 BOUNCES = 8
-IMAGE_SIZE = 256  # --path scan-image
-IMAGE_SAMPLES = 16
-FMAD_OFF = "-fmad=false"
-RTOL, ATOL = 1e-4, 1e-5
 
 # Published H100 SXM peaks (NVIDIA's data sheet, at the full 700 W): HBM3
 # bandwidth and f32 outside the tensor cores.
@@ -186,9 +131,9 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-# The generated scenes (--scene; chip_smoke.py phase 17): tiled_house(k)
-# by name. house_tiled16 (256 planes; 8 + 256 + 64 padded lanes, a packed
-# table of 26,112 bytes) takes the small route past the unroll budget;
+# The generated scenes (--scene): tiled_house(k) by name. house_tiled16
+# (256 planes; 8 + 256 + 64 padded lanes, a packed table of 26,112 bytes)
+# takes the small route past the unroll budget;
 # house_tiled64 (4,096 planes; a table of 271,872 bytes, past a block's
 # shared memory, so the sweep kernels read it from global memory) the small
 # route under intersector='sweep', the BVH under 'auto' on the card.
@@ -452,12 +397,6 @@ def fallback_report(scene, args, out_dir, reps=5):
                 fallback_ms=pass_ms, bound_ms=ms, bound_by=by, share=ms / max(pass_ms, 1e-9))
 
 
-def shade_outputs(result):
-    """shade_call/shade_plain's (carry, active, hitmask) as one dict."""
-    carry, active, hitmask = result
-    return dict(carry, active=active, hitmask=hitmask)
-
-
 def time_ms(fn, reps):
     """Mean device ms of `fn` over `reps` calls after one warm-up call
     (CUDA events on the current stream)."""
@@ -482,20 +421,6 @@ def _bvh_group(name):
     if "walk_kernel" in name:
         return "bvh_closest" if "Closest" in name else "bvh_any"
     return None
-
-
-def _scan_group(name):
-    if _bvh_group(name):
-        return _bvh_group(name)
-    for kernel in ("env_draw_kernel", "chunked_closest_kernel", "chunked_any_kernel",
-                   "closest_kernel", "any_kernel"):
-        if kernel in name:
-            return kernel[: -len("_kernel")]
-    if "gather" in name or "indexselect" in name.lower():
-        return "index_select"
-    if "elementwise" in name:
-        return "elementwise"
-    return "rest"
 
 
 def _group(name):
@@ -573,15 +498,6 @@ def capture_scan(ds, env, cam, size, bounces, at=(0, 3), sample=0):
     return states
 
 
-def scan_calls(scene, state):
-    """(CLOSEST call, ANY call) on a capture_scan state, each a thunk
-    through the wrapper with the state's lane mask."""
-    ro, rd, live = state["closest"]
-    p, nd, mask = state["any"]
-    live, mask = live.to(torch.int32).contiguous(), mask.to(torch.int32).contiguous()
-    return (lambda: ci.closest_call(scene, ro, rd, live)), (lambda: ci.any_call(scene, p, nd, mask))
-
-
 def valid_sweep_ops(scene):
     """Operations of one closest sweep of a lane over the valid rows."""
     n_sph, n_pln, n_tri = scene.sweep_rows
@@ -628,328 +544,6 @@ def scene_gathers(scene, fn):
             mock.patch.object(torch, "index_select", counted(function)):
         fn()
     return count[0]
-
-
-def scan_main(args, dev, card) -> int:
-    """--path scan: the scan integrator's bounce (see the module doc)."""
-    ds, env, cam = scene_setup(args.scene, dev)
-    sky_host = Environment.from_texture("sky", procedural_sky(2048, 1024))
-    scene = named_scene(args.scene)
-    renderer = Renderer(scene, SIZE, SIZE, environments=EnvironmentMaps([sky_host]),
-                        max_bounces=BOUNCES, device=dev)
-    renderer.step()  # build + warm-up
-    torch.cuda.synchronize()
-    with torch.profiler.profile(
-        activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    ) as prof:
-        renderer.step()
-        torch.cuda.synchronize()
-    trace_path = os.path.join(args.out, f"{args.scene}_scan_trace.json")
-    prof.export_chrome_trace(trace_path)
-    group_launches = {}
-    per_bounce, groups, launches, busy = kernel_breakdown(trace_path, BOUNCES, _scan_group,
-                                                          group_launches)
-    total = sum(per_bounce.values())
-    for name, ms in sorted(per_bounce.items(), key=lambda kv: -kv[1])[:12]:
-        print(f"[scan_kernel] ms_per_bounce={ms:.4f} share={ms / total:.4f} name={name[:110]}",
-              flush=True)
-    print("[scan_group] scene=%s bounces=%d total_ms_per_bounce=%.4f %s %s launches_per_bounce=%.1f "
-          "busy_share=%.4f card=%r" % (
-              args.scene, BOUNCES, total,
-              " ".join(f"{k}_ms={v:.4f}" for k, v in sorted(groups.items())),
-              " ".join(f"{k}_launches={v:.2f}" for k, v in sorted(group_launches.items())),
-              launches, busy, card), flush=True)
-    gathers = scene_gathers(renderer.device_scene, renderer.step)
-    print(f"[scan_gathers] scene={args.scene} scene_table_index_selects_per_bounce="
-          f"{gathers / BOUNCES:.2f} card={card!r}", flush=True)
-
-    steps = 3
-    torch.cuda.synchronize()
-    start = time.perf_counter()
-    for _ in range(steps):
-        renderer.step()
-    torch.cuda.synchronize()
-    per_sample = (time.perf_counter() - start) / steps
-    _, stats = render_sample(ds, env, cam, 0, (SIZE, SIZE), BOUNCES, with_stats=True)
-    rays = int(stats["closest_rays"] + stats["shadow_rays"])
-    print(f"[scan] scene={args.scene} steps={steps} s_per_sample={per_sample:.4f} "
-          f"mrays_per_s={rays / per_sample / 1e6:.2f} card={card!r}", flush=True)
-
-    states = capture_scan(ds, env, cam, SIZE, BOUNCES)
-    for bounce, state in states.items():
-        closest, occlusion = scan_calls(ds, state)
-        (c_ms, c_by), (a_ms, a_by), n_live, n_mask = scan_bounds(ds, state)
-        print(f"[scan_state] scene={args.scene} bounce={bounce} lanes={SIZE * SIZE} live={n_live} "
-              f"masked={n_mask} closest_ms={time_ms(closest, 20):.4f} any_ms={time_ms(occlusion, 20):.4f} "
-              f"closest_bound_ms={c_ms:.4f} closest_bound_by={c_by} any_bound_ms={a_ms:.4f} "
-              f"any_bound_by={a_by} card={card!r}", flush=True)
-    return 0
-
-
-def scan_image_main(args, dev, card) -> int:
-    """--path scan-image: the scan integrator's IMAGE_SIZE^2 samples on the
-    card against the CPU's (see the module doc). Uses only Renderer and
-    render_sample, so it also reads a package of an earlier tree put
-    first on PYTHONPATH."""
-    scene = named_scene(args.scene)
-    sky = EnvironmentMaps([Environment.from_texture("sky", procedural_sky(2048, 1024))])
-    res = (IMAGE_SIZE, IMAGE_SIZE)
-    images = []
-    for device in (dev, "cpu"):
-        r = Renderer(scene, *res, environments=sky, max_bounces=BOUNCES, device=device)
-        images.append(np.stack([
-            render_sample(r.device_scene, r._device_env(), r._camera(), s, res, BOUNCES).cpu().numpy()
-            for s in range(IMAGE_SAMPLES)]))
-    card_img, cpu_img = images
-
-    def rel(a, b):
-        return float(np.sqrt(np.mean((a - b) ** 2)) / np.sqrt(np.mean(b ** 2)))
-
-    per = ",".join(f"{rel(a, b):.3e}" for a, b in zip(card_img, cpu_img))
-    package = os.path.dirname(os.path.dirname(render_sample.__code__.co_filename))
-    print(f"[scan_image] scene={args.scene} size={IMAGE_SIZE} package={package} "
-          f"rel_rmse_per_sample={per} "
-          f"rel_rmse_mean_{IMAGE_SAMPLES}={rel(card_img.mean(0), cpu_img.mean(0)):.3e} "
-          f"card={card!r}", flush=True)
-    scan_stages(scene, sky, dev, card)
-    return 0
-
-
-def _ulps(a, b):
-    """Largest distance in units in the last place between f32 tensors
-    of equal shape (their int32 bit patterns, sign folded)."""
-    def key(x):
-        bits = x.contiguous().view(torch.int32).long()
-        return torch.where(bits < 0, -(bits & 0x7FFFFFFF), bits)
-    return int((key(a) - key(b)).abs().max()) if a.numel() else 0
-
-
-# The transcendental functions of the scan integrator's glue (camera,
-# ops/envmap.py, ops/bsdf.py), each on 2^20 seeded inputs in its range.
-DEVICE_MATH = {
-    "sin": (torch.sin, lambda u, v: (u * 2.0 - 1.0) * np.pi),
-    "cos": (torch.cos, lambda u, v: (u * 2.0 - 1.0) * np.pi),
-    "atan2": (torch.atan2, lambda u, v: (u * 2.0 - 1.0, v * 2.0 - 1.0)),
-    "asin": (torch.asin, lambda u, v: u * 2.0 - 1.0),
-    "sqrt": (torch.sqrt, lambda u, v: u * 4.0),
-    "div": (torch.div, lambda u, v: (u + 0.5, v + 0.5)),
-}
-
-
-def scan_stages(scene, sky, dev, card):
-    """Sample 0 of the scan integrator at IMAGE_SIZE^2, stage by stage,
-    on the card against the CPU: for each bounce, the closest query's
-    (ro, rd, live) and the occlusion query's (p, nee_dir, mask) as
-    capture_scan records them; per field the lanes that differ (bitwise,
-    on lanes set on both devices, or every lane where the query has no
-    mask), the largest absolute difference and ulps ([scan_stage]). Then
-    each function of DEVICE_MATH on the card against the CPU on the same
-    inputs ([device_math])."""
-    res = (IMAGE_SIZE, IMAGE_SIZE)
-    states, max_y = [], []
-    for device in (dev, "cpu"):
-        r = Renderer(scene, *res, environments=sky, max_bounces=BOUNCES, device=device)
-        states.append(capture_scan(r.device_scene, r._device_env(), r._camera(), IMAGE_SIZE,
-                                   BOUNCES, at=tuple(range(BOUNCES))))
-        # the camera's one transcendental, which scales every camera ray
-        # (integrator.generate_camera_rays)
-        max_y.append(torch.sin(r._camera()["fov_y"] / 2.0).cpu().reshape(1))
-    print(f"[scan_stage] camera_sin_half_fov card={float(max_y[0]):.9g} cpu={float(max_y[1]):.9g} "
-          f"ulps={_ulps(*max_y)} card={card!r}", flush=True)
-    # the camera jitter's functions (rng.next_in_circle) on one seed a pixel
-    seeded = rng.seed(torch.arange(IMAGE_SIZE * IMAGE_SIZE), 0)
-    parts = []
-    for device in (dev, "cpu"):
-        state, angle_u = rng.next_uniform(seeded.to(device))
-        _, radius_u = rng.next_uniform(state)
-        angle = angle_u * rng.TWO_PI_CIRCLE
-        parts.append({"sqrt_radius": torch.sqrt(radius_u), "cos_angle": torch.cos(angle),
-                      "sin_angle": torch.sin(angle)})
-    print("[scan_stage] camera_jitter lanes=%d %s card=%r" % (
-        seeded.numel(), " ".join(
-            f"{k}_differ={int((parts[0][k].cpu().view(torch.int32) != v.view(torch.int32)).sum())}"
-            for k, v in parts[1].items()), card), flush=True)
-    for b in range(BOUNCES):
-        for query, names in (("closest", ("ro", "rd", "live")), ("any", ("p", "nee_dir", "mask"))):
-            if query not in states[0][b] or query not in states[1][b]:
-                continue
-            (g_o, g_d, g_m), (c_o, c_d, c_m) = states[0][b][query], states[1][b][query]
-            both = torch.ones(c_o[0].shape[0], dtype=torch.bool)
-            mask_differ = 0
-            if g_m is not None and c_m is not None:
-                g_m, c_m = g_m.cpu() != 0, c_m != 0
-                both, mask_differ = g_m & c_m, int((g_m != c_m).sum())
-            fields = []
-            for name, g, c in ((names[0], g_o, c_o), (names[1], g_d, c_d)):
-                g = torch.stack([x.cpu() for x in g], -1)[both]
-                c = torch.stack(list(c), -1)[both]
-                differ = (g.view(torch.int32) != c.view(torch.int32)).any(-1)
-                fields.append(f"{name}_differ={int(differ.sum())} "
-                              f"{name}_max_abs={float((g - c).abs().max()) if g.numel() else 0.0:.3e} "
-                              f"{name}_max_ulps={_ulps(g, c)}")
-            print(f"[scan_stage] bounce={b} query={query} lanes={int(both.sum())} "
-                  f"{names[2]}_differ={mask_differ} " + " ".join(fields) + f" card={card!r}",
-                  flush=True)
-    gen = torch.Generator().manual_seed(0)
-    u, v = torch.rand(1 << 20, generator=gen), torch.rand(1 << 20, generator=gen)
-    for name, (fn, inputs) in DEVICE_MATH.items():
-        args = inputs(u, v)
-        args = args if isinstance(args, tuple) else (args,)
-        ref = fn(*args)
-        got = fn(*(a.to(dev) for a in args)).cpu()
-        differ = got.view(torch.int32) != ref.view(torch.int32)
-        print(f"[device_math] fn={name} inputs={ref.numel()} differ={int(differ.sum())} "
-              f"max_ulps={_ulps(got, ref)} card={card!r}", flush=True)
-
-
-# One instruction of cuobjdump's SASS: address, predicate, opcode, operands.
-_SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
-
-
-def sass_report(lib_path, out_dir, kernels=("closest_kernel", "any_kernel", "fused_kernel",
-                                            "trace_kernel")):
-    """{kernel: {"total", "predicated", "ops": Counter by opcode, "loops":
-    [(start, end, instructions, Counter)]}} of the library's SASS, from
-    cuobjdump; the dump is written to out_dir/sass.txt."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    text = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True, check=True,
-                          timeout=600).stdout
-    with open(os.path.join(out_dir, "sass.txt"), "w") as f:
-        f.write(text)
-    report = {}
-    for block in text.split("Function : ")[1:]:
-        name = block.split("\n", 1)[0].strip()
-        key = next((k for k in kernels if k in name and not ("chunked" in name and "chunked" not in k)
-                    and not ("big_" in name and "big_" not in k)), None)
-        if key is None:
-            continue
-        insts = [(int(m.group(1), 16), m.group(3), bool(m.group(2)), m.group(4))
-                 for m in _SASS_LINE.finditer(block)]
-        loops = []
-        for addr, op, _, rest in insts:
-            target = re.search(r"0x([0-9a-f]+)", rest)
-            if op.startswith("BRA") and target and int(target.group(1), 16) < addr:
-                body = [o for a, o, _, _ in insts if int(target.group(1), 16) <= a <= addr]
-                loops.append((int(target.group(1), 16), addr, len(body),
-                              collections.Counter(o.split(".")[0] for o in body)))
-        report[key] = {
-            "total": len(insts), "predicated": sum(p for _, _, p, _ in insts),
-            "ops": collections.Counter(o.split(".")[0] for _, o, _, _ in insts), "loops": loops,
-        }
-    return report
-
-
-# --path cluster: the chunk orders (RT_CHUNK_CLUSTER, and the host order
-# of RT_DISABLE_MORTON=1) and the iterations of the free-run call.
-CLUSTER_ORDERS = ("morton", "bvh", "treelet", "host")
-CLUSTER_BUDGET = 64
-
-
-@contextlib.contextmanager
-def knob_env(settings):
-    """The environment variables of `settings` (name: value, or None for
-    unset) while the block runs; as they were afterwards."""
-    saved = {k: os.environ.get(k) for k in settings}
-    try:
-        for k, v in settings.items():
-            os.environ.pop(k, None)
-            if v is not None:
-                os.environ[k] = v
-        yield
-    finally:
-        for k, v in saved.items():
-            os.environ.pop(k, None)
-            if v is not None:
-                os.environ[k] = v
-
-
-def chunk_order(order):
-    """knob_env of a chunk order: RT_CHUNK_CLUSTER=order, or
-    RT_DISABLE_MORTON=1 for "host"."""
-    if order == "host":
-        return knob_env({"RT_CHUNK_CLUSTER": None, "RT_DISABLE_MORTON": "1"})
-    return knob_env({"RT_CHUNK_CLUSTER": order, "RT_DISABLE_MORTON": None})
-
-
-def chunk_surface(scene):
-    """Total surface area of the triangle chunks' boxes (inflated, as the
-    kernels cull by them)."""
-    b = scene.chunks.bounds[: scene.chunks.n_tri_chunks].double()
-    d = (b[:, 3:] - b[:, :3]).clamp_min(0.0)
-    return float((2.0 * (d[:, 0] * d[:, 1] + d[:, 0] * d[:, 2] + d[:, 1] * d[:, 2])).sum())
-
-
-def cluster_report(name, order, dev, card, env, bounds=True, budget=CLUSTER_BUDGET, label="cluster"):
-    """One order of scene NAME at SIZE^2 (the --path cluster line): chunks,
-    padded triangle lanes, total chunk-box surface area, the host's
-    seconds for the order (cluster_s) and for the whole scene build; on
-    the loop state of the third iteration, CHUNKED_CLOSEST's and
-    CHUNKED_ANY's ms (CUDA events), the pairs, candidates and slab tests
-    of the kernels' batch model (intersect.chunked_*_model) and, with
-    `bounds`, chunked_bound's ms and its cull's pairs (cull_counts); then
-    the Mrays/s of one free-run call of `budget` iterations and the
-    launches of CHUNKED_CLOSEST, CHUNKED_ANY and BIG_SHADE in it. Returns
-    the numbers by name, or None where the scene in this order does not
-    take the chunked route (a ceiling)."""
-    scene = named_scene(name)
-    with chunk_order(order):
-        start = time.perf_counter()
-        ds = build_device_scene(scene, dev)
-        build_s = time.perf_counter() - start
-        if order == "host":
-            cluster_s = 0.0
-        else:
-            start = time.perf_counter()
-            cluster_triangles(scene.meshes.vertices, scene.meshes.triangles, order)
-            cluster_s = time.perf_counter() - start
-    if ds.chunks is None:
-        print(f"[{label}] scene={name} order={order} route=none lanes={ds.tri_valid.shape[0]} "
-              f"card={card!r}", flush=True)
-        return None
-    out = dict(chunks=ds.chunks.count, lanes=ds.tri_valid.shape[0], surface=chunk_surface(ds),
-               cluster_s=cluster_s, build_s=build_s)
-    cam = camera_pytree(scene.camera, dev)
-    res = (SIZE, SIZE)
-    wave = Wavefront(ds, env, cam, np.zeros(res, np.uint32), res, NO_LIMIT, 64, BOUNCES)
-    for it in range(2):
-        wave.step(it)
-    captured = capture_step(wave, 2)
-    batch = ci.chunked_batch()
-    for key, closest in (("closest", True), ("occlusion", False)):
-        args = captured[key]
-        kfn = ci.chunked_closest_call if closest else ci.chunked_any_call
-        model = intersect.chunked_closest_model if closest else intersect.chunked_any_model
-        out[f"{key}_ms"] = time_ms(lambda: kfn(*args), 5)
-        walked = {}
-        model(*args, batch, counts=walked)
-        out.update({f"{key}_{k}": v for k, v in walked.items()})
-        if bounds:
-            ms, by, cull = chunked_bound(ds, args, closest)
-            out.update({f"{key}_bound_ms": ms, f"{key}_bound_by": by,
-                        f"{key}_cull_pairs": cull["pairs"]})
-    del wave, captured
-    before = {**ci.LAUNCHES, **cw.LAUNCHES}
-    torch.cuda.synchronize()
-    start = time.perf_counter()
-    _, _, stats = render_freerun(ds, env, cam, np.zeros(res, np.uint32), res, budget,
-                                 BOUNCES, with_stats=True)
-    rays = int(stats["closest_rays"] + stats["shadow_rays"])  # synchronizes
-    out["mrays_per_s"] = rays / (time.perf_counter() - start) / 1e6
-    after = {**ci.LAUNCHES, **cw.LAUNCHES}
-    out["launches"] = "/".join(str(after[k] - before[k])
-                               for k in ("env_draw", "chunked_closest", "chunked_any", "big_shade"))
-    print(f"[{label}] scene={name} order={order} size={SIZE} budget={budget} "
-          + " ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}" for k, v in out.items())
-          + f" card={card!r}", flush=True)
-    return out
-
-
-def cluster_main(args, dev, card) -> int:
-    """--path cluster: scene NAME in each of CLUSTER_ORDERS."""
-    env = device_environment(Environment.from_texture("sky", procedural_sky(2048, 1024)), dev)
-    for order in CLUSTER_ORDERS:
-        cluster_report(args.scene, order, dev, card, env)
-    return 0
 
 
 SPLIT_SIZE = 256  # --path split: the parity checks
@@ -1223,45 +817,25 @@ def spans_main(args, dev, card) -> int:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--path", choices=("loop", "scan", "scan-image", "split", "cluster", "spans"),
-                        default="loop",
-                        help="the free-run kernel loop, the scan integrator, its image on the "
-                             "card against the CPU's, the split over every card, the "
-                             "chunk orders, or the port's spans over a profile")
-    parser.add_argument("--scene", default=None,
+    parser.add_argument("--path", choices=("loop", "split", "spans"), default="loop",
+                        help="the free-run kernel loop, the split over every card, or the port's "
+                             "spans over a profile")
+    parser.add_argument("--scene", default="house",
                         help="a scene of assets/scenes or a generated one (house_tiled16, "
-                             "house_tiled64; default house; suzanne_hi for --path cluster)")
+                             "house_tiled64)")
     parser.add_argument("--intersector", choices=("auto", "sweep", "bvh"), default="auto",
                         help="the route of the default path, as the CLI's --intersector "
                              "(sweep: the small or chunked route, whatever the scene's size)")
     parser.add_argument("--out", default=os.path.join(ROOT, "build", "profile"))
-    parser.add_argument("--sass", action="store_true", help="the SASS instruction counts")
     args = parser.parse_args(argv)
-    if args.scene is None:
-        args.scene = "suzanne_hi" if args.path == "cluster" else "house"
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: profiling needs a GPU")
     dev = torch.device("cuda", 0)
     card = card_line()
     print(f"[card] {card}", flush=True)
     os.makedirs(args.out, exist_ok=True)
-    if args.sass:
-        for kernel, r in sass_report(_kernels.build(), args.out).items():
-            top = " ".join(f"{k}={v}" for k, v in r["ops"].most_common(14))
-            print(f"[sass] kernel={kernel} instructions={r['total']} predicated={r['predicated']} {top}",
-                  flush=True)
-            for start, end, n, ops in r["loops"]:
-                body = " ".join(f"{k}={v}" for k, v in ops.most_common(12))
-                print(f"[sass_loop] kernel={kernel} start=0x{start:04x} end=0x{end:04x} "
-                      f"instructions={n} {body}", flush=True)
-    if args.path == "scan":
-        return scan_main(args, dev, card)
-    if args.path == "scan-image":
-        return scan_image_main(args, dev, card)
     if args.path == "split":
         return split_main(dev, card)
-    if args.path == "cluster":
-        return cluster_main(args, dev, card)
     if args.path == "spans":
         return spans_main(args, dev, card)
     ds, env, cam = scene_setup(args.scene, dev,
@@ -1318,39 +892,12 @@ def main(argv=None) -> int:
               + f" card={card!r}", flush=True)
         return 0
 
-    tr_args, sh_args = captured["trace"], captured["shade"]
+    tr_args = captured["trace"]
     calls = {"trace": lambda: cw.trace_call(*tr_args)}
     calls.update({k: fns[0] for k, fns in sweep_calls(tr_args)[0].items()})
     print(f"[sweep] scene={args.scene} lanes={SIZE * SIZE} "
           + " ".join(f"{k}_ms={time_ms(fn, 20):.4f}" for k, fn in calls.items())
           + f" card={card!r}", flush=True)
-
-    # -fmad=false against FMA contraction, one library each, A B B A.
-    flags = list(_kernels.NVCC_FLAGS)
-    other = [f for f in flags if f != FMAD_OFF] if FMAD_OFF in flags else flags + [FMAD_OFF]
-    libs = {"default": _kernels.library(), "other": _kernels.load(other)}
-    labels = {"default": " ".join(flags), "other": " ".join(other)}
-    tr_ref = cw.trace_plain(*tr_args)
-    sh_ref = shade_outputs(cw.shade_plain(*sh_args))
-    for key in ("default", "other", "other", "default"):
-        with _kernels.using(libs[key]):
-            trace_ms = time_ms(lambda: cw.trace_call(*tr_args), 20)
-            shade_ms = time_ms(lambda: cw.shade_call(*sh_args), 20)
-            tr_shares, (tr_abs, _), _ = cw.parity(cw.trace_call(*tr_args), tr_ref, cw.TRACE_INT_NAMES, RTOL, ATOL)
-            sh_shares, (sh_abs, _), _ = cw.parity(shade_outputs(cw.shade_call(*sh_args)), sh_ref,
-                                             cw.SHADE_INT_NAMES, RTOL, ATOL)
-            torch.cuda.synchronize()
-            start = time.perf_counter()
-            _, _, stats = render_freerun(ds, env, cam, zeros, res, 64, BOUNCES, with_stats=True)
-            rays = int(stats["closest_rays"] + stats["shadow_rays"])
-            seconds = time.perf_counter() - start
-        print(f"[fmad] lib={key} fmad_false={FMAD_OFF in labels[key].split()} "
-              f"trace_ms={trace_ms:.4f} shade_ms={shade_ms:.4f} "
-              f"trace_min_share={min(tr_shares.values()):.6f} trace_worst={min(tr_shares, key=tr_shares.get)} "
-              f"trace_max_abs={tr_abs:.3e} "
-              f"shade_min_share={min(sh_shares.values()):.6f} shade_worst={min(sh_shares, key=sh_shares.get)} "
-              f"shade_max_abs={sh_abs:.3e} "
-              f"mrays_per_s={rays / seconds / 1e6:.2f} card={card!r}", flush=True)
     return 0
 
 

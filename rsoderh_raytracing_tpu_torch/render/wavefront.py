@@ -55,7 +55,8 @@ are re-sorted every K iterations (``compact_every``) by dead-last, the
 Morton cell of the ray origin and an octahedral direction bin
 (``compact_key``; RT_COMPACT_KEY, RT_COMPACT_MORTON_BITS). The default
 K (``compact_every_default``) is the reference's rule on the CPU and 0
-on the card, where chip_smoke.py's phase 18 measured the rule slower.
+on the card, where the rule measured slower (chip_smoke.py's phase 18 at
+commit 0dcd918).
 Every lane carries its pixel, its base sample and its home slot in the
 carry, so both are pure lane permutations: per-pixel results are bitwise
 those of row-major, uncompacted lanes, and ``Wavefront.results`` returns
@@ -186,12 +187,13 @@ def compact_every_default(scene) -> int:
     if set, read at each call; else 0 on the card and reference_cadence on
     the CPU (the reference's _compact_every_default, so the CPU tests take
     its defaults). Images are bitwise the same at every cadence, so the
-    default moves only speed. On an H100 (700 W, chip_smoke.py phase 18,
-    2048^2, 8 bounces, free-run, median of three calls) the reference's
-    rule read suzanne_hi 341.56 Mrays/s at K = 2 against 378.45 at K = 0
-    (0.9025x: a permutation costs 3.42 ms at 4.2M lanes and the chunked
-    kernels gain under 0.1 ms) and suzanne_xhi 145.52 at K = 1 against
-    138.50 (1.0507x); it is slower on suzanne_hi, so the card keeps K = 0."""
+    default moves only speed. On an H100 (700 W, chip_smoke.py's phase 18
+    at commit 0dcd918, 2048^2, 8 bounces, free-run, median of three
+    calls) the reference's rule read suzanne_hi 341.56 Mrays/s at K = 2
+    against 378.45 at K = 0 (0.9025x: a permutation costs 3.42 ms at 4.2M
+    lanes and the chunked kernels gain under 0.1 ms) and suzanne_xhi
+    145.52 at K = 1 against 138.50 (1.0507x); it is slower on
+    suzanne_hi, so the card keeps K = 0."""
     knob = os.environ.get("RT_COMPACT_EVERY")
     if knob is not None:
         return int(knob)
@@ -586,8 +588,9 @@ def render_spp_sync(
     render_wavefront(spp=rounds)'s wherever both compute the same camera
     rays: every round's camera rays come from generate_camera_rays, while
     render_wavefront regenerates samples 1.. inside SHADE. The two round
-    alike on the CPU and on an H100 (bitwise at 256^2, chip_smoke.py phase
-    13); the checks hold the card to the flip-aware criteria all the same.
+    alike on the CPU and on an H100 (bitwise at 256^2, chip_smoke.py's
+    phase 13 at commit 403343d); the card test holds them to the
+    flip-aware criteria all the same.
     Each round's Wavefront takes the lane layout and compact_every as the
     reference's rounds do.
 

@@ -41,7 +41,6 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import time
 from typing import Optional
 
 import numpy as np
@@ -49,7 +48,6 @@ import torch
 
 from rsoderh_raytracing_tpu_torch import _device, tracing
 from rsoderh_raytracing_tpu_torch.accel.bvh import build_bvh
-from rsoderh_raytracing_tpu_torch.ops.bvh import device_bvh
 from rsoderh_raytracing_tpu_torch.scene.types import Scene
 
 # From rsoderh_raytracing_tpu/ops/pallas_intersect.py: the unrolled-sweep
@@ -111,18 +109,18 @@ SMALL, CHUNKED, BVH = "small", "chunked", "bvh"
 CPU_BVH_ABOVE_LANES = 262144
 # with_bvh="auto" on the card: the BVH past this many padded sphere and
 # triangle lanes. The crossover measured on an NVIDIA H100 80GB HBM3,
-# 700.00 W (chip_smoke.py phase 12: 2048^2, 8 bounces, free-run calls of
-# 32 iterations, median Mrays/s of three calls, spread in brackets, sweep
-# route against BVH): house (8 + 56 lanes, the small route) 2,743.19
-# (14.04) against 627.73 (0.91); from suzanne (8 + 1,024, the chunked
-# route) up the BVH wins by far more than the spreads: 457.05 (1.03)
-# against 547.98 (0.38), level 1 (3,904) 428.90 against 537.20,
-# suzanne_hi (15,488) 378.82 against 523.81, level 3 (61,952) 286.98
-# against 508.76, suzanne_xhi (247,808) 154.82 against 490.83; spheres
-# (1,024 + 64) 381.30 (1.06) against 389.02 (2.72). So the constant lies
-# between 64 and 1,032 lanes: the unroll budget, which every scene of the
-# small route within it stays under, and which the chunked route's
-# scenes pass.
+# 700.00 W (chip_smoke.py's phase 12 at commit 3bc395c: 2048^2, 8
+# bounces, free-run calls of 32 iterations, median Mrays/s of three
+# calls, spread in brackets, sweep route against BVH): house (8 + 56
+# lanes, the small route) 2,743.19 (14.04) against 627.73 (0.91); from
+# suzanne (8 + 1,024, the chunked route) up the BVH wins by far more
+# than the spreads: 457.05 (1.03) against 547.98 (0.38), level 1 (3,904)
+# 428.90 against 537.20, suzanne_hi (15,488) 378.82 against 523.81,
+# level 3 (61,952) 286.98 against 508.76, suzanne_xhi (247,808) 154.82
+# against 490.83; spheres (1,024 + 64) 381.30 (1.06) against 389.02
+# (2.72). So the constant lies between 64 and 1,032 lanes: the unroll
+# budget, which every scene of the small route within it stays under,
+# and which the chunked route's scenes pass.
 CUDA_BVH_ABOVE_LANES = 192
 
 FIELDS = (
@@ -702,12 +700,7 @@ def build_device_scene(
     )
     if not with_bvh:
         return device_scene_from_arrays(arrays, device)
-    start = time.perf_counter()
-    flat = build_bvh(scene)
-    seconds = time.perf_counter() - start
-    out = device_scene_from_arrays(arrays, device, flat)
-    out.bvh.build_seconds = seconds
-    return out
+    return device_scene_from_arrays(arrays, device, build_bvh(scene))
 
 
 def device_scene_from_arrays(arrays: dict, device=_device.DEFAULT, bvh=None) -> DeviceScene:
@@ -736,6 +729,9 @@ def device_scene_from_arrays(arrays: dict, device=_device.DEFAULT, bvh=None) -> 
         for k in ("sph_valid", "pln_valid", "tri_valid")
     )
     if bvh is not None:
+        # imported here: ops/bvh.py imports ops/intersect.py, which imports this module
+        from rsoderh_raytracing_tpu_torch.ops.bvh import device_bvh
+
         scene.bvh = device_bvh(bvh, scene)
     picked = BVH if bvh is not None else counts_route(*_counts(scene))
     if picked == SMALL:

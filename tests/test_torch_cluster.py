@@ -461,10 +461,11 @@ def test_rt_bvh_above_tris_moves_the_crossover_down(monkeypatch, thresh, counts,
 @pytest.mark.parametrize("name,card", [("house", False), ("spheres", True), ("suzanne", True),
                                        ("suzanne_hi", True)])
 def test_card_auto_on_the_crossover_scenes(assets_dir, name, card, monkeypatch):
-    """The lanes of the scenes chip_smoke.py measures the crossover on:
-    on the card 'auto' keeps house on the small route and walks the BVH on
-    spheres and the meshes, where the walks were measured faster; the CPU
-    keeps the reference's decision (no BVH within 262,144 lanes)."""
+    """The lanes of the scenes the route crossover was measured on
+    (chip_smoke.py's phase 12 at commit 3bc395c): on the card 'auto'
+    keeps house on the small route and walks the BVH on spheres and the
+    meshes, where the walks were measured faster; the CPU keeps the
+    reference's decision (no BVH within 262,144 lanes)."""
     _clear_ceilings(monkeypatch)
     monkeypatch.delenv("RT_CHUNK_CLUSTER", raising=False)
     ds = build_device_scene(load_scene(os.path.join(assets_dir, "scenes", f"{name}.toml")), "cpu")

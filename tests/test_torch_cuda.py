@@ -8,38 +8,55 @@ mode). On a machine with one, which need not have jax:
 This file imports nothing of jax (tests/conftest.py does, hence
 --noconftest) and defines its own scene fixtures.
 
-The bounds are chip_smoke.py's: each integer output equal, and each
-float output isclose(1e-4, 1e-5), on at least 99.99% of the lanes.
+Each integer output equal, and each float output isclose(1e-4, 1e-5),
+on at least 99.99% of the lanes.
 TRACE's NEE pmf and quad row are bitwise its plain version's on every
 lane, and so is its NEE uv (the alias draw's texel and jitter) on the
 lanes where both hit; ENV_DRAW's state, NEE uv and pmf on every lane. CLOSEST, ANY and FUSED keep hit, occlusion, type,
 index and t bitwise their plain versions' through the sweep's
 division-free pre-test.
+
+Below the kernels, each route end to end on the card: what an iteration
+launches, the goldens and the numpy oracle's anchors, the command line,
+the composed body, the knobs RT_DISABLE_PALLAS and RT_DEBUG_NANS, the
+lane layout and the chunk orders, all bitwise or by the anchors'
+flip-aware image criteria.
 """
 
 import os
+import subprocess
+import sys
+import tomllib
 
 import numpy as np
 import pytest
 import torch
 
-from rsoderh_raytracing_tpu_torch import load_scene
+from rsoderh_raytracing_tpu_torch import cli, load_scene
 from rsoderh_raytracing_tpu_torch.env.environment import (
     Environment,
     EnvironmentMaps,
     device_environment,
+    load_default_environments,
 )
-from rsoderh_raytracing_tpu_torch.env.hdr_io import procedural_sky
+from rsoderh_raytracing_tpu_torch.env.hdr_io import procedural_sky, read_hdr
 from rsoderh_raytracing_tpu_torch.ops import cuda_intersect as ci
 from rsoderh_raytracing_tpu_torch.ops import cuda_wavefront as cw
 from rsoderh_raytracing_tpu_torch.ops import intersect
-from rsoderh_raytracing_tpu_torch.profiling import capture_step, sweep_calls
-from rsoderh_raytracing_tpu_torch.render.integrator import camera_pytree
+from rsoderh_raytracing_tpu_torch.profiling import capture_step, kernel_breakdown, sweep_calls, tiled_house
+from rsoderh_raytracing_tpu_torch.render import wavefront as wf
+from rsoderh_raytracing_tpu_torch.render.integrator import MAX_BOUNCES, camera_pytree
 from rsoderh_raytracing_tpu_torch.render.renderer import Renderer
-from rsoderh_raytracing_tpu_torch.render.wavefront import NO_LIMIT, Wavefront, render_freerun
-from rsoderh_raytracing_tpu_torch.scene.device import SMALL, build_device_scene, route
+from rsoderh_raytracing_tpu_torch.render.wavefront import (
+    NO_LIMIT, Wavefront, render_freerun, render_spp_sync, render_wavefront,
+)
+from rsoderh_raytracing_tpu_torch.scene.device import (
+    BVH, CHUNKED, SMALL, SWEEP_MAX_SHARED, auto_bvh, build_device_scene, route,
+)
 from rsoderh_raytracing_tpu_torch.scene.camera import Camera
+from rsoderh_raytracing_tpu_torch.scene.toml_loader import build_scene
 from rsoderh_raytracing_tpu_torch.scene.types import Material, PackedMeshes, Plane, Scene, Sphere
+from rsoderh_raytracing_tpu_torch.utils.png import read_png
 
 torch.set_num_threads(2)
 
@@ -47,7 +64,8 @@ pytestmark = pytest.mark.cuda
 
 PARITY_MIN = 0.9999
 RTOL, ATOL = 1e-4, 1e-5
-SCENES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "assets", "scenes")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SCENES = os.path.join(REPO, "assets", "scenes")
 
 
 @pytest.fixture(scope="module")
@@ -62,31 +80,44 @@ def dev():
     return torch.device("cuda", 0)
 
 
+def _scene(name):
+    """assets/scenes/NAME.toml, or profiling.tiled_house(k) for house_tiledK."""
+    if name.startswith("house_tiled"):
+        return tiled_house(int(name[len("house_tiled"):]))
+    return load_scene(os.path.join(SCENES, f"{name}.toml"))
+
+
+def _sky(dev):
+    return device_environment(Environment.from_texture("s", procedural_sky(256, 128)), dev)
+
+
+def _loop_state(ds, scene, dev):
+    """The route's kernel arguments at the fourth iteration of a real loop
+    at 128x128 (capture_step), by Wavefront.step keyword."""
+    wave = Wavefront(ds, _sky(dev), camera_pytree(scene.camera, dev), 0, (128, 128), NO_LIMIT, 32, 8)
+    for it in range(3):
+        wave.step(it)
+    return capture_step(wave, 3)
+
+
 @pytest.fixture(scope="module")
 def house_state(dev, house_scene):
     """TRACE and SHADE inputs of a real loop iteration at 128x128."""
-    ds = build_device_scene(house_scene, dev)
-    env = device_environment(Environment.from_texture("s", procedural_sky(256, 128)), dev)
-    wave = Wavefront(ds, env, camera_pytree(house_scene.camera, dev), 0, (128, 128),
-                     NO_LIMIT, 32, 8)
-    for it in range(3):
-        wave.step(it)
-    captured = {}
-
-    def capture(key, fn):
-        def wrapped(*args):
-            captured[key] = args
-            return fn(*args)
-        return wrapped
-
-    wave.step(3, trace=capture("trace", cw.trace_call), shade=capture("shade", cw.shade_call))
-    return captured
+    return _loop_state(build_device_scene(house_scene, dev), house_scene, dev)
 
 
 def _compare(got, ref, int_names):
     shares, _, _ = cw.parity(got, ref, int_names, RTOL, ATOL)
     assert shares.keys() == ref.keys()
     assert {k: v for k, v in shares.items() if v < PARITY_MIN} == {}
+
+
+def _compare_shade(got, ref):
+    """SHADE's or BIG_SHADE's (carry, active, hitmask) against its plain
+    version's, output by output."""
+    (carry, act, hitm), (ref_carry, ref_act, ref_hitm) = got, ref
+    _compare(dict(carry, active=act, hitmask=hitm), dict(ref_carry, active=ref_act, hitmask=ref_hitm),
+             cw.SHADE_INT_NAMES)
 
 
 def _bits_differ(a, b):
@@ -178,11 +209,9 @@ def test_trace_kernel_on_made_up_rays(small_scenes, seeded_env, dev, name, n):
 def test_shade_kernel_matches_plain(house_state):
     args = house_state["shade"]
     before = cw.LAUNCHES["shade"]
-    carry, act, hitm = cw.shade_call(*args)
+    got = cw.shade_call(*args)
     assert cw.LAUNCHES["shade"] == before + 1
-    ref_carry, ref_act, ref_hitm = cw.shade_plain(*args)
-    _compare(dict(carry, active=act, hitmask=hitm), dict(ref_carry, active=ref_act, hitmask=ref_hitm),
-             cw.SHADE_INT_NAMES)
+    _compare_shade(got, cw.shade_plain(*args))
 
 
 def test_sweep_kernels_match_plain(house_state):
@@ -291,13 +320,8 @@ def test_card_render_matches_cpu_render(dev, house_scene):
 @pytest.fixture(scope="module")
 def suzanne_state(dev):
     """The big-mesh kernels' inputs of a real loop iteration at 128x128."""
-    scene = load_scene(os.path.join(SCENES, "suzanne.toml"))
-    ds = build_device_scene(scene, dev)
-    env = device_environment(Environment.from_texture("s", procedural_sky(256, 128)), dev)
-    wave = Wavefront(ds, env, camera_pytree(scene.camera, dev), 0, (128, 128), NO_LIMIT, 32, 8)
-    for it in range(3):
-        wave.step(it)
-    return capture_step(wave, 3)
+    scene = _scene("suzanne")
+    return _loop_state(build_device_scene(scene, dev), scene, dev)
 
 
 def test_chunked_kernels_match_plain(suzanne_state):
@@ -320,15 +344,13 @@ def test_chunked_kernels_match_plain(suzanne_state):
 def test_big_shade_kernel_matches_plain(suzanne_state):
     args = suzanne_state["big_shade"]
     before = cw.LAUNCHES["big_shade"]
-    carry, act, hitm = cw.big_shade_call(*args)
+    got = cw.big_shade_call(*args)
     assert cw.LAUNCHES["big_shade"] == before + 1
-    ref_carry, ref_act, ref_hitm = cw.big_shade_plain(*args)
-    _compare(dict(carry, active=act, hitmask=hitm), dict(ref_carry, active=ref_act, hitmask=ref_hitm),
-             cw.SHADE_INT_NAMES)
+    _compare_shade(got, cw.big_shade_plain(*args))
 
 
 def test_card_big_mesh_render_matches_cpu_render(dev):
-    scene = load_scene(os.path.join(SCENES, "suzanne.toml"))
+    scene = _scene("suzanne")
     env_args = Environment.from_texture("s", procedural_sky(128, 64))
     out = {}
     for device in ("cpu", dev):
@@ -347,7 +369,7 @@ def test_big_plane_scene_renders_on_the_small_route(dev):
     (200 plane lanes) no longer raises on the card: its packed table fits
     the sweep kernels' shared memory, so it takes the small route, and
     TRACE and SHADE render it."""
-    scene = load_scene(os.path.join(SCENES, "suzanne.toml"))
+    scene = _scene("suzanne")
     scene = Scene(
         materials=scene.materials, spheres=[],
         planes=[Plane(pos=(float(i), -1.0, -4.0), right=(0.5, 0.0, 0.0), forward=(0.0, 0.0, 0.5),
@@ -385,7 +407,7 @@ def chunked_scenes(dev):
 
     scenes = {}
     for name, prefix in (("suzanne", "tri_"), ("spheres", "sph_")):
-        host = build_device_scene(load_scene(os.path.join(SCENES, f"{name}.toml")), "cpu")
+        host = build_device_scene(_scene(name), "cpu")
         arrays = {f: getattr(host, f).numpy().copy() for f in FIELDS}
         scenes[name] = device_scene_from_arrays(arrays, dev)
         for f in FIELDS:
@@ -468,7 +490,7 @@ def test_chunked_kernels_with_a_nan_vertex(dev, n):
     plain versions on every lane."""
     from rsoderh_raytracing_tpu_torch.scene.device import FIELDS, device_scene_from_arrays
 
-    host = build_device_scene(load_scene(os.path.join(SCENES, "suzanne.toml")), "cpu")
+    host = build_device_scene(_scene("suzanne"), "cpu")
     arrays = {f: getattr(host, f).numpy().copy() for f in FIELDS}
     arrays["tri_a"][70, 0] = np.nan
     scene = device_scene_from_arrays(arrays, dev)
@@ -521,11 +543,13 @@ def test_scan_states_match_plain(dev, house_scene):
     """CLOSEST and ANY on the scan integrator's own queries at bounces 0
     and 3 (128x128, 8 bounces) against their plain versions on every
     lane, bit for bit; the dead lanes hold the miss record."""
+    _scan_states_bitwise(build_device_scene(house_scene, dev), house_scene, dev)
+
+
+def _scan_states_bitwise(ds, scene, dev):
     from rsoderh_raytracing_tpu_torch.profiling import capture_scan
 
-    ds = build_device_scene(house_scene, dev)
-    env = device_environment(Environment.from_texture("s", procedural_sky(256, 128)), dev)
-    states = capture_scan(ds, env, camera_pytree(house_scene.camera, dev), 128, 8)
+    states = capture_scan(ds, _sky(dev), camera_pytree(scene.camera, dev), 128, 8)
     for bounce, state in states.items():
         ro, rd, live = state["closest"]
         p, nd, mask = state["any"]
@@ -568,8 +592,7 @@ BVH_SCENES = ("house", "suzanne")
 
 @pytest.fixture(scope="module")
 def bvh_scenes(dev):
-    return {name: build_device_scene(load_scene(os.path.join(SCENES, f"{name}.toml")), dev,
-                                     with_bvh=True) for name in BVH_SCENES}
+    return {name: build_device_scene(_scene(name), dev, with_bvh=True) for name in BVH_SCENES}
 
 
 def _bvh_rays(n, dev, seed=3):
@@ -612,13 +635,8 @@ def test_bvh_kernels_bitwise_on_made_up_rays(dev, bvh_scenes, name, n, mask):
 def bvh_state(dev):
     """The BVH route's kernel inputs of a real loop iteration at 128x128
     on suzanne built with its BVH."""
-    scene = load_scene(os.path.join(SCENES, "suzanne.toml"))
-    ds = build_device_scene(scene, dev, with_bvh=True)
-    env = device_environment(Environment.from_texture("s", procedural_sky(256, 128)), dev)
-    wave = Wavefront(ds, env, camera_pytree(scene.camera, dev), 0, (128, 128), NO_LIMIT, 32, 8)
-    for it in range(3):
-        wave.step(it)
-    return capture_step(wave, 3)
+    scene = _scene("suzanne")
+    return _loop_state(build_device_scene(scene, dev, with_bvh=True), scene, dev)
 
 
 def test_bvh_kernels_match_plain_on_a_loop_state(bvh_state):
@@ -640,9 +658,14 @@ def test_env_draw_kernel_matches_plain_on_a_bvh_loop_state(bvh_state):
     the gates."""
     args = bvh_state["env_draw"]
     before = cw.LAUNCHES["env_draw"]
-    got = cw.env_draw_call(*args)
+    _compare_env_draw(args)
     assert cw.LAUNCHES["env_draw"] == before + 1
-    ref = cw.env_draw_plain(*args)
+
+
+def _compare_env_draw(args):
+    """ENV_DRAW against its plain twin: the draw bitwise on every lane,
+    every output at the gates."""
+    got, ref = cw.env_draw_call(*args), cw.env_draw_plain(*args)
     exact = ("state", "nee_u", "nee_v", "nee_pmf")
     assert {k: int(_bits_differ(got[k], ref[k]).sum()) for k in exact} == dict.fromkeys(exact, 0)
     _compare(got, ref, {"state"})
@@ -653,19 +676,14 @@ def test_big_shade_kernel_matches_plain_on_a_bvh_loop_state(bvh_state):
     big_shade_plain (the fused uv, one index_select, the shade) output by
     output."""
     args = bvh_state["big_shade"]
-    carry, act, hitm = cw.big_shade_call(*args)
-    ref_carry, ref_act, ref_hitm = cw.big_shade_plain(*args)
-    _compare(dict(carry, active=act, hitmask=hitm), dict(ref_carry, active=ref_act, hitmask=ref_hitm),
-             cw.SHADE_INT_NAMES)
+    _compare_shade(cw.big_shade_call(*args), cw.big_shade_plain(*args))
 
 
 def test_bvh_step_runs_no_gather_and_one_env_draw(dev, tmp_path):
     """One BVH-route Wavefront.step under torch.profiler: one ENV_DRAW
     launch, and no index_select, on the host or as a kernel of the gather
     group (profiling._group) on the card."""
-    from rsoderh_raytracing_tpu_torch.profiling import kernel_breakdown
-
-    scene = load_scene(os.path.join(SCENES, "suzanne.toml"))
+    scene = _scene("suzanne")
     ds = build_device_scene(scene, dev, with_bvh=True)
     env = device_environment(Environment.from_texture("s", procedural_sky(256, 128)), dev)
     wave = Wavefront(ds, env, camera_pytree(scene.camera, dev), 0, (128, 128), NO_LIMIT, 32, 8)
@@ -690,7 +708,7 @@ def test_bvh_step_runs_no_gather_and_one_env_draw(dev, tmp_path):
 def test_card_bvh_render_matches_cpu_render(dev):
     """render_freerun through the BVH route (BVH_CLOSEST, BVH_ANY and
     BIG_SHADE once an iteration) against the CPU's plain route."""
-    scene = load_scene(os.path.join(SCENES, "suzanne.toml"))
+    scene = _scene("suzanne")
     env_args = Environment.from_texture("s", procedural_sky(128, 64))
     out = {}
     for device in ("cpu", dev):
@@ -754,11 +772,10 @@ def _many_spheres_scene(rtiow):
 
 @pytest.fixture(scope="module")
 def fallback_scenes(dev):
-    rtiow = load_scene(os.path.join(SCENES, "rtiow_final.toml"))
+    rtiow = _scene("rtiow_final")
     return {"rtiow_final": build_device_scene(rtiow, dev, with_bvh=True),
             "many_spheres": build_device_scene(_many_spheres_scene(rtiow), dev, with_bvh=True),
-            "suzanne": build_device_scene(load_scene(os.path.join(SCENES, "suzanne.toml")), dev,
-                                          with_bvh=True)}
+            "suzanne": build_device_scene(_scene("suzanne"), dev, with_bvh=True)}
 
 
 def test_fallback_pass_on_an_rtiow_loop_state(dev, fallback_scenes):
@@ -766,7 +783,7 @@ def test_fallback_pass_on_an_rtiow_loop_state(dev, fallback_scenes):
     four tiles a block, so each block's ring carries lanes from tile to
     tile and wraps."""
     ds = fallback_scenes["rtiow_final"]
-    scene = load_scene(os.path.join(SCENES, "rtiow_final.toml"))
+    scene = _scene("rtiow_final")
     env = device_environment(Environment.from_texture("sky", procedural_sky(256, 128)), dev)
     wave = Wavefront(ds, env, camera_pytree(scene.camera, dev), 0, (2048, 2048), NO_LIMIT, 16, 8)
     for it in range(3):
@@ -910,18 +927,20 @@ ORDER_KNOBS = {"bvh": {"RT_CHUNK_CLUSTER": "bvh"}, "treelet": {"RT_CHUNK_CLUSTER
 def ordered_state(request, dev):
     """The big-mesh kernels' inputs of a real loop iteration at 128x128 on
     suzanne in one order."""
-    scene = load_scene(os.path.join(SCENES, "suzanne.toml"))
+    scene = _scene("suzanne")
+    ds = _ordered_scene(scene, dev, request.param)
+    return request.param, ds, _loop_state(ds, scene, dev)
+
+
+def _ordered_scene(scene, dev, order):
+    """build_device_scene with the chunks in `order` (ORDER_KNOBS, or the
+    default "morton")."""
     with pytest.MonkeyPatch.context() as mp:
         for knob in ("RT_CHUNK_CLUSTER", "RT_DISABLE_MORTON"):
             mp.delenv(knob, raising=False)
-        for knob, value in ORDER_KNOBS[request.param].items():
+        for knob, value in ORDER_KNOBS.get(order, {}).items():
             mp.setenv(knob, value)
-        ds = build_device_scene(scene, dev)
-    env = device_environment(Environment.from_texture("s", procedural_sky(256, 128)), dev)
-    wave = Wavefront(ds, env, camera_pytree(scene.camera, dev), 0, (128, 128), NO_LIMIT, 32, 8)
-    for it in range(3):
-        wave.step(it)
-    return request.param, ds, capture_step(wave, 3)
+        return build_device_scene(scene, dev)
 
 
 def test_big_mesh_kernels_in_each_order(ordered_state):
@@ -935,10 +954,7 @@ def test_big_mesh_kernels_in_each_order(ordered_state):
     assert torch.equal(ci.chunked_any_call(*args), intersect.chunked_any_plain(*args))
     assert int(args[3].sum()) > 0
     args = state["big_shade"]
-    carry, act, hitm = cw.big_shade_call(*args)
-    ref_carry, ref_act, ref_hitm = cw.big_shade_plain(*args)
-    _compare(dict(carry, active=act, hitmask=hitm), dict(ref_carry, active=ref_act, hitmask=ref_hitm),
-             cw.SHADE_INT_NAMES)
+    _compare_shade(cw.big_shade_call(*args), cw.big_shade_plain(*args))
 
 
 def test_sweep_shared_mirror_equals_the_card(dev):
@@ -1023,3 +1039,421 @@ def test_raised_ceiling_sixteen_thousand_chunks(dev, monkeypatch):
     assert torch.equal(ci.chunked_any_call(ds, ro, rd, mask), intersect.chunked_any_plain(ds, ro, rd, mask))
     monkeypatch.delenv("RT_MAX_CHUNKED_TRIS")
     assert auto_bvh(8, 8, n_tri, dev)
+
+
+# -- the routes end to end -------------------------------------------------------
+# What a free-run iteration launches on each route, the goldens and the
+# oracle's anchors through the card's kernels, the command line, the composed
+# body, the two knobs, the lane layout, the chunk orders and the small route
+# past shared memory. Two images of the same samples that the card's kernels
+# may round apart are held to the anchors' flip-aware criteria
+# (tests/test_torch_wavefront.py): a pixel flips where a channel differs by
+# more than FLIP_ABS; under FLIPPED_MAX of the pixels flip, and the rest
+# agree within a relative RMSE of UNFLIPPED_REL_RMSE_MAX.
+
+FLIP_ABS, FLIPPED_MAX, UNFLIPPED_REL_RMSE_MAX = 1e-2, 0.03, 0.005
+# Relative RMSE against the CPU-made goldens; measured on an H100 (700 W):
+# 1.35e-4 (default), 1.04e-4 (house).
+GOLDEN_REL_RMSE_MAX = 1e-3
+ROUTE_LAUNCHES = {SMALL: {"trace", "shade"}, CHUNKED: {"env_draw", "chunked_closest", "chunked_any", "big_shade"},
+                  BVH: {"env_draw", "bvh_closest", "bvh_any", "big_shade"}}
+
+
+def _launched_by(fn):
+    """(fn(), {kernel: launches} of the port's kernels it launched)."""
+    before = {**ci.LAUNCHES, **cw.LAUNCHES}
+    out = fn()
+    return out, {k: v - before[k] for k, v in {**ci.LAUNCHES, **cw.LAUNCHES}.items() if v != before[k]}
+
+
+def _freerun_image(ds, env, cam, size, budget):
+    """(mean image, counts) of one free-run call at size^2, 8 bounces."""
+    img, counts = render_freerun(ds, env, cam, 0, (size, size), budget, 8)
+    return (img / counts.clamp_min(1).unsqueeze(-1).to(img.dtype)).cpu().numpy(), counts.cpu().numpy()
+
+
+def _flip_criteria(got, ref):
+    """(flipped share, relative RMSE of the other pixels) of two mean images."""
+    diff = got - ref
+    flipped = np.abs(diff).max(-1) > FLIP_ABS
+    keep = ~flipped
+    return float(flipped.mean()), float(np.sqrt((diff[keep] ** 2).mean()) / np.sqrt((ref[keep] ** 2).mean()))
+
+
+def _same_image(got, ref):
+    """Two (mean image, counts) of the same samples: counts equal on 99.9%
+    of the pixels, the images by the flip-aware criteria."""
+    flipped, rel = _flip_criteria(got[0], ref[0])
+    assert (got[1] == ref[1]).mean() >= 0.999
+    assert flipped < FLIPPED_MAX and rel < UNFLIPPED_REL_RMSE_MAX, (flipped, rel)
+
+
+def _same_render(a, b):
+    """Two (image, counts, stats) bit for bit."""
+    assert torch.equal(a[0].view(torch.int32), b[0].view(torch.int32)) and torch.equal(a[1], b[1])
+    assert {k: int(v) for k, v in a[2].items()} == {k: int(v) for k, v in b[2].items()}
+
+
+@pytest.mark.parametrize("name,with_bvh,expected", [
+    ("house", False, SMALL), ("house_tiled16", False, SMALL), ("suzanne", False, CHUNKED), ("suzanne", True, BVH),
+])
+def test_each_route_launches_its_own_kernels(dev, name, with_bvh, expected):
+    """A 64x64 free-run call of 16 iterations and 8 bounces launches each
+    of its route's kernels once an iteration and no other kernel of the
+    port, and samples every pixel (house_tiled16: the small route past the
+    192-lane unroll budget)."""
+    scene = _scene(name)
+    ds = build_device_scene(scene, dev, with_bvh=with_bvh)
+    assert route(ds) == expected
+    (img, counts), launched = _launched_by(
+        lambda: render_freerun(ds, _sky(dev), camera_pytree(scene.camera, dev), 0, (64, 64), 16, 8))
+    assert launched == dict.fromkeys(ROUTE_LAUNCHES[expected], 16 + 8 - 1)
+    assert bool(torch.isfinite(img).all()) and int(counts.min()) > 0
+
+
+def test_small_route_runs_no_gather(dev, house_scene, tmp_path):
+    """A free-run call on house under torch.profiler: TRACE and SHADE once
+    an iteration, and no index_select, on the host or as a kernel of the
+    gather group (profiling._group) on the card."""
+    ds, cam = build_device_scene(house_scene, dev), camera_pytree(house_scene.camera, dev)
+    env = _sky(dev)
+    render_freerun(ds, env, cam, 0, (128, 128), 4, 8)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        render_freerun(ds, env, cam, 0, (128, 128), 4, 8)
+        torch.cuda.synchronize()
+    assert [e.key for e in prof.key_averages() if "index_select" in e.key] == []
+    path = str(tmp_path / "call.json")
+    prof.export_chrome_trace(path)
+    launched = {}
+    per_kernel, groups, _, _ = kernel_breakdown(path, 4 + 8 - 1, group_launches=launched)
+    assert groups["gather"] == 0.0, per_kernel
+    assert round(launched["trace"], 6) == round(launched["shade"], 6) == 1
+
+
+@pytest.mark.parametrize("name", ["default", "house"])
+def test_golden_through_the_card(dev, name):
+    """render_wavefront through the small route's kernels (64x64, 8 spp, 4
+    bounces) against tests/goldens/NAME_64_8spp.npy, made on the CPU: the
+    kernels' sin, cos and sqrt round as libdevice does, so a few paths
+    flip; relative RMSE below GOLDEN_REL_RMSE_MAX."""
+    scene = _scene(name)
+    env = device_environment(Environment.from_texture("golden_sky", procedural_sky(256, 128, sun_radius=0.05)),
+                             dev)
+    img = render_wavefront(build_device_scene(scene, dev), env, camera_pytree(scene.camera, dev), 0, (64, 64),
+                           8, 4).cpu().numpy() / 8
+    golden = np.load(os.path.join(REPO, "tests", "goldens", f"{name}_64_8spp.npy"))
+    assert np.sqrt(np.mean((img - golden) ** 2)) / np.sqrt(np.mean(golden ** 2)) < GOLDEN_REL_RMSE_MAX
+
+
+@pytest.fixture(scope="module")
+def suzanne_xhi(tmp_path_factory):
+    """suzanne_xhi.toml's scene, its mesh (scripts/subdivide_obj.py 4:
+    247,808 triangles) written to a temporary directory."""
+    mesh = str(tmp_path_factory.mktemp("mesh") / "suzanne_xhi.obj")
+    subprocess.run([sys.executable, os.path.join(REPO, "scripts", "subdivide_obj.py"), "4", mesh],
+                   check=True, stdout=subprocess.DEVNULL, timeout=600)
+    path = os.path.join(SCENES, "suzanne_xhi.toml")
+    with open(path, "rb") as f:
+        descriptor = tomllib.load(f)
+    for obj in descriptor["object"]:
+        if "Mesh" in obj:
+            obj["Mesh"]["path"] = mesh
+    return build_scene(descriptor, path)
+
+
+ANCHORS = {"suzanne_hi": (24, 2), "spheres": (32, 4), "suzanne_xhi": (16, 2)}
+
+
+@pytest.mark.parametrize("name,with_bvh", [
+    ("suzanne_hi", False), ("spheres", False), ("suzanne_xhi", False), ("suzanne_xhi", True),
+])
+def test_oracle_anchor_through_the_card(dev, request, name, with_bvh):
+    """render_wavefront through the card's kernels against the numpy
+    oracle's anchor golden (tests/goldens/NAME_anchor_SIZE_SPPspp.npy,
+    scripts/reference_estimator.py), suzanne_xhi through the chunked and
+    the BVH route: on the meshes the flip-aware criteria with more than
+    95% of the pixels within 1e-4; on spheres, whose f32 sphere tests
+    round apart more, more than 45% within 1e-4, the unflipped RMSE and
+    the image mean within 5%."""
+    scene = request.getfixturevalue("suzanne_xhi") if name == "suzanne_xhi" else _scene(name)
+    size, spp = ANCHORS[name]
+    ds = build_device_scene(scene, dev, with_bvh=with_bvh)
+    assert route(ds) == (BVH if with_bvh else CHUNKED)
+    env = device_environment(load_default_environments()[0], dev)
+    ours = render_wavefront(ds, env, camera_pytree(scene.camera, dev), 0, (size, size), spp,
+                            MAX_BOUNCES).cpu().numpy() / spp
+    ref = np.load(os.path.join(REPO, "tests", "goldens", f"{name}_anchor_{size}_{spp}spp.npy"))
+    flipped, rel = _flip_criteria(ours, ref)
+    within = float((np.abs(ours - ref).max(-1) < 1e-4).mean())
+    assert rel < UNFLIPPED_REL_RMSE_MAX, rel
+    if name == "spheres":
+        assert within > 0.45 and abs(float(ours.mean()) / float(ref.mean()) - 1) < 0.05
+    else:
+        assert flipped < FLIPPED_MAX and within > 0.95, (flipped, within)
+
+
+def test_command_line_on_the_card(dev, tmp_path):
+    """cli.main on house at 256x256, 8 spp, on the card: the exact and the
+    free-run PNG are the srgb8 of a Renderer's film of the same render; an
+    .hdr with a checkpoint; resuming at the saved count renders nothing
+    more, resuming to 12 spp reaches 12 on every pixel."""
+    scene_path = os.path.join(SCENES, "house.toml")
+    base = ["--scene", scene_path, "--resolution", "256x256", "--quiet"]
+
+    def out(name):
+        return str(tmp_path / name)
+
+    for mode in ("exact", "freerun"):
+        assert cli.main(base + ["--spp", "8", "--mode", mode, "--output", out(f"{mode}.png")]) == 0
+        renderer = Renderer(load_scene(scene_path), 256, 256, device=dev)
+        renderer.render(spp=8, mode=mode)
+        np.testing.assert_array_equal(read_png(out(f"{mode}.png")), renderer.film.srgb8())
+    assert cli.main(base + ["--spp", "8", "--output", out("a.hdr"), "--save-checkpoint", out("8.npz")]) == 0
+    hdr = read_hdr(out("a.hdr"))
+    assert hdr.shape == (256, 256, 3) and np.isfinite(hdr).all() and hdr.mean() > 0
+    for spp, saved in (("8", "8b.npz"), ("12", "12.npz")):
+        assert cli.main(base + ["--spp", spp, "--checkpoint", out("8.npz"), "--output", out(f"{spp}.png"),
+                                "--save-checkpoint", out(saved)]) == 0
+    with np.load(out("8.npz")) as a, np.load(out("8b.npz")) as b, np.load(out("12.npz")) as c:
+        assert int(a["sample_count"]) == 8 and a["counts"].dtype == np.uint32 and "state_stamp" in a.files
+        assert int(b["sample_count"]) == 8 and np.array_equal(a["cumulative"], b["cumulative"])
+        assert int(c["sample_count"]) == 12 and (c["counts"] == 12).all()
+
+
+def test_composed_body_against_the_kernel_loop(dev, house_args, monkeypatch):
+    """The composed body on the card (FUSED once an iteration, no TRACE or
+    SHADE): under RT_DISABLE_WFKERNELS=1 against the kernel loop at
+    128x128, 16 iterations, the same iterations, counts equal on 99.99% of
+    the pixels and the mean images within GOLDEN_REL_RMSE_MAX; and with
+    the legacy float32 quad, which the kernel loop does not read."""
+    monkeypatch.delenv("RT_DISABLE_WFKERNELS", raising=False)
+    iterations = 16 + 8 - 1
+
+    def call(env=house_args[1]):
+        return _launched_by(lambda: render_freerun(house_args[0], env, house_args[2], 0, (128, 128), 16, 8,
+                                                   with_stats=True))
+
+    (k_img, k_cnt, k_st), launched = call()
+    assert launched == {"trace": iterations, "shade": iterations}
+    legacy = device_environment(Environment.from_texture("s", procedural_sky(256, 128)), dev, "float32")
+    assert call(legacy)[1] == {"fused": iterations}
+    monkeypatch.setenv("RT_DISABLE_WFKERNELS", "1")
+    (c_img, c_cnt, c_st), launched = call()
+    assert launched == {"fused": iterations}
+    assert int(c_st["iterations"]) == int(k_st["iterations"])
+    assert float((c_cnt == k_cnt).double().mean()) >= PARITY_MIN
+    k_mean, c_mean = ((img / cnt.unsqueeze(-1)).cpu().numpy() for img, cnt in ((k_img, k_cnt), (c_img, c_cnt)))
+    assert np.sqrt(np.mean((c_mean - k_mean) ** 2)) / np.sqrt(np.mean(k_mean ** 2)) < GOLDEN_REL_RMSE_MAX
+
+
+KNOB_SCENES = {"house": (False, 128, 8), "suzanne_hi": (False, 32, 2), "suzanne": (True, 64, 2)}
+
+
+@pytest.mark.parametrize("name", sorted(KNOB_SCENES))
+def test_disable_pallas_is_refused_on_the_card(dev, monkeypatch, name):
+    """RT_DISABLE_PALLAS=1 on the small, chunked and BVH routes: the card
+    refuses (RuntimeError pointing at device='cpu') and launches nothing;
+    the scene's tables copied to the CPU render there through the plain
+    versions, launching nothing, the card's kernel route's image by the
+    flip-aware criteria."""
+    with_bvh, size, budget = KNOB_SCENES[name]
+    scene = _scene(name)
+    ds, env = build_device_scene(scene, dev, with_bvh=with_bvh), _sky(dev)
+    monkeypatch.delenv("RT_DISABLE_PALLAS", raising=False)
+    ref = _freerun_image(ds, env, camera_pytree(scene.camera, dev), size, budget)
+    monkeypatch.setenv("RT_DISABLE_PALLAS", "1")
+    before = {**ci.LAUNCHES, **cw.LAUNCHES}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _freerun_image(ds, env, camera_pytree(scene.camera, dev), size, budget)
+    got = _freerun_image(ds.to("cpu"), env.to("cpu"), camera_pytree(scene.camera, "cpu"), size, budget)
+    assert {**ci.LAUNCHES, **cw.LAUNCHES} == before
+    _same_image(got, ref)
+
+
+@pytest.mark.parametrize("name", sorted(KNOB_SCENES))
+def test_debug_nans_clean_renders_on_the_card(dev, monkeypatch, name):
+    """RT_DEBUG_NANS=1: a clean 256x256 free-run render on each route
+    raises nothing."""
+    with_bvh, _, budget = KNOB_SCENES[name]
+    scene = _scene(name)
+    monkeypatch.setenv("RT_DEBUG_NANS", "1")
+    img, counts = _freerun_image(build_device_scene(scene, dev, with_bvh=with_bvh), _sky(dev),
+                                 camera_pytree(scene.camera, dev), 256, budget)
+    assert np.isfinite(img).all() and counts.min() > 0
+
+
+def test_debug_nans_names_a_nan_from_closest(house_state, monkeypatch):
+    """RT_DEBUG_NANS=1: a NaN ray origin in lane 7 of a house loop state
+    makes CLOSEST's outputs NaN, and its wrapper raises
+    FloatingPointError naming them after the one launch."""
+    scene, _, carry = house_state["trace"]
+    ro = [carry[f"ro{i}"].clone() for i in range(3)]
+    ro[0][7] = float("nan")
+    monkeypatch.setenv("RT_DEBUG_NANS", "1")
+    before = ci.LAUNCHES["closest"]
+    with pytest.raises(FloatingPointError, match="CLOSEST output"):
+        ci.closest_call(scene, tuple(ro), tuple(carry[f"rd{i}"] for i in range(3)))
+    assert ci.LAUNCHES["closest"] == before + 1
+
+
+def test_block_major_lanes_are_row_major_lanes_on_the_card(house_args, monkeypatch):
+    """house at 256x256 (four 64x128 blocks), 16 iterations: block-major
+    lanes (the default) and RT_DISABLE_BLOCK_REMAP=1's row-major lanes give
+    the same image, counts and stats bit for bit."""
+    monkeypatch.delenv("RT_DISABLE_BLOCK_REMAP", raising=False)
+    block = render_freerun(*house_args, 0, (256, 256), 16, 8, with_stats=True)
+    monkeypatch.setenv("RT_DISABLE_BLOCK_REMAP", "1")
+    _same_render(render_freerun(*house_args, 0, (256, 256), 16, 8, with_stats=True), block)
+
+
+@pytest.fixture(scope="module")
+def suzanne_hi_args(dev):
+    """suzanne_hi (242 chunks, the chunked route) in the default chunk
+    order, the sky and the camera."""
+    scene = _scene("suzanne_hi")
+    ds = _ordered_scene(scene, dev, "morton")
+    assert route(ds) == CHUNKED and wf.reference_cadence(ds) == 2
+    return ds, _sky(dev), camera_pytree(scene.camera, dev)
+
+
+@pytest.fixture(scope="module")
+def uncompacted(suzanne_hi_args):
+    return render_freerun(*suzanne_hi_args, 0, (256, 256), 16, 8, with_stats=True, compact_every=0)
+
+
+COMPACTIONS = {"K2": (2, None), "K4": (4, None), **{f"K1_{k}": (1, k) for k in wf.COMPACT_KEYS}}
+
+
+@pytest.mark.parametrize("setting", sorted(COMPACTIONS))
+def test_compacting_calls_are_uncompacted_calls_on_the_card(suzanne_hi_args, uncompacted, monkeypatch, setting):
+    """suzanne_hi at 256x256, 16 iterations: compacting every 2 (the
+    reference's cadence) or 4 iterations, and every iteration under each
+    RT_COMPACT_KEY, permutes the lanes and gives K = 0's image, counts and
+    stats bit for bit."""
+    every, key = COMPACTIONS[setting]
+    for knob in ("RT_COMPACT_EVERY", "RT_COMPACT_KEY", "RT_COMPACT_MORTON_BITS"):
+        monkeypatch.delenv(knob, raising=False)
+    if key:
+        monkeypatch.setenv("RT_COMPACT_KEY", key)
+    permuted, permute = [], Wavefront.permute
+
+    def counted(self):
+        permuted.append(1)
+        return permute(self)
+
+    monkeypatch.setattr(Wavefront, "permute", counted)
+    got = render_freerun(*suzanne_hi_args, 0, (256, 256), 16, 8, with_stats=True, compact_every=every)
+    assert permuted
+    _same_render(got, uncompacted)
+
+
+@pytest.fixture(scope="module")
+def morton_image(suzanne_hi_args):
+    return _freerun_image(*suzanne_hi_args, 256, 32)
+
+
+@pytest.mark.parametrize("order", sorted(ORDER_KNOBS))
+def test_chunk_orders_render_mortons_image(dev, suzanne_hi_args, morton_image, order):
+    """suzanne_hi stored in the bvh, treelet or host order renders the
+    default (Morton) order's 256x256 free-run image by the flip-aware
+    criteria: a tie between triangles in two chunks may resolve apart."""
+    ds = _ordered_scene(_scene("suzanne_hi"), dev, order)
+    assert route(ds) == CHUNKED
+    _same_image(_freerun_image(ds, *suzanne_hi_args[1:], 256, 32), morton_image)
+
+
+def test_bvh_route_renders_the_chunked_routes_image(dev, suzanne_hi_args):
+    """suzanne_hi at 256x256, 4 spp, through the BVH route and the chunked
+    route: the leaf tests round apart, so a few paths flip."""
+    ds, env, cam = suzanne_hi_args
+    bvh = build_device_scene(_scene("suzanne_hi"), dev, with_bvh=True)
+    assert route(bvh) == BVH
+    via_bvh, via_chunks = (render_wavefront(s, env, cam, 0, (256, 256), 4, 8).cpu().numpy() / 4 for s in (bvh, ds))
+    flipped, rel = _flip_criteria(via_bvh, via_chunks)
+    assert flipped < FLIPPED_MAX and rel < UNFLIPPED_REL_RMSE_MAX, (flipped, rel)
+
+
+@pytest.mark.parametrize("name,intersector", [("house", "sweep"), ("suzanne", "bvh"), ("spheres", "bvh")])
+def test_auto_route_on_the_card(dev, name, intersector):
+    """A Renderer with the default intersector on the card keeps house (8
+    + 56 sphere and triangle lanes) on the small route and walks the BVH
+    past CUDA_BVH_ABOVE_LANES (suzanne, spheres)."""
+    envs = EnvironmentMaps([Environment.from_texture("s", procedural_sky(64, 32))])
+    assert Renderer(_scene(name), 16, 16, environments=envs, device=dev).intersector == intersector
+
+
+@pytest.mark.parametrize("name", ["house_tiled16", "house_tiled64"])
+def test_small_route_past_the_unroll_budget(dev, name):
+    """house_tiled16 (328 padded lanes, its table staged in a block's
+    shared memory) and house_tiled64 (a table past it, read from global
+    memory) under with_bvh=False: the small route; TRACE, SHADE, CLOSEST,
+    ANY and FUSED on a 128x128 loop state at the gates, CLOSEST and ANY on
+    the scan integrator's states bit for bit; the 256x256 image is the BVH
+    route's by the flip-aware criteria ('auto' walks house_tiled64's)."""
+    scene = _scene(name)
+    ds = build_device_scene(scene, dev)
+    table = ds.trace_table.numel() * 4
+    assert route(ds) == SMALL
+    if name == "house_tiled16":
+        assert ds.num_lanes == 328 and table <= SWEEP_MAX_SHARED
+    else:
+        rows = (ds.sph_radius.shape[0], ds.pln_valid.shape[0], ds.tri_valid.shape[0])
+        assert table > SWEEP_MAX_SHARED and auto_bvh(*rows, dev, ds.mat_roughness.shape[0])
+    state = _loop_state(ds, scene, dev)
+    _compare_trace(state["trace"])
+    _compare_shade(cw.shade_call(*state["shade"]), cw.shade_plain(*state["shade"]))
+    for kfn, pfn, ints in sweep_calls(state["trace"])[0].values():
+        _compare(kfn(), pfn(), ints)
+    _scan_states_bitwise(ds, scene, dev)
+    bvh = build_device_scene(scene, dev, with_bvh="auto" if name == "house_tiled64" else True)
+    assert route(bvh) == BVH
+    env, cam = _sky(dev), camera_pytree(scene.camera, dev)
+    _same_image(_freerun_image(ds, env, cam, 256, 8), _freerun_image(bvh, env, cam, 256, 8))
+
+
+def test_big_mesh_kernels_on_a_spheres_loop_state(dev):
+    """spheres (1,000 spheres in sphere windows) at 128x128: ENV_DRAW's
+    draw bitwise, CHUNKED_CLOSEST and CHUNKED_ANY bitwise on every lane,
+    BIG_SHADE at the gates."""
+    scene = _scene("spheres")
+    ds = build_device_scene(scene, dev)
+    assert route(ds) == CHUNKED and ds.chunks.n_sph_chunks > 0
+    state = _loop_state(ds, scene, dev)
+    _compare_env_draw(state["env_draw"])
+    args = state["closest"]
+    for a, b in zip(ci.chunked_closest_call(*args), intersect.chunked_closest_plain(*args)):
+        assert int(_bits_differ(a, b).sum()) == 0
+    args = state["occlusion"]
+    assert torch.equal(ci.chunked_any_call(*args), intersect.chunked_any_plain(*args))
+    _compare_shade(cw.big_shade_call(*state["big_shade"]), cw.big_shade_plain(*state["big_shade"]))
+
+
+def test_sync_rounds_on_the_chunked_route(dev):
+    """render_spp_sync on suzanne (the chunked route) at 64x64, 2 rounds of
+    8 bounces: each big-mesh kernel once an iteration of every round, no
+    other kernel, 2 samples on every pixel."""
+    scene = _scene("suzanne")
+    ds = build_device_scene(scene, dev)
+    (img, counts), launched = _launched_by(
+        lambda: render_spp_sync(ds, _sky(dev), camera_pytree(scene.camera, dev), 0, (64, 64), 2, 8))
+    assert launched == dict.fromkeys(ROUTE_LAUNCHES[CHUNKED], 2 * 8)
+    assert bool((counts == 2).all()) and bool(torch.isfinite(img).all())
+
+
+def test_dryrun_on_slots_of_the_card(dev):
+    """parallel.sharding.dryrun over four slots of the card (a 2x2 mesh)."""
+    from rsoderh_raytracing_tpu_torch.parallel.sharding import dryrun
+
+    dryrun(4, device=dev)
+
+
+def test_viewer_frame_rate_tool_on_the_card(dev):
+    """viewer.fps on house at 64x36, 4 frames a scenario: both records
+    name the card's platform and a rate above 0."""
+    from rsoderh_raytracing_tpu_torch.viewer import fps
+
+    records, _ = fps.measure("house", 64, 36, 4, device=dev)
+    assert [r["metric"] for r in records] == ["viewer_fps_converge", "viewer_fps_moving"]
+    assert all(r["platform"] == "gpu" and r["value"] > 0 for r in records)

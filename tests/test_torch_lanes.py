@@ -128,8 +128,8 @@ def test_layout_takes_no_gather(scenes, monkeypatch):
     """Laying out a block-major Wavefront (its pixels and a per-pixel
     base) and reading its results back in pixel order is reshapes and
     transposing copies: no index_select, gather or scatter, which the
-    small route's iteration must not run on the card (chip_smoke.py's
-    profile line)."""
+    small route's iteration must not run on the card
+    (tests/test_torch_cuda.py: test_small_route_runs_no_gather)."""
     ds, env, cam = scenes["house"]
     calls = []
     for name in ("index_select", "index_copy_", "gather", "take", "scatter_"):

@@ -1,6 +1,8 @@
-"""Scenes past Mosaic's unroll budget that the chunked route does not
-take, where the reference sweeps densely in XLA: the small route over a
-packed table of any size, and RT_DISABLE_PALLAS.
+"""The small route past the 192-lane unroll budget: scenes past Mosaic's
+budget that the chunked route does not take, where the reference sweeps
+densely in XLA, render through the packed table of any size (staged in a
+block's shared memory, or read from global memory past it), against the
+JAX package's sweep, the BVH route and RT_DISABLE_PALLAS's composed body.
 
 The scenes are profiling.tiled_house(16) (house with a 16 x 16
 checkerboard of ground planes: 8 + 256 + 64 padded lanes, a packed table

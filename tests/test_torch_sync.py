@@ -20,8 +20,8 @@ bit for bit on the CPU (the bit-equal share measured 1.0 on both
 scenes): both compute every camera ray with the same plain tensor code
 (generate_camera_rays and SHADE's plain regeneration round alike here;
 on an H100 the SHADE kernel's regenerated rays measured bitwise too,
-which chip_smoke.py's sync phase holds to the anchors' flip-aware
-criteria).
+which tests/test_torch_cuda.py's sync test holds to the anchors'
+flip-aware criteria).
 The hook with row0=0, every row, stride 1 and offset 0 is what
 render_freerun runs (render_freerun's result is saved first, through the
 public function); two row blocks of 192 lanes each give the whole image's
