@@ -14,7 +14,8 @@ its bound (profiling.bound_ms and the counts behind it). Routes:
 
 1. house, the small route (render_freerun, budget 16): TRACE and SHADE
    once an iteration and nothing else of the eleven; TRACE's NEE pmf and
-   quad row bitwise on every lane, its NEE uv where both hit;
+   quad row bitwise on every lane, its NEE uv where both hit; SHADE's ray
+   counters (and BIG_SHADE's below) equal to its plain twin's;
 2. house, the composed body (render_freerun with the float32 legacy
    quad): FUSED once an iteration, held on its own arguments;
 3. house, the scan path (render_sample, as Renderer.step runs it):
@@ -236,16 +237,23 @@ def small_route(ds, env, cam, card):
     timing("trace", "house", lambda: cw.trace_call(*args), plain_ms,
            bound_ms(n_bytes, N * sweep_ops(ds) + shadow_ops), card)
     args = state["shade"]
-    ref, plain_ms = plain_timed(lambda: cw.shade_plain(*args))
-    check("shade", "house", _shade_dict(cw.shade_call(*args)), _shade_dict(ref), cw.SHADE_INT_NAMES)
-    # its per-lane inputs, the 4-word quad row and 22 outputs
+    ref, plain_ms = plain_timed(lambda: _counted(cw.shade_plain, args))
+    check("shade", "house", _counted(cw.shade_call, args), ref, SHADE_EXACT)
+    # its per-lane inputs, the 4-word quad row and 20 outputs
     timing("shade", "house", lambda: cw.shade_call(*args), plain_ms,
            bound_ms(N * 4 * (len(cw.SHADE_IN) + 4 + len(cw.SHADE_OUT_NAMES)), 0), card)
 
 
-def _shade_dict(result):
-    carry, active, hitmask = result
-    return dict(carry, active=active, hitmask=hitmask)
+# SHADE's and BIG_SHADE's integer outputs and the ray counters they add to
+SHADE_EXACT = (*cw.SHADE_INT_NAMES, *cw.COUNTER_NAMES[:3])
+
+
+def _counted(shade, args):
+    """A shade function on the run's arguments with fresh ray counters in
+    place of the run's: its new carry and the three counts, each (1,)."""
+    counters = cw.RayCounters(args[-1].slots.device)
+    carry = shade(*args[:-1], counters)
+    return dict(carry, **{k: v.reshape(1) for k, v in counters.stats().items()})
 
 
 def _as_int(outputs):
@@ -326,16 +334,18 @@ def big_mesh_route(label, ds, env, cam, card, route_name, timed):
         walk = {}
         if kernel.startswith("bvh_"):
             ref, plain_ms = plain_timed(lambda: pfn(*args, counts=walk))
+        elif key == "big_shade":
+            ref, plain_ms = plain_timed(lambda: _counted(pfn, args))
         else:
             ref, plain_ms = plain_timed(lambda: pfn(*args))
-        got = kfn(*args)
+        got = _counted(kfn, args) if key == "big_shade" else kfn(*args)
         if key == "env_draw":
             check(kernel, label, got, ref, {"state"}, exact=ENV_DRAW_EXACT)
             # the state in, the 4-word alias row, 7 outputs
             bound = bound_ms(N * 4 * (1 + 4 + len(cw.ENV_DRAW_OUT_NAMES)), 0)
         elif key == "big_shade":
-            check(kernel, label, _shade_dict(got), _shade_dict(ref), cw.SHADE_INT_NAMES)
-            # its per-lane inputs, the 4-word quad row and 22 outputs; the
+            check(kernel, label, got, ref, SHADE_EXACT)
+            # its per-lane inputs, the 4-word quad row and 20 outputs; the
             # winner and material tables once
             bound = bound_ms(N * 4 * (len(cw.BIG_SHADE_IN) + 4 + len(cw.SHADE_OUT_NAMES))
                              + 4 * (ds.winner.numel() + ds.materials.numel()), 0)
@@ -346,13 +356,18 @@ def big_mesh_route(label, ds, env, cam, card, route_name, timed):
             ref = dict(zip(names, ref if closest else (ref,)))
             # the chunked kernels cull per lane: live (masked) lanes only;
             # the walks hold every lane
-            where = None if route_name == BVH else args[3] != 0
+            where = None
+            if route_name != BVH:
+                where = (args[3] if closest else intersect.shadow_origins(*args[1:6])[1]) != 0
             check(kernel, label, got, ref, {"type", "index", "occ"}, where=where,
                   exact=names if route_name == BVH else ())
             bound = (bvh_bound(ds, N, walk, closest) if route_name == BVH
                      else chunked_bound(ds, args, closest))
         if kernel in timed:
             extra = bound[2] if len(bound) > 2 else {}
+            if kernel == "chunked_any":  # the kernel alone, not its wrapper's hit point
+                p, mask = intersect.shadow_origins(*args[1:6])
+                kfn, args = ci.chunked_any_call, (ds, p, args[6], mask)
             timing(kernel, label, lambda: kfn(*args), plain_ms, bound, card, **extra)
 
 

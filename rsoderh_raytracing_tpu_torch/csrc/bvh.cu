@@ -18,8 +18,15 @@
 //                the lanes the sweep took to the caller's int64 counter;
 //   BVH_ANY      the same walk without a best t, stopping at the first
 //                hit; no fallback (the reference's occlusion has none).
-// Lanes outside the int32 mask (null: every lane) get the miss record or
-// 0. The plain twins are ops/bvh.py: closest_plain and any_plain;
+//                Its rays are the shadow rays of the closest hits: a lane
+//                whose closest ray hit (type >= 0) and is in a path walks
+//                from ro + rd * t (a multiply, then an add, as the
+//                reference's glue rounds it, render/wavefront.py:991-998)
+//                along the NEE direction, so no tensor code runs between
+//                the walks.
+// Lanes outside BVH_CLOSEST's int32 mask (null: every lane) get the miss
+// record, and lanes without a shadow ray 0. The plain twins are ops/bvh.py:
+// closest_plain and any_plain;
 // ops/bvh.walk_model walks the child-pair rows as these kernels walk each
 // ray, in lane order, and gives the twins' outputs and counts exactly.
 //
@@ -71,6 +78,10 @@
 // What bounds them on the H100. The published count is operations (box
 // and leaf tests; profiling.bvh_bound): 0.0839 and 0.0703 ms on a 2048^2
 // suzanne_xxhi loop state, against 1.28 and 1.37 ms (6.5% and 5.1%).
+// BVH_ANY reads each lane's type and, on a hit lane, in_path, t, the
+// closest ray and the NEE direction: 12 four-byte values where it read 7
+// (the mask, the hit point and the direction), a few hundredths of a ms at
+// 4.2M lanes.
 // Warps still diverge on box hits and leaf sizes, a box test issues about
 // twice the counted operations (the NaN rule, the near/far selects), and
 // the leaf rows (60.5 MiB) do not fit the 50 MB L2.
@@ -125,7 +136,7 @@
 //     0.6376, 0.6617 / 0.6720: dropped
 //
 // Registers (-Xptxas -v): BVH_CLOSEST's walk 44 and a 512-byte stack
-// frame, BVH_ANY's 46 and 256 bytes, the fallback pass 48 (staged or not)
+// frame, BVH_ANY's 45 and 256 bytes, the fallback pass 48 (staged or not)
 // and 8,336 bytes of static shared memory; no spills.
 
 #include <algorithm>
@@ -294,9 +305,14 @@ struct ClosestArgs {
   int32_t* index;
 };
 
+// BVH_ANY's lanes: the closest rays and their hits, from which each lane
+// derives its shadow ray (Any::ray).
 struct AnyArgs {
-  RayPtrs r;
-  const int32_t* mask;  // may be null: every lane
+  RayPtrs r;            // the closest rays
+  const float* t;       // the closest hit's t
+  const int32_t* type;  // the closest hit's type (-1: a miss)
+  const int32_t* in_path;
+  const float *nx, *ny, *nz;  // the NEE direction
   int32_t* occ;
 };
 
@@ -313,7 +329,13 @@ struct Closest {
   int n_sph, rows_sph, rows_pln;
   unsigned long long* fallback_lanes;  // the fallback's lane count is added here (may be null)
 
-  __device__ const int32_t* mask() const { return a.live; }
+  // lane i's ray, false off the mask
+  __device__ bool ray(int i, Ray& out) const {
+    if (a.live != nullptr && a.live[i] == 0) return false;
+    const RayPtrs& r = a.r;
+    out = Ray{r.ox[i], r.oy[i], r.oz[i], r.dx[i], r.dy[i], r.dz[i]};
+    return true;
+  }
   __device__ void off(int i) const {
     a.t[i] = INF;
     a.type[i] = -1;
@@ -564,7 +586,17 @@ struct Any {
   static constexpr bool kPrune = false;  // stops at the first hit
   AnyArgs a;
 
-  __device__ const int32_t* mask() const { return a.mask; }
+  // lane i's shadow ray, false unless the lane is in a path and its closest
+  // ray hit: from the hit point ro + rd * t (a multiply, then an add, as
+  // the plain twin rounds it) along the NEE direction
+  __device__ bool ray(int i, Ray& out) const {
+    if (a.type[i] < 0 || a.in_path[i] == 0) return false;
+    const RayPtrs& r = a.r;
+    const float t = a.t[i];
+    out = Ray{r.ox[i] + r.dx[i] * t, r.oy[i] + r.dy[i] * t, r.oz[i] + r.dz[i] * t,
+              a.nx[i], a.ny[i], a.nz[i]};
+    return true;
+  }
   __device__ void off(int i) const { a.occ[i] = 0; }
   __device__ void finish(int i, const Walker&, int slot, float) const {
     a.occ[i] = slot >= 0 ? 1 : 0;
@@ -579,13 +611,12 @@ cudaError_t fallback(const Any&, int*, int, cudaStream_t) { return cudaSuccess; 
 // walker.
 template <class K>
 __device__ __forceinline__ bool start(const K& k, const Tree& tree, int i, Walker& w) {
-  const int32_t* mask = k.mask();
-  if (mask != nullptr && mask[i] == 0) {
+  Ray r;
+  if (!k.ray(i, r)) {
     k.off(i);
     return false;
   }
-  const RayPtrs& r = k.a.r;
-  w = walker(Ray{r.ox[i], r.oy[i], r.oz[i], r.dx[i], r.dy[i], r.dz[i]});
+  w = walker(r);
   float entry;
   if (!slab(__ldg(tree.nodes), __ldg(tree.nodes + 1), w, entry)) {
     k.finish(i, w, -1, INF);
@@ -795,11 +826,12 @@ int rt_bvh_closest_launch(void** p, const float* nodes, const float* pairs, cons
   return launch(k, tree_of(nodes, pairs, prims, root), depth, fetch, n, (cudaStream_t)stream);
 }
 
-// p: 8 device pointers, AnyArgs field order (6 f32 ray inputs, the i32
-// mask or null, occ i32); the rest as for BVH_CLOSEST (fetch: two int32).
+// p: 13 device pointers, AnyArgs field order (the 6 f32 closest rays, t
+// f32, type i32, in_path i32, the 3 f32 NEE direction components, occ
+// i32); the rest as for BVH_CLOSEST (fetch: two int32).
 int rt_bvh_any_launch(void** p, const float* nodes, const float* pairs, const float* prims,
                       int root, int depth, int* fetch, int n, void* stream) {
-  static_assert(sizeof(AnyArgs) == 8 * sizeof(void*), "AnyArgs layout");
+  static_assert(sizeof(AnyArgs) == 13 * sizeof(void*), "AnyArgs layout");
   Any k;
   memcpy(&k.a, p, sizeof(k.a));
   return launch(k, tree_of(nodes, pairs, prims, root), depth, fetch, n, (cudaStream_t)stream);

@@ -17,11 +17,18 @@
 // (shade_call, pallas_call at :840): RGBE bilinear radiance, the texel
 // pmf, MIS, emission, film, termination and regeneration.
 // BIG_SHADE replaces pallas_wavefront.py:_big_shade_kernel (big_shade_call,
-// pallas_call at :1042), the big-mesh route's shade: the winner's row of
-// the 20-float union table (read here at the winner's global index, so the
-// 19 slot arrays of the Pallas call are never written), its normal and
-// material, trace_epilogue, then the same SHADE core. It also computes the
-// fused uv (TRACE's arithmetic) and reads the quad row there itself.
+// pallas_call at :1042), the big-mesh route's shade: the hit flag and the
+// hit point ro + rd * t from the closest hit's (t, type) (the reference's
+// XLA glue, render/wavefront.py:991-995), the winner's row of the 20-float
+// union table (read here at the winner's global index, so the 19 slot
+// arrays of the Pallas call are never written), its normal and material,
+// trace_epilogue, then the same SHADE core. It also computes the fused uv
+// (TRACE's arithmetic) and reads the quad row there itself.
+// SHADE and BIG_SHADE write the new carry only: the Pallas kernels' per-lane
+// active and hitmask outputs, which the reference sums into its ray
+// counters, are summed here a block at a time (a ballot and a popc a warp,
+// shared memory a block) and added to the call's int64 counters, one atomic
+// a block and counter (tally_block, wavefront_common.cuh).
 // ENV_DRAW is the big-mesh routes' share of that XLA glue: TRACE's alias
 // draw and NEE direction (env_sample, wavefront_common.cuh), for every lane,
 // before the closest walk. So no row of the environment goes through a
@@ -45,11 +52,12 @@
 // shadow sweep up to its first hit (5,009 operations a lane on house), so
 // it is bound by operations; the shared sweep rejects a primitive by a
 // division-free pre-test before its divisions (wavefront_common.cuh).
-// SHADE reads 53 and writes 22 (300 B) with little arithmetic, so it is
-// bound by device memory bandwidth. BIG_SHADE reads 37 four-byte values,
-// one 16-byte quad row and one 80-byte winner row (random rows of tables
-// that sit in L2) and writes 22: about 340 B a lane, also bound by
-// bandwidth. ENV_DRAW reads 4 bytes and a random 16-byte alias row and
+// SHADE reads 53 and writes 20 (292 B) with little arithmetic, so it is
+// bound by device memory bandwidth. BIG_SHADE reads 34 four-byte values
+// (t on hit lanes only), one 16-byte quad row and one 80-byte winner row
+// (random rows of tables that sit in L2) and writes 20: about 312 B a lane
+// (340 B with the hit point and the two flags it read and wrote before),
+// also bound by bandwidth. ENV_DRAW reads 4 bytes and a random 16-byte alias row and
 // writes 28 bytes a lane, bound by bandwidth too. The kernels are built with -fmad=false so their float
 // results follow the same roundings as the unfused PyTorch ops of their
 // plain twins (ops/cuda_wavefront.py); TRACE's alias index, NEE pmf and
@@ -244,15 +252,16 @@ struct ShadeIn : CarryIn {
   __device__ float npmf() const { return a.npmf[i]; }
 };
 
-__global__ void shade_kernel(ShadeArgs a, ShadeScalars k) {
+__global__ void shade_kernel(ShadeArgs a, ShadeScalars k, Tally t) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= k.n) return;
-  shade_core(i, ShadeIn(a, i), a.c.scal, k, a.o);
+  RayFlags f{false, false};
+  if (i < k.n) f = shade_core(i, ShadeIn(a, i), a.c.scal, k, a.o);
+  tally_block<kThreads>(f, t);
 }
 
 struct BigShadeArgs {
-  const int32_t *hit, *occ, *btype, *bidx;
-  const float *px, *py, *pz;
+  const int32_t *occ, *btype, *bidx;
+  const float* t;               // the closest hit's (BVH_CLOSEST's or CHUNKED_CLOSEST's)
   const float *sx, *sy, *sz;    // NEE direction
   const uint32_t* state;        // after the alias draw
   const float *nu, *nv, *npmf;  // NEE uv and pmf
@@ -260,23 +269,23 @@ struct BigShadeArgs {
   ShadeOut o;
 };
 
-// BIG_SHADE's inputs: the trace products, the fused uv and its quad row
-// computed in the kernel; the hit point, hit and occlusion flags and NEE
-// pmf from device memory.
+// BIG_SHADE's inputs: the hit flag and point, the trace products, the
+// fused uv and its quad row computed in the kernel; the occlusion flag and
+// NEE pmf from device memory.
 struct BigShadeIn : CarryIn {
   const BigShadeArgs& a;
-  V3 emission, nee_scatter, bdir, bscat;
+  V3 p, emission, nee_scatter, bdir, bscat;
   float cos_theta, nee_pdf, bpdf_, cos_bounce, fu_, fv_;
-  bool bzero;
+  bool hit_, bzero;
   uint32_t state_;
   uint4 quad_;
   __device__ BigShadeIn(const BigShadeArgs& args, int lane) : CarryIn{args.c, nullptr, lane}, a(args) {}
   __device__ uint4 quad() const { return quad_; }
-  __device__ bool hit() const { return a.hit[i] != 0; }
+  __device__ bool hit() const { return hit_; }
   __device__ bool occ() const { return a.occ[i] != 0; }
-  __device__ float px() const { return a.px[i]; }
-  __device__ float py() const { return a.py[i]; }
-  __device__ float pz() const { return a.pz[i]; }
+  __device__ float px() const { return p.x; }
+  __device__ float py() const { return p.y; }
+  __device__ float pz() const { return p.z; }
   __device__ float er() const { return emission.x; }
   __device__ float eg() const { return emission.y; }
   __device__ float eb() const { return emission.z; }
@@ -294,23 +303,27 @@ struct BigShadeIn : CarryIn {
   __device__ float npmf() const { return a.npmf[i]; }
 };
 
-// wtable: (n_sph + n_pln + n_tri, WINNER_SLOTS) union rows
-// (scene/device.py:winner_rows); mat: MAT_COLS material rows; env: the
-// quad rows (no alias rows).
-__global__ void big_shade_kernel(BigShadeArgs a, const float* __restrict__ wtable,
-                                 const float* __restrict__ mat, int n_mat, int n_sph, int n_pln,
-                                 EnvRows env, ShadeScalars k) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= k.n) return;
+// One lane of BIG_SHADE (the arguments as big_shade_kernel's).
+__device__ __forceinline__ RayFlags big_shade_lane(int i, const BigShadeArgs& a,
+                                                   const float* __restrict__ wtable,
+                                                   const float* __restrict__ mat, int n_mat,
+                                                   int n_sph, int n_pln, const EnvRows& env,
+                                                   const ShadeScalars& k) {
   BigShadeIn in(a, i);
   const Ray r{in.ro(0), in.ro(1), in.ro(2), in.rd(0), in.rd(1), in.rd(2)};
+  // the hit flag from the winner's type, and the hit point ro + rd * t (the
+  // origin on a miss): a multiply, then an add, as the plain twin rounds it
+  const int btype = a.btype[i];
+  const bool hit = btype >= 0;
+  const float ts = hit ? a.t[i] : 0.0f;
+  in.hit_ = hit;
+  in.p = V3{r.ox + r.dx * ts, r.oy + r.dy * ts, r.oz + r.dz * ts};
   // the fused uv: the NEE sample's on a hit, the escaped ray's on a miss
   // (TRACE's arithmetic); then its quad row
-  const bool hit = in.hit();
   in.fu_ = hit ? a.nu[i] : miss_u(r.dx, r.dz);
   in.fv_ = hit ? a.nv[i] : miss_v(r.dy);
   in.quad_ = quad_row(env, in.fu_, in.fv_);
-  const int btype = a.btype[i], bidx = a.bidx[i];
+  const int bidx = a.bidx[i];
   // global winner index; a miss reads row 0 (wavefront.py:1003-1009)
   const int gidx = btype == 0 ? bidx : (btype == 1 ? n_sph + bidx : (btype == 2 ? n_sph + n_pln + bidx : 0));
   float w[WINNER_SLOTS - 1];
@@ -344,7 +357,19 @@ __global__ void big_shade_kernel(BigShadeArgs a, const float* __restrict__ wtabl
   in.bzero = e.bs.zero_dir;
   in.cos_bounce = e.cos_bounce;
   in.state_ = state;
-  shade_core(i, in, a.c.scal, k, a.o);
+  return shade_core(i, in, a.c.scal, k, a.o);
+}
+
+// wtable: (n_sph + n_pln + n_tri, WINNER_SLOTS) union rows
+// (scene/device.py:winner_rows); mat: MAT_COLS material rows; env: the
+// quad rows (no alias rows).
+__global__ void big_shade_kernel(BigShadeArgs a, const float* __restrict__ wtable,
+                                 const float* __restrict__ mat, int n_mat, int n_sph, int n_pln,
+                                 EnvRows env, ShadeScalars k, Tally t) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  RayFlags f{false, false};
+  if (i < k.n) f = big_shade_lane(i, a, wtable, mat, n_mat, n_sph, n_pln, env, k);
+  tally_block<kThreads>(f, t);
 }
 
 }  // namespace
@@ -366,33 +391,38 @@ int rt_trace_launch(void** p, const float* table, int table_len, int n, int n_sp
                       table, table_len, n, n_sph, n_pln, n_tri, n_mat, env);
 }
 
-// p: 73 device pointers, ShadeArgs field order.
+// p: 71 device pointers, ShadeArgs field order; counters: the four int64
+// slots of the ray counters (or null), tag: this launch's tag (Tally).
 int rt_shade_launch(void** p, int n, int env_w, int env_h, int width, int height,
                     int max_bounces, uint32_t it_next, uint32_t spp, uint32_t budget,
-                    uint32_t stride, uint32_t offset, void* stream) {
-  static_assert(sizeof(ShadeArgs) == 73 * sizeof(void*), "ShadeArgs layout");
+                    uint32_t stride, uint32_t offset, int64_t* counters, int64_t tag,
+                    void* stream) {
+  static_assert(sizeof(ShadeArgs) == 71 * sizeof(void*), "ShadeArgs layout");
   ShadeArgs a;
   memcpy(&a, p, sizeof(a));
   if (n <= 0) return 0;
   ShadeScalars k{n, env_w, env_h, width, height, max_bounces, it_next, spp, budget, stride, offset};
-  shade_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(a, k);
+  const Tally t{reinterpret_cast<unsigned long long*>(counters), (unsigned long long)tag};
+  shade_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(a, k, t);
   return (int)cudaGetLastError();
 }
 
-// p: 60 device pointers, BigShadeArgs field order; quad: the environment's
-// (env_w * env_h, 4) RGBE rows.
+// p: 55 device pointers, BigShadeArgs field order; quad: the environment's
+// (env_w * env_h, 4) RGBE rows; counters and tag as for SHADE.
 int rt_big_shade_launch(void** p, const float* wtable, const float* mat, int n_mat, int n_sph,
                         int n_pln, const void* quad, int n, int env_w, int env_h, int width,
                         int height, int max_bounces, uint32_t it_next, uint32_t spp,
-                        uint32_t budget, uint32_t stride, uint32_t offset, void* stream) {
-  static_assert(sizeof(BigShadeArgs) == 60 * sizeof(void*), "BigShadeArgs layout");
+                        uint32_t budget, uint32_t stride, uint32_t offset, int64_t* counters,
+                        int64_t tag, void* stream) {
+  static_assert(sizeof(BigShadeArgs) == 55 * sizeof(void*), "BigShadeArgs layout");
   BigShadeArgs a;
   memcpy(&a, p, sizeof(a));
   if (n <= 0) return 0;
   const EnvRows env{nullptr, (const uint4*)quad, env_w, env_h};
   ShadeScalars k{n, env_w, env_h, width, height, max_bounces, it_next, spp, budget, stride, offset};
+  const Tally t{reinterpret_cast<unsigned long long*>(counters), (unsigned long long)tag};
   big_shade_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
-      a, wtable, mat, n_mat, n_sph, n_pln, env, k);
+      a, wtable, mat, n_mat, n_sph, n_pln, env, k, t);
   return (int)cudaGetLastError();
 }
 

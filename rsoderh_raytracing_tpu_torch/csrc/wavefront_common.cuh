@@ -729,7 +729,7 @@ __device__ __forceinline__ Epilogue trace_epilogue(V3 rd, V3 nee, V3 normal, V3 
 
 // -- SHADE core (pallas_wavefront._shade_core), one lane ---------------------
 
-// The 22 outputs (SHADE_OUT_NAMES).
+// The 20 outputs (SHADE_OUT_NAMES): the new carry.
 struct ShadeOut {
   uint32_t* state;
   float *ro0, *ro1, *ro2, *rd0, *rd1, *rd2;
@@ -738,8 +738,52 @@ struct ShadeOut {
   uint32_t* sample;
   int32_t* in_path;
   float *film0, *film1, *film2;
-  int32_t *active, *hitmask;
 };
+
+// What a lane counts for the ray counters: it was in a path (a closest
+// ray), and that ray hit (a shadow ray).
+struct RayFlags {
+  bool active, hit;
+};
+
+// The ray counters of a render call (ops/cuda_wavefront.RayCounters): int64
+// slots closest rays, shadow rays, iterations with an active lane, and the
+// tag of the last iteration counted; `tag` is this launch's (a new one each
+// launch). slots may be null: nothing is counted.
+struct Tally {
+  unsigned long long* slots;
+  unsigned long long tag;
+};
+
+// Adds a block's active and hit lanes to the counters: a ballot and a popc
+// a warp, a sum a block in shared memory, one atomic a block and counter.
+// The first block of a launch with an active lane swaps its tag into slot
+// 3 and counts the iteration. Every thread of the block calls it.
+template <int kBlock>
+__device__ __forceinline__ void tally_block(RayFlags f, const Tally& t) {
+  constexpr int kWarps = kBlock / 32;
+  __shared__ unsigned counts[2 * kWarps];
+  if (t.slots == nullptr) return;
+  const unsigned active = __popc(__ballot_sync(0xffffffffu, f.active));
+  const unsigned hit = __popc(__ballot_sync(0xffffffffu, f.hit));
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) {
+    counts[warp] = active;
+    counts[kWarps + warp] = hit;
+  }
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  unsigned n_active = 0, n_hit = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    n_active += counts[w];
+    n_hit += counts[kWarps + w];
+  }
+  if (n_active == 0) return;
+  atomicAdd(t.slots, (unsigned long long)n_active);
+  if (n_hit != 0) atomicAdd(t.slots + 1, (unsigned long long)n_hit);
+  if (atomicExch(t.slots + 3, t.tag) != t.tag) atomicAdd(t.slots + 2, 1ull);
+}
 
 struct ShadeScalars {
   int n, env_w, env_h, width, height, max_bounces;
@@ -754,10 +798,11 @@ struct ShadeScalars {
 // cb() state() fu() fv() npmf(), the carry tp(c) inc(c) last_pdf()
 // bounce() sample() in_path() film(c) ro(c) rd(c), the pixel pixidx()
 // pixx() pixy() base() and the quad row quad(). `scal`: [max_y, aspect,
-// cam pos[3], cam rot rows[9], L, Z].
+// cam pos[3], cam rot rows[9], L, Z]. Returns what the lane counts for
+// the ray counters (tally_block).
 template <class In>
-__device__ __forceinline__ void shade_core(int i, const In& in, const float* scal,
-                                           const ShadeScalars& k, const ShadeOut& o) {
+__device__ __forceinline__ RayFlags shade_core(int i, const In& in, const float* scal,
+                                               const ShadeScalars& k, const ShadeOut& o) {
   const int W = k.env_w, H = k.env_h;
   const bool active = in.in_path();
   const bool did_hit = in.hit();
@@ -887,8 +932,7 @@ __device__ __forceinline__ void shade_core(int i, const In& in, const float* sca
   o.film0[i] = film0;
   o.film1[i] = film1;
   o.film2[i] = film2;
-  o.active[i] = active ? 1 : 0;
-  o.hitmask[i] = is_hit ? 1 : 0;
+  return RayFlags{active, is_hit};
 }
 
 }  // namespace rt

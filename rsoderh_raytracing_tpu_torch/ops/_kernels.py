@@ -115,10 +115,11 @@ def load():
     lib = ctypes.CDLL(build())
     vp, i = ctypes.c_void_p, ctypes.c_int
     u = ctypes.c_uint32
+    i64 = ctypes.c_int64
     signatures = {
         "rt_trace_launch": [vp, vp, i, i, i, i, i, i, vp, vp, i, i, vp],
-        "rt_shade_launch": [vp, i, i, i, i, i, i, u, u, u, u, u, vp],
-        "rt_big_shade_launch": [vp, vp, vp, i, i, i, vp, i, i, i, i, i, i, u, u, u, u, u, vp],
+        "rt_shade_launch": [vp, i, i, i, i, i, i, u, u, u, u, u, vp, i64, vp],
+        "rt_big_shade_launch": [vp, vp, vp, i, i, i, vp, i, i, i, i, i, i, u, u, u, u, u, vp, i64, vp],
         "rt_env_draw_launch": [vp, vp, i, i, i, vp],
         "rt_chunked_closest_launch": [vp, vp, i, i, i, vp, vp, i, i, vp, vp, vp, i, i, vp],
         "rt_chunked_any_launch": [vp, vp, i, i, i, vp, vp, i, i, vp, i, i, vp],

@@ -433,10 +433,15 @@ def closest_plain(scene, ro, rd, live, counts=None, *, fallback_lanes=None):
     return t, ptype, pidx
 
 
-def any_plain(scene, p, d, mask, counts=None):
-    """BVH_ANY's plain twin: occlusion (i32 0/1) of rays from p along d by
-    the walk, for lanes with mask != 0; 0 on the others."""
-    return traverse_any(scene.bvh, p, d, mask, counts).to(torch.int32)
+def any_plain(scene, ro, rd, t, ptype, in_path, nee_dir, counts=None):
+    """BVH_ANY's plain twin: occlusion (i32 0/1) by the walk of the shadow
+    rays from the closest hit (t, type) of rays (ro, rd) along nee_dir
+    (intersect.shadow_origins), for lanes in a path whose ray hit; 0 on the
+    others."""
+    from rsoderh_raytracing_tpu_torch.ops import intersect
+
+    p, mask = intersect.shadow_origins(ro, rd, t, ptype, in_path)
+    return traverse_any(scene.bvh, p, nee_dir, mask, counts).to(torch.int32)
 
 
 def walk_model(bvh: DeviceBVH, ro, rd, mask, closest, counts=None):

@@ -115,7 +115,8 @@ def _chunked_closest_launch(scene, ro, rd, live, union_batches):
 def chunked_any_call(scene, p, d, mask, union_batches=0):
     """Occlusion (i32 0/1) of rays from p along d by any primitive, the
     chunked ones only for lanes with mask != 0; union_batches as for
-    chunked_closest_call."""
+    chunked_closest_call. The chunked route's iteration calls it through
+    chunked_occlusion_call."""
     if _device.use_plain(mask, "chunked_any_call"):
         return intersect.chunked_any_plain(scene, p, d, mask)
     from rsoderh_raytracing_tpu_torch.ops import _kernels
@@ -129,6 +130,21 @@ def chunked_any_call(scene, p, d, mask, union_batches=0):
     cw._raise_on(rc, "CHUNKED_ANY")
     LAUNCHES["chunked_any"] += 1
     return occ
+
+
+def chunked_occlusion_call(scene, ro, rd, t, ptype, in_path, nee_dir):
+    """The chunked route's occlusion in the big-mesh iteration's terms
+    (bvh_any_call's): CHUNKED_ANY of the shadow rays from the closest hit
+    (t, type) of rays (ro, rd) along nee_dir, whose origins and mask
+    (intersect.shadow_origins) this wrapper computes in tensor code."""
+    p, mask = intersect.shadow_origins(ro, rd, t, ptype, in_path)
+    return chunked_any_call(scene, p, nee_dir, mask)
+
+
+def chunked_occlusion_plain(scene, ro, rd, t, ptype, in_path, nee_dir):
+    """chunked_occlusion_call's plain version."""
+    p, mask = intersect.shadow_origins(ro, rd, t, ptype, in_path)
+    return intersect.chunked_any_plain(scene, p, nee_dir, mask)
 
 
 # FUSED's outputs in launch order (pallas_intersect._fused_kernel); hit
@@ -337,24 +353,37 @@ def _bvh_closest_launch(scene, ro, rd, live, fallback_lanes):
     return t, ptype, pidx
 
 
-def bvh_any_call(scene, p, d, mask):
-    """BVH_ANY: occlusion (i32 0/1) of rays from p along d by the BVH walk
-    (no fallback), for lanes with mask != 0; 0 on the others."""
+def bvh_any_call(scene, ro, rd, t, ptype, in_path, nee_dir):
+    """BVH_ANY: occlusion (i32 0/1) by the BVH walk (no fallback) of the
+    shadow rays from the closest hit (t f32, type i32) of rays (ro, rd)
+    along nee_dir, for lanes with in_path != 0 whose ray hit (type >= 0);
+    0 on the others. The kernel derives each lane's origin ro + rd * t and
+    mask itself (bvh_ops.any_plain spells them out)."""
     _bvh_depth(scene, "bvh_any_call")
-    if _device.use_plain(mask, "bvh_any_call"):
-        return bvh_ops.any_plain(scene, p, d, mask)
+    if _device.use_plain(in_path, "bvh_any_call"):
+        return bvh_ops.any_plain(scene, ro, rd, t, ptype, in_path, nee_dir)
     from rsoderh_raytracing_tpu_torch.ops import _kernels
 
-    n, dev, tree, fetch = _bvh_args(scene, (*p, *d), mask, "bvh_any_call")
+    n, dev, tree, fetch = _bvh_args(scene, (*ro, *rd, t, *nee_dir), in_path, "bvh_any_call")
+    cw._check("bvh_any_call closest type", ptype, n, torch.int32, dev)
     occ = torch.empty(n, device=dev, dtype=torch.int32)
     b = scene.bvh
     rc = _kernels.library().rt_bvh_any_launch(
-        cw._ptrs((*p, *d, mask, occ)), *tree, b.root, b.depth, fetch.data_ptr(), n,
-        torch.cuda.current_stream(dev).cuda_stream,
+        cw._ptrs((*ro, *rd, t, ptype, in_path, *nee_dir, occ)), *tree, b.root, b.depth,
+        fetch.data_ptr(), n, torch.cuda.current_stream(dev).cuda_stream,
     )
     cw._raise_on(rc, "BVH_ANY")
     LAUNCHES["bvh_any"] += 1
     return occ
+
+
+def bvh_any_rays(scene, p, d, mask):
+    """BVH_ANY of rays from p along d, for lanes with mask != 0; 0 on the
+    others: bvh_any_call on closest hits at t = 0 of rays from p with
+    direction 0 (origins p + 0 * 0), typed 0 on the mask."""
+    zero = torch.zeros_like(p[0])
+    ptype = torch.where(mask != 0, 0, -1).to(torch.int32)
+    return bvh_any_call(scene, p, (zero, zero, zero), zero, ptype, mask, d)
 
 
 # The big-mesh routes' closest and occlusion wrappers, each with its plain
@@ -362,7 +391,7 @@ def bvh_any_call(scene, p, d, mask):
 # route, and what profiling.capture_step wraps.
 ROUTE_CALLS = {
     CHUNKED: {"closest": (chunked_closest_call, intersect.chunked_closest_plain),
-              "occlusion": (chunked_any_call, intersect.chunked_any_plain)},
+              "occlusion": (chunked_occlusion_call, chunked_occlusion_plain)},
     BVH: {"closest": (bvh_closest_call, bvh_ops.closest_plain),
           "occlusion": (bvh_any_call, bvh_ops.any_plain)},
 }

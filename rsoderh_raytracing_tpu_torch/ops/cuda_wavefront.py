@@ -14,26 +14,31 @@ iteration of the small-scene path is
 and of the big-mesh path (render/wavefront.py)
 
   [ENV_DRAW kernel: alias draw of the NEE texel (one 16-byte alias row),
-        NEE uv, pmf and direction] [CHUNKED_CLOSEST] [glue: hit point]
-  [CHUNKED_ANY]
-  [BIG_SHADE kernel: the winner's union row (scene.winner), its normal
-        and material, trace_epilogue, the fused uv and the 16-byte quad
-        row there, the SHADE core]
+        NEE uv, pmf and direction] [CHUNKED_CLOSEST or BVH_CLOSEST]
+  [CHUNKED_ANY (its wrapper computes the hit point) or BVH_ANY (the
+        kernel does)]
+  [BIG_SHADE kernel: the hit flag and point from the winner's (t, type),
+        the winner's union row (scene.winner), its normal and material,
+        trace_epilogue, the fused uv and the 16-byte quad row there, the
+        SHADE core]
 
 ``trace_call`` takes the carried ray and RNG state and the environment and
 returns the Pallas twin's outputs (TRACE_OUT_NAMES) without its quad-row
 index, plus the NEE pmf and the quad row itself; ``env_draw_call`` takes
 the carried RNG state and returns what the reference's XLA glue draws
 before its sweeps (ENV_DRAW_OUT_NAMES); ``shade_call`` and
-``big_shade_call`` keep the Pallas twins' outputs (the 22
-SHADE_OUT_NAMES), as flat (n,) tensors per component. BIG_SHADE takes the
-winner's (type, index), the NEE uv and the quad table, and reads the
-winner's row and the quad row itself instead of the Pallas call's 19 slot
-arrays and gathered quad row. u32 values (RNG state, sample counts, pixel
-ids) travel as int32 bit patterns. For CPU tensors the wrappers run the
-plain versions ``trace_plain`` / ``env_draw_plain`` / ``shade_plain`` /
-``big_shade_plain``; for CUDA tensors they launch the kernels in
-``csrc/wavefront.cu`` or raise (also under RT_DISABLE_PALLAS=1:
+``big_shade_call`` return the Pallas twins' carry outputs (the 20
+SHADE_OUT_NAMES), as flat (n,) tensors per component, and add the
+Pallas twins' per-lane ``active`` and ``hitmask`` to the call's
+``RayCounters`` instead of writing them (a sum a block, one atomic a
+block and counter). BIG_SHADE takes the winner's (t, type, index), the
+NEE uv and the quad table; it derives the hit flag and point and reads
+the winner's row and the quad row itself instead of the Pallas call's
+19 slot arrays and gathered quad row. u32 values (RNG state, sample
+counts, pixel ids) travel as int32 bit patterns. For CPU tensors the
+wrappers run the plain versions ``trace_plain`` / ``env_draw_plain`` /
+``shade_plain`` / ``big_shade_plain``; for CUDA tensors they launch the
+kernels in ``csrc/wavefront.cu`` or raise (also under RT_DISABLE_PALLAS=1:
 ``_device.use_plain``).
 ``LAUNCHES`` counts the kernel launches of each wrapper. Under
 RT_DEBUG_NANS=1 each wrapper checks its float outputs
@@ -66,10 +71,16 @@ SHADE_OUT_NAMES = (
     "state", "ro0", "ro1", "ro2", "rd0", "rd1", "rd2",
     "tp0", "tp1", "tp2", "inc0", "inc1", "inc2",
     "last_pdf", "bounce", "sample", "in_path",
-    "film0", "film1", "film2", "active", "hitmask",
+    "film0", "film1", "film2",
 )
-SHADE_INT_NAMES = ("state", "bounce", "sample", "in_path", "active", "hitmask")
-CARRY_NAMES = SHADE_OUT_NAMES[:-2]
+SHADE_INT_NAMES = ("state", "bounce", "sample", "in_path")
+CARRY_NAMES = SHADE_OUT_NAMES
+
+# The int64 slots of RayCounters, which SHADE and BIG_SHADE add each
+# launch's lanes to: closest rays (the lanes in a path), shadow rays (those
+# whose closest ray hit), iterations with a lane in a path, and the tag of
+# the last of those iterations.
+COUNTER_NAMES = ("closest_rays", "shadow_rays", "iterations", "last_tag")
 
 # Kernel launches of each wrapper (CUDA tensors only).
 LAUNCHES = {"trace": 0, "shade": 0, "env_draw": 0, "big_shade": 0}
@@ -78,6 +89,36 @@ LAUNCHES = {"trace": 0, "shade": 0, "env_draw": 0, "big_shade": 0}
 def reset_launches():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+class RayCounters:
+    """The ray counters of a render call, on its device: `slots`, int64
+    by COUNTER_NAMES. Every shade launch, kernel or plain twin, takes a new
+    tag (next_tag); the first of its blocks with a lane in a path swaps the
+    tag into the last slot and so counts the iteration once."""
+
+    def __init__(self, device):
+        self.slots = torch.zeros(len(COUNTER_NAMES), dtype=torch.int64, device=device)
+        self.tag = 0
+
+    def next_tag(self) -> int:
+        self.tag += 1
+        return self.tag
+
+    def stats(self) -> dict:
+        """The first three slots by name, 0-d views."""
+        return {k: self.slots[i] for i, k in enumerate(COUNTER_NAMES[:3])}
+
+
+def count_rays(counters, active, is_hit):
+    """Plain: add one launch's lanes in a path and hit lanes ((n,) bool)
+    to `counters`, as the kernels' blocks add theirs."""
+    tag = counters.next_tag()
+    n_active = active.sum(dtype=torch.int64)
+    some = n_active > 0
+    slots = counters.slots
+    slots[:3] += torch.stack([n_active, is_hit.sum(dtype=torch.int64), some.to(torch.int64)])
+    slots[3] = torch.where(some, tag, slots[3])
 
 
 # -- plain versions -------------------------------------------------------------
@@ -138,7 +179,7 @@ def env_draw_plain(env, state):
 def shade_plain(
     env_w, env_h, width, height, max_bounces,
     qwords, tr, nee_pmf, carry, pixel_index, pixel_x, pixel_y, base_sample,
-    scal, iscal,
+    scal, iscal, counters,
 ):
     """Plain PyTorch SHADE (pallas_wavefront._shade_core).
 
@@ -148,8 +189,9 @@ def shade_plain(
     CARRY_NAMES; pixel_index
     and base_sample: int32 u32 bits; scal: (16,) f32 tensor [max_y,
     aspect, cam pos (3), cam rot rows (9), L, Z]; iscal: 5 ints
-    (it_next, spp, budget, stride, offset) as unsigned values.
-    Returns (new_carry, active, hitmask)."""
+    (it_next, spp, budget, stride, offset) as unsigned values; counters:
+    the call's RayCounters, which get the Pallas twin's active and hitmask
+    lanes added (count_rays). Returns the new carry."""
     active = carry["in_path"] != 0
     did_hit = tr["hit"] != 0
     is_hit = active & did_hit
@@ -270,7 +312,8 @@ def shade_plain(
         in_path=in_path.to(torch.int32),
         film0=film[0], film1=film[1], film2=film[2],
     )
-    return new_carry, active.to(torch.int32), is_hit.to(torch.int32)
+    count_rays(counters, active, is_hit)
+    return new_carry
 
 
 # -- CUDA wrappers ----------------------------------------------------------------
@@ -423,27 +466,30 @@ _SHADE_INT_IN = {
 def shade_call(
     env_w, env_h, width, height, max_bounces,
     qwords, tr, nee_pmf, carry, pixel_index, pixel_x, pixel_y, base_sample,
-    scal, iscal,
+    scal, iscal, counters,
 ):
-    """SHADE; returns (new_carry, active, hitmask). Arguments as in
-    shade_plain. CPU tensors: shade_plain. CUDA tensors: the kernel."""
+    """SHADE; returns the new carry and adds to `counters`. Arguments as
+    in shade_plain. CPU tensors: shade_plain. CUDA tensors: the kernel."""
     args = (env_w, env_h, width, height, max_bounces, qwords, tr, nee_pmf, carry,
-            pixel_index, pixel_x, pixel_y, base_sample, scal, iscal)
+            pixel_index, pixel_x, pixel_y, base_sample, scal, iscal, counters)
     run = shade_plain if _device.use_plain(nee_pmf, "shade_call") else _shade_launch
-    return _checked_shade("SHADE", run(*args))
+    return _device.check_nans("SHADE", run(*args))
 
 
-def _checked_shade(op, result):
-    """A shade wrapper's (new_carry, active, hitmask), its float outputs
-    checked under RT_DEBUG_NANS=1."""
-    _device.check_nans(op, result[0])
-    return result
+def _tally(counters, dev):
+    """The launch arguments of the ray counters: the slots' pointer and
+    the launch's new tag."""
+    slots = counters.slots
+    if slots.device != dev or slots.dtype != torch.int64 or slots.shape != (len(COUNTER_NAMES),):
+        raise ValueError(f"counters: expected ({len(COUNTER_NAMES)},) int64 on {dev}, got "
+                         f"{tuple(slots.shape)} {slots.dtype} on {slots.device}")
+    return slots.data_ptr(), counters.next_tag()
 
 
 def _shade_launch(
     env_w, env_h, width, height, max_bounces,
     qwords, tr, nee_pmf, carry, pixel_index, pixel_x, pixel_y, base_sample,
-    scal, iscal,
+    scal, iscal, counters,
 ):
     from rsoderh_raytracing_tpu_torch.ops import _kernels
 
@@ -466,13 +512,12 @@ def _shade_launch(
     rc = _kernels.library().rt_shade_launch(
         _ptrs([qwords] + ins + [scal] + [outs[k] for k in SHADE_OUT_NAMES]),
         n, env_w, env_h, width, height, max_bounces,
-        it_next, spp, budget, stride, offset,
+        it_next, spp, budget, stride, offset, *_tally(counters, dev),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, "SHADE")
     LAUNCHES["shade"] += 1
-    new_carry = {k: outs[k] for k in CARRY_NAMES}
-    return new_carry, outs["active"], outs["hitmask"]
+    return outs
 
 
 def _check_scal(scal, dev):
@@ -480,7 +525,7 @@ def _check_scal(scal, dev):
         raise ValueError("scal: expected (16,) float32 on the device")
 
 
-BIG_TRACE_IN = ("hit", "occ", "btype", "bidx", "px", "py", "pz")
+BIG_TRACE_IN = ("occ", "btype", "bidx", "t")
 # The per-lane inputs of the BIG_SHADE kernel, in launch order, 4 bytes
 # each (besides the 4-word quad row it reads).
 BIG_SHADE_IN = (
@@ -492,36 +537,44 @@ BIG_SHADE_IN = (
 def big_shade_plain(
     scene, env_w, env_h, width, height, max_bounces,
     quad, tr, nee_dir, state, nee_u, nee_v, nee_pmf, carry,
-    pixel_index, pixel_x, pixel_y, base_sample, scal, iscal,
+    pixel_index, pixel_x, pixel_y, base_sample, scal, iscal, counters,
 ):
-    """Plain PyTorch BIG_SHADE (pallas_wavefront._big_shade_kernel and the
-    fused uv's quad-row gather before it).
+    """Plain PyTorch BIG_SHADE (the reference's hit-point glue,
+    pallas_wavefront._big_shade_kernel and the fused uv's quad-row gather
+    before it).
 
-    quad: the environment's (env_w * env_h, 4) int32 RGBE rows; tr:
-    hit/occ/btype/bidx (int32) and px/py/pz of the big-mesh sweeps;
+    quad: the environment's (env_w * env_h, 4) int32 RGBE rows; tr: the
+    big-mesh sweeps' occ/btype/bidx (int32) and t (the closest hit's);
     nee_dir: 3-tuple; state: int32 u32 bits after the alias draw; nee_u,
     nee_v, nee_pmf: the draw's (env_draw_call); the other arguments as in
-    shade_plain. Returns (new_carry, active, hitmask)."""
+    shade_plain. The hit flag is type >= 0 and the hit point
+    intersect.hit_point's. Returns the new carry and adds to `counters`."""
+    ro = (carry["ro0"], carry["ro1"], carry["ro2"])
+    rd = (carry["rd0"], carry["rd1"], carry["rd2"])
+    p = intersect.hit_point(ro, rd, tr["t"], tr["btype"])
+    tr = dict(tr, hit=(tr["btype"] >= 0).to(torch.int32), px=p[0], py=p[1], pz=p[2])
     # the fused uv: the NEE sample's on a hit, the carried ray's miss uv on
     # the others; then its quad row
-    miss_u, miss_v = envmap.direction_to_equirect_uv(carry["rd0"], carry["rd1"], carry["rd2"])
+    miss_u, miss_v = envmap.direction_to_equirect_uv(*rd)
     hit = tr["hit"] != 0
     fu = torch.where(hit, nee_u, miss_u)
     fv = torch.where(hit, nee_v, miss_v)
     qwords = quad.index_select(0, envmap.quad_index(fu, fv, env_w, env_h))
     return big_shade_body(
         scene, env_w, env_h, width, height, max_bounces, qwords, tr, nee_dir, state, fu, fv,
-        nee_pmf, carry, pixel_index, pixel_x, pixel_y, base_sample, scal, iscal,
+        nee_pmf, carry, pixel_index, pixel_x, pixel_y, base_sample, scal, iscal, counters,
     )
 
 
 def big_shade_body(
     scene, env_w, env_h, width, height, max_bounces,
     qwords, tr, nee_dir, state, fu, fv, nee_pmf, carry,
-    pixel_index, pixel_x, pixel_y, base_sample, scal, iscal,
+    pixel_index, pixel_x, pixel_y, base_sample, scal, iscal, counters,
 ):
     """BIG_SHADE's shade from gathered quad rows `qwords` at the fused uv
-    (fu, fv): the Pallas kernel's body; arguments as in big_shade_plain."""
+    (fu, fv): the Pallas kernel's body; tr holds the Pallas call's hit and
+    hit point (hit, px, py, pz) besides occ, btype and bidx; the other
+    arguments as in big_shade_plain."""
     ro = (carry["ro0"], carry["ro1"], carry["ro2"])
     rd = (carry["rd0"], carry["rd1"], carry["rd2"])
     px, py, pz = tr["px"], tr["py"], tr["pz"]
@@ -550,31 +603,33 @@ def big_shade_body(
     )
     return shade_plain(
         env_w, env_h, width, height, max_bounces, qwords, v, nee_pmf, carry,
-        pixel_index, pixel_x, pixel_y, base_sample, scal, iscal,
+        pixel_index, pixel_x, pixel_y, base_sample, scal, iscal, counters,
     )
 
 
 def big_shade_call(
     scene, env_w, env_h, width, height, max_bounces,
     quad, tr, nee_dir, state, nee_u, nee_v, nee_pmf, carry,
-    pixel_index, pixel_x, pixel_y, base_sample, scal, iscal,
+    pixel_index, pixel_x, pixel_y, base_sample, scal, iscal, counters,
 ):
-    """BIG_SHADE; returns (new_carry, active, hitmask). Arguments as in
-    big_shade_plain. CPU tensors: big_shade_plain. CUDA tensors: the
-    kernel, which reads the winner's row of scene.winner and the quad row
-    at the fused uv itself."""
+    """BIG_SHADE; returns the new carry and adds to `counters`. Arguments
+    as in big_shade_plain. CPU tensors: big_shade_plain. CUDA tensors: the
+    kernel, which derives the hit flag and point from (t, type) and reads
+    the winner's row of scene.winner and the quad row at the fused uv
+    itself."""
     args = (
         scene, env_w, env_h, width, height, max_bounces, quad, tr, nee_dir, state,
         nee_u, nee_v, nee_pmf, carry, pixel_index, pixel_x, pixel_y, base_sample, scal, iscal,
+        counters,
     )
     run = big_shade_plain if _device.use_plain(nee_pmf, "big_shade_call") else _big_shade_launch
-    return _checked_shade("BIG_SHADE", run(*args))
+    return _device.check_nans("BIG_SHADE", run(*args))
 
 
 def _big_shade_launch(
     scene, env_w, env_h, width, height, max_bounces,
     quad, tr, nee_dir, state, nee_u, nee_v, nee_pmf, carry,
-    pixel_index, pixel_x, pixel_y, base_sample, scal, iscal,
+    pixel_index, pixel_x, pixel_y, base_sample, scal, iscal, counters,
 ):
     from rsoderh_raytracing_tpu_torch.ops import _kernels
 
@@ -600,13 +655,12 @@ def _big_shade_launch(
         table.data_ptr(), mat.data_ptr(), mat.shape[0],
         scene.sph_radius.shape[0], scene.pln_valid.shape[0], quad.data_ptr(),
         n, env_w, env_h, width, height, max_bounces,
-        it_next, spp, budget, stride, offset,
+        it_next, spp, budget, stride, offset, *_tally(counters, dev),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, "BIG_SHADE")
     LAUNCHES["big_shade"] += 1
-    new_carry = {k: outs[k] for k in CARRY_NAMES}
-    return new_carry, outs["active"], outs["hitmask"]
+    return outs
 
 
 def tiles_to_flat(tiles: dict) -> dict:

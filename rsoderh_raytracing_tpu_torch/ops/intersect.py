@@ -310,6 +310,21 @@ def chunked_any_plain(scene, p, d, mask):
     return occ.to(torch.int32)
 
 
+def hit_point(ro, rd, t, ptype):
+    """The closest hit's point ro + rd * t on lanes with type >= 0, and
+    ro + rd * 0 on the others: a multiply, then an add, as the BVH_ANY and
+    BIG_SHADE kernels round it."""
+    t_safe = torch.where(ptype >= 0, t, 0.0)
+    return tuple(ro[k] + rd[k] * t_safe for k in range(3))
+
+
+def shadow_origins(ro, rd, t, ptype, in_path):
+    """(origins, int32 mask) of the big-mesh routes' shadow rays from the
+    closest hit (t, type) of the carried rays (ro, rd): hit_point, and the
+    lanes in a path whose ray hit."""
+    return hit_point(ro, rd, t, ptype), ((ptype >= 0) & (in_path != 0)).to(torch.int32)
+
+
 # -- a model of the CUDA kernels' traversal (csrc/chunked.cu) ----------------
 # Plain tensor code that walks the chunks as the kernels do, in batches of
 # `batch` chunks (the kernels' own: cuda_intersect.chunked_batch()); a lane
@@ -670,7 +685,7 @@ def any_hit(scene, ro, rd, mask=None):
     picked = route(scene)
     if picked in (CHUNKED, BVH):
         lanes = _all_lanes(ro[0]) if mask is None else mask
-        call = ci.chunked_any_call if picked == CHUNKED else ci.bvh_any_call
+        call = ci.chunked_any_call if picked == CHUNKED else ci.bvh_any_rays
         occ = call(scene, ro, rd, lanes) != 0
         return occ if mask is None else occ & (mask != 0)
     return ci.any_call(scene, ro, rd, mask)

@@ -316,10 +316,15 @@ def first_hit_ops(scene, rays, extents=None):
 
 def chunked_bound(scene, args, closest):
     """bound_ms of one CHUNKED_CLOSEST (`closest`) or CHUNKED_ANY launch
-    on `args` (the wrapper's arguments): 7 four-byte inputs a lane and 3
-    (or 1) outputs, the tables once; the unrolled step on every lane,
-    then the slab tests and 64 primitive tests a passing pair."""
-    _, ro, rd, mask = args
+    on `args` (the arguments of the route's closest or occlusion call,
+    ci.ROUTE_CALLS): 7 four-byte inputs a lane and 3 (or 1) outputs, the
+    tables once; the unrolled step on every lane, then the slab tests and
+    64 primitive tests a passing pair."""
+    if closest:
+        _, ro, rd, mask = args
+    else:
+        _, ro_closest, rd_closest, t, ptype, in_path, rd = args
+        ro, mask = intersect.shadow_origins(ro_closest, rd_closest, t, ptype, in_path)
     n = mask.shape[0]
     tests, pairs, tri_pairs = cull_counts(scene, ro, rd, mask, closest)
     ch = scene.chunks
@@ -335,7 +340,9 @@ def chunked_bound(scene, args, closest):
 def bvh_bound(scene, n, counts, closest):
     """bound_ms of one BVH_CLOSEST (`closest`) or BVH_ANY launch over n
     lanes whose plain walk counted `counts` (ops/bvh.COUNT_KEYS): 7
-    four-byte inputs a lane and 3 (or 1) outputs, the tables once; the box
+    four-byte inputs a lane and 3 outputs (BVH_ANY: each lane's closest
+    type and its output, and 11 four-byte inputs of each lane it walks,
+    the root box tests less two an interior visit), the tables once; the box
     tests, the leaf tests of each kind and the
     fallback sweep over the valid sphere and plane rows of the lanes the
     walk missed; the tables are the root's box, the child-pair rows and the
@@ -345,7 +352,8 @@ def bvh_bound(scene, n, counts, closest):
     b = scene.bvh
     tables = (8 + b.pairs.numel() + b.prims.numel()
               + (2 * b.prim_type.numel() + b.small.numel() if closest else 0))
-    n_bytes = n * 4 * (7 + (3 if closest else 1)) + 4 * tables
+    walked = counts["boxes"] - 2 * counts["interior"]
+    n_bytes = 4 * (n * (7 + 3) if closest else n * 2 + walked * 11) + 4 * tables
     leaf_tests = sum(counts[k] for k in OPS_LEAF)
     n_sph, n_pln, _ = scene.sweep_rows
     fallback = n_sph * OPS_SPHERE + n_pln * OPS_PLANE

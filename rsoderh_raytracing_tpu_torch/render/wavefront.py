@@ -12,13 +12,15 @@ loop runs, by the scene's route (scene/device.route):
   quad-row read inside it) and the SHADE kernel (ops/cuda_wavefront.py);
 - the big-mesh route: the ENV_DRAW kernel (the alias draw and the NEE
   direction, TRACE's first lines alone), CHUNKED_CLOSEST over live
-  lanes, the hit point, CHUNKED_ANY over live hit lanes
-  (ops/cuda_intersect.py), and BIG_SHADE, which reads the winner's union
-  row and the quad row at the fused uv itself;
+  lanes, CHUNKED_ANY over live hit lanes from the hit point, which its
+  wrapper computes (ops/cuda_intersect.py), and BIG_SHADE, which derives
+  the hit flag and point from the winner's (t, type) and reads the
+  winner's union row and the quad row at the fused uv itself;
 - the BVH route (a scene built with a BVH): the same iteration with
-  BVH_CLOSEST and BVH_ANY in place of the chunked kernels. The reference
-  renders such scenes through its composed body; BIG_SHADE computes the
-  same shade from (type, index).
+  BVH_CLOSEST and BVH_ANY in place of the chunked kernels; BVH_ANY derives
+  each lane's shadow ray from (t, type) itself, so no tensor code runs
+  between the kernels. The reference renders such scenes through its
+  composed body; BIG_SHADE computes the same shade from (type, index).
 
 With a legacy float32 / bfloat16 environment, or with
 RT_DISABLE_WFKERNELS=1 or RT_DISABLE_PALLAS=1 (the latter on the CPU
@@ -41,12 +43,13 @@ Differences from the reference's loop:
   checks ``in_path.any()`` every 16 iterations on the card, every
   iteration on the CPU. An iteration in which no lane is active changes
   nothing that is returned.
-- Ray counters are int64 on the device: closest rays are the active
-  lanes, shadow rays the hit lanes. ``iterations`` counts the iterations
-  in which some lane was active. ``fallback_lanes`` counts the closest
-  rays that BVH_CLOSEST's walk left to its sweep of every sphere and
-  plane row (the kernel adds them in place; 0 off the BVH route's kernel
-  loop).
+- Ray counters are int64 on the device (cuda_wavefront.RayCounters),
+  which SHADE and BIG_SHADE (or their plain twins) add to in place:
+  closest rays are the active lanes, shadow rays the hit lanes.
+  ``iterations`` counts the iterations in which some lane was active.
+  ``fallback_lanes`` counts the closest rays that BVH_CLOSEST's walk left
+  to its sweep of every sphere and plane row (the kernel adds them in
+  place; 0 off the BVH route's kernel loop).
 
 The reference's lane layout: lanes map to pixels in BLOCK_H x BLOCK_W
 blocks wherever the rows tile (``lane_order``; RT_DISABLE_BLOCK_REMAP=1
@@ -347,9 +350,8 @@ class Wavefront:
             pixidx=rng.to_bits(pixel_index), pixx=pixel_x, pixy=pixel_y, base=rng.to_bits(base),
             home=torch.arange(n, device=device, dtype=torch.int32),
         )
-        zero = torch.zeros((), device=device, dtype=torch.int64)
-        self.closest, self.shadow, self.iterations = zero, zero, zero
-        self.fallback = torch.zeros((), device=device, dtype=torch.int64)  # added to in place
+        self.counters = cw.RayCounters(device)  # added to in place, as is fallback
+        self.fallback = torch.zeros((), device=device, dtype=torch.int64)
 
         if compact_every is None:
             compact_every = compact_every_default(scene)
@@ -419,9 +421,9 @@ class Wavefront:
                 bs0=bscat[0], bs1=bscat[1], bs2=bscat[2], bz=bzero, cb=cos_bounce,
                 state=rng.to_bits(state), fu=fu, fv=fv,
             )
-            self.carry, act, hitm = cw.shade_plain(
+            self.carry = cw.shade_plain(
                 env_w, env_h, self.width, self.height, self.max_bounces,
-                q, tr, nee_pmf, c, *lanes,
+                q, tr, nee_pmf, c, *lanes, self.counters,
             )
         elif self.route in (CHUNKED, BVH):
             mark("step.env_draw")
@@ -430,38 +432,28 @@ class Wavefront:
             mark("step.closest")
             counted = {"fallback_lanes": self.fallback} if self.route == BVH else {}
             t, btype, bidx = closest(self.scene, ro, rd, c["in_path"], **counted)
-            mark("step.glue")
-            did_hit = btype >= 0
-            t_safe = torch.where(did_hit, t, 0.0)
-            p = tuple(ro[k] + rd[k] * t_safe for k in range(3))
-            hit_mask = (did_hit & (c["in_path"] != 0)).to(torch.int32)
             mark("step.occlusion")
-            occ = occlusion(self.scene, p, nd, hit_mask)
+            occ = occlusion(self.scene, ro, rd, t, btype, c["in_path"], nd)
             mark("step.big_shade")
-            tr = dict(hit=did_hit.to(torch.int32), occ=occ, btype=btype, bidx=bidx,
-                      px=p[0], py=p[1], pz=p[2])
-            self.carry, act, hitm = big_shade(
+            tr = dict(occ=occ, btype=btype, bidx=bidx, t=t)
+            self.carry = big_shade(
                 self.scene, env_w, env_h, self.width, self.height, self.max_bounces,
                 self.env.quad, tr, nd, draw["state"], draw["nee_u"], draw["nee_v"],
-                draw["nee_pmf"], c, *lanes,
+                draw["nee_pmf"], c, *lanes, self.counters,
             )
         else:
             mark("step.trace")
             tr = trace(self.scene, self.env, c)
             mark("step.shade")
-            self.carry, act, hitm = shade(
+            self.carry = shade(
                 env_w, env_h, self.width, self.height, self.max_bounces,
-                tr["quad"], tr, tr["nee_pmf"], c, *lanes,
+                tr["quad"], tr, tr["nee_pmf"], c, *lanes, self.counters,
             )
         mark(None)
         # the shade builds the path state; the lane identity rides along
         self.carry.update((k, c[k]) for k in LANE_NAMES)
         if _device.debug_nans():
             _device.check_nans(f"wavefront iteration {it}: carry", self.carry)
-        n_act = act.sum(dtype=torch.int64)
-        self.closest = self.closest + n_act
-        self.shadow = self.shadow + hitm.sum(dtype=torch.int64)
-        self.iterations = self.iterations + (n_act > 0).to(torch.int64)
 
     def drain_iterations(self) -> int:
         """Free-run: regeneration stops at it_next >= budget, so the last
@@ -502,12 +494,7 @@ class Wavefront:
             film = torch.empty_like(film).index_copy_(0, home, film)
             counts = torch.empty_like(counts).index_copy_(0, home, counts)
         n = counts.shape[0]
-        stats = {
-            "closest_rays": self.closest,
-            "shadow_rays": self.shadow,
-            "iterations": self.iterations,
-            "fallback_lanes": self.fallback,
-        }
+        stats = {**self.counters.stats(), "fallback_lanes": self.fallback}
         return self.from_lanes(film).reshape(n, 3), self.from_lanes(counts).reshape(n), stats
 
 

@@ -3,19 +3,22 @@ big_shade_call in interpret mode (RT_PALLAS_INTERPRET=1), on one 32x128
 tile over the big-mesh scene of conftest's big_tri_scene (200 triangles
 in 4 chunks, one sphere, one plane: every winner type).
 
-Both sides get one host scene and one seeded numpy input: winner (type,
-index) pairs with misses, hit points, NEE directions and uvs, RNG states
-and the carry. The Pallas twin takes the 19 slot tiles of JAX's
-winner_table rows at the global winner index (render/wavefront.py:
-1003-1010 of the reference) and the fused uv (the NEE uv on hit lanes,
-the carried ray's miss uv on the others) with its gathered quad rows;
-the port takes the (type, index) pairs, the NEE uv and the quad table,
-and reads its own union rows (scene.winner) and quad rows. The NEE uvs
-of the first four hit lanes lie on and just past the texture's edges.
+Both sides get one host scene and one seeded numpy input: winner (t,
+type, index) triples with misses, NEE directions and uvs, RNG states and
+the carry. The Pallas twin takes the hit flag and the hit points ro + rd
+* t, the 19 slot tiles of JAX's winner_table rows at the global winner
+index (render/wavefront.py:1003-1010 of the reference) and the fused uv
+(the NEE uv on hit lanes, the carried ray's miss uv on the others) with
+its gathered quad rows; the port takes the (t, type, index) triples, the
+NEE uv and the quad table, derives the hit flag and point, and reads its
+own union rows (scene.winner) and quad rows. The NEE uvs of the first
+four hit lanes lie on and just past the texture's edges. The Pallas
+twin's per-lane active and hitmask are the port's ray counters' sums.
 
-big_shade_plain, which computes the fused uv and gathers its quad row
-itself, is held bitwise to that composition spelled out (the fused uv,
-envmap.quad_index, one index_select, then big_shade_body).
+big_shade_plain, which derives the hit point, computes the fused uv and
+gathers its quad row itself, is held bitwise to that composition spelled
+out (the hit point, the fused uv, envmap.quad_index, one index_select,
+then big_shade_body).
 
 Tolerances as in tests/test_torch_shade.py and test_torch_trace.py:
 torch and XLA round sqrt, sin and cos differently and XLA contracts
@@ -120,7 +123,7 @@ def seeded_inputs(js, env):
         np.asarray(env.pmf_norm, np.float32),
     ]).astype(np.float32)
     return dict(
-        gidx=gidx, quad=np.asarray(env.quad)[qidx], tr=tr, carry=carry, pix=pix, scal=scal,
+        gidx=gidx, quad=np.asarray(env.quad)[qidx], tr=tr, t=t, carry=carry, pix=pix, scal=scal,
         nee=nee, state=g.integers(0, 2**32, N, dtype=np.uint64).astype(np.uint32),
         fu=fu, fv=fv, nee_u=nee_u, nee_v=nee_v, npmf=f32(g.exponential(1.0 / (env_w * env_h), N)),
     )
@@ -138,18 +141,21 @@ def big_shade_inputs(big_tri_scene):
 
 
 def port_args(ts, env, x):
-    """big_shade_plain's arguments from the seeded inputs: the quad table
-    and the NEE uv, which it turns into the fused uv's quad rows."""
+    """big_shade_plain's arguments from the seeded inputs: the winner's (t,
+    type, index), the quad table and the NEE uv, which it turns into the
+    fused uv's quad rows; fresh ray counters."""
     env_h, env_w = env.texture_shape
     t = cw.tiles_to_flat
     quad = torch.from_numpy(np.asarray(env.quad).view(np.int32).copy())
+    tr = t({k: x["tr"][k] for k in ("occ", "btype", "bidx")})
+    tr["t"] = torch.from_numpy(x["t"])
     return (
-        ts, env_w, env_h, WIDTH, HEIGHT, MAX_BOUNCES, quad, t(x["tr"]),
+        ts, env_w, env_h, WIDTH, HEIGHT, MAX_BOUNCES, quad, tr,
         tuple(torch.from_numpy(x["nee"][k].copy()) for k in range(3)),
         torch.from_numpy(x["state"].view(np.int32).copy()),
         torch.from_numpy(x["nee_u"]), torch.from_numpy(x["nee_v"]), torch.from_numpy(x["npmf"]),
         t(x["carry"]), *(t(x["pix"])[k] for k in ("pixel_index", "pixel_x", "pixel_y", "base_sample")),
-        torch.from_numpy(x["scal"]), ISCAL,
+        torch.from_numpy(x["scal"]), ISCAL, cw.RayCounters("cpu"),
     )
 
 
@@ -186,8 +192,8 @@ def big_shade_pair(big_shade_inputs):
          "active": np.asarray(act), "hitmask": np.asarray(hitm)}
     )
 
-    got_carry, got_act, got_hit = cw.big_shade_plain(*port_args(ts, env, x))
-    got = {**got_carry, "active": got_act, "hitmask": got_hit}
+    args = port_args(ts, env, x)
+    got = {**cw.big_shade_plain(*args), **args[-1].stats()}
     rough = np.asarray(js.mat_roughness)
     mat = np.rint(rows[:, 18]).astype(np.int64)
     specular = (x["tr"]["hit"] != 0) & (rough[mat] ** 2 < SPECULAR_ALPHA)
@@ -195,22 +201,29 @@ def big_shade_pair(big_shade_inputs):
 
 
 def test_big_shade_plain_equals_the_old_composition(big_shade_inputs):
-    """The fused uv, its quad_index and one index_select of the quad table
-    (what the big-mesh iteration ran as tensor code before BIG_SHADE read
-    its own row), then big_shade_body: bitwise big_shade_plain's outputs."""
+    """The hit flag and point (what the big-mesh iteration ran as tensor
+    code before BIG_SHADE derived them), the fused uv, its quad_index and
+    one index_select of the quad table (before BIG_SHADE read its own
+    row), then big_shade_body: bitwise big_shade_plain's outputs and
+    counts."""
     _, ts, env, x = big_shade_inputs
     args = port_args(ts, env, x)
     env_h, env_w = env.texture_shape
     quad, tr, nee_u, nee_v, carry = args[6], args[7], args[10], args[11], args[13]
+    hit = tr["btype"] >= 0
+    t_safe = torch.where(hit, tr["t"], 0.0)
+    p = [carry[f"ro{k}"] + carry[f"rd{k}"] * t_safe for k in range(3)]
+    old_tr = dict(tr, hit=hit.to(torch.int32), px=p[0], py=p[1], pz=p[2])
     miss_u, miss_v = envmap.direction_to_equirect_uv(carry["rd0"], carry["rd1"], carry["rd2"])
-    hit = tr["hit"] != 0
     fu, fv = torch.where(hit, nee_u, miss_u), torch.where(hit, nee_v, miss_v)
     qwords = quad.index_select(0, envmap.quad_index(fu, fv, env_w, env_h))
     assert torch.equal(qwords, torch.from_numpy(x["quad"].view(np.int32)))
-    want = cw.big_shade_body(*args[:6], qwords, tr, args[8], args[9], fu, fv, *args[12:])
+    counted = cw.RayCounters("cpu")
+    want = cw.big_shade_body(*args[:6], qwords, old_tr, args[8], args[9], fu, fv, *args[12:-1], counted)
     got = cw.big_shade_plain(*args)
-    for a, b in zip((*got[0].values(), got[1], got[2]), (*want[0].values(), want[1], want[2])):
+    for a, b in zip(got.values(), want.values()):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert torch.equal(args[-1].slots, counted.slots)
 
 
 def test_inputs_take_every_branch(big_shade_pair):
@@ -220,13 +233,21 @@ def test_inputs_take_every_branch(big_shade_pair):
     assert (got["bounce"].numpy() == 0).any()  # regenerated lanes
     assert (got["sample"].numpy() >= ISCAL[1]).any()  # lanes past their spp quota
     assert 0.05 < specular.mean() < 0.5
-    continues = (got["hitmask"].numpy() != 0) & (got["in_path"].numpy() != 0) & (got["bounce"].numpy() > 0)
+    continues = (ref["hitmask"].numpy() != 0) & (got["in_path"].numpy() != 0) & (got["bounce"].numpy() > 0)
     assert continues.mean() > 0.1
 
 
-@pytest.mark.parametrize("name", cw.SHADE_OUT_NAMES)
+# The Pallas twin's per-lane flags, which the port sums into its ray
+# counters instead of writing them
+COUNTED = {"active": "closest_rays", "hitmask": "shadow_rays"}
+
+
+@pytest.mark.parametrize("name", (*cw.SHADE_OUT_NAMES, *COUNTED))
 def test_big_shade_plain_matches_pallas(big_shade_pair, name):
     ref, got, specular = big_shade_pair
+    if name in COUNTED:
+        assert int(got[COUNTED[name]]) == int((ref[name].numpy() != 0).sum())
+        return
     a, b = got[name].numpy(), ref[name].numpy()
     assert a.shape == b.shape == (N,)
     if name in cw.SHADE_INT_NAMES:

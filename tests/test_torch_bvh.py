@@ -354,11 +354,33 @@ def test_wrappers_raise_on_a_tree_deeper_than_the_stack(walk_case):
     ts, ro, rd = walk_case["ts"], walk_case["ro"], walk_case["rd"]
     deep = dataclasses.replace(ts, bvh=dataclasses.replace(ts.bvh, depth=t_walk.MAX_DEPTH + 1))
     mask = torch.ones(ro[0].shape[0], dtype=torch.int32)
-    for call in (ci.bvh_closest_call, ci.bvh_any_call):
+    for call in (ci.bvh_closest_call, ci.bvh_any_rays):
         with pytest.raises(ValueError, match="deep"):
             call(deep, ro, rd, mask)
     shallow = dataclasses.replace(ts, bvh=dataclasses.replace(ts.bvh, depth=t_walk.MAX_DEPTH))
-    assert torch.equal(ci.bvh_any_call(shallow, ro, rd, mask), walk_case["occ"].int())
+    assert torch.equal(ci.bvh_any_rays(shallow, ro, rd, mask), walk_case["occ"].int())
+
+
+def test_any_plain_derives_the_shadow_rays(walk_case):
+    """bvh_any_call (plain on the CPU) on closest hits (t, type) of rays
+    in and out of a path: the walk of the shadow rays from ro + rd * t
+    along the NEE direction, on the lanes in a path whose ray hit, 0 on
+    the others."""
+    ts, ro, rd = walk_case["ts"], walk_case["ro"], walk_case["rd"]
+    n = ro[0].shape[0]
+    g = torch.Generator().manual_seed(5)
+    t = torch.rand(n, generator=g) * 2.0
+    ptype = torch.randint(-1, 3, (n,), generator=g, dtype=torch.int32)
+    in_path = (torch.rand(n, generator=g) < 0.8).to(torch.int32)
+    nd = tuple(-c for c in rd)
+    occ = ci.bvh_any_call(ts, ro, rd, t, ptype, in_path, nd)
+    lanes = (ptype >= 0) & (in_path != 0)
+    t_safe = torch.where(ptype >= 0, t, 0.0)
+    p = tuple(ro[k] + rd[k] * t_safe for k in range(3))
+    want = t_walk.traverse_any(ts.bvh, p, nd, lanes.to(torch.int32))
+    assert torch.equal(occ, want.to(torch.int32))
+    assert 0 < int(occ.sum()) < int(lanes.sum()) < n
+    assert ci.LAUNCHES["bvh_any"] == 0
 
 
 def test_walks_match_jax(walk_case):
@@ -432,7 +454,7 @@ def test_masked_lanes_get_the_miss(walk_case):
     n = ro[0].shape[0]
     for mask in ((torch.arange(n) % 3 != 1).to(torch.int32), torch.zeros(n, dtype=torch.int32)):
         t, ptype, pidx = ci.bvh_closest_call(ts, ro, rd, mask)
-        occ = ci.bvh_any_call(ts, ro, rd, mask)
+        occ = ci.bvh_any_rays(ts, ro, rd, mask)
         on = mask != 0
         for got, ref in zip((t, ptype, pidx, occ), (*walk_case["closest"], walk_case["occ"].int())):
             assert torch.equal(got[on], ref[on])

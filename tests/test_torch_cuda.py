@@ -112,12 +112,22 @@ def _compare(got, ref, int_names):
     assert {k: v for k, v in shares.items() if v < PARITY_MIN} == {}
 
 
-def _compare_shade(got, ref):
-    """SHADE's or BIG_SHADE's (carry, active, hitmask) against its plain
-    version's, output by output."""
-    (carry, act, hitm), (ref_carry, ref_act, ref_hitm) = got, ref
-    _compare(dict(carry, active=act, hitmask=hitm), dict(ref_carry, active=ref_act, hitmask=ref_hitm),
-             cw.SHADE_INT_NAMES)
+def _counted(shade, args):
+    """A shade function on captured arguments with fresh ray counters in
+    place of the run's: (its new carry, the counters' slots)."""
+    counters = cw.RayCounters(args[-1].slots.device)
+    return shade(*args[:-1], counters), counters.slots
+
+
+def _compare_shade(kernel, plain, args):
+    """SHADE's or BIG_SHADE's new carry against its plain version's on
+    `args`, output by output, and the ray counters the two add to (closest
+    rays, shadow rays, iterations, the tag) equal. Returns both carries."""
+    (got, got_slots), (ref, ref_slots) = _counted(kernel, args), _counted(plain, args)
+    _compare(got, ref, cw.SHADE_INT_NAMES)
+    assert got_slots.tolist() == ref_slots.tolist()
+    assert int(ref_slots[0]) > 0
+    return got, ref
 
 
 def _bits_differ(a, b):
@@ -209,9 +219,8 @@ def test_trace_kernel_on_made_up_rays(small_scenes, seeded_env, dev, name, n):
 def test_shade_kernel_matches_plain(house_state):
     args = house_state["shade"]
     before = cw.LAUNCHES["shade"]
-    got = cw.shade_call(*args)
+    _compare_shade(cw.shade_call, cw.shade_plain, args)
     assert cw.LAUNCHES["shade"] == before + 1
-    _compare_shade(got, cw.shade_plain(*args))
 
 
 def test_sweep_kernels_match_plain(house_state):
@@ -334,9 +343,9 @@ def test_chunked_kernels_match_plain(suzanne_state):
              {k: v[live] for k, v in zip(names, intersect.chunked_closest_plain(*args))},
              {"type", "index"})
     args = suzanne_state["occlusion"]
-    masked = args[3] != 0
-    _compare({"occ": ci.chunked_any_call(*args)[masked]},
-             {"occ": intersect.chunked_any_plain(*args)[masked]}, {"occ"})
+    masked = intersect.shadow_origins(*args[1:6])[1] != 0
+    _compare({"occ": ci.chunked_occlusion_call(*args)[masked]},
+             {"occ": ci.chunked_occlusion_plain(*args)[masked]}, {"occ"})
     assert ci.LAUNCHES["chunked_closest"] == before["chunked_closest"] + 1
     assert ci.LAUNCHES["chunked_any"] == before["chunked_any"] + 1
 
@@ -344,9 +353,8 @@ def test_chunked_kernels_match_plain(suzanne_state):
 def test_big_shade_kernel_matches_plain(suzanne_state):
     args = suzanne_state["big_shade"]
     before = cw.LAUNCHES["big_shade"]
-    got = cw.big_shade_call(*args)
+    _compare_shade(cw.big_shade_call, cw.big_shade_plain, args)
     assert cw.LAUNCHES["big_shade"] == before + 1
-    _compare_shade(got, cw.big_shade_plain(*args))
 
 
 def test_card_big_mesh_render_matches_cpu_render(dev):
@@ -618,14 +626,14 @@ def test_bvh_kernels_bitwise_on_made_up_rays(dev, bvh_scenes, name, n, mask):
              "none": torch.zeros(n, dtype=torch.int32, device=dev)}[mask]
     before = dict(ci.LAUNCHES)
     got = ci.bvh_closest_call(ds, ro, rd, lanes)
-    occ = ci.bvh_any_call(ds, ro, rd, lanes)
+    occ = ci.bvh_any_rays(ds, ro, rd, lanes)
     assert ci.LAUNCHES["bvh_closest"] == before["bvh_closest"] + 1
     assert ci.LAUNCHES["bvh_any"] == before["bvh_any"] + 1
     from rsoderh_raytracing_tpu_torch.ops import bvh as bvh_ops
 
     for a, b in zip(got, bvh_ops.closest_plain(ds, ro, rd, lanes)):
         assert int(_bits_differ(a, b).sum()) == 0
-    assert torch.equal(occ, bvh_ops.any_plain(ds, ro, rd, lanes))
+    assert torch.equal(occ, bvh_ops.traverse_any(ds.bvh, ro, rd, lanes).to(torch.int32))
     # occlusion is the closest walk's hit without the fallback
     _, slot = bvh_ops.traverse_closest(ds.bvh, ro, rd, lanes)
     assert torch.equal(occ != 0, slot >= 0)
@@ -646,8 +654,9 @@ def test_bvh_kernels_match_plain_on_a_loop_state(bvh_state):
     for a, b in zip(ci.bvh_closest_call(*args), bvh_ops.closest_plain(*args)):
         assert int(_bits_differ(a, b).sum()) == 0
     args = bvh_state["occlusion"]
-    assert torch.equal(ci.bvh_any_call(*args), bvh_ops.any_plain(*args))
-    assert int(args[3].sum()) > 0
+    occ = ci.bvh_any_call(*args)
+    assert torch.equal(occ, bvh_ops.any_plain(*args))
+    assert int(occ.sum()) > 0
 
 
 def test_env_draw_kernel_matches_plain_on_a_bvh_loop_state(bvh_state):
@@ -676,7 +685,85 @@ def test_big_shade_kernel_matches_plain_on_a_bvh_loop_state(bvh_state):
     big_shade_plain (the fused uv, one index_select, the shade) output by
     output."""
     args = bvh_state["big_shade"]
-    _compare_shade(cw.big_shade_call(*args), cw.big_shade_plain(*args))
+    _compare_shade(cw.big_shade_call, cw.big_shade_plain, args)
+
+
+# BVH_ANY and BIG_SHADE derive the hit point ro + rd * t and the shadow
+# rays' mask from the closest hit's (t, type) themselves: bitwise their
+# plain twins (intersect.shadow_origins, intersect.hit_point), on a BVH
+# state of triangle leaves (suzanne) and one of sphere leaves
+# (rtiow_final, whose misses take the fallback pass).
+
+@pytest.fixture(scope="module")
+def leaf_states(dev, bvh_state):
+    scene = _scene("rtiow_final")
+    return {"triangles": bvh_state,
+            "spheres": _loop_state(build_device_scene(scene, dev, with_bvh=True), scene, dev)}
+
+
+@pytest.mark.parametrize("leaves", ["triangles", "spheres"])
+def test_bvh_any_derives_its_shadow_rays_bitwise(dev, leaf_states, leaves):
+    """BVH_ANY on (ro, rd, t, type, in_path, NEE direction) against
+    any_plain on every lane: the loop state's own inputs, then made-up t,
+    types and in_path on the same rays (misses, lanes out of a path, hit
+    points anywhere along the ray)."""
+    from rsoderh_raytracing_tpu_torch.ops import bvh as bvh_ops
+
+    args = leaf_states[leaves]["occlusion"]
+    scene, ro, rd, t, ptype, in_path, nd = args
+    assert route(scene) == BVH and int(((ptype >= 0) & (in_path != 0)).sum()) > 0
+    before = ci.LAUNCHES["bvh_any"]
+    occ = ci.bvh_any_call(*args)
+    assert ci.LAUNCHES["bvh_any"] == before + 1
+    assert torch.equal(occ, bvh_ops.any_plain(*args)) and int(occ.sum()) > 0
+    g = torch.Generator(device=dev).manual_seed(11)
+    n = t.shape[0]
+    made_up = (scene, ro, rd, torch.rand(n, generator=g, device=dev) * 4.0,
+               torch.randint(-1, 3, (n,), generator=g, device=dev, dtype=torch.int32),
+               (torch.rand(n, generator=g, device=dev) < 0.8).to(torch.int32), nd)
+    occ = ci.bvh_any_call(*made_up)
+    assert torch.equal(occ, bvh_ops.any_plain(*made_up)) and int(occ.sum()) > 0
+
+
+@pytest.mark.parametrize("leaves", ["triangles", "spheres"])
+def test_big_shade_derives_its_hit_point(leaf_states, leaves):
+    """BIG_SHADE on the closest hit's t against big_shade_plain: every
+    output at the gates and the counters equal; on the lanes that continue
+    their path in both, the new ray origin is the hit point, bitwise."""
+    args = leaf_states[leaves]["big_shade"]
+    got, ref = _compare_shade(cw.big_shade_call, cw.big_shade_plain, args)
+    carry, tr = args[13], args[7]
+    p = intersect.hit_point(tuple(carry[f"ro{k}"] for k in range(3)),
+                            tuple(carry[f"rd{k}"] for k in range(3)), tr["t"], tr["btype"])
+    went_on = (carry["in_path"] != 0) & (tr["btype"] >= 0)
+    for out in (got, ref):
+        went_on &= (out["in_path"] != 0) & (out["bounce"] > 0)
+    assert int(went_on.sum()) > 0
+    for k in range(3):
+        assert int(_bits_differ(got[f"ro{k}"], p[k])[went_on].sum()) == 0
+
+
+@pytest.mark.parametrize("name,with_bvh", [("house", False), ("suzanne", True)])
+def test_ray_counters_over_a_ragged_run(dev, name, with_bvh):
+    """A free-run at 37x29 lanes (not a multiple of a block), two
+    iterations past the drain: closest rays are the lanes in a path before
+    each iteration, iterations those with any, and shadow rays the sum of
+    the hits, as each iteration's plain shade counts them on its own
+    captured arguments."""
+    scene = _scene(name)
+    ds = build_device_scene(scene, dev, with_bvh=with_bvh)
+    wave = Wavefront(ds, _sky(dev), camera_pytree(scene.camera, dev), 0, (37, 29), NO_LIMIT, 4, 8)
+    key = "big_shade" if with_bvh else "shade"
+    plain = cw.big_shade_plain if with_bvh else cw.shade_plain
+    closest = shadow = iterations = 0
+    for it in range(wave.drain_iterations() + 2):
+        live = int((wave.carry["in_path"] != 0).sum())
+        closest, iterations = closest + live, iterations + (live > 0)
+        args = capture_step(wave, it)[key]
+        shadow += int(_counted(plain, args)[1][1])
+    stats = {k: int(v) for k, v in wave.results()[2].items()}
+    assert (stats["closest_rays"], stats["shadow_rays"], stats["iterations"]) == (closest, shadow, iterations)
+    assert 0 < iterations < wave.drain_iterations() + 2 and 0 < shadow < closest
 
 
 def test_bvh_step_runs_no_gather_and_one_env_draw(dev, tmp_path):
@@ -951,10 +1038,10 @@ def test_big_mesh_kernels_in_each_order(ordered_state):
     for a, b in zip(ci.chunked_closest_call(*args), intersect.chunked_closest_plain(*args)):
         assert int(_bits_differ(a, b).sum()) == 0
     args = state["occlusion"]
-    assert torch.equal(ci.chunked_any_call(*args), intersect.chunked_any_plain(*args))
-    assert int(args[3].sum()) > 0
+    assert torch.equal(ci.chunked_occlusion_call(*args), ci.chunked_occlusion_plain(*args))
+    assert int(intersect.shadow_origins(*args[1:6])[1].sum()) > 0
     args = state["big_shade"]
-    _compare_shade(cw.big_shade_call(*args), cw.big_shade_plain(*args))
+    _compare_shade(cw.big_shade_call, cw.big_shade_plain, args)
 
 
 def test_sweep_shared_mirror_equals_the_card(dev):
@@ -1403,7 +1490,7 @@ def test_small_route_past_the_unroll_budget(dev, name):
         assert table > SWEEP_MAX_SHARED and auto_bvh(*rows, dev, ds.mat_roughness.shape[0])
     state = _loop_state(ds, scene, dev)
     _compare_trace(state["trace"])
-    _compare_shade(cw.shade_call(*state["shade"]), cw.shade_plain(*state["shade"]))
+    _compare_shade(cw.shade_call, cw.shade_plain, state["shade"])
     for kfn, pfn, ints in sweep_calls(state["trace"])[0].values():
         _compare(kfn(), pfn(), ints)
     _scan_states_bitwise(ds, scene, dev)
@@ -1426,8 +1513,8 @@ def test_big_mesh_kernels_on_a_spheres_loop_state(dev):
     for a, b in zip(ci.chunked_closest_call(*args), intersect.chunked_closest_plain(*args)):
         assert int(_bits_differ(a, b).sum()) == 0
     args = state["occlusion"]
-    assert torch.equal(ci.chunked_any_call(*args), intersect.chunked_any_plain(*args))
-    _compare_shade(cw.big_shade_call(*state["big_shade"]), cw.big_shade_plain(*state["big_shade"]))
+    assert torch.equal(ci.chunked_occlusion_call(*args), ci.chunked_occlusion_plain(*args))
+    _compare_shade(cw.big_shade_call, cw.big_shade_plain, state["big_shade"])
 
 
 def test_sync_rounds_on_the_chunked_route(dev):

@@ -138,13 +138,14 @@ def shade_pair():
     )
 
     t = cw.tiles_to_flat
-    got_carry, got_act, got_hit = cw.shade_plain(
+    counters = cw.RayCounters("cpu")
+    got_carry = cw.shade_plain(
         env_w, env_h, WIDTH, HEIGHT, MAX_BOUNCES,
         torch.from_numpy(quad.view(np.int32).copy()), t(tr), torch.from_numpy(npmf), t(carry),
         *(t(pix)[k] for k in ("pixel_index", "pixel_x", "pixel_y", "base_sample")),
-        torch.from_numpy(scal), ISCAL,
+        torch.from_numpy(scal), ISCAL, counters,
     )
-    got = {**got_carry, "active": got_act, "hitmask": got_hit}
+    got = {**got_carry, **counters.stats()}
     return ref, got
 
 
@@ -155,15 +156,24 @@ def test_inputs_take_every_branch(shade_pair):
     assert 0.1 < in_path.mean() < 0.9
     assert (got["bounce"].numpy() == 0).any()  # regenerated lanes
     assert (sample >= ISCAL[1]).any()  # lanes past their spp quota
-    assert got["hitmask"].numpy().any()
+    assert int(got["shadow_rays"]) > 0
+    assert int(got["iterations"]) == 1
 
 
-@pytest.mark.parametrize("name", cw.SHADE_OUT_NAMES)
+# The Pallas twin's per-lane flags, which the port sums into its ray
+# counters instead of writing them
+COUNTED = {"active": "closest_rays", "hitmask": "shadow_rays"}
+
+
+@pytest.mark.parametrize("name", (*cw.SHADE_OUT_NAMES, *COUNTED))
 def test_shade_plain_matches_pallas(shade_pair, name):
     ref, got = shade_pair
+    if name in COUNTED:
+        assert int(got[COUNTED[name]]) == int((ref[name].numpy() != 0).sum())
+        return
     a, b = got[name].numpy(), ref[name].numpy()
     assert a.shape == b.shape == (N,)
-    if name in ("state", "bounce", "sample", "in_path", "active", "hitmask"):
+    if name in ("state", "bounce", "sample", "in_path"):
         assert a.dtype == np.int32
         assert (a == b).mean() >= INT_EQUAL_MIN, f"{(a != b).sum()} lanes differ"
     else:
